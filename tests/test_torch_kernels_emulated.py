@@ -1,0 +1,277 @@
+"""The CUDA kernels' own source, run on the CPU against their plain
+versions.
+
+A CUDA kernel has no interpret mode, so this file makes one: it compiles
+``src/repro_torch/kernels/csrc/*.cu`` with the host C++ compiler against
+small stand-in CUDA headers (one ``std::thread`` per CUDA thread, a
+barrier for ``__syncthreads``, blocks one after another), binds the
+result with ``ctypes`` exactly as the port binds the real libraries, and
+drives it through the port's launch code.  It checks the kernels'
+indexing, masking, tiling and epilogue logic; it cannot check timing,
+the GPU memory model or what ``nvcc`` accepts (tests/
+test_torch_kernels_cuda.py does that on the card).  Skips without g++.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.fusion import Epilogue, EpilogueOperands  # noqa: E402
+from repro_torch.core.task import BiasType                   # noqa: E402
+from repro_torch.kernels import build                        # noqa: E402
+from repro_torch.kernels.attention import attention as attn  # noqa: E402
+from repro_torch.kernels.matmul import matmul as mm          # noqa: E402
+
+CUDA_RUNTIME_H = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <thread>
+#include <vector>
+using std::max; using std::min;
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
+#define __shared__ static
+#define __launch_bounds__(x)
+#define __restrict__
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline thread_local dim3 threadIdx, blockIdx;
+inline std::barrier<>* emu_bar;
+inline void __syncthreads() { emu_bar->arrive_and_wait(); }
+inline float emu_shfl[1024];
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  const int t = threadIdx.x;
+  emu_shfl[t] = v;
+  __syncthreads();
+  const float r = emu_shfl[t ^ lane_mask];
+  __syncthreads();
+  return r;
+}
+inline std::vector<float> emu_dyn(1 << 20);
+struct uint4 { unsigned x, y, z, w; };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+typedef struct CUstream_st* cudaStream_t;
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class T>
+cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+template <class F> void emu_launch(dim3 g, dim3 b, F f) {
+  for (unsigned y = 0; y < g.y; ++y)
+    for (unsigned x = 0; x < g.x; ++x) {
+      std::barrier<> bar(b.x);
+      emu_bar = &bar;
+      std::vector<std::thread> ts;
+      for (unsigned t = 0; t < b.x; ++t)
+        ts.emplace_back([&, t, x, y] {
+          threadIdx = dim3(t); blockIdx = dim3(x, y); f(); });
+      for (auto& th : ts) th.join();
+    }
+}
+"""
+CUDA_FP16_H = r"""
+#pragma once
+struct __half { _Float16 v; };
+inline float __half2float(__half h) { return (float)h.v; }
+inline __half __float2half_rn(float f) { return __half{(_Float16)f}; }
+"""
+CUDA_BF16_H = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+struct __nv_bfloat16 { uint16_t x; };
+inline float __bfloat162float(__nv_bfloat16 h) {
+  uint32_t u = (uint32_t)h.x << 16; float f; std::memcpy(&f, &u, 4); return f;
+}
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u; std::memcpy(&u, &f, 4); u += 0x7fff + ((u >> 16) & 1);
+  return __nv_bfloat16{(uint16_t)(u >> 16)};
+}
+"""
+
+
+def _emulable(src: str) -> str:
+    """``k<<<grid, block, smem, stream>>>(args)`` becomes
+    ``emu_launch(grid, block, [&] { k(args); })``; dynamic shared memory
+    becomes one host buffer."""
+    src = src.replace("extern __shared__ float smem[];",
+                      "float* smem = emu_dyn.data();")
+    while "<<<" in src:
+        i = src.index("<<<")
+        j = src.index(">>>", i)
+        grid, block = [c.strip() for c in src[i + 3:j].split(",")][:2]
+        k = i
+        while src[k - 1].isspace():
+            k -= 1
+        if src[k - 1] == ">":                 # template arguments
+            depth = 0
+            while True:
+                k -= 1
+                depth += {">": 1, "<": -1}.get(src[k], 0)
+                if depth == 0:
+                    break
+        while src[k - 1].isalnum() or src[k - 1] == "_":
+            k -= 1
+        p = src.index("(", j)
+        q, depth = p, 0
+        while True:
+            depth += {"(": 1, ")": -1}.get(src[q], 0)
+            if depth == 0:
+                break
+            q += 1
+        src = (src[:k] + f"emu_launch({grid}, {block}, [&] {{ "
+               f"{src[k:i].strip()}{src[p:q + 1]}; }})" + src[q + 1:])
+    return src
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The two kernel libraries, compiled for the CPU and bound."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ to compile the kernels for the CPU")
+    d = tmp_path_factory.mktemp("cuda_emu")
+    for name, text in (("cuda_runtime.h", CUDA_RUNTIME_H),
+                       ("cuda_fp16.h", CUDA_FP16_H),
+                       ("cuda_bf16.h", CUDA_BF16_H)):
+        (d / name).write_text(text)
+    libs = {}
+    procs = []
+    for src in build.sources():
+        cpp = d / f"{src.stem}.cpp"
+        cpp.write_text(_emulable(src.read_text()))
+        libs[src.stem] = d / f"lib{src.stem}.so"
+        procs.append(subprocess.Popen(
+            [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-I", str(d),
+             "-o", str(libs[src.stem]), str(cpp), "-lpthread"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for p in procs:
+        out, _ = p.communicate(timeout=300)
+        assert p.returncode == 0, out
+    return {k: ctypes.CDLL(str(v)) for k, v in libs.items()}
+
+
+@pytest.fixture
+def bound(emulated, monkeypatch):
+    """Point the port's launchers at the emulated libraries."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    mm_fn = emulated["fused_matmul"].fused_matmul_launch
+    mm_fn.argtypes = [i, p, p, p, i, i, i, i, i, i, i, p, p, p, p, f, i, i,
+                      i, p]
+    fa_fn = emulated["flash_attention"].flash_attention_launch
+    fa_fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i,
+                      ctypes.POINTER(ctypes.c_longlong), f, i, i, f, i, i, p]
+    for fn in (mm_fn, fa_fn):
+        fn.restype = i
+    monkeypatch.setattr(mm, "_fn", mm_fn)
+    monkeypatch.setattr(attn, "_fn", fa_fn)
+
+    class _Stream:
+        cuda_stream = None
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: _Stream())
+
+
+def _rel(out, ref):
+    o, r = out.double(), ref.double()
+    return ((o - r).abs().max() / (r.abs().max() + 1e-30)).item()
+
+
+MM_CASES = [  # (m, k, n, dtype, epilogue fields, tol); m <= 8: decode tile
+    (5, 72, 200, torch.float32, {}, 1e-5),
+    (5, 72, 200, torch.bfloat16, dict(glu=True, activation="silu"), 3e-2),
+    (70, 40, 96, torch.float32, dict(bias="row", activation="gelu",
+                                     has_scale_a=True, has_scale_b=True,
+                                     has_residual=True, softcap=3.0), 1e-5),
+    (70, 40, 96, torch.float16, dict(glu=True, activation="relu2",
+                                     bias="full"), 3e-2),
+    (9, 257, 130, torch.float32, dict(bias="full", activation="tanh"), 1e-5),
+    (3, 33, 64, torch.int8, {}, 0.0),
+    (66, 48, 48, torch.int8, dict(bias="row", has_scale_a=True,
+                                  has_scale_b=True, activation="sigmoid"),
+     1e-5),
+    (4, 64, 64, torch.bfloat16, dict(glu=True, activation="gelu_tanh",
+                                     bias="row", has_residual=True), 3e-2),
+]
+
+
+@pytest.mark.parametrize("case", MM_CASES, ids=lambda c: f"{c[0]}x{c[1]}x"
+                         f"{c[2]}-{str(c[3])[6:]}-"
+                         f"{'-'.join(c[4]) or 'plain'}")
+def test_fused_matmul_source_vs_plain(bound, case):
+    m, k, n, dt, fields, tol = case
+    fields = dict(fields)
+    bias = fields.pop("bias", None)
+    g = torch.Generator().manual_seed(m * k + n)
+    if dt == torch.int8:
+        a = torch.randint(-127, 128, (m, k), generator=g, dtype=dt)
+        b = torch.randint(-127, 128, (k, n), generator=g, dtype=dt)
+    else:
+        a = torch.randn(m, k, generator=g).to(dt)
+        b = torch.randn(k, n, generator=g).to(dt)
+    n_out = n // 2 if fields.get("glu") else n
+    ops = EpilogueOperands(
+        bias=(None if bias is None else
+              torch.randn((n,) if bias == "row" else (m, n), generator=g)),
+        scale_a=torch.rand(m, generator=g) if fields.get("has_scale_a")
+        else None,
+        scale_b=torch.rand(n, generator=g) if fields.get("has_scale_b")
+        else None,
+        residual=torch.randn(m, n_out, generator=g)
+        if fields.get("has_residual") else None)
+    trivial = dt == torch.int8 and not fields and bias is None
+    ep = Epilogue(bias_type={None: BiasType.ZERO, "row": BiasType.ROW,
+                             "full": BiasType.FULL}[bias],
+                  out_dtype=(torch.int32 if trivial else torch.float32
+                             if dt == torch.int8 else dt), **fields)
+    out = mm.fused_matmul_cuda(a, b, ep, ops)
+    ref = mm.fused_matmul_plain(a, b, ep, ops, torch.int32
+                                if dt == torch.int8 else torch.float32)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    if trivial:
+        assert torch.equal(out, ref)
+    assert _rel(out, ref) <= tol
+
+
+ATTN_CASES = [  # (b, h, hkv, sq, sk, d, dtype, flags)
+    (1, 4, 2, 70, 70, 32, torch.float32, dict(causal=True)),
+    (2, 4, 1, 33, 100, 64, torch.float32, dict(causal=True, window=16,
+                                              softcap=5.0, q_start=40)),
+    (1, 2, 2, 20, 50, 16, torch.bfloat16, dict(causal=False)),
+    (1, 2, 1, 40, 10, 128, torch.float16, dict(causal=True)),
+]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: f"q{c[3]}k{c[4]}"
+                         f"d{c[5]}-{str(c[6])[6:]}")
+def test_flash_attention_source_vs_plain(bound, case):
+    b, h, hkv, sq, sk, d, dt, flags = case
+    g = torch.Generator().manual_seed(sq * sk + d)
+    q = torch.randn(b, h, sq, d, generator=g).to(dt)
+    k, v = (torch.randn(b, hkv, sk, d, generator=g).to(dt) for _ in range(2))
+    kw = dict(sm_scale=d ** -0.5, window=0, softcap=0.0, q_start=0) | flags
+    out = attn.flash_attention_cuda(q, k, v, **kw)
+    ref = attn.flash_attention_plain(q, k, v, **kw)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert _rel(out, ref) <= (1e-3 if dt == torch.float32 else 4e-2)
+
+
+def test_flash_attention_source_fully_masked_rows_are_zero(bound):
+    q = torch.randn(1, 2, 8, 32)
+    k, v = torch.randn(1, 1, 40, 32), torch.randn(1, 1, 40, 32)
+    out = attn.flash_attention_cuda(q, k, v, sm_scale=32 ** -0.5,
+                                    causal=True, window=4, softcap=0.0,
+                                    q_start=100)
+    assert torch.equal(out, torch.zeros_like(out))
