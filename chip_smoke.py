@@ -5,22 +5,36 @@
 
 Run from the root of a checkout.  Phases, each printing one JSON line:
 
-1. device  — require CUDA, print the card's name and power limit, turn
-             TF32 off;
-2. build   — compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. kernels — every kernel of the serving path against its plain version,
-             at the path's shapes plus ragged, int8, fp32/fp16 and
-             masking cases, with the reference test suite's tolerances;
-4. parity  — yi-6b at full width, 4 layers, fp32: prefill and 4 decode
-             steps through the kernels against the plain torch route;
-5. serve   — yi-6b at full width and depth, bf16, seeded random weights:
-             8 requests through ``ServingEngine`` with launch counts;
-6. the ``kernels`` line: per kernel, its launches in phase 5, its time at
-   the path's largest shape beside its plain version, a library call and
-   its roofline bound.
+1. device     — require CUDA, print the card's name and power limit, turn
+                TF32 off;
+2. build      — compile the CUDA kernels from
+                ``src/repro_torch/kernels/csrc``;
+3. kernels    — every kernel of the serving paths against its plain
+                version, at the paths' shapes plus ragged, int8,
+                fp32/fp16, masking and rounding-tie cases, with the
+                reference test suite's tolerances (K3 bit for bit);
+4. parity     — yi-6b at full width, 4 layers, fp32: prefill and 4 decode
+                steps through the kernels against the plain torch route;
+5. moe-parity — the same for olmoe-1b-7b, with the count of (token,
+                layer) expert choices that differ between the routes;
+6. serve      — yi-6b at full width and depth, bf16, seeded random
+                weights: 8 requests through ``ServingEngine`` with launch
+                counts;
+7. moe-serve  — the same traffic through olmoe-1b-7b at full width and
+                depth (the grouped-matmul kernel on every expert MLP);
+8. profile, moe-profile — device time by kernel over a few decode
+                steps of each served model (``torch.profiler``), and the
+                device's idle share; measurement only;
+9. w8a8       — yi-6b's MLP at full width through ``quantize_mlp`` and
+                the W8A8 layers (row-quantiser kernel, int8 fused matmul)
+                against the plain route and the float MLP;
+10. the ``kernels`` line: per kernel, its launches in the paths above, its
+   time at the paths' largest shapes beside its plain version, a library
+   call and its roofline bound.
 
-The last line is ``{"ok": true, "device": {...}}``.  Any failed phase
-exits non-zero before it.  Without CUDA, or outside a checkout, it
+Each path's launch counts are set to 0 just before it runs and read just
+after.  The last line is ``{"ok": true, "device": {...}}``.  Any failed
+phase exits non-zero before it.  Without CUDA, or outside a checkout, it
 exits non-zero and prints no result.
 """
 
@@ -40,11 +54,19 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "yi-6b"
+MOE_ARCH = "olmoe-1b-7b"
 N_REQUESTS, MAX_BATCH, CACHE_LEN, MAX_NEW = 8, 4, 512, 16
 PROMPT_RANGE = (16, 256)            # inclusive, drawn with numpy seed 0
 PARITY_LAYERS, PARITY_DECODE = 4, 4
 TOL_BF16, TOL_FP32, TOL_FLASH_BF16, TOL_FLASH_FP32 = 3e-2, 1e-5, 4e-2, 1e-3
 TOL_PATH = 1e-4
+TOL_W8A8_ROUTES, TOL_W8A8_FLOAT = 1e-5, 0.05
+PROFILE_STEPS, UNTRACED_STEPS = 4, 16
+# a substring of each kernel's name in a profiler trace
+KERNEL_TAGS = {"fused_matmul": "FusedMatmul",
+               "grouped_matmul": "GroupedMatmul",
+               "flash_attention": "flash_attention_kernel",
+               "quantize_rowwise": "quantize_rowwise_kernel"}
 
 
 class PhaseFailed(Exception):
@@ -198,7 +220,49 @@ def plain_attention(q, k, v, **kw):
     return flash_attention_plain(q, k, v, **kw)
 
 
-def phase_kernels(cfg, s_max):
+def grouped_case(gen, e, c, k, n, dtype, *, glu=False, act="none"):
+    """Inputs and epilogue for one K4 case, all on the card."""
+    from repro_torch.core.fusion import Epilogue
+    x = _rand(gen, (e, c, k), dtype)
+    w = _rand(gen, (e, k, n), dtype)
+    if dtype.is_floating_point:
+        w = (w.float() / k ** 0.5).to(dtype)
+    ep = Epilogue(activation=act, glu=glu, out_dtype=(
+        torch.int32 if dtype == torch.int8 else dtype))
+    return x, w, ep
+
+
+def run_grouped(x, w, ep):
+    from repro_torch.kernels.moe.ops import grouped_matmul
+    return grouped_matmul(x, w, epilogue=ep)
+
+
+def plain_grouped(x, w, ep):
+    from repro_torch.kernels.moe.grouped_matmul import grouped_matmul_plain
+    acc = torch.int32 if x.dtype == torch.int8 else torch.float32
+    return grouped_matmul_plain(x, w, ep, acc)
+
+
+def run_quant(x):
+    from repro_torch.kernels.quant.ops import quantize_rowwise
+    return quantize_rowwise(x)
+
+
+def plain_quant(x):
+    from repro_torch.kernels.quant.quant import quantize_rowwise_plain
+    return quantize_rowwise_plain(x)
+
+
+def ties_rows(gen, m, k, dtype):
+    """Rows with absmax 127, so x / scale is x and every n + .5 is an
+    exact rounding tie; row 1 is all zeros."""
+    x = torch.randint(-254, 255, (m, k), generator=gen, device="cuda") / 2.0
+    x[:, 0] = 127.0
+    x[1] = 0.0
+    return x.to(dtype)
+
+
+def phase_kernels(cfg, moe_cfg, s_max):
     gen = torch.Generator(device="cuda").manual_seed(1)
     d, ff, vocab = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     results = []
@@ -270,6 +334,53 @@ def phase_kernels(cfg, s_max):
     check_attn("fully masked rows are 0", TOL_FLASH_FP32,
                (1, 4, 1, 20, 40, hd), torch.float32, zero_rows=slice(0, 20),
                causal=True, window=4, q_start=100)
+    def check_gm(name, tol, *shape, **kw):
+        x, w, ep = grouped_case(gen, *shape, **kw)
+        out = run_grouped(x, w, ep)
+        ref = plain_grouped(x, w, ep)
+        torch.cuda.synchronize()
+        rel, diff = rel_err(out, ref)
+        ok = (out.dtype == ref.dtype and out.shape == ref.shape
+              and rel <= tol and bool(torch.isfinite(out.double()).all()))
+        results.append({"kernel": "grouped_matmul", "case": name,
+                        "rel": rel, "max_abs_err": diff, "tol": tol,
+                        "ok": ok})
+
+    e, dm, fe = moe_cfg.moe.n_experts, moe_cfg.d_model, \
+        moe_cfg.moe.d_ff_expert
+    for c in (144, 64, 8):          # capacity at T = 884, 360 and decode
+        check_gm(f"wi GLU-silu ({e},{c},{dm})@({e},{dm},{2 * fe})",
+                 TOL_BF16, e, c, dm, 2 * fe, bf16, glu=True, act="silu")
+        check_gm(f"wo ({e},{c},{fe})@({e},{fe},{dm})", TOL_BF16, e, c, fe,
+                 dm, bf16)
+    check_gm("ragged fp32 (5,33,72)@(5,72,200) GLU-gelu", TOL_FP32, 5, 33,
+             72, 200, torch.float32, glu=True, act="gelu")
+    check_gm("int8 exact (8,40,256)@(8,256,96)", 0.0, 8, 40, 256, 96,
+             torch.int8)
+    check_gm("int8 exact decode (4,8,100,70)", 0.0, 4, 8, 100, 70,
+             torch.int8)
+
+    def check_q(name, x):
+        q, scale = run_quant(x)
+        q_ref, scale_ref = plain_quant(x)
+        torch.cuda.synchronize()
+        diff = max((q.int() - q_ref.int()).abs().max().item(),
+                   (scale - scale_ref).abs().max().item())
+        ok = bool(torch.equal(q, q_ref) and torch.equal(scale, scale_ref))
+        results.append({"kernel": "quantize_rowwise", "case": name,
+                        "max_abs_err": diff,
+                        "q_mismatches": int((q != q_ref).sum()),
+                        "tol": 0.0, "ok": ok})
+
+    rows = MAX_BATCH * s_max
+    for m, k, dt in ((rows, d, bf16), (rows, ff, bf16), (MAX_BATCH, d, bf16),
+                     (rows, d, torch.float32), (rows, ff, torch.float32)):
+        check_q(f"{str(dt)[6:]} ({m},{k})", (_rand(gen, (m, k),
+                                                    torch.float32) * 3).to(dt))
+    check_q("ragged fp32 (37,200)", _rand(gen, (37, 200), torch.float32))
+    check_q("zero row and .5 ties fp32 (6,4096)",
+            ties_rows(gen, 6, d, torch.float32))
+    check_q("zero row and .5 ties bf16 (6,4096)", ties_rows(gen, 6, d, bf16))
     emit({"phase": "kernels", "cases": results})
     require(all(r["ok"] for r in results),
             "kernel mismatch: " + ", ".join(r["case"] for r in results
@@ -278,22 +389,32 @@ def phase_kernels(cfg, s_max):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: 4-layer fp32 full width, kernel route against the torch route.
+# Phases 4-5: 4-layer fp32 full width, kernel route against the torch
+# route (yi-6b, then olmoe-1b-7b).
 # ---------------------------------------------------------------------------
 
-def phase_parity():
+def phase_parity(arch, phase):
     from repro_torch import backend
     from repro_torch.configs.registry import get_config
+    from repro_torch.models import moe as moe_lib
     from repro_torch.models import transformer as tf
-    cfg = get_config(ARCH).with_(n_layers=PARITY_LAYERS, dtype=torch.float32,
+    cfg = get_config(arch).with_(n_layers=PARITY_LAYERS, dtype=torch.float32,
                                  kv_cache_dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(2)
     params = tf.init(cfg, gen, "cuda")
     rng = np.random.default_rng(3)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))).cuda()
+    picks = {}                  # route -> each router call's expert sets
 
     def run(route):
+        inner = moe_lib.route
+
+        def recording(rcfg, x2d, w_router):
+            gate, idx = inner(rcfg, x2d, w_router)
+            picks.setdefault(route, []).append(idx.sort(dim=-1).values)
+            return gate, idx
         prev = backend.set_default_matmul_backend(route)
+        moe_lib.route = recording
         try:
             rcfg = cfg.with_(backend=route)
             cache = tf.init_cache(rcfg, 4, 64 + PARITY_DECODE + 1,
@@ -310,6 +431,7 @@ def phase_parity():
             return steps
         finally:
             backend.set_default_matmul_backend(prev)
+            moe_lib.route = inner
 
     forced = []
     kern = run("kernel")
@@ -319,32 +441,39 @@ def phase_parity():
     same = [bool(torch.equal(k.argmax(-1), p.argmax(-1)))
             for k, p in zip(kern, plain)]
     finite = all(bool(torch.isfinite(k).all()) for k in kern)
-    emit({"phase": "parity", "config": f"{ARCH} width, {PARITY_LAYERS} "
-          "layers, fp32", "rel_err": errs, "tol": TOL_PATH,
-          "tokens_equal": same, "finite": finite})
+    line = {"phase": phase, "config": f"{arch} width, {PARITY_LAYERS} "
+            "layers, fp32", "rel_err": errs, "tol": TOL_PATH,
+            "tokens_equal": same, "finite": finite}
+    if cfg.moe is not None:
+        pairs = list(zip(picks["kernel"], picks["torch"]))
+        line["expert_choices"] = sum(a.shape[0] for a, _ in pairs)
+        line["expert_choices_differing"] = sum(
+            int((a != b).any(-1).sum()) for a, b in pairs)
+    emit(line)
     require(finite and all(e <= TOL_PATH for e in errs) and all(same),
-            "kernel route disagrees with the torch route")
+            f"{arch}: kernel route disagrees with the torch route")
     del params
     torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: serve full-width, full-depth yi-6b through the kernels.
+# Phases 6-7: serve full-width, full-depth yi-6b and olmoe-1b-7b through
+# the kernels.
 # ---------------------------------------------------------------------------
 
-def phase_serve():
+def phase_serve(arch, phase, counters):
+    """``counters``: kernel name -> wrapper whose ``launches`` the path
+    must raise above 0."""
     from repro_torch import backend
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.attention.ops import flash_attention
-    from repro_torch.kernels.matmul.ops import fused_matmul
     from repro_torch.models.base import family_module
     from repro_torch.serving.engine import ServingEngine
 
     require(backend.default_matmul_backend() == "kernel",
             "the default matmul route is not the kernel")
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     require(cfg.backend == "kernel" and cfg.dtype == torch.bfloat16,
-            "yi-6b does not default to the kernel route in bf16")
+            f"{arch} does not default to the kernel route in bf16")
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = family_module(cfg).init(cfg, gen, "cuda")
@@ -359,14 +488,13 @@ def phase_serve():
         eng.submit(torch.from_numpy(rng.integers(0, cfg.vocab_size, n)))
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    fused_matmul.launches = 0
-    flash_attention.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     outs = eng.run(max_new_tokens=MAX_NEW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fused_matmul": fused_matmul.launches,
-                "flash_attention": flash_attention.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     batches = [{"padded_prompt": int(max(lengths[i * MAX_BATCH:
                                                  (i + 1) * MAX_BATCH])),
                 "prefill_ms": r.prefill_ms(),
@@ -379,7 +507,7 @@ def phase_serve():
                            & (torch.stack(outs) < cfg.padded_vocab)).all()))
     finite = all(bool(torch.isfinite(r.logits_last).all())
                  for r in eng.results)
-    emit({"phase": "serve", "config": f"{ARCH} full width and depth "
+    emit({"phase": phase, "config": f"{arch} full width and depth "
           f"({cfg.n_layers} layers), bf16, seeded random weights",
           "params": n_params, "init_s": init_s,
           "prompt_lengths": [int(x) for x in lengths],
@@ -389,10 +517,144 @@ def phase_serve():
           "launches": launches, "tokens_ok": ok_tokens,
           "logits_finite": finite,
           "first_request": outs[0].tolist()})
-    require(ok_tokens and finite, "serving produced malformed output")
+    require(ok_tokens and finite, f"{arch}: serving produced malformed "
+            "output")
     require(all(v > 0 for v in launches.values()),
-            f"a kernel of the path never launched: {launches}")
+            f"{arch}: a kernel of the path never launched: {launches}")
     del params, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: where a decode step's device time goes (torch.profiler).
+# ---------------------------------------------------------------------------
+
+def phase_profile(arch, phase, s_max):
+    """Device time by kernel over ``PROFILE_STEPS`` decode steps of the
+    serving batch (4 requests at the longest batch's prompt length), and
+    the device's idle share of an untraced step (the mean of
+    ``UNTRACED_STEPS``).  Measures only: it fails no run."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.base import family_module
+    cfg = get_config(arch)
+    mod = family_module(cfg)
+    params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      "cuda")
+    rng = np.random.default_rng(6)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (MAX_BATCH, s_max))).cuda()
+    cache = mod.init_cache(cfg, MAX_BATCH, CACHE_LEN, device="cuda")
+    logits, cache = mod.prefill(cfg, params, {"tokens": tokens}, cache)
+    pos = s_max
+
+    def steps(n):
+        nonlocal logits, cache, pos
+        for _ in range(n):
+            logits, cache = mod.decode_step(cfg, params,
+                                            logits.argmax(-1)[:, None],
+                                            cache, pos)
+            pos += 1
+        torch.cuda.synchronize()
+
+    steps(1)                                           # warm
+    t0 = time.perf_counter()
+    steps(UNTRACED_STEPS)
+    step_ms = (time.perf_counter() - t0) * 1e3 / UNTRACED_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps(PROFILE_STEPS)
+        traced_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+
+    def per_step(us):
+        return us / 1e3 / PROFILE_STEPS
+
+    busy = per_step(sum(e.self_device_time_total for e in device))
+    groups = dict.fromkeys([*KERNEL_TAGS, "other"], 0.0)
+    for e in device:
+        g = next((n for n, tag in KERNEL_TAGS.items() if tag in e.key),
+                 "other")
+        groups[g] += per_step(e.self_device_time_total)
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
+    emit({"phase": phase, "config": f"{arch} full size, bf16, decode at "
+          f"batch {MAX_BATCH} from position {s_max}", "steps": PROFILE_STEPS,
+          "decode_step_ms": step_ms, "traced_step_ms": traced_ms,
+          "profiler_saw_device": bool(device),
+          "device_busy_ms_per_step": busy,
+          "device_idle_share": 1.0 - busy / step_ms,
+          "device_ms_per_step_by_kernel": groups,
+          "top_device_kernels": [
+              {"name": e.key[:160], "launches_per_step":
+               e.count / PROFILE_STEPS,
+               "ms_per_step": per_step(e.self_device_time_total)}
+              for e in top]})
+    del params, cache
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: yi-6b's MLP at full width through the W8A8 layers.
+# ---------------------------------------------------------------------------
+
+def phase_w8a8(cfg, s_max):
+    import torch.nn.functional as F
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.kernels.quant.ops import quantize_rowwise
+    from repro_torch.kernels.quant.ref import quantize_rowwise_ref
+    from repro_torch.serving.quantized import quantize_mlp
+    d, ff, rows = cfg.d_model, cfg.d_ff, MAX_BATCH * s_max
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    wi = torch.randn(d, 2 * ff, generator=gen, device="cuda") / d ** 0.5
+    wo = torch.randn(ff, d, generator=gen, device="cuda") / ff ** 0.5
+    x = torch.randn(rows, d, generator=gen, device="cuda")
+    lin_in, lin_out = quantize_mlp(wi, wo, x)
+
+    def mlp(route):
+        h = lin_in(x, out_dtype=torch.float32, backend=route)
+        g = F.silu(h[:, :ff]) * h[:, ff:]
+        return g, lin_out(g, out_dtype=torch.float32, backend=route)
+
+    counters = {"quantize_rowwise": quantize_rowwise,
+                "fused_matmul": fused_matmul}
+    for fn in counters.values():
+        fn.launches = 0
+    g_kern, y_kern = mlp("kernel")
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    _, y_plain = mlp("torch")
+    # the int8 activations of both layers, kernel against plain, on the
+    # same inputs
+    acts = [x / lin_in.smooth, g_kern / lin_out.smooth]
+    same = [bool(torch.equal(a, b) and torch.equal(sa, sb))
+            for (a, sa), (b, sb) in ((quantize_rowwise(t),
+                                      quantize_rowwise_ref(t))
+                                     for t in acts)]
+    h = x @ wi
+    y_float = (F.silu(h[:, :ff]) * h[:, ff:]) @ wo
+    torch.cuda.synchronize()
+    rel_routes, diff_routes = rel_err(y_kern, y_plain)
+    rel_float, _ = rel_err(y_kern, y_float)
+    finite = bool(torch.isfinite(y_kern).all())
+    emit({"phase": "w8a8", "config": f"{ARCH} MLP at full width: wi "
+          f"({d},{2 * ff}), wo ({ff},{d}), calibrated and run on x "
+          f"({rows},{d}), fp32 out", "launches": launches,
+          "int8_activations_identical": same,
+          "rel_err_vs_plain_route": rel_routes,
+          "max_abs_err_vs_plain_route": diff_routes,
+          "tol_vs_plain_route": TOL_W8A8_ROUTES,
+          "rel_err_vs_float_mlp": rel_float,
+          "tol_vs_float_mlp": TOL_W8A8_FLOAT, "finite": finite})
+    require(finite and all(same) and rel_routes <= TOL_W8A8_ROUTES
+            and rel_float <= TOL_W8A8_FLOAT,
+            "the W8A8 MLP disagrees with its plain route or the float MLP")
+    require(all(v > 0 for v in launches.values()),
+            f"w8a8: a kernel of the path never launched: {launches}")
+    del wi, wo, lin_in, lin_out
     torch.cuda.empty_cache()
     return launches
 
@@ -409,12 +671,14 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: times at the path's largest shapes.
+# Phase 10: times at the paths' largest shapes.
 # ---------------------------------------------------------------------------
 
-def time_ms(fns: dict, reps: int = 10, warmup: int = 2) -> dict:
+def time_ms(fns: dict, reps: int = 10, warmup: int = 2,
+            flush=None) -> dict:
     """Median CUDA-event time of each callable, called in turns
-    (a, b, c, c, b, a, ...)."""
+    (a, b, c, c, b, a, ...).  ``flush``, if given, runs before each timed
+    call, outside the timed window."""
     for f in fns.values():
         for _ in range(warmup):
             f()
@@ -425,6 +689,8 @@ def time_ms(fns: dict, reps: int = 10, warmup: int = 2) -> dict:
                   torch.cuda.Event(enable_timing=True))
     for r in range(reps):
         for n in (names if r % 2 == 0 else names[::-1]):
+            if flush is not None:
+                flush()
             start.record()
             fns[n]()
             end.record()
@@ -439,11 +705,19 @@ def bound(flops: float, nbytes: float, peak: float, bw: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_timing(cfg, s_max, launches):
+def phase_timing(cfg, moe_cfg, s_max, path_launches):
+    """``path_launches``: path -> {kernel name: launches in that path}."""
     import torch.nn.functional as F
     from repro_torch.core.hardware import H100_SXM as chip
+    from repro_torch.models.moe import moe_capacity
     gen = torch.Generator(device="cuda").manual_seed(4)
     kernels = []
+
+    def counts(name):
+        by_path = {path: n[name] for path, n in path_launches.items()
+                   if name in n}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
 
     # K1 at its largest path shape: the prefill GLU MLP input projection.
     m, k, n = MAX_BATCH * s_max, cfg.d_model, 2 * cfg.d_ff
@@ -459,7 +733,7 @@ def phase_timing(cfg, s_max, launches):
         "name": "fused_matmul", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_matmul.cu",
         "replaces": "src/repro/kernels/matmul/matmul.py:39",
-        "launches": launches["fused_matmul"], "max_abs_err": diff,
+        **counts("fused_matmul"), "max_abs_err": diff,
         "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
         "bound_by": by, "library_ms": t["library"],
         "shape": f"bf16 ({m},{k})@({k},{n}) GLU-silu -> ({m},{n // 2})",
@@ -487,27 +761,89 @@ def phase_timing(cfg, s_max, launches):
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention/attention.py:34",
-        "launches": launches["flash_attention"], "max_abs_err": diff,
+        **counts("flash_attention"), "max_abs_err": diff,
         "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
         "bound_by": by, "library_ms": t["library"],
         "shape": f"bf16 q ({MAX_BATCH},{h},{s_max},{hd}) kv "
                  f"({MAX_BATCH},{hkv},{s_max},{hd}) causal",
         "library_call": "F.scaled_dot_product_attention on KV heads "
                         "repeated to H beforehand"})
+
+    # K4 at the MoE path's shapes: OLMoE's gate/up projection (the larger
+    # of its two expert GEMMs) at the capacity of the 221-token prefill
+    # batch and at decode, where most of its launches are.
+    e, dm, fe = moe_cfg.moe.n_experts, moe_cfg.d_model, \
+        moe_cfg.moe.d_ff_expert
+    for tag, rows in (("prefill", MAX_BATCH * s_max), ("decode", MAX_BATCH)):
+        c = moe_capacity(moe_cfg, rows)
+        x, w, ep = grouped_case(gen, e, c, dm, 2 * fe, torch.bfloat16,
+                                glu=True, act="silu")
+        t = time_ms({"kernel": lambda: run_grouped(x, w, ep),
+                     "plain": lambda: plain_grouped(x, w, ep),
+                     "library": lambda: torch.bmm(x, w)})
+        _, diff = rel_err(run_grouped(x, w, ep), plain_grouped(x, w, ep))
+        ms, by = bound(2.0 * e * c * dm * 2 * fe,
+                       2.0 * (x.numel() + w.numel() + e * c * fe),
+                       chip.peak_bf16, chip.hbm_bw)
+        kernels.append({
+            "name": "grouped_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+            "replaces": "src/repro/kernels/moe/grouped_matmul.py:21",
+            **counts("grouped_matmul"), "max_abs_err": diff,
+            "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
+            "bound_by": by, "library_ms": t["library"],
+            "shape": f"{tag}: bf16 ({e},{c},{dm})@({e},{dm},{2 * fe}) "
+                     f"GLU-silu -> ({e},{c},{fe})",
+            "library_call": "torch.bmm in bf16 (no epilogue)"})
+
+    # K3 at the W8A8 path's shape: the fp32 activations of the input
+    # projection, timed with a cold L2 (a 64 MB write before each call).
+    rows, d = MAX_BATCH * s_max, cfg.d_model
+    x = torch.randn(rows, d, generator=gen, device="cuda") * 3
+    scratch = torch.empty(16 * 2 ** 20, device="cuda")
+    t = time_ms({"kernel": lambda: run_quant(x),
+                 "plain": lambda: plain_quant(x)},
+                flush=lambda: scratch.fill_(0.0))
+    (q, s), (q_ref, s_ref) = run_quant(x), plain_quant(x)
+    diff = max((q.int() - q_ref.int()).abs().max().item(),
+               (s - s_ref).abs().max().item())
+    ms, by = bound(3.0 * x.numel(), 4.0 * x.numel() + x.numel() + 4.0 * rows,
+                   chip.peak_fp32, chip.hbm_bw)
+    kernels.append({
+        "name": "quantize_rowwise", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quantize_rowwise.cu",
+        "replaces": "src/repro/kernels/quant/quant.py:20",
+        **counts("quantize_rowwise"), "max_abs_err": diff,
+        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
+        "bound_by": by, "library_ms": None,
+        "shape": f"fp32 ({rows},{d}) -> int8 ({rows},{d}), fp32 ({rows},)",
+        "library_call": "none: no single PyTorch call computes a per-row "
+                        "absmax int8 quantisation"})
     return kernels
 
 
 def main() -> int:
     phase_device()
     from repro_torch.configs.registry import get_config
-    cfg = get_config(ARCH)
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.kernels.moe.ops import grouped_matmul
+    cfg, moe_cfg = get_config(ARCH), get_config(MOE_ARCH)
     s_max = max(padded_lengths(prompt_lengths()[0]))
+    dense = {"fused_matmul": fused_matmul, "flash_attention": flash_attention}
     try:
         phase_build()
-        phase_kernels(cfg, s_max)
-        phase_parity()
-        launches = phase_serve()
-        kernels = phase_timing(cfg, s_max, launches)
+        phase_kernels(cfg, moe_cfg, s_max)
+        phase_parity(ARCH, "parity")
+        phase_parity(MOE_ARCH, "moe-parity")
+        launches = {
+            "serve": phase_serve(ARCH, "serve", dense),
+            "moe-serve": phase_serve(MOE_ARCH, "moe-serve", {
+                **dense, "grouped_matmul": grouped_matmul})}
+        phase_profile(ARCH, "profile", s_max)
+        phase_profile(MOE_ARCH, "moe-profile", s_max)
+        launches["w8a8"] = phase_w8a8(cfg, s_max)
+        kernels = phase_timing(cfg, moe_cfg, s_max, launches)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -13,6 +13,9 @@ from repro_torch.models.base import ArchConfig
 
 ARCH_MODULES = {
     "yi-6b": "repro_torch.configs.yi_6b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    # Run only through ``reduced()``: 480 B parameters fit no one card.
+    "arctic-480b": "repro_torch.configs.arctic_480b",
 }
 
 ALL_ARCHS = tuple(ARCH_MODULES)

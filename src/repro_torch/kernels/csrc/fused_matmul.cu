@@ -9,7 +9,8 @@
 // memory bandwidth.  This first version is a shared-memory-tiled SIMT
 // kernel, not a tensor-core one, so at prefill it runs far below the
 // bf16 tensor-core peak; wgmma, TMA and warp specialisation are later
-// work.  What the design does about the bound:
+// work.  What the design does about the bound (the tile is in
+// gemm_tile.cuh, shared with the grouped MoE matmul):
 //   * each block keeps its fp32 (int32 for int8) accumulator tile in
 //     registers across the whole K sweep, and applies the epilogue
 //     (scales, bias, softcap, activation, GLU, residual, cast) in those
@@ -21,252 +22,11 @@
 //   * a small-M tile (8 rows, 128-deep K steps) serves decode, so the
 //     weight stream is not spread over 64-row tiles that are mostly
 //     padding; a 64x64 tile serves prefill.
-//
-// Under GLU, B is (K, 2, N/2) flattened to (K, N): output column j reads
-// gate column j and up column N/2 + j.  A block's shared B tile holds its
-// gate half in columns [0, BN/2) and its up half in [BN/2, BN).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "gemm_tile.cuh"
 
 namespace {
-
-enum InCode { IN_F32 = 0, IN_F16 = 1, IN_BF16 = 2, IN_I8 = 3 };
-enum OutCode { OUT_F32 = 0, OUT_F16 = 1, OUT_BF16 = 2, OUT_I32 = 3 };
-enum BiasCode { BIAS_ZERO = 0, BIAS_ROW = 1, BIAS_FULL = 2 };
-// Activation ids follow repro_torch.core.fusion.ACTIVATIONS.
-enum Act { ACT_NONE = 0, ACT_RELU, ACT_RELU2, ACT_GELU, ACT_GELU_TANH,
-           ACT_SILU, ACT_SIGMOID, ACT_TANH };
-
-struct Epi {
-  int bias_type;
-  const float* bias;      // (N,) row bias or (M, N) full bias, fp32
-  const float* scale_a;   // (M,) or null
-  const float* scale_b;   // (N,) or null
-  const float* residual;  // (M, N_out) or null
-  float softcap;          // 0 = off
-  int act;
-  int glu;
-  int trivial;            // no vector work: cast the accumulator only
-  int out_code;
-  void* out;              // (M, N_out)
-};
-
-template <typename T> struct AccOf { using type = float; };
-template <> struct AccOf<int8_t> { using type = int; };
-
-__device__ __forceinline__ float conv(float x) { return x; }
-__device__ __forceinline__ float conv(__half x) { return __half2float(x); }
-__device__ __forceinline__ float conv(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ int conv(int8_t x) { return static_cast<int>(x); }
-
-__device__ __forceinline__ float activate(float x, int act) {
-  switch (act) {
-    case ACT_RELU: return fmaxf(x, 0.f);
-    case ACT_RELU2: { float r = fmaxf(x, 0.f); return r * r; }
-    case ACT_GELU:        // jax.nn.gelu defaults to the tanh form
-    case ACT_GELU_TANH:
-      return 0.5f * x * (1.f + tanhf(0.7978845608028654f *
-                                     (x + 0.044715f * x * x * x)));
-    case ACT_SILU: return x / (1.f + expf(-x));
-    case ACT_SIGMOID: return 1.f / (1.f + expf(-x));
-    case ACT_TANH: return tanhf(x);
-    default: return x;
-  }
-}
-
-__device__ __forceinline__ void store(void* out, size_t i, int code,
-                                      float v) {
-  switch (code) {
-    case OUT_F32: static_cast<float*>(out)[i] = v; break;
-    case OUT_F16: static_cast<__half*>(out)[i] = __float2half_rn(v); break;
-    case OUT_BF16:
-      static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v); break;
-    default: static_cast<int*>(out)[i] = static_cast<int>(v); break;
-  }
-}
-
-// The trivial epilogue keeps an int32 accumulator exact.
-__device__ __forceinline__ void store_acc(void* out, size_t i, int code,
-                                          int v) {
-  if (code == OUT_I32) static_cast<int*>(out)[i] = v;
-  else store(out, i, code, static_cast<float>(v));
-}
-__device__ __forceinline__ void store_acc(void* out, size_t i, int code,
-                                          float v) {
-  store(out, i, code, v);
-}
-
-// Epilogue steps before the activation: scales, bias, softcap.
-__device__ __forceinline__ float pre_act(float y, int row, int col, int N,
-                                         const Epi& ep) {
-  if (ep.scale_a) y *= ep.scale_a[row];
-  if (ep.scale_b) y *= ep.scale_b[col];
-  if (ep.bias_type == BIAS_ROW) y += ep.bias[col];
-  else if (ep.bias_type == BIAS_FULL) y += ep.bias[(size_t)row * N + col];
-  if (ep.softcap != 0.f) y = tanhf(y / ep.softcap) * ep.softcap;
-  return y;
-}
-
-// Everything after the accumulator for one output element (column
-// ``col`` of the output; under GLU ``up`` is the paired up-column sum).
-// Kept out of line: the tile loop is unrolled, and inlining the
-// activation and store switches into every element made the compiler's
-// front end run for minutes.
-template <typename acc_t>
-__device__ __noinline__ void finish(acc_t acc, acc_t up, int row, int col,
-                                    int N, Epi ep) {
-  const int n_out = ep.glu ? N / 2 : N;
-  const size_t o = (size_t)row * n_out + col;
-  if (ep.trivial) {
-    store_acc(ep.out, o, ep.out_code, acc);
-    return;
-  }
-  float y = activate(pre_act(static_cast<float>(acc), row, col, N, ep),
-                     ep.act);
-  if (ep.glu)
-    y *= pre_act(static_cast<float>(up), row, n_out + col, N, ep);
-  if (ep.residual) y += ep.residual[o];
-  store(ep.out, o, ep.out_code, y);
-}
-
-template <typename T, int BM, int BN, int BK, int TM, int TN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-fused_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                    int M, int N, int K, int vec_a, int vec_b, Epi ep) {
-  using acc_t = typename AccOf<T>::type;
-  constexpr int THREADS = (BM / TM) * (BN / TN);
-  constexpr int VEC = 16 / sizeof(T);   // elements in one 16-byte load
-  static_assert(BK % VEC == 0 && (BN / 2) % VEC == 0, "tile vs 16B loads");
-  static_assert(TN % 2 == 0, "GLU pairs gate and up columns in a thread");
-
-  __shared__ acc_t As[BK][BM + 1];   // A tile, transposed; +1: no conflicts
-  __shared__ acc_t Bs[BK][BN];
-
-  const int glu = ep.glu;
-  const int n_out = glu ? N / 2 : N;     // output columns
-  const int limit = n_out;               // column bound within one half
-  const int bno = glu ? BN / 2 : BN;     // output columns per block
-  const int o0 = blockIdx.x * bno;
-  const int m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-
-  // Shared-tile column of each of this thread's TN accumulators.
-  int cols[TN];
-#pragma unroll
-  for (int j = 0; j < TN; ++j)
-    cols[j] = glu ? (j < TN / 2 ? tx * (TN / 2) + j
-                                : BN / 2 + tx * (TN / 2) + j - TN / 2)
-                  : tx * TN + j;
-
-  acc_t acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // A tile: BM rows x BK, consecutive threads along K (coalesced).
-    for (int q = tid; q < BM * BK / VEC; q += THREADS) {
-      const int m = q / (BK / VEC);
-      const int kc = (q % (BK / VEC)) * VEC;
-      const int gm = m0 + m, gk = k0 + kc;
-      const T* src = A + (size_t)gm * K + gk;
-      if (vec_a && gm < M && gk + VEC <= K) {
-        uint4 raw = *reinterpret_cast<const uint4*>(src);
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) As[kc + v][m] = conv(e[v]);
-      } else {
-#pragma unroll
-        for (int v = 0; v < VEC; ++v)
-          As[kc + v][m] = (gm < M && gk + v < K) ? conv(src[v]) : acc_t(0);
-      }
-    }
-    // B tile: BK x BN, consecutive threads along N (coalesced).
-    for (int q = tid; q < BK * BN / VEC; q += THREADS) {
-      const int k = q / (BN / VEC);
-      const int c = (q % (BN / VEC)) * VEC;
-      const int gk = k0 + k;
-      const int up = glu && c >= BN / 2;
-      const int ocol = o0 + (up ? c - BN / 2 : c);
-      const T* src = B + (size_t)gk * N + (up ? n_out + ocol : ocol);
-      if (vec_b && gk < K && ocol + VEC <= limit) {
-        uint4 raw = *reinterpret_cast<const uint4*>(src);
-        const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) Bs[k][c + v] = conv(e[v]);
-      } else {
-#pragma unroll
-        for (int v = 0; v < VEC; ++v)
-          Bs[k][c + v] = (gk < K && ocol + v < limit) ? conv(src[v])
-                                                      : acc_t(0);
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      acc_t a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[k][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[k][cols[j]];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
-  }
-
-  // Epilogue on the accumulators in registers, then the one store.
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = m0 + ty * TM + i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {   // under GLU: j < TN/2 pairs j + TN/2
-      if (glu && j >= TN / 2) continue;
-      const int col = o0 + (glu ? tx * (TN / 2) : tx * TN) + j;
-      if (col < n_out)
-        finish<acc_t>(acc[i][j], glu ? acc[i][(j + TN / 2) % TN] : acc_t(0),
-                      row, col, N, ep);
-    }
-  }
-}
-
-// Prefill tile: 64x64 outputs, 256 threads of 4x4 each.
-constexpr int L_BM = 64, L_BN = 64, L_BK = 32, L_TM = 4, L_TN = 4;
-// Decode tile: 8x32 outputs, 128 threads of 1x2 each, deep K steps.
-constexpr int S_BM = 8, S_BN = 32, S_BK = 128, S_TM = 1, S_TN = 2;
-
-template <typename T>
-void launch(const void* A, const void* B, int M, int N, int K, int vec_a,
-            int vec_b, const Epi& ep, cudaStream_t stream) {
-  const int n_out = ep.glu ? N / 2 : N;
-  const T* a = static_cast<const T*>(A);
-  const T* b = static_cast<const T*>(B);
-  if (M <= S_BM) {
-    const int bno = ep.glu ? S_BN / 2 : S_BN;
-    dim3 grid((n_out + bno - 1) / bno, (M + S_BM - 1) / S_BM);
-    constexpr int threads = (S_BM / S_TM) * (S_BN / S_TN);
-    fused_matmul_kernel<T, S_BM, S_BN, S_BK, S_TM, S_TN>
-        <<<grid, threads, 0, stream>>>(a, b, M, N, K, vec_a, vec_b, ep);
-  } else {
-    const int bno = ep.glu ? L_BN / 2 : L_BN;
-    dim3 grid((n_out + bno - 1) / bno, (M + L_BM - 1) / L_BM);
-    constexpr int threads = (L_BM / L_TM) * (L_BN / L_TN);
-    fused_matmul_kernel<T, L_BM, L_BN, L_BK, L_TM, L_TN>
-        <<<grid, threads, 0, stream>>>(a, b, M, N, K, vec_a, vec_b, ep);
-  }
-}
-
+struct FusedMatmul {};   // names this file's instantiations of the tile
 }  // namespace
 
 // A (M, K) and B (K, N) row-major; out (M, N) or (M, N/2) under GLU.
@@ -288,15 +48,7 @@ extern "C" int fused_matmul_launch(
   ep.trivial = trivial;
   ep.out_code = out_code;
   ep.out = out;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaGetLastError();   // clear any stale error so the check below is ours
-  switch (in_code) {
-    case IN_F32: launch<float>(A, B, M, N, K, vec_a, vec_b, ep, s); break;
-    case IN_F16: launch<__half>(A, B, M, N, K, vec_a, vec_b, ep, s); break;
-    case IN_BF16:
-      launch<__nv_bfloat16>(A, B, M, N, K, vec_a, vec_b, ep, s); break;
-    case IN_I8: launch<int8_t>(A, B, M, N, K, vec_a, vec_b, ep, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return gemm_tile_dispatch<FusedMatmul>(
+      in_code, A, B, M, N, K, 1, 0, 0, 0, vec_a, vec_b, ep,
+      static_cast<cudaStream_t>(stream));
 }

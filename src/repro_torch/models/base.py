@@ -14,10 +14,10 @@ fields.  Every model family implements the same functional protocol:
 VLM / audio entries.  The port's ``init`` takes a ``torch.Generator`` and
 a device in place of the reference's PRNG key.
 
-This slice of the port implements the dense ``transformer`` family
-only.  The MoE, RNN, RWKV and encoder-decoder sub-configs are kept as
-fields so configurations read the same, and the model code rejects them
-with ``NotImplementedError``.
+The port implements the ``transformer`` family so far, dense and MoE
+(``MoeConfig``).  The RNN, RWKV and encoder-decoder sub-configs are kept
+as fields so configurations read the same, and ``family_module`` rejects
+their families with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -106,7 +106,8 @@ class ArchConfig:
     dtype: torch.dtype = torch.bfloat16
     backend: str = "kernel"                  # kernel | torch | dense
     # (not ported: ``remat``, training-only; ``attn_pv_bf16``, a lever of
-    # the reference's XLA attention; ``moe_shard_map``, with MoE)
+    # the reference's XLA attention; ``moe_shard_map``, with the
+    # distributed slice)
     kv_cache_dtype: torch.dtype = torch.bfloat16
     attn_chunk: int = 1024                   # chunked torch attention KV block
 

@@ -2,9 +2,9 @@
 
 The reference's ``transformer.init`` pytree (``embedding``, ``ln_final``,
 ``lm_head`` and ``layers``, a tuple of per-group dicts whose leaves are
-stacked on a leading layer axis) has the same structure as the port's
-params.  Pass it leaf by leaf as numpy arrays (``np.asarray`` of each
-leaf); nothing here imports JAX.
+stacked on a leading layer axis, with a ``moe`` subtree in MoE blocks)
+has the same structure as the port's params.  Pass it leaf by leaf as
+numpy arrays (``np.asarray`` of each leaf); nothing here imports JAX.
 
 ``torch.from_numpy`` rejects the ``ml_dtypes`` bfloat16 and float8
 dtypes, so those go through an unsigned-integer view of the same bits.
@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.serving.quantized import W8A8Linear
 
 _BIT_VIEWS = {
     "bfloat16": (np.uint16, torch.bfloat16),
@@ -40,3 +42,13 @@ def params_from_jax(tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(params_from_jax(v) for v in tree)
     return to_torch(tree)
+
+
+def w8a8_from_jax(lin):
+    """The reference's ``W8A8Linear`` (its four arrays, each passed
+    through ``np.asarray``; ``smooth`` and ``bias`` may be None) as the
+    port's, on the CPU."""
+    def opt(x):
+        return None if x is None else to_torch(x)
+    return W8A8Linear(w_q=to_torch(lin.w_q), w_scale=to_torch(lin.w_scale),
+                      smooth=opt(lin.smooth), bias=opt(lin.bias))

@@ -1,11 +1,12 @@
 """Generic decoder-only transformer family (the port's dense slice).
 
 One implementation, flag-driven, as in the reference: pre-RMSNorm,
-SwiGLU/GeGLU MLP, RoPE with GQA, optional sandwich norms, soft-caps,
-QKV bias, QK-norm and tied/scaled embeddings.  yi-6b (the Llama
-architecture) is the configuration ported so far; the gemma2 and
-internvl2 flags are held against the reference's reduced configs in the
-tests.  MoE blocks raise ``NotImplementedError``.
+SwiGLU/GeGLU MLP or a top-k MoE block (``models/moe.py``), RoPE with
+GQA, optional sandwich norms, soft-caps, QKV bias, QK-norm and
+tied/scaled embeddings.  yi-6b (the Llama architecture), olmoe-1b-7b
+and arctic-480b (reduced) are the configurations ported so far; the
+gemma2 and internvl2 flags are held against the reference's reduced
+configs in the tests.
 
 Layer parameters are stacked on a leading layer axis, as in the
 reference, and a Python loop walks the stack where the reference runs
@@ -22,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import common as cm
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.base import ArchConfig, register_family
 
 
@@ -29,21 +31,18 @@ from repro_torch.models.base import ArchConfig, register_family
 # One block.
 # ---------------------------------------------------------------------------
 
-def _reject_unported(cfg: ArchConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE blocks are not ported yet")
-
-
 def block_init(cfg: ArchConfig, gen: torch.Generator, device=None):
-    _reject_unported(cfg)
     kw = dict(dtype=cfg.dtype, device=device)
     norm = torch.zeros if cfg.rmsnorm_unit_offset else torch.ones
     p = {
         "attn": cm.attn_init(cfg, gen, device),
         "ln_attn": norm((cfg.d_model,), **kw),
         "ln_mlp": norm((cfg.d_model,), **kw),
-        "mlp": cm.mlp_init(cfg, gen, device),
     }
+    if cfg.moe is not None:
+        p["moe"] = moe_lib.moe_init(cfg, gen, device)
+    else:
+        p["mlp"] = cm.mlp_init(cfg, gen, device)
     if cfg.sandwich_norms:
         p["ln_attn_post"] = norm((cfg.d_model,), **kw)
         p["ln_mlp_post"] = norm((cfg.d_model,), **kw)
@@ -58,7 +57,6 @@ def block_apply(cfg: ArchConfig, p, x, *, positions, window: int,
                 kv_cache=None, cache_pos: Optional[int] = None):
     """x: (B, S, d) -> (B, S, d).  ``kv_cache`` (k, v) is written in place
     at ``cache_pos``."""
-    _reject_unported(cfg)
     h = _norm(cfg, x, p["ln_attn"])
     q, k, v = cm.qkv_project(cfg, p["attn"], h, positions)
 
@@ -81,7 +79,10 @@ def block_apply(cfg: ArchConfig, p, x, *, positions, window: int,
     x = x + attn_out
 
     h = _norm(cfg, x, p["ln_mlp"])
-    mlp_out = cm.mlp_apply(cfg, p["mlp"], h)
+    if cfg.moe is not None:
+        mlp_out = moe_lib.moe_apply(cfg, p["moe"], h)
+    else:
+        mlp_out = cm.mlp_apply(cfg, p["mlp"], h)
     if cfg.sandwich_norms:
         mlp_out = _norm(cfg, mlp_out, p["ln_mlp_post"])
     return x + mlp_out
@@ -127,7 +128,6 @@ def _windows(cfg: ArchConfig):
 
 def init(cfg: ArchConfig, gen: torch.Generator, device=None):
     """Seeded random parameters with the reference's distributions."""
-    _reject_unported(cfg)
     v = cfg.padded_vocab
     norm = torch.zeros if cfg.rmsnorm_unit_offset else torch.ones
     params = {

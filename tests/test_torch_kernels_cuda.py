@@ -1,5 +1,6 @@
-"""The CUDA kernels (K1 fused matmul, K2 flash attention) against their
-plain versions on the card, at small and ragged shapes.
+"""The CUDA kernels (K1 fused matmul, K2 flash attention, K3 row
+quantiser, K4 grouped MoE matmul) against their plain versions on the
+card, at small and ragged shapes.
 
 These need a Hopper card and nvcc; elsewhere they skip.  On the card:
 
@@ -17,6 +18,12 @@ from repro_torch.kernels.attention.attention import (        # noqa: E402
     flash_attention_plain)
 from repro_torch.kernels.matmul import ops as mm_ops         # noqa: E402
 from repro_torch.kernels.matmul.matmul import fused_matmul_plain  # noqa: E402
+from repro_torch.kernels.moe import ops as gm_ops            # noqa: E402
+from repro_torch.kernels.moe.grouped_matmul import (         # noqa: E402
+    grouped_matmul_plain)
+from repro_torch.kernels.quant import ops as q_ops           # noqa: E402
+from repro_torch.kernels.quant.quant import (              # noqa: E402
+    quantize_rowwise_plain)
 
 pytestmark = pytest.mark.sm90
 
@@ -139,3 +146,59 @@ def test_async_engine_uses_a_side_stream(card):
     out = eng.wait(h)
     assert task.status is Status.DONE and eng.check(h)
     assert torch.equal(out, torch.full((64, 32), 128.0, device="cuda"))
+
+
+GM_CASES = [  # (e, c, k, n, dtype, epilogue fields, tol); c <= 8: decode tile
+    (5, 33, 72, 200, torch.float32, dict(glu=True, activation="gelu"), 1e-5),
+    (4, 8, 256, 512, torch.bfloat16, dict(glu=True, activation="silu"),
+     3e-2),
+    (3, 70, 96, 130, torch.float16, {}, 3e-2),
+    (3, 9, 100, 70, torch.int8, {}, 0.0),
+]
+
+
+@pytest.mark.parametrize("case", GM_CASES, ids=lambda c: f"{c[0]}x{c[1]}x"
+                         f"{c[2]}x{c[3]}-{str(c[4])[6:]}")
+def test_grouped_matmul_kernel_vs_plain(card, case):
+    e, c, k, n, dt, fields, tol = case
+    if dt == torch.int8:
+        x = torch.randint(-127, 128, (e, c, k), generator=card,
+                          device="cuda", dtype=dt)
+        w = torch.randint(-127, 128, (e, k, n), generator=card,
+                          device="cuda", dtype=dt)
+    else:
+        x = torch.randn(e, c, k, generator=card, device="cuda").to(dt)
+        w = (torch.randn(e, k, n, generator=card, device="cuda")
+             / k ** .5).to(dt)
+    ep = Epilogue(**fields)
+    before = gm_ops.grouped_matmul.launches
+    out = gm_ops.grouped_matmul(x, w, epilogue=ep)
+    assert gm_ops.grouped_matmul.launches == before + 1
+    int8 = dt == torch.int8
+    ref = grouped_matmul_plain(
+        x, w, Epilogue(out_dtype=torch.int32 if int8 else dt, **fields),
+        torch.int32 if int8 else torch.float32)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    if int8:
+        assert torch.equal(out, ref)
+    assert _rel(out, ref) <= tol
+
+
+@pytest.mark.parametrize("m,k,dt", [(37, 200, torch.float32),
+                                    (64, 4096, torch.bfloat16),
+                                    (5, 300, torch.float16)],
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_quantize_rowwise_kernel_bit_exact(card, m, k, dt):
+    x = (torch.randn(m, k, generator=card, device="cuda") * 3).to(dt)
+    x[1] = 0
+    ties = torch.randint(-254, 255, (m, k), generator=card,
+                         device="cuda") / 2.0
+    ties[:, 0] = 127.0
+    for inp in (x, ties.to(dt)):
+        before = q_ops.quantize_rowwise.launches
+        q, s = q_ops.quantize_rowwise(inp)
+        assert q_ops.quantize_rowwise.launches == before + 1
+        q_ref, s_ref = quantize_rowwise_plain(inp)
+        torch.cuda.synchronize()
+        assert torch.equal(q, q_ref) and torch.equal(s, s_ref)

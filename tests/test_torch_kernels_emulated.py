@@ -25,6 +25,8 @@ from repro_torch.core.task import BiasType                   # noqa: E402
 from repro_torch.kernels import build                        # noqa: E402
 from repro_torch.kernels.attention import attention as attn  # noqa: E402
 from repro_torch.kernels.matmul import matmul as mm          # noqa: E402
+from repro_torch.kernels.moe import grouped_matmul as gm     # noqa: E402
+from repro_torch.kernels.quant import quant as qr            # noqa: E402
 
 CUDA_RUNTIME_H = r"""
 #pragma once
@@ -69,16 +71,17 @@ cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 template <class F> void emu_launch(dim3 g, dim3 b, F f) {
-  for (unsigned y = 0; y < g.y; ++y)
-    for (unsigned x = 0; x < g.x; ++x) {
-      std::barrier<> bar(b.x);
-      emu_bar = &bar;
-      std::vector<std::thread> ts;
-      for (unsigned t = 0; t < b.x; ++t)
-        ts.emplace_back([&, t, x, y] {
-          threadIdx = dim3(t); blockIdx = dim3(x, y); f(); });
-      for (auto& th : ts) th.join();
-    }
+  for (unsigned z = 0; z < g.z; ++z)
+    for (unsigned y = 0; y < g.y; ++y)
+      for (unsigned x = 0; x < g.x; ++x) {
+        std::barrier<> bar(b.x);
+        emu_bar = &bar;
+        std::vector<std::thread> ts;
+        for (unsigned t = 0; t < b.x; ++t)
+          ts.emplace_back([&, t, x, y, z] {
+            threadIdx = dim3(t); blockIdx = dim3(x, y, z); f(); });
+        for (auto& th : ts) th.join();
+      }
 }
 """
 CUDA_FP16_H = r"""
@@ -138,7 +141,7 @@ def _emulable(src: str) -> str:
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """The two kernel libraries, compiled for the CPU and bound."""
+    """The kernel libraries, compiled for the CPU."""
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ to compile the kernels for the CPU")
@@ -147,6 +150,8 @@ def emulated(tmp_path_factory):
                        ("cuda_fp16.h", CUDA_FP16_H),
                        ("cuda_bf16.h", CUDA_BF16_H)):
         (d / name).write_text(text)
+    for header in build.CSRC.glob("*.cuh"):
+        (d / header.name).write_text(_emulable(header.read_text()))
     libs = {}
     procs = []
     for src in build.sources():
@@ -173,10 +178,16 @@ def bound(emulated, monkeypatch):
     fa_fn = emulated["flash_attention"].flash_attention_launch
     fa_fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i,
                       ctypes.POINTER(ctypes.c_longlong), f, i, i, f, i, i, p]
-    for fn in (mm_fn, fa_fn):
+    gm_fn = emulated["grouped_matmul"].grouped_matmul_launch
+    gm_fn.argtypes = [i, p, p, p, i, i, i, i, i, i, i, f, i, i, i, i, p]
+    qr_fn = emulated["quantize_rowwise"].quantize_rowwise_launch
+    qr_fn.argtypes = [i, p, p, p, i, i, p]
+    for fn in (mm_fn, fa_fn, gm_fn, qr_fn):
         fn.restype = i
     monkeypatch.setattr(mm, "_fn", mm_fn)
     monkeypatch.setattr(attn, "_fn", fa_fn)
+    monkeypatch.setattr(gm, "_fn", gm_fn)
+    monkeypatch.setattr(qr, "_fn", qr_fn)
 
     class _Stream:
         cuda_stream = None
@@ -275,3 +286,60 @@ def test_flash_attention_source_fully_masked_rows_are_zero(bound):
                                     causal=True, window=4, softcap=0.0,
                                     q_start=100)
     assert torch.equal(out, torch.zeros_like(out))
+
+
+GM_CASES = [  # (e, c, k, n, dtype, epilogue fields, tol); c <= 8: decode tile
+    (3, 5, 72, 200, torch.float32, {}, 1e-5),
+    (2, 8, 64, 96, torch.bfloat16, dict(glu=True, activation="silu"), 3e-2),
+    (2, 70, 40, 96, torch.float32, dict(glu=True, activation="gelu"), 1e-5),
+    (2, 66, 48, 64, torch.float16, dict(activation="relu2", softcap=4.0),
+     3e-2),
+    (2, 9, 33, 64, torch.int8, {}, 0.0),
+]
+
+
+@pytest.mark.parametrize("case", GM_CASES, ids=lambda c: f"{c[0]}x{c[1]}x"
+                         f"{c[2]}x{c[3]}-{str(c[4])[6:]}-"
+                         f"{'-'.join(c[5]) or 'plain'}")
+def test_grouped_matmul_source_vs_plain(bound, case):
+    e, c, k, n, dt, fields, tol = case
+    g = torch.Generator().manual_seed(e * c * k + n)
+    if dt == torch.int8:
+        x = torch.randint(-127, 128, (e, c, k), generator=g, dtype=dt)
+        w = torch.randint(-127, 128, (e, k, n), generator=g, dtype=dt)
+    else:
+        x = torch.randn(e, c, k, generator=g).to(dt)
+        w = torch.randn(e, k, n, generator=g).to(dt)
+    int8 = dt == torch.int8
+    ep = Epilogue(out_dtype=torch.int32 if int8 else dt, **fields)
+    out = gm.grouped_matmul_cuda(x, w, ep)
+    ref = gm.grouped_matmul_plain(x, w, ep,
+                                  torch.int32 if int8 else torch.float32)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    if int8:
+        assert torch.equal(out, ref)
+    for i in range(e):              # every expert on its own scale
+        assert _rel(out[i], ref[i]) <= tol
+
+
+def _ties(m, k, dt):
+    """Rows whose absmax is 127, so x / scale is x itself: the .5 and
+    -.5 entries land exactly on ties; one row is all zeros."""
+    g = torch.Generator().manual_seed(m * k)
+    x = (torch.randint(-254, 255, (m, k), generator=g) / 2.0)
+    x[:, 0] = 127.0
+    x[1] = 0.0
+    return x.to(dt)
+
+
+@pytest.mark.parametrize("m,k,dt", [(37, 200, torch.float32),
+                                    (5, 300, torch.bfloat16),
+                                    (3, 64, torch.float16)],
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_quantize_rowwise_source_bit_exact(bound, m, k, dt):
+    g = torch.Generator().manual_seed(k)
+    for x in ((torch.randn(m, k, generator=g) * 3).to(dt), _ties(m, k, dt)):
+        q, s = qr.quantize_rowwise_cuda(x)
+        q_ref, s_ref = qr.quantize_rowwise_plain(x)
+        assert q.dtype == torch.int8 and s.dtype == torch.float32
+        assert torch.equal(q, q_ref) and torch.equal(s, s_ref)

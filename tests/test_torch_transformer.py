@@ -224,3 +224,10 @@ def test_launcher_serves_on_cpu_and_refuses_unported_modes(capsys):
     assert "served 3 requests, 9 tokens on cpu" in out
     with pytest.raises(SystemExit, match="not yet ported"):
         serve.main(["--reduced", "--device", "cpu", "--plan", "desim"])
+
+
+def test_launcher_serves_olmoe_on_cpu(capsys):
+    serve.main(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
+                "--requests", "3", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert "served 3 requests, 9 tokens on cpu" in out
