@@ -22,13 +22,27 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 counts;
 7. moe-serve  — the same traffic through olmoe-1b-7b at full width and
                 depth (the grouped-matmul kernel on every expert MLP);
-8. profile, moe-profile — device time by kernel over a few decode
-                steps of each served model (``torch.profiler``), and the
-                device's idle share; measurement only;
-9. w8a8       — yi-6b's MLP at full width through ``quantize_mlp`` and
+8. kernels-recurrent — the RG-LRU scan and the chunked RWKV-6 WKV
+                against their plain versions at the serving paths'
+                shapes, with initial states, ragged lengths, carried
+                state and the decay limits; flash attention at head_dim
+                256 (MQA 10/1, causal, window);
+9. griffin-parity, rwkv-parity — the parity of phases 4-5 for
+                recurrentgemma-2b (6 layers: two triples) and rwkv6-7b
+                (4 layers);
+10. griffin-serve, rwkv-serve — the traffic of phase 6 through
+                recurrentgemma-2b (RG-LRU kernel on every recurrent block)
+                and rwkv6-7b (WKV kernel on every time-mix block) at full
+                width and depth;
+11. profile, moe-profile, griffin-profile, rwkv-profile — device time by
+                kernel of one prefill and over a few decode steps of each
+                served model (``torch.profiler``), the device's idle share
+                of a decode step, and for tied embeddings the time of the
+                transposed copy the logits take; measurement only;
+12. w8a8       — yi-6b's MLP at full width through ``quantize_mlp`` and
                 the W8A8 layers (row-quantiser kernel, int8 fused matmul)
                 against the plain route and the float MLP;
-10. the ``kernels`` line: per kernel, its launches in the paths above, its
+13. the ``kernels`` line: per kernel, its launches in the paths above, its
    time at the paths' largest shapes beside its plain version, a library
    call and its roofline bound.
 
@@ -55,10 +69,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 ARCH = "yi-6b"
 MOE_ARCH = "olmoe-1b-7b"
+GRIFFIN_ARCH = "recurrentgemma-2b"
+RWKV_ARCH = "rwkv6-7b"
 N_REQUESTS, MAX_BATCH, CACHE_LEN, MAX_NEW = 8, 4, 512, 16
 PROMPT_RANGE = (16, 256)            # inclusive, drawn with numpy seed 0
 PARITY_LAYERS, PARITY_DECODE = 4, 4
+GRIFFIN_PARITY_LAYERS = 6           # two (rec, rec, attn) triples
 TOL_BF16, TOL_FP32, TOL_FLASH_BF16, TOL_FLASH_FP32 = 3e-2, 1e-5, 4e-2, 1e-3
+TOL_WKV_FP32 = 1e-4
 TOL_PATH = 1e-4
 TOL_W8A8_ROUTES, TOL_W8A8_FLOAT = 1e-5, 0.05
 PROFILE_STEPS, UNTRACED_STEPS = 4, 16
@@ -66,7 +84,9 @@ PROFILE_STEPS, UNTRACED_STEPS = 4, 16
 KERNEL_TAGS = {"fused_matmul": "FusedMatmul",
                "grouped_matmul": "GroupedMatmul",
                "flash_attention": "flash_attention_kernel",
-               "quantize_rowwise": "quantize_rowwise_kernel"}
+               "quantize_rowwise": "quantize_rowwise_kernel",
+               "rglru_scan": "rglru_scan_kernel",
+               "rwkv6_wkv": "rwkv6_wkv_kernel"}
 
 
 class PhaseFailed(Exception):
@@ -388,20 +408,147 @@ def phase_kernels(cfg, moe_cfg, s_max):
     return results
 
 
+def lru_case(gen, b, t, c, *, h0=False):
+    """RG-LRU inputs as the recurrent block makes them: log_a =
+    -8 softplus(lambda) sigmoid(r) with lambda in [2, 6]; fp32."""
+    import torch.nn.functional as F
+    lam = torch.rand(c, generator=gen, device="cuda") * 4.0 + 2.0
+    gate = torch.sigmoid(_rand(gen, (b, t, c), torch.float32))
+    log_a = -8.0 * F.softplus(lam) * gate
+    x = _rand(gen, (b, t, c), torch.float32)
+    return log_a, x, _rand(gen, (b, c), torch.float32) if h0 else None
+
+
+def run_lru(log_a, x, h0=None):
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    return rglru_scan(log_a, x, h0)
+
+
+def plain_lru(log_a, x, h0=None):
+    from repro_torch.kernels.rglru.rglru import rglru_scan_plain
+    return rglru_scan_plain(log_a, x, h0)
+
+
+def wkv_case(gen, b, h, t, c, dtype, *, s0=False, lw_value=None):
+    """WKV inputs: r, k, v in ``dtype``; lw = -exp(clip(w, -8, 6)) in
+    fp32 (the model's clip), or the constant ``lw_value``; u, s0 fp32."""
+    shape = (b, h, t, c)
+    r, k, v = (_rand(gen, shape, dtype) for _ in range(3))
+    if lw_value is None:
+        w = _rand(gen, shape, torch.float32) * 1.5 - 1.0
+        lw = -torch.exp(torch.clamp(w, -8.0, 6.0))
+    else:
+        lw = torch.full(shape, lw_value, device="cuda")
+    u = _rand(gen, (h, c), torch.float32) * 0.3
+    state = _rand(gen, (b, h, c, c), torch.float32) * 0.3 if s0 else None
+    return r, k, v, lw, u, state
+
+
+def run_wkv(r, k, v, lw, u, s0=None, *, chunk):
+    from repro_torch.kernels.rwkv6.ops import rwkv6_scan
+    return rwkv6_scan(r, k, v, lw, u, chunk=chunk, initial_state=s0)
+
+
+def plain_wkv(r, k, v, lw, u, s0=None, *, chunk):
+    from repro_torch.kernels.rwkv6.rwkv6 import rwkv6_chunked
+    return rwkv6_chunked(r, k, v, lw, u, chunk=chunk, initial_state=s0)
+
+
+def phase_kernels_recurrent(g_cfg, r_cfg, s_max):
+    """K5 and K6 at the recurrent serving paths' shapes, K2 at head_dim
+    256, each against its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    results = []
+
+    def record(kernel, name, out, ref, tol, extra_ok=True):
+        torch.cuda.synchronize()
+        rel, diff = rel_err(out, ref)
+        ok = (out.dtype == ref.dtype and out.shape == ref.shape
+              and rel <= tol and bool(torch.isfinite(out.double()).all())
+              and extra_ok)
+        results.append({"kernel": kernel, "case": name, "rel": rel,
+                        "max_abs_err": diff, "tol": tol, "ok": ok})
+
+    b, c = MAX_BATCH, g_cfg.rnn.d_rnn
+    for name, shape, h0 in ((f"path ({b},{s_max},{c})", (b, s_max, c), False),
+                            (f"path ({b},{s_max},{c}) with h0",
+                             (b, s_max, c), True),
+                            ("ragged (3,37,300) with h0", (3, 37, 300), True)):
+        log_a, x, init = lru_case(gen, *shape, h0=h0)
+        (h, h_last), (ref, ref_last) = (run_lru(log_a, x, init),
+                                        plain_lru(log_a, x, init))
+        record("rglru_scan", name, h, ref, TOL_FP32)
+        record("rglru_scan", name + ": h_T", h_last, ref_last, TOL_FP32)
+    # log_a -> 0: a -> 1 and beta -> 0, a pure integrator that keeps h0
+    _, x, init = lru_case(gen, b, s_max, c, h0=True)
+    log_a = torch.full_like(x, -1e-9)
+    (h, h_last), (ref, _) = run_lru(log_a, x, init), plain_lru(log_a, x, init)
+    record("rglru_scan", "log_a -> 0 keeps h0", h, ref, TOL_FP32,
+           extra_ok=bool((h_last - init).abs().max() < 0.05))
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    hh, hs = r_cfg.n_heads, r_cfg.rwkv.head_size
+    path = (b, hh, s_max, hs)
+    for name, shape, dt, chunk, kw in (
+            (f"path {path} bf16 chunk 64 with state", path, bf16, 64,
+             dict(s0=True)),
+            (f"path {path} fp32 chunk 32", path, f32, 32, {}),
+            ("ragged (2,8,100,64) fp32 chunk 64 with state", (2, 8, 100, 64),
+             f32, 64, dict(s0=True)),
+            ("lw = -exp(6) fp32 chunk 64", path, f32, 64,
+             dict(lw_value=-float(np.exp(6.0)))),
+            ("lw = -exp(-8) fp32 chunk 64", path, f32, 64,
+             dict(lw_value=-float(np.exp(-8.0))))):
+        args = wkv_case(gen, *shape, dt, **kw)
+        (o, s), (ref, ref_s) = (run_wkv(*args, chunk=chunk),
+                                plain_wkv(*args, chunk=chunk))
+        record("rwkv6_wkv", name, o, ref,
+               TOL_BF16 if dt == bf16 else TOL_WKV_FP32)
+        record("rwkv6_wkv", name + ": state", s, ref_s, TOL_WKV_FP32)
+    # two calls with the state carried equal one call
+    r, k, v, lw, u, _ = wkv_case(gen, *path, f32)
+    o, s = run_wkv(r, k, v, lw, u, chunk=64)
+    cut = s_max // 2
+    o1, s1 = run_wkv(*(z[:, :, :cut] for z in (r, k, v, lw)), u, chunk=64)
+    o2, s2 = run_wkv(*(z[:, :, cut:] for z in (r, k, v, lw)), u, s1,
+                     chunk=64)
+    record("rwkv6_wkv", f"two calls ({cut} + rest) with the state carried",
+           torch.cat([o1, o2], dim=2), o, TOL_WKV_FP32)
+    record("rwkv6_wkv", "two calls: final state", s2, s, TOL_WKV_FP32)
+
+    hq, hkv, hd = g_cfg.n_heads, g_cfg.n_kv_heads, g_cfg.head_dim
+    for name, shape, dt, window, tol in (
+            (f"path b={b} s={s_max} d={hd} MQA {hq}/{hkv} bf16",
+             (b, hq, hkv, s_max, s_max, hd), bf16, g_cfg.window,
+             TOL_FLASH_BF16),
+            (f"d={hd} MQA fp32 window 64", (2, hq, hkv, 300, 300, hd), f32,
+             64, TOL_FLASH_FP32)):
+        q, kk, vv = attention_case(gen, *shape, dt)
+        kw = dict(sm_scale=hd ** -0.5, causal=True, window=window,
+                  softcap=0.0, q_start=0)
+        record("flash_attention", name, run_attention(q, kk, vv, **kw),
+               plain_attention(q, kk, vv, **kw), tol)
+    emit({"phase": "kernels-recurrent", "cases": results})
+    require(all(r["ok"] for r in results),
+            "kernel mismatch: " + ", ".join(r["case"] for r in results
+                                           if not r["ok"]))
+
+
 # ---------------------------------------------------------------------------
-# Phases 4-5: 4-layer fp32 full width, kernel route against the torch
-# route (yi-6b, then olmoe-1b-7b).
+# Parity: fp32 full width, cut in depth, kernel route against the torch
+# route (yi-6b, olmoe-1b-7b, recurrentgemma-2b, rwkv6-7b).
 # ---------------------------------------------------------------------------
 
-def phase_parity(arch, phase):
+def phase_parity(arch, phase, n_layers=PARITY_LAYERS):
     from repro_torch import backend
     from repro_torch.configs.registry import get_config
     from repro_torch.models import moe as moe_lib
-    from repro_torch.models import transformer as tf
-    cfg = get_config(arch).with_(n_layers=PARITY_LAYERS, dtype=torch.float32,
+    from repro_torch.models.base import family_module
+    cfg = get_config(arch).with_(n_layers=n_layers, dtype=torch.float32,
                                  kv_cache_dtype=torch.float32)
+    mod = family_module(cfg)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    params = tf.init(cfg, gen, "cuda")
+    params = mod.init(cfg, gen, "cuda")
     rng = np.random.default_rng(3)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))).cuda()
     picks = {}                  # route -> each router call's expert sets
@@ -417,15 +564,15 @@ def phase_parity(arch, phase):
         moe_lib.route = recording
         try:
             rcfg = cfg.with_(backend=route)
-            cache = tf.init_cache(rcfg, 4, 64 + PARITY_DECODE + 1,
-                                  device="cuda")
-            logits, cache = tf.prefill(rcfg, params, {"tokens": tokens},
-                                       cache)
+            cache = mod.init_cache(rcfg, 4, 64 + PARITY_DECODE + 1,
+                                   device="cuda")
+            logits, cache = mod.prefill(rcfg, params, {"tokens": tokens},
+                                        cache)
             steps = [logits]
             for i in range(PARITY_DECODE):
                 tok = forced[i] if forced else steps[-1].argmax(-1)
-                logits, cache = tf.decode_step(rcfg, params, tok[:, None],
-                                               cache, 64 + i)
+                logits, cache = mod.decode_step(rcfg, params, tok[:, None],
+                                                cache, 64 + i)
                 steps.append(logits)
             torch.cuda.synchronize()
             return steps
@@ -441,7 +588,7 @@ def phase_parity(arch, phase):
     same = [bool(torch.equal(k.argmax(-1), p.argmax(-1)))
             for k, p in zip(kern, plain)]
     finite = all(bool(torch.isfinite(k).all()) for k in kern)
-    line = {"phase": phase, "config": f"{arch} width, {PARITY_LAYERS} "
+    line = {"phase": phase, "config": f"{arch} width, {n_layers} "
             "layers, fp32", "rel_err": errs, "tol": TOL_PATH,
             "tokens_equal": same, "finite": finite}
     if cfg.moe is not None:
@@ -457,8 +604,8 @@ def phase_parity(arch, phase):
 
 
 # ---------------------------------------------------------------------------
-# Phases 6-7: serve full-width, full-depth yi-6b and olmoe-1b-7b through
-# the kernels.
+# Serving: full-width, full-depth yi-6b, olmoe-1b-7b, recurrentgemma-2b
+# and rwkv6-7b through the kernels.
 # ---------------------------------------------------------------------------
 
 def phase_serve(arch, phase, counters):
@@ -527,14 +674,31 @@ def phase_serve(arch, phase, counters):
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: where a decode step's device time goes (torch.profiler).
+# Where a prefill's and a decode step's device time goes (torch.profiler).
 # ---------------------------------------------------------------------------
 
+def _device_ms_by_kernel(prof, n):
+    """(device kernel events, busy ms per call, ms per call by kernel
+    group) of a trace of ``n`` calls."""
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in device) / 1e3 / n
+    groups = dict.fromkeys([*KERNEL_TAGS, "other"], 0.0)
+    for e in device:
+        g = next((name for name, tag in KERNEL_TAGS.items() if tag in e.key),
+                 "other")
+        groups[g] += e.self_device_time_total / 1e3 / n
+    return device, busy, groups
+
+
 def phase_profile(arch, phase, s_max):
-    """Device time by kernel over ``PROFILE_STEPS`` decode steps of the
-    serving batch (4 requests at the longest batch's prompt length), and
-    the device's idle share of an untraced step (the mean of
-    ``UNTRACED_STEPS``).  Measures only: it fails no run."""
+    """Device time by kernel of the prefill of the serving batch (4
+    requests at the longest batch's prompt length) and over
+    ``PROFILE_STEPS`` decode steps after it, and the device's idle share
+    of an untraced step (the mean of ``UNTRACED_STEPS``).  With tied
+    embeddings, the time of the transposed copy of the embedding that
+    the logits take.  Measures only: it fails no run."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.registry import get_config
     from repro_torch.models.base import family_module
@@ -546,7 +710,11 @@ def phase_profile(arch, phase, s_max):
     tokens = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (MAX_BATCH, s_max))).cuda()
     cache = mod.init_cache(cfg, MAX_BATCH, CACHE_LEN, device="cuda")
-    logits, cache = mod.prefill(cfg, params, {"tokens": tokens}, cache)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        logits, cache = mod.prefill(cfg, params, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+    _, prefill_busy, prefill_groups = _device_ms_by_kernel(prof, 1)
     pos = s_max
 
     def steps(n):
@@ -567,38 +735,40 @@ def phase_profile(arch, phase, s_max):
         t0 = time.perf_counter()
         steps(PROFILE_STEPS)
         traced_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
-
-    def per_step(us):
-        return us / 1e3 / PROFILE_STEPS
-
-    busy = per_step(sum(e.self_device_time_total for e in device))
-    groups = dict.fromkeys([*KERNEL_TAGS, "other"], 0.0)
-    for e in device:
-        g = next((n for n, tag in KERNEL_TAGS.items() if tag in e.key),
-                 "other")
-        groups[g] += per_step(e.self_device_time_total)
+    device, busy, groups = _device_ms_by_kernel(prof, PROFILE_STEPS)
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
-    emit({"phase": phase, "config": f"{arch} full size, bf16, decode at "
-          f"batch {MAX_BATCH} from position {s_max}", "steps": PROFILE_STEPS,
-          "decode_step_ms": step_ms, "traced_step_ms": traced_ms,
-          "profiler_saw_device": bool(device),
-          "device_busy_ms_per_step": busy,
-          "device_idle_share": 1.0 - busy / step_ms,
-          "device_ms_per_step_by_kernel": groups,
-          "top_device_kernels": [
-              {"name": e.key[:160], "launches_per_step":
-               e.count / PROFILE_STEPS,
-               "ms_per_step": per_step(e.self_device_time_total)}
-              for e in top]})
+    line = {"phase": phase, "config": f"{arch} full size, bf16, prefill of "
+            f"({MAX_BATCH},{s_max}), then decode at batch {MAX_BATCH} from "
+            f"position {s_max}", "steps": PROFILE_STEPS,
+            "prefill_device_ms": prefill_busy,
+            "prefill_device_ms_by_kernel": prefill_groups,
+            "prefill_device_share_by_kernel": {
+                g: ms / prefill_busy for g, ms in prefill_groups.items()
+                if ms > 0} if prefill_busy else {},
+            "decode_step_ms": step_ms, "traced_step_ms": traced_ms,
+            "profiler_saw_device": bool(device),
+            "device_busy_ms_per_step": busy,
+            "device_idle_share": 1.0 - busy / step_ms,
+            "device_ms_per_step_by_kernel": groups,
+            "top_device_kernels": [
+                {"name": e.key[:160], "launches_per_step":
+                 e.count / PROFILE_STEPS,
+                 "ms_per_step": e.self_device_time_total / 1e3
+                 / PROFILE_STEPS}
+                for e in top]}
+    if cfg.tie_embeddings:
+        emb = params["embedding"]
+        line["tied_embedding_copy_ms"] = time_ms(
+            {"copy": lambda: emb.T.contiguous()})["copy"]
+        line["tied_embedding_copy_bytes"] = 2 * emb.numel() * \
+            emb.element_size()
+    emit(line)
     del params, cache
     torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
-# Phase 9: yi-6b's MLP at full width through the W8A8 layers.
+# yi-6b's MLP at full width through the W8A8 layers.
 # ---------------------------------------------------------------------------
 
 def phase_w8a8(cfg, s_max):
@@ -671,7 +841,7 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# Phase 10: times at the paths' largest shapes.
+# Times at the paths' largest shapes.
 # ---------------------------------------------------------------------------
 
 def time_ms(fns: dict, reps: int = 10, warmup: int = 2,
@@ -705,7 +875,7 @@ def bound(flops: float, nbytes: float, peak: float, bw: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_timing(cfg, moe_cfg, s_max, path_launches):
+def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
     """``path_launches``: path -> {kernel name: launches in that path}."""
     import torch.nn.functional as F
     from repro_torch.core.hardware import H100_SXM as chip
@@ -819,6 +989,95 @@ def phase_timing(cfg, moe_cfg, s_max, path_launches):
         "shape": f"fp32 ({rows},{d}) -> int8 ({rows},{d}), fp32 ({rows},)",
         "library_call": "none: no single PyTorch call computes a per-row "
                         "absmax int8 quantisation"})
+
+    # K2 at head_dim 256: RecurrentGemma's prefill attention (MQA 10/1,
+    # window 2048, longer than the prompt).
+    h, hkv, hd = g_cfg.n_heads, g_cfg.n_kv_heads, g_cfg.head_dim
+    q, kk, v = attention_case(gen, MAX_BATCH, h, hkv, s_max, s_max, hd,
+                              torch.bfloat16)
+    k_rep, v_rep = (x.repeat_interleave(h // hkv, dim=1) for x in (kk, v))
+    kw = dict(sm_scale=hd ** -0.5, causal=True, window=g_cfg.window,
+              softcap=0.0, q_start=0)
+    t = time_ms({
+        "kernel": lambda: run_attention(q, kk, v, **kw),
+        "plain": lambda: plain_attention(q, kk, v, **kw),
+        "library": lambda: F.scaled_dot_product_attention(
+            q, k_rep, v_rep, is_causal=True, scale=hd ** -0.5)})
+    _, diff = rel_err(run_attention(q, kk, v, **kw),
+                      plain_attention(q, kk, v, **kw))
+    pairs = s_max * (s_max + 1) // 2                   # causal (q, k) pairs
+    ms, by = bound(4.0 * MAX_BATCH * h * pairs * hd,
+                   2.0 * (2 * q.numel() + kk.numel() + v.numel()),
+                   chip.peak_bf16, chip.hbm_bw)
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/attention/attention.py:34",
+        **counts("flash_attention"), "max_abs_err": diff,
+        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
+        "bound_by": by, "library_ms": t["library"],
+        "shape": f"bf16 q ({MAX_BATCH},{h},{s_max},{hd}) kv "
+                 f"({MAX_BATCH},{hkv},{s_max},{hd}) causal, window "
+                 f"{g_cfg.window}",
+        "library_call": "F.scaled_dot_product_attention on KV heads "
+                        "repeated to H beforehand"})
+
+    # K5 at RecurrentGemma's prefill shape, from a carried state (the
+    # stateful pass), cold L2.  About ten operations per element: exp,
+    # expm1, sqrt, three multiplies, an add and the doubling.
+    b, c = MAX_BATCH, g_cfg.rnn.d_rnn
+    log_a, x, h0 = lru_case(gen, b, s_max, c, h0=True)
+    scratch = torch.empty(16 * 2 ** 20, device="cuda")
+    t = time_ms({"kernel": lambda: run_lru(log_a, x, h0),
+                 "plain": lambda: plain_lru(log_a, x, h0)},
+                flush=lambda: scratch.fill_(0.0))
+    _, diff = rel_err(run_lru(log_a, x, h0)[0], plain_lru(log_a, x, h0)[0])
+    ms, by = bound(10.0 * x.numel(), 4.0 * (3 * x.numel() + 2 * b * c),
+                   chip.peak_fp32, chip.hbm_bw)
+    kernels.append({
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru/rglru.py:23",
+        **counts("rglru_scan"), "max_abs_err": diff,
+        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
+        "bound_by": by, "library_ms": None,
+        "shape": f"fp32 log_a, x ({b},{s_max},{c}), h0 ({b},{c}) -> h, h_T",
+        "library_call": "none: no single PyTorch call computes the "
+                        "recurrence"})
+
+    # K6 at RWKV-6's serving prefill shape (chunk 64, carried state, bf16
+    # r, k, v), cold L2.  Operations of the chunked form on this run's
+    # tokens, all in fp32 as the function defines them: per (batch, head)
+    # and chunk of n tokens, the inter-chunk product and the state update
+    # 2 n C^2 each, the pairwise term n(n-1)/2 pairs of C (r k, the
+    # exponent's difference, exp, the sum: 5 operations) plus its 2 C
+    # against V, and about 12 n C for the prefix sum, the bonus and the
+    # scalings.
+    hh, hs = r_cfg.n_heads, r_cfg.rwkv.head_size
+    args = wkv_case(gen, b, hh, s_max, hs, torch.bfloat16, s0=True)
+    t = time_ms({"kernel": lambda: run_wkv(*args, chunk=64),
+                 "plain": lambda: plain_wkv(*args, chunk=64)},
+                flush=lambda: scratch.fill_(0.0))
+    _, diff = rel_err(run_wkv(*args, chunk=64)[0],
+                      plain_wkv(*args, chunk=64)[0])
+    lens = [min(64, s_max - i) for i in range(0, s_max, 64)]
+    ops = b * hh * sum(4 * n * hs * hs + n * (n - 1) // 2 * hs * 7
+                       + 12 * n * hs for n in lens)
+    r, k, v, lw, u, s0 = args
+    nbytes = (2 * 4 * r.numel()                  # r, k, v read, o written
+              + 4 * (lw.numel() + u.numel() + 2 * s0.numel()))
+    ms, by = bound(float(ops), float(nbytes), chip.peak_fp32, chip.hbm_bw)
+    kernels.append({
+        "name": "rwkv6_wkv", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+        "replaces": "src/repro/kernels/rwkv6/rwkv6.py:32",
+        **counts("rwkv6_scan"), "max_abs_err": diff,
+        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
+        "bound_by": by, "library_ms": None,
+        "shape": f"bf16 r, k, v ({b},{hh},{s_max},{hs}), fp32 lw, u "
+                 f"({hh},{hs}), state ({b},{hh},{hs},{hs}), chunk 64",
+        "library_call": "none: no single PyTorch call computes the "
+                        "recurrence"})
     return kernels
 
 
@@ -828,22 +1087,34 @@ def main() -> int:
     from repro_torch.kernels.attention.ops import flash_attention
     from repro_torch.kernels.matmul.ops import fused_matmul
     from repro_torch.kernels.moe.ops import grouped_matmul
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rwkv6.ops import rwkv6_scan
     cfg, moe_cfg = get_config(ARCH), get_config(MOE_ARCH)
+    g_cfg, r_cfg = get_config(GRIFFIN_ARCH), get_config(RWKV_ARCH)
     s_max = max(padded_lengths(prompt_lengths()[0]))
     dense = {"fused_matmul": fused_matmul, "flash_attention": flash_attention}
     try:
         phase_build()
         phase_kernels(cfg, moe_cfg, s_max)
+        phase_kernels_recurrent(g_cfg, r_cfg, s_max)
         phase_parity(ARCH, "parity")
         phase_parity(MOE_ARCH, "moe-parity")
+        phase_parity(GRIFFIN_ARCH, "griffin-parity", GRIFFIN_PARITY_LAYERS)
+        phase_parity(RWKV_ARCH, "rwkv-parity")
         launches = {
             "serve": phase_serve(ARCH, "serve", dense),
             "moe-serve": phase_serve(MOE_ARCH, "moe-serve", {
-                **dense, "grouped_matmul": grouped_matmul})}
+                **dense, "grouped_matmul": grouped_matmul}),
+            "griffin-serve": phase_serve(GRIFFIN_ARCH, "griffin-serve", {
+                **dense, "rglru_scan": rglru_scan}),
+            "rwkv-serve": phase_serve(RWKV_ARCH, "rwkv-serve", {
+                "fused_matmul": fused_matmul, "rwkv6_scan": rwkv6_scan})}
         phase_profile(ARCH, "profile", s_max)
         phase_profile(MOE_ARCH, "moe-profile", s_max)
+        phase_profile(GRIFFIN_ARCH, "griffin-profile", s_max)
+        phase_profile(RWKV_ARCH, "rwkv-profile", s_max)
         launches["w8a8"] = phase_w8a8(cfg, s_max)
-        kernels = phase_timing(cfg, moe_cfg, s_max, launches)
+        kernels = phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, launches)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -16,6 +16,8 @@ ARCH_MODULES = {
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     # Run only through ``reduced()``: 480 B parameters fit no one card.
     "arctic-480b": "repro_torch.configs.arctic_480b",
+    "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
 }
 
 ALL_ARCHS = tuple(ARCH_MODULES)

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.attention.ref import attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (32, 64, 128)     # head dims the kernel is instantiated for
+_HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernel is instantiated for
 
 _fn = None
 

@@ -239,6 +239,9 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
     case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, st,
                                     sm_scale, causal, window, softcap,
                                     q_start, vec, s);
+    case 256: return launch<T, 256>(q, k, v, o, B, H, Hkv, Sq, Sk, st,
+                                    sm_scale, causal, window, softcap,
+                                    q_start, vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -247,8 +250,9 @@ int dispatch_d(int D, const void* q, const void* k, const void* v, void* o,
 
 // q (B, H, Sq, D), k/v (B, Hkv, Sk, D), o like q; each with unit stride
 // along D and the element strides in `strides` (q b/h/s, k b/h/s,
-// v b/h/s, o b/h/s).  D is 32, 64 or 128.  Returns the CUDA error code
-// of the launch (0 = success).
+// v b/h/s, o b/h/s).  D is 32, 64, 128 or 256 (RecurrentGemma's
+// heads; 140 KB of dynamic shared memory a block).  Returns the CUDA
+// error code of the launch (0 = success).
 extern "C" int flash_attention_launch(
     int dtype_code, int D, const void* q, const void* k, const void* v,
     void* o, int B, int H, int Hkv, int Sq, int Sk,

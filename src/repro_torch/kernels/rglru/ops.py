@@ -1,0 +1,31 @@
+"""Wrapper of the RG-LRU scan kernel (K5).
+
+The kernel masks nothing and pads nothing: one thread per (batch,
+channel) walks any T, so unlike the reference wrapper there is no
+``chunk``, ``block_c`` or ``interpret``.  It also takes an initial state
+and returns the final one, which the reference's kernel does not.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.rglru.rglru import rglru_scan_cuda, rglru_scan_plain
+
+
+def rglru_scan(log_a: torch.Tensor, x: torch.Tensor, initial_state=None):
+    """log_a, x: (B, T, C) float32 -> (h (B, T, C), h_T (B, C)), fp32.
+
+    CUDA tensors launch the kernel (and count the launch in
+    ``rglru_scan.launches``) or raise; CPU tensors run the plain version.
+    """
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, T, C), got {tuple(x.shape)}")
+    if x.is_cuda:
+        out = rglru_scan_cuda(log_a, x, initial_state)
+        rglru_scan.launches += 1
+        return out
+    return rglru_scan_plain(log_a, x, initial_state)
+
+
+rglru_scan.launches = 0

@@ -14,10 +14,11 @@ fields.  Every model family implements the same functional protocol:
 VLM / audio entries.  The port's ``init`` takes a ``torch.Generator`` and
 a device in place of the reference's PRNG key.
 
-The port implements the ``transformer`` family so far, dense and MoE
-(``MoeConfig``).  The RNN, RWKV and encoder-decoder sub-configs are kept
-as fields so configurations read the same, and ``family_module`` rejects
-their families with ``NotImplementedError``.
+The port implements the ``transformer`` family (dense and MoE,
+``MoeConfig``), ``griffin`` (RecurrentGemma, ``RnnConfig``) and ``rwkv6``
+(``RwkvConfig``).  The encoder-decoder sub-config is kept as a field so
+configurations read the same, and ``family_module`` rejects its family
+(``encdec``, Whisper) with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -188,7 +189,8 @@ def register_family(name: str):
 def family_module(cfg: ArchConfig):
     """Resolve the functional module implementing ``cfg.family``."""
     # Import for side effects (registration); idempotent via sys.modules.
-    from repro_torch.models import transformer  # noqa: F401
+    from repro_torch.models import (recurrentgemma, rwkv6,  # noqa: F401
+                                    transformer)
     if cfg.family not in _REGISTRY:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet; ported: "

@@ -41,6 +41,42 @@ def embed_init(gen: torch.Generator, shape, dtype, device=None):
 
 
 # ---------------------------------------------------------------------------
+# Parameter trees: dicts of tensors, stacked on a leading layer axis.
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_zip(fn, a, b):
+    if isinstance(a, dict):
+        for k in a:
+            _tree_zip(fn, a[k], b[k])
+    else:
+        fn(a, b)
+
+
+def stack_init(make, n: int):
+    """``n`` trees from ``make()`` stacked on a leading axis, filled one at
+    a time so that only one tree's temporaries exist besides the stack."""
+    first = make()
+    stack = tree_map(lambda x: torch.empty((n, *x.shape), dtype=x.dtype,
+                                           device=x.device), first)
+    _tree_zip(lambda s, x: s[0].copy_(x), stack, first)
+    del first
+    for i in range(1, n):
+        _tree_zip(lambda s, x: s[i].copy_(x), stack, make())
+    return stack
+
+
+def layer(tree, i: int):
+    """Layer ``i`` of a stacked tree, as views."""
+    return tree_map(lambda x: x[i], tree)
+
+
+# ---------------------------------------------------------------------------
 # Norms.
 # ---------------------------------------------------------------------------
 
@@ -51,6 +87,26 @@ def rmsnorm(x, w, eps: float = 1e-6, unit_offset: bool = False):
     y = xf * torch.rsqrt(var + eps)
     scale = (1.0 + w.float()) if unit_offset else w.float()
     return (y * scale).to(dt)
+
+
+def layernorm(x, w, b, eps: float = 1e-5):
+    dt = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
+def groupnorm_heads(x, w, b, n_heads: int, eps: float = 64e-5):
+    """RWKV ln_x: GroupNorm over head groups of the flattened channel dim."""
+    dt = x.dtype
+    *lead, c = x.shape
+    xf = x.float().reshape(*lead, n_heads, c // n_heads)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, c)
+    return (y * w.float() + b.float()).to(dt)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,327 @@
+"""RecurrentGemma / Griffin hybrid: RG-LRU recurrent blocks + local MQA.
+
+Block pattern (arXiv:2402.19427): (recurrent, recurrent, local-attention)
+repeating; every temporal block is followed by a GeGLU MLP block.  The
+recurrent block is: two input projections (gate branch GeLU; rnn branch →
+short causal conv1d → RG-LRU), merge by product, output projection.
+Local attention is MQA (1 KV head) with window 2048 and RoPE.
+
+26 layers = 8 × (rec, rec, attn) + 2 trailing recurrent blocks: a Python
+loop walks the 8 triples (the reference's ``lax.scan``), then the tail.
+
+Routes (``cfg.backend``): ``kernel`` runs the RG-LRU through the CUDA
+scan (``kernels/rglru``) and prefill attention through the flash kernel;
+``torch`` and ``dense`` run ``rglru_ref``.  A decode step (T = 1) takes
+the plain one-token step on every route.  The serving state is updated
+in place: the RNN carry and conv tail are copied into the cache, and the
+window's keys and values are written into its ring.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch
+
+from repro_torch.core.fusion import linear
+from repro_torch.models import common as cm
+from repro_torch.models.base import ArchConfig, register_family
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU + conv recurrent block.
+# ---------------------------------------------------------------------------
+
+def _rec_init(cfg: ArchConfig, gen: torch.Generator, device=None):
+    d, rn, dt = cfg.d_model, cfg.rnn, cfg.dtype
+    kw = dict(device=device)
+    return {
+        "w_gate_in": cm.dense_init(gen, (d, rn.d_rnn), dt, **kw),
+        "w_rnn_in": cm.dense_init(gen, (d, rn.d_rnn), dt, **kw),
+        "conv_w": (torch.randn((rn.conv_width, rn.d_rnn), generator=gen,
+                               **kw) * 0.1).to(dt),
+        "conv_b": torch.zeros((rn.d_rnn,), dtype=dt, **kw),
+        # RG-LRU gates (block-diagonal dense in the reference; dense here).
+        "w_input_gate": cm.dense_init(gen, (rn.d_rnn, rn.d_rnn), dt, **kw),
+        "b_input_gate": torch.zeros((rn.d_rnn,), dtype=dt, **kw),
+        "w_rec_gate": cm.dense_init(gen, (rn.d_rnn, rn.d_rnn), dt, **kw),
+        "b_rec_gate": torch.zeros((rn.d_rnn,), dtype=dt, **kw),
+        "lambda_p": torch.rand((rn.d_rnn,), generator=gen, **kw) * 4.0 + 2.0,
+        "w_rnn_out": cm.dense_init(gen, (rn.d_rnn, d), dt, in_axis=1, **kw),
+    }
+
+
+def _causal_conv(x, w, b, conv_state=None):
+    """Depthwise causal conv1d.  x: (B, T, C); w: (W, C).
+
+    ``conv_state``: (B, W-1, C) trailing inputs from the previous call
+    (decode); returns (y, new_state).
+    """
+    width, t = w.shape[0], x.shape[1]
+    if conv_state is None:
+        pad = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
+    else:
+        pad = conv_state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    y = sum(xp[:, i:i + t] * w[i] for i in range(width)) + b
+    return y.to(x.dtype), xp[:, -(width - 1):]
+
+
+def _rglru_gates(cfg: ArchConfig, p, x):
+    """log_a (B, T, C) and gated input for the RG-LRU, both fp32."""
+    i_gate = torch.sigmoid(
+        linear(x, p["w_input_gate"], p["b_input_gate"]).float())
+    r_gate = torch.sigmoid(
+        linear(x, p["w_rec_gate"], p["b_rec_gate"]).float())
+    lam = p["lambda_p"].float()
+    softplus = torch.logaddexp(lam, torch.zeros_like(lam))  # jax's form
+    log_a = -cfg.rnn.c * softplus * r_gate
+    return log_a, i_gate * x.float()
+
+
+def _rglru_seq(cfg: ArchConfig, log_a, gated):
+    if cfg.backend == "kernel":
+        from repro_torch.kernels.rglru.ops import rglru_scan
+        return rglru_scan(log_a, gated.float())[0]
+    from repro_torch.kernels.rglru.ref import rglru_ref
+    return rglru_ref(log_a, gated)[0]
+
+
+def _rglru_stateful(cfg: ArchConfig, log_a, gated, h0):
+    """(h (B, T, C), h_T) from the carried state ``h0``: one plain step
+    at decode, the kernel (``kernel`` route) or ``rglru_ref`` at T > 1."""
+    if log_a.shape[1] == 1:
+        from repro_torch.kernels.rglru.ref import rglru_decode_step
+        out, new = rglru_decode_step(h0, log_a[:, 0], gated[:, 0])
+        return out[:, None], new
+    if cfg.backend == "kernel":
+        from repro_torch.kernels.rglru.ops import rglru_scan
+        return rglru_scan(log_a, gated.float(), initial_state=h0)
+    from repro_torch.kernels.rglru.ref import rglru_ref
+    return rglru_ref(log_a, gated, initial_state=h0)
+
+
+def rec_block_apply(cfg: ArchConfig, p, x, state=None):
+    """x: (B, T, d).  state: {conv: (B, W-1, C), h: (B, C)} or None."""
+    gate = linear(x, p["w_gate_in"], activation="gelu_tanh")
+    rnn_in = linear(x, p["w_rnn_in"])
+    conv_state = state["conv"] if state is not None else None
+    rnn_in, new_conv = _causal_conv(rnn_in, p["conv_w"], p["conv_b"],
+                                    conv_state)
+    log_a, gated = _rglru_gates(cfg, p, rnn_in)
+    if state is None:
+        h = _rglru_seq(cfg, log_a, gated)
+        new_state = None
+    else:
+        h, h_final = _rglru_stateful(cfg, log_a, gated, state["h"])
+        new_state = {"conv": new_conv, "h": h_final}
+    h = h.to(x.dtype) * gate
+    return linear(h, p["w_rnn_out"]), new_state
+
+
+# ---------------------------------------------------------------------------
+# Full blocks: temporal (rec | attn) + MLP, Griffin residual layout.
+# ---------------------------------------------------------------------------
+
+def _block_init(cfg: ArchConfig, gen: torch.Generator, kind: str,
+                device=None):
+    kw = dict(dtype=cfg.dtype, device=device)
+    p = {"ln_t": torch.zeros((cfg.d_model,), **kw),
+         "ln_mlp": torch.zeros((cfg.d_model,), **kw)}
+    if kind == "rec":
+        p["temporal"] = _rec_init(cfg, gen, device)
+    else:
+        p["temporal"] = cm.attn_init(cfg, gen, device)
+    p["mlp"] = cm.mlp_init(cfg, gen, device)
+    return p
+
+
+def _ring_write(k_cache, v_cache, k_new, v_new, pos: int):
+    """Write (B, Hkv, S_new, D) into the window ring at slot ``pos``.
+
+    The start is clamped to [0, window - S_new], as the reference's
+    ``dynamic_update_slice`` clamps it: a prompt longer than the window
+    writes its last ``window`` keys from slot 0 (slot i holds position
+    s - window + i), and the next decode step writes at ``pos % window``.
+    """
+    start = max(0, min(pos, k_cache.shape[2] - k_new.shape[2]))
+    return cm.cache_update(k_cache, v_cache, k_new, v_new, start)
+
+
+def block_apply(cfg: ArchConfig, p, x, *, kind, positions, state=None,
+                cache_pos=None):
+    h = cm.rmsnorm(x, p["ln_t"], cfg.rms_eps, unit_offset=True)
+    if kind == "rec":
+        t_out, new_state = rec_block_apply(cfg, p["temporal"], h, state)
+    else:
+        q, k, v = cm.qkv_project(cfg, p["temporal"], h, positions)
+        if state is not None:
+            # Ring-buffer local window cache: bounded at window size.
+            k_c, v_c = _ring_write(state["k"], state["v"], k, v,
+                                   cache_pos % cfg.window)
+            new_state = {"k": k_c, "v": v_c}
+            if q.shape[2] == 1:
+                ctx = _ring_decode(cfg, q, k_c, v_c, cache_pos)
+            else:
+                ctx = cm.attention(cfg, q, k, v, causal=True,
+                                   window=cfg.window)
+        else:
+            new_state = None
+            ctx = cm.attention(cfg, q, k, v, causal=True, window=cfg.window)
+        t_out = cm.attn_out(cfg, p["temporal"], ctx)
+    x = x + t_out
+    h = cm.rmsnorm(x, p["ln_mlp"], cfg.rms_eps, unit_offset=True)
+    x = x + cm.mlp_apply(cfg, p["mlp"], h)
+    return x, new_state
+
+
+def _ring_decode(cfg: ArchConfig, q, k_cache, v_cache, pos: int):
+    """Decode attention over a ring-buffered window cache.
+
+    Positions are physical slots; validity = all slots once pos >= window,
+    else slots < pos+1.  RoPE was applied pre-cache with absolute
+    positions, so scores are position-consistent regardless of slot order.
+    """
+    from repro_torch.kernels.attention.ref import NEG_INF
+    b, h, _, d = q.shape
+    hkv = k_cache.shape[1]
+    qe = q.reshape(b, hkv, h // hkv, d).float()
+    scores = torch.einsum("bngd,bnsd->bngs", qe,
+                          k_cache.float()) * cfg.sm_scale
+    slots = torch.arange(cfg.window, device=q.device)
+    valid = slots <= min(pos, cfg.window - 1)
+    scores = torch.where(valid, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bngs,bnsd->bngd", p, v_cache.float())
+    return out.reshape(b, h, 1, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Stack: the (rec, rec, attn) triples, then the remainder.
+# ---------------------------------------------------------------------------
+
+def _pattern(cfg: ArchConfig):
+    pat = cfg.rnn.block_pattern
+    n_triples = cfg.n_layers // len(pat)
+    rem = tuple(pat[i] for i in range(cfg.n_layers - n_triples * len(pat)))
+    return pat, n_triples, rem
+
+
+def init(cfg: ArchConfig, gen: torch.Generator, device=None):
+    """Seeded random parameters with the reference's distributions."""
+    pat, n_triples, rem = _pattern(cfg)
+    params = {
+        "embedding": cm.embed_init(gen, (cfg.padded_vocab, cfg.d_model),
+                                   cfg.dtype, device),
+        "ln_final": torch.zeros((cfg.d_model,), dtype=cfg.dtype,
+                                device=device),
+    }
+    params["triples"] = tuple(
+        cm.stack_init(lambda kind=kind: _block_init(cfg, gen, kind, device),
+                      n_triples)
+        for kind in pat)
+    params["tail"] = tuple(_block_init(cfg, gen, kind, device)
+                           for kind in rem)
+    return params
+
+
+def _store(state, new):
+    """Copy a block's new state into its (stacked) cache slot; the ring
+    was already written in place."""
+    for key, value in new.items():
+        if value is not state[key]:
+            state[key].copy_(value)
+
+
+def _apply_stack(cfg: ArchConfig, params, x, positions, states=None,
+                 cache_pos=None):
+    pat, n_triples, rem = _pattern(cfg)
+    blocks = [(kind, cm.layer(params["triples"][i], j),
+               None if states is None else cm.layer(states["triples"][i], j))
+              for j in range(n_triples) for i, kind in enumerate(pat)]
+    blocks += [(kind, params["tail"][i],
+                None if states is None else states["tail"][i])
+               for i, kind in enumerate(rem)]
+    for kind, lp, st in blocks:
+        x, new = block_apply(cfg, lp, x, kind=kind, positions=positions,
+                             state=st, cache_pos=cache_pos)
+        if st is not None:
+            _store(st, new)
+    return x, states
+
+
+def forward(cfg: ArchConfig, params, batch):
+    """Full-sequence forward (evaluation)."""
+    x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _ = _apply_stack(cfg, params, x, positions)
+    x = cm.rmsnorm(x, params["ln_final"], cfg.rms_eps, unit_offset=True)
+    return cm.logits_out(cfg, params, x)
+
+
+def _state_for(cfg: ArchConfig, kind, batch_size, dtype, device):
+    rn = cfg.rnn
+    if kind == "rec":
+        return {"conv": torch.zeros((batch_size, rn.conv_width - 1,
+                                     rn.d_rnn), dtype=dtype, device=device),
+                "h": torch.zeros((batch_size, rn.d_rnn),
+                                 dtype=torch.float32, device=device)}
+    s = (batch_size, cfg.n_kv_heads, cfg.window, cfg.head_dim)
+    return {"k": torch.zeros(s, dtype=cfg.kv_cache_dtype, device=device),
+            "v": torch.zeros(s, dtype=cfg.kv_cache_dtype, device=device)}
+
+
+def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
+               device=None):
+    del max_len                 # bounded: window cache + O(1) RNN state
+    dtype = dtype or cfg.dtype
+    pat, n_triples, rem = _pattern(cfg)
+
+    def stacked(kind):
+        one = _state_for(cfg, kind, batch_size, dtype, device)
+        return cm.tree_map(lambda x: x.new_zeros((n_triples, *x.shape)), one)
+
+    return {"triples": tuple(stacked(k) for k in pat),
+            "tail": tuple(_state_for(cfg, k, batch_size, dtype, device)
+                          for k in rem)}
+
+
+def prefill(cfg: ArchConfig, params, batch, cache):
+    """A sequence pass for the last position's logits, then a stateful pass
+    over the prompt's last ``window`` tokens that fills the cache, as the
+    reference does."""
+    tokens = batch["tokens"]
+    x = cm.embed_tokens(cfg, params["embedding"], tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    x_out, _ = _apply_stack(cfg, params, x, positions)
+    x_last = cm.rmsnorm(x_out[:, -1], params["ln_final"], cfg.rms_eps,
+                        unit_offset=True)
+    logits = cm.logits_out(cfg, params, x_last)
+    return logits, _prefill_states(cfg, params, batch, cache)
+
+
+def _prefill_states(cfg: ArchConfig, params, batch, cache):
+    """Recompute bounded states for the prompt tail (window + RNN carry):
+    a second pass over the final ``min(window, s)`` tokens."""
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    tail = min(cfg.window, s)
+    x = cm.embed_tokens(cfg, params["embedding"], tokens[:, -tail:])
+    positions = torch.arange(s - tail, s, device=x.device)
+    _, new_states = _apply_stack(cfg, params, x, positions, states=cache,
+                                 cache_pos=(s - tail) % cfg.window)
+    return new_states
+
+
+def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
+    """tokens: (B, 1); pos: current length (int).  One decode step."""
+    x = cm.embed_tokens(cfg, params["embedding"], tokens)
+    positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.int32,
+                           device=x.device)
+    x, cache = _apply_stack(cfg, params, x, positions, states=cache,
+                            cache_pos=pos)
+    x = cm.rmsnorm(x, params["ln_final"], cfg.rms_eps, unit_offset=True)
+    return cm.logits_out(cfg, params, x[:, -1]), cache
+
+
+register_family("griffin")(sys.modules[__name__])

@@ -1,0 +1,252 @@
+"""RWKV-6 (Finch) — attention-free SSM family.
+
+Faithful block structure (arXiv:2404.05892):
+  * Time-mix: token-shift DDLerp (shared low-rank W1 + per-target W2)
+    produces r/k/v/g/w mixes; data-dependent decay via a decay LoRA;
+    the WKV recurrence (kernels/rwkv6); per-head GroupNorm; SiLU gate;
+    output projection.
+  * Channel-mix: token-shift lerp, squared-ReLU FFN with a sigmoid
+    receptance gate.
+
+Every projection goes through ``cute_matmul``; the DDLerp and decay-LoRA
+second factors are plain products, as in the reference.  The WKV routes
+(``cfg.backend``): ``kernel`` is the CUDA chunked kernel (chunk 32 in
+``forward``, the reference's ``pallas``; chunk 64 with the carried state
+at prefill), ``torch`` the same chunked arithmetic in tensor ops
+(``rwkv6_chunked``, the reference's ``xla`` and its prefill path), and
+``dense`` the per-token oracle in ``forward``.  A decode step (T = 1)
+takes the oracle's single step on every route.  Layers are stacked on a
+leading axis and walked by a Python loop; the serving state is updated
+in place.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import torch
+
+from repro_torch.core.fusion import linear
+from repro_torch.kernels.rwkv6.ref import rwkv6_ref
+from repro_torch.kernels.rwkv6.rwkv6 import rwkv6_chunked
+from repro_torch.models import common as cm
+from repro_torch.models.base import ArchConfig, register_family
+
+_N_MIX = 5     # r, k, v, g, w
+
+
+def _wkv(cfg: ArchConfig, r, k, v, lw, u):
+    if cfg.backend == "kernel":
+        from repro_torch.kernels.rwkv6.ops import rwkv6_scan
+        return rwkv6_scan(r, k, v, lw, u, chunk=32)[0]
+    if cfg.backend == "dense":
+        return rwkv6_ref(r, k, v, lw, u)[0]
+    if cfg.backend != "torch":
+        raise ValueError(f"unknown WKV backend {cfg.backend!r}; use "
+                         "'kernel', 'torch' or 'dense'")
+    return rwkv6_chunked(r, k, v, lw, u, chunk=64)[0]
+
+
+def _wkv_stateful(cfg: ArchConfig, r, k, v, lw, u, state):
+    """(o, new_state) from the carried state: the single-step oracle at
+    decode; the chunked form (chunk 64) at prefill, through the kernel on
+    the ``kernel`` route."""
+    if r.shape[2] == 1:
+        return rwkv6_ref(r, k, v, lw, u, initial_state=state)
+    if cfg.backend == "kernel":
+        from repro_torch.kernels.rwkv6.ops import rwkv6_scan
+        return rwkv6_scan(r, k, v, lw, u, chunk=64, initial_state=state)
+    return rwkv6_chunked(r, k, v, lw, u, chunk=64, initial_state=state)
+
+
+# ---------------------------------------------------------------------------
+# Parameters.
+# ---------------------------------------------------------------------------
+
+def _layer_init(cfg: ArchConfig, gen: torch.Generator, device=None):
+    d, rw, dt = cfg.d_model, cfg.rwkv, cfg.dtype
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    def dense(*shape, in_axis=0):
+        return cm.dense_init(gen, shape, dt, in_axis=in_axis, device=device)
+
+    def ones():
+        return torch.ones((d,), dtype=dt, device=device)
+
+    def zeros():
+        return torch.zeros((d,), dtype=dt, device=device)
+
+    return {
+        "ln1": ones(), "ln1_b": zeros(), "ln2": ones(), "ln2_b": zeros(),
+        # DDLerp token-shift mixes.
+        "mu_x": (uniform(d) * 0.5).to(dt),
+        "mu_rkvgw": (uniform(_N_MIX, d) * 0.5).to(dt),
+        "mix_w1": dense(d, _N_MIX * rw.lora_mix),
+        "mix_w2": (normal(_N_MIX, rw.lora_mix, d) * 0.01).to(dt),
+        # Time-mix projections.
+        "w_r": dense(d, d), "w_k": dense(d, d), "w_v": dense(d, d),
+        "w_g": dense(d, d), "w_o": dense(d, d),
+        # Data-dependent decay LoRA + per-channel bases.
+        "w0": uniform(d) * 2.0 - 2.0,
+        "decay_w1": dense(d, rw.lora_decay),
+        "decay_w2": (normal(rw.lora_decay, d) * 0.01).to(dt),
+        "u": normal(d // rw.head_size, rw.head_size) * 0.3,
+        "ln_x": ones(), "ln_x_b": zeros(),
+        # Channel mix.
+        "mu_cm_k": (uniform(d) * 0.5).to(dt),
+        "mu_cm_r": (uniform(d) * 0.5).to(dt),
+        "w_cm_k": dense(d, cfg.d_ff),
+        "w_cm_v": dense(cfg.d_ff, d, in_axis=1),
+        "w_cm_r": dense(d, d),
+    }
+
+
+def init(cfg: ArchConfig, gen: torch.Generator, device=None):
+    """Seeded random parameters with the reference's distributions."""
+    v, d = cfg.padded_vocab, cfg.d_model
+    kw = dict(dtype=cfg.dtype, device=device)
+    return {
+        "embedding": cm.embed_init(gen, (v, d), cfg.dtype, device),
+        "lm_head": cm.dense_init(gen, (d, v), cfg.dtype, device=device),
+        "ln_in": torch.ones((d,), **kw), "ln_in_b": torch.zeros((d,), **kw),
+        "ln_final": torch.ones((d,), **kw),
+        "ln_final_b": torch.zeros((d,), **kw),
+        "layers": cm.stack_init(lambda: _layer_init(cfg, gen, device),
+                                cfg.n_layers),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Block application.
+# ---------------------------------------------------------------------------
+
+def _shift(x, last=None):
+    """Token shift: x_{t-1} (zeros or carried state at t=0)."""
+    pad = torch.zeros_like(x[:, :1]) if last is None else last[:, None]
+    return torch.cat([pad, x[:, :-1]], dim=1)
+
+
+def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
+    """x: (B, T, d) -> (out, x[:, -1], new WKV state).
+
+    Without ``wkv_state`` the WKV runs as a sequence from a zero state
+    (``forward``) and the new state is None; with it, statefully
+    (serving).
+    """
+    b, t, d = x.shape
+    rw = cfg.rwkv
+    h = d // rw.head_size
+    xx = _shift(x, shift_state) - x
+    xxx = x + xx * p["mu_x"]
+    mix = torch.tanh(linear(xxx, p["mix_w1"]))            # (B, T, 5*r)
+    mix = mix.reshape(b, t, _N_MIX, rw.lora_mix)
+    dyn = torch.einsum("btnr,nrd->btnd", mix, p["mix_w2"])
+    mixed = x[:, :, None, :] + xx[:, :, None, :] * (
+        p["mu_rkvgw"][None, None] + dyn)                  # (B, T, 5, d)
+    x_r, x_k, x_v, x_g, x_w = mixed.unbind(2)
+
+    r = linear(x_r, p["w_r"])
+    k = linear(x_k, p["w_k"])
+    v = linear(x_v, p["w_v"])
+    g = linear(x_g, p["w_g"], activation="silu")
+    w_dyn = torch.tanh(linear(x_w, p["decay_w1"])) @ p["decay_w2"]
+    lw = -torch.exp(torch.clamp(p["w0"][None, None].float()
+                                + w_dyn.float(), -8.0, 6.0))
+
+    def heads(z):
+        return z.reshape(b, t, h, rw.head_size).transpose(1, 2)
+
+    args = (heads(r), heads(k), heads(v), heads(lw), p["u"])
+    if wkv_state is None:
+        o, wkv_new = _wkv(cfg, *args), None
+    else:
+        o, wkv_new = _wkv_stateful(cfg, *args, wkv_state)
+    o = o.transpose(1, 2).reshape(b, t, d)
+    o = cm.groupnorm_heads(o, p["ln_x"], p["ln_x_b"], h)
+    return linear(o * g, p["w_o"]), x[:, -1], wkv_new
+
+
+def channel_mix(cfg: ArchConfig, p, x, shift_state=None):
+    xx = _shift(x, shift_state) - x
+    x_k = x + xx * p["mu_cm_k"]
+    x_r = x + xx * p["mu_cm_r"]
+    k = linear(x_k, p["w_cm_k"], activation="relu2")
+    kv = linear(k, p["w_cm_v"])
+    return torch.sigmoid(linear(x_r, p["w_cm_r"]).float()
+                         ).to(x.dtype) * kv, x[:, -1]
+
+
+def block_apply(cfg: ArchConfig, p, x):
+    h = cm.layernorm(x, p["ln1"], p["ln1_b"])
+    x = x + time_mix(cfg, p, h)[0]
+    h = cm.layernorm(x, p["ln2"], p["ln2_b"])
+    return x + channel_mix(cfg, p, h)[0]
+
+
+def forward(cfg: ArchConfig, params, batch):
+    """Full-sequence forward (evaluation)."""
+    x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
+    x = cm.layernorm(x, params["ln_in"], params["ln_in_b"])
+    for j in range(cfg.n_layers):
+        x = block_apply(cfg, cm.layer(params["layers"], j), x)
+    x = cm.layernorm(x, params["ln_final"], params["ln_final_b"])
+    return cm.logits_out(cfg, params, x)
+
+
+# ---------------------------------------------------------------------------
+# Serving: state = per-layer (tm_shift, cm_shift, wkv_state).
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
+               device=None):
+    del max_len                                   # state is O(1) in context
+    d, rw = cfg.d_model, cfg.rwkv
+    h = d // rw.head_size
+    dt = dtype or cfg.dtype
+    n = cfg.n_layers
+    return {
+        "tm_shift": torch.zeros((n, batch_size, d), dtype=dt, device=device),
+        "cm_shift": torch.zeros((n, batch_size, d), dtype=dt, device=device),
+        "wkv": torch.zeros((n, batch_size, h, rw.head_size, rw.head_size),
+                           dtype=torch.float32, device=device),
+    }
+
+
+def _stateful_block(cfg: ArchConfig, lp, x, tm_s, cm_s, wkv_s):
+    """One block with explicit state -> (x, tm_shift, cm_shift, wkv)."""
+    hh = cm.layernorm(x, lp["ln1"], lp["ln1_b"])
+    tm, tm_new, wkv_new = time_mix(cfg, lp, hh, tm_s, wkv_s)
+    x = x + tm
+    hh = cm.layernorm(x, lp["ln2"], lp["ln2_b"])
+    cmix, cm_new = channel_mix(cfg, lp, hh, cm_s)
+    return x + cmix, tm_new, cm_new, wkv_new
+
+
+def _run_stateful(cfg: ArchConfig, params, tokens, cache):
+    x = cm.embed_tokens(cfg, params["embedding"], tokens)
+    x = cm.layernorm(x, params["ln_in"], params["ln_in_b"])
+    for j in range(cfg.n_layers):
+        x, *new = _stateful_block(cfg, cm.layer(params["layers"], j), x,
+                                  cache["tm_shift"][j], cache["cm_shift"][j],
+                                  cache["wkv"][j])
+        for key, value in zip(("tm_shift", "cm_shift", "wkv"), new):
+            cache[key][j].copy_(value)
+    x = cm.layernorm(x, params["ln_final"], params["ln_final_b"])
+    return cm.logits_out(cfg, params, x[:, -1]), cache
+
+
+def prefill(cfg: ArchConfig, params, batch, cache):
+    return _run_stateful(cfg, params, batch["tokens"], cache)
+
+
+def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
+    del pos                                        # state carries position
+    return _run_stateful(cfg, params, tokens, cache)
+
+
+register_family("rwkv6")(sys.modules[__name__])

@@ -92,34 +92,6 @@ def block_apply(cfg: ArchConfig, p, x, *, positions, window: int,
 # Layer stacking: uniform stack or gemma2 (local, global) pairs.
 # ---------------------------------------------------------------------------
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _tree_zip(fn, a, b):
-    if isinstance(a, dict):
-        for k in a:
-            _tree_zip(fn, a[k], b[k])
-    else:
-        fn(a, b)
-
-
-def _stack_init(cfg: ArchConfig, gen: torch.Generator, n: int, device):
-    """``n`` blocks stacked on a leading axis, filled one block at a time
-    so that only one block's temporaries exist besides the stack."""
-    first = block_init(cfg, gen, device)
-    stack = _tree_map(lambda x: torch.empty((n, *x.shape), dtype=x.dtype,
-                                            device=x.device), first)
-    _tree_zip(lambda s, x: s[0].copy_(x), stack, first)
-    del first
-    for i in range(1, n):
-        _tree_zip(lambda s, x: s[i].copy_(x), stack,
-                  block_init(cfg, gen, device))
-    return stack
-
-
 def _windows(cfg: ArchConfig):
     if cfg.layer_pattern == "gemma2_alt":
         return (cfg.window, 0)                   # local then global
@@ -142,13 +114,10 @@ def init(cfg: ArchConfig, gen: torch.Generator, device=None):
         raise ValueError(f"{cfg.n_layers} layers do not split into groups "
                          f"of {group}")
     params["layers"] = tuple(
-        _stack_init(cfg, gen, cfg.n_layers // group, device)
+        cm.stack_init(lambda: block_init(cfg, gen, device),
+                      cfg.n_layers // group)
         for _ in range(group))
     return params
-
-
-def _layer(tree, i: int):
-    return _tree_map(lambda x: x[i], tree)
 
 
 def _run_blocks(cfg: ArchConfig, params, x, *, positions, caches=None,
@@ -163,7 +132,7 @@ def _run_blocks(cfg: ArchConfig, params, x, *, positions, caches=None,
             kv = None
             if caches is not None:
                 kv = (caches[i][0][j], caches[i][1][j])
-            x = block_apply(cfg, _layer(params["layers"][i], j), x,
+            x = block_apply(cfg, cm.layer(params["layers"][i], j), x,
                             positions=positions, window=window,
                             kv_cache=kv, cache_pos=cache_pos)
     return x, caches

@@ -1,6 +1,6 @@
 """The CUDA kernels (K1 fused matmul, K2 flash attention, K3 row
-quantiser, K4 grouped MoE matmul) against their plain versions on the
-card, at small and ragged shapes.
+quantiser, K4 grouped MoE matmul, K5 RG-LRU scan, K6 chunked RWKV-6 WKV)
+against their plain versions on the card, at small and ragged shapes.
 
 These need a Hopper card and nvcc; elsewhere they skip.  On the card:
 
@@ -24,6 +24,10 @@ from repro_torch.kernels.moe.grouped_matmul import (         # noqa: E402
 from repro_torch.kernels.quant import ops as q_ops           # noqa: E402
 from repro_torch.kernels.quant.quant import (              # noqa: E402
     quantize_rowwise_plain)
+from repro_torch.kernels.rglru import ops as rg_ops          # noqa: E402
+from repro_torch.kernels.rglru.rglru import rglru_scan_plain  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as wkv_ops         # noqa: E402
+from repro_torch.kernels.rwkv6.rwkv6 import rwkv6_chunked    # noqa: E402
 
 pytestmark = pytest.mark.sm90
 
@@ -106,6 +110,10 @@ ATTN_CASES = [  # (b, h, hkv, sq, sk, d, dtype, flags, tol)
     (2, 4, 1, 33, 100, 64, torch.float32, dict(causal=True, window=16,
                                               softcap=5.0, q_start=40), 1e-3),
     (1, 2, 2, 20, 50, 16, torch.float16, dict(causal=False), 4e-2),
+    (2, 10, 1, 90, 90, 256, torch.bfloat16, dict(causal=True, window=32),
+     4e-2),
+    (1, 10, 1, 70, 70, 256, torch.float32, dict(causal=True, window=16),
+     1e-3),
 ]
 
 
@@ -202,3 +210,46 @@ def test_quantize_rowwise_kernel_bit_exact(card, m, k, dt):
         q_ref, s_ref = quantize_rowwise_plain(inp)
         torch.cuda.synchronize()
         assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+
+
+@pytest.mark.parametrize("b,t,c,h0", [(4, 221, 2560, True),
+                                      (2, 37, 300, False), (3, 1, 17, True)])
+def test_rglru_scan_kernel_vs_plain(card, b, t, c, h0):
+    log_a = -torch.nn.functional.softplus(
+        torch.randn(b, t, c, generator=card, device="cuda"))
+    x = torch.randn(b, t, c, generator=card, device="cuda")
+    init = torch.randn(b, c, generator=card, device="cuda") if h0 else None
+    before = rg_ops.rglru_scan.launches
+    h, h_last = rg_ops.rglru_scan(log_a, x, init)
+    assert rg_ops.rglru_scan.launches == before + 1
+    ref, ref_last = rglru_scan_plain(log_a, x, init)
+    torch.cuda.synchronize()
+    assert h.shape == ref.shape and h.dtype == torch.float32
+    assert _rel(h, ref) <= 1e-5 and _rel(h_last, ref_last) <= 1e-5
+
+
+WKV_CASES = [  # (b, h, t, c, chunk, dtype, initial state, tol)
+    (2, 8, 221, 64, 64, torch.bfloat16, True, 3e-2),
+    (2, 4, 100, 64, 32, torch.float32, False, 1e-4),
+    (1, 3, 45, 32, 64, torch.float32, True, 1e-4),
+    (1, 2, 5, 16, 32, torch.float16, False, 3e-2),
+]
+
+
+@pytest.mark.parametrize("case", WKV_CASES, ids=lambda c: f"t{c[2]}c{c[3]}"
+                         f"L{c[4]}-{str(c[5])[6:]}{'-s0' if c[6] else ''}")
+def test_rwkv6_wkv_kernel_vs_plain(card, case):
+    b, h, t, c, chunk, dt, with_s0, tol = case
+    r, k, v = (torch.randn(b, h, t, c, generator=card, device="cuda").to(dt)
+               for _ in range(3))
+    lw = -torch.exp(torch.randn(b, h, t, c, generator=card, device="cuda"))
+    u = torch.randn(h, c, generator=card, device="cuda") * 0.5
+    s0 = (torch.randn(b, h, c, c, generator=card, device="cuda") * 0.3
+          if with_s0 else None)
+    before = wkv_ops.rwkv6_scan.launches
+    o, s = wkv_ops.rwkv6_scan(r, k, v, lw, u, chunk=chunk, initial_state=s0)
+    assert wkv_ops.rwkv6_scan.launches == before + 1
+    ref, ref_s = rwkv6_chunked(r, k, v, lw, u, chunk=chunk, initial_state=s0)
+    torch.cuda.synchronize()
+    assert o.dtype == ref.dtype == dt and o.shape == ref.shape
+    assert _rel(o, ref) <= tol and _rel(s, ref_s) <= 1e-4

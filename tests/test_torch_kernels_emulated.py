@@ -27,6 +27,8 @@ from repro_torch.kernels.attention import attention as attn  # noqa: E402
 from repro_torch.kernels.matmul import matmul as mm          # noqa: E402
 from repro_torch.kernels.moe import grouped_matmul as gm     # noqa: E402
 from repro_torch.kernels.quant import quant as qr            # noqa: E402
+from repro_torch.kernels.rglru import rglru as rg            # noqa: E402
+from repro_torch.kernels.rwkv6 import rwkv6 as wkv           # noqa: E402
 
 CUDA_RUNTIME_H = r"""
 #pragma once
@@ -61,6 +63,8 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   return r;
 }
 inline std::vector<float> emu_dyn(1 << 20);
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
 struct uint4 { unsigned x, y, z, w; };
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef struct CUstream_st* cudaStream_t;
@@ -182,12 +186,18 @@ def bound(emulated, monkeypatch):
     gm_fn.argtypes = [i, p, p, p, i, i, i, i, i, i, i, f, i, i, i, i, p]
     qr_fn = emulated["quantize_rowwise"].quantize_rowwise_launch
     qr_fn.argtypes = [i, p, p, p, i, i, p]
-    for fn in (mm_fn, fa_fn, gm_fn, qr_fn):
+    rg_fn = emulated["rglru_scan"].rglru_scan_launch
+    rg_fn.argtypes = [p, p, p, p, p, i, i, i, p]
+    wkv_fn = emulated["rwkv6_wkv"].rwkv6_wkv_launch
+    wkv_fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    for fn in (mm_fn, fa_fn, gm_fn, qr_fn, rg_fn, wkv_fn):
         fn.restype = i
     monkeypatch.setattr(mm, "_fn", mm_fn)
     monkeypatch.setattr(attn, "_fn", fa_fn)
     monkeypatch.setattr(gm, "_fn", gm_fn)
     monkeypatch.setattr(qr, "_fn", qr_fn)
+    monkeypatch.setattr(rg, "_fn", rg_fn)
+    monkeypatch.setattr(wkv, "_fn", wkv_fn)
 
     class _Stream:
         cuda_stream = None
@@ -262,6 +272,9 @@ ATTN_CASES = [  # (b, h, hkv, sq, sk, d, dtype, flags)
                                               softcap=5.0, q_start=40)),
     (1, 2, 2, 20, 50, 16, torch.bfloat16, dict(causal=False)),
     (1, 2, 1, 40, 10, 128, torch.float16, dict(causal=True)),
+    # RecurrentGemma's heads: MQA, head_dim 256, a window
+    (1, 2, 1, 70, 70, 256, torch.float32, dict(causal=True, window=16)),
+    (1, 2, 1, 20, 30, 256, torch.bfloat16, dict(causal=True)),
 ]
 
 
@@ -343,3 +356,40 @@ def test_quantize_rowwise_source_bit_exact(bound, m, k, dt):
         q_ref, s_ref = qr.quantize_rowwise_plain(x)
         assert q.dtype == torch.int8 and s.dtype == torch.float32
         assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+
+
+@pytest.mark.parametrize("b,t,c,h0", [(2, 37, 300, True), (1, 5, 64, False),
+                                      (3, 1, 17, True)])
+def test_rglru_scan_source_vs_plain(bound, b, t, c, h0):
+    g = torch.Generator().manual_seed(t * c)
+    log_a = -torch.nn.functional.softplus(torch.randn(b, t, c, generator=g))
+    x = torch.randn(b, t, c, generator=g)
+    init = torch.randn(b, c, generator=g) if h0 else None
+    h, h_last = rg.rglru_scan_cuda(log_a, x, init)
+    ref, ref_last = rg.rglru_scan_plain(log_a, x, init)
+    assert h.dtype == ref.dtype and h.shape == ref.shape
+    assert _rel(h, ref) <= 1e-5 and _rel(h_last, ref_last) <= 1e-5
+
+
+WKV_CASES = [  # (b, h, t, c, chunk, dtype, initial state, tol)
+    (1, 2, 64, 64, 64, torch.float32, False, 1e-4),
+    (2, 1, 45, 32, 32, torch.float32, True, 1e-4),       # ragged, 2 chunks
+    (1, 2, 70, 64, 64, torch.bfloat16, True, 3e-2),
+    (1, 1, 5, 16, 32, torch.float16, False, 3e-2),
+]
+
+
+@pytest.mark.parametrize("case", WKV_CASES, ids=lambda c: f"t{c[2]}c{c[3]}"
+                         f"L{c[4]}-{str(c[5])[6:]}{'-s0' if c[6] else ''}")
+def test_rwkv6_wkv_source_vs_plain(bound, case):
+    b, h, t, c, chunk, dt, with_s0, tol = case
+    g = torch.Generator().manual_seed(t * c + chunk)
+    r, k, v = (torch.randn(b, h, t, c, generator=g).to(dt) for _ in range(3))
+    lw = -torch.exp(torch.randn(b, h, t, c, generator=g) * 0.5)
+    u = torch.randn(h, c, generator=g) * 0.5
+    s0 = torch.randn(b, h, c, c, generator=g) * 0.3 if with_s0 else None
+    o, s = wkv.rwkv6_wkv_cuda(r, k, v, lw, u, chunk=chunk, initial_state=s0)
+    ref, ref_s = wkv.rwkv6_chunked(r, k, v, lw, u, chunk=chunk,
+                                   initial_state=s0)
+    assert o.dtype == ref.dtype == dt and o.shape == ref.shape
+    assert _rel(o, ref) <= tol and _rel(s, ref_s) <= 1e-4

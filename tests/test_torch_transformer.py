@@ -207,7 +207,7 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError):
         get_config("gemma2-2b")
     with pytest.raises(NotImplementedError):
-        family_module(tcfg.with_(family="rwkv6"))
+        family_module(tcfg.with_(family="encdec"))
     with pytest.raises(ValueError):
         cm.cache_update(torch.zeros(1, 1, 4, 2), torch.zeros(1, 1, 4, 2),
                         torch.ones(1, 1, 3, 2), torch.ones(1, 1, 3, 2), 2)
