@@ -12,14 +12,21 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
 3. kernels    — every kernel of the serving paths against its plain
                 version, at the paths' shapes plus ragged, int8,
                 fp32/fp16, masking and rounding-tie cases, with the
-                reference test suite's tolerances (K3 bit for bit);
+                reference test suite's tolerances (K3 bit for bit); K1
+                at every distinct call of the four served models (recorded
+                from one prefill and one decode step at cut depth) at the
+                prefill and decode row counts, each on the tile that
+                serves it (``launches_by_tile``);
 4. parity     — yi-6b at full width, 4 layers, fp32: prefill and 4 decode
                 steps through the kernels against the plain torch route;
+                parity-bf16 the same in bf16, which takes K1's
+                tensor-core and decode tiles through the model;
 5. moe-parity — the same for olmoe-1b-7b, with the count of (token,
                 layer) expert choices that differ between the routes;
 6. serve      — yi-6b at full width and depth, bf16, seeded random
                 weights: 8 requests through ``ServingEngine`` with launch
-                counts;
+                counts, K1's by tile against the counts reckoned from the
+                traffic;
 7. moe-serve  — the same traffic through olmoe-1b-7b at full width and
                 depth (the grouped-matmul kernel on every expert MLP);
 8. kernels-recurrent — the RG-LRU scan and the chunked RWKV-6 WKV
@@ -36,15 +43,18 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 width and depth;
 11. profile, moe-profile, griffin-profile, rwkv-profile — device time by
                 kernel of one prefill and over a few decode steps of each
-                served model (``torch.profiler``), the device's idle share
-                of a decode step, and for tied embeddings the time of the
-                transposed copy the logits take; measurement only;
+                served model (``torch.profiler``), K1's by tile, the
+                device's idle share of a decode step, and for tied
+                embeddings the time of the transposed copy the logits
+                take; K1's host time a call on each tile (yi-6b);
+                measurement only;
 12. w8a8       — yi-6b's MLP at full width through ``quantize_mlp`` and
                 the W8A8 layers (row-quantiser kernel, int8 fused matmul)
                 against the plain route and the float MLP;
 13. the ``kernels`` line: per kernel, its launches in the paths above, its
    time at the paths' largest shapes beside its plain version, a library
-   call and its roofline bound.
+   call and its roofline bound; K1 at prefill (tensor-core tile), decode
+   and logits (decode tile), timed from CUDA-graph replays.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last line is ``{"ok": true, "device": {...}}``.  Any failed
@@ -78,9 +88,20 @@ GRIFFIN_PARITY_LAYERS = 6           # two (rec, rec, attn) triples
 TOL_BF16, TOL_FP32, TOL_FLASH_BF16, TOL_FLASH_FP32 = 3e-2, 1e-5, 4e-2, 1e-3
 TOL_WKV_FP32 = 1e-4
 TOL_PATH = 1e-4
+# bf16 parity: both routes accumulate in fp32 and round each projection's
+# output to bf16, so they differ by the rounding of sums taken in another
+# order (an ulp of bf16, 2^-8 relative, on some elements), carried through
+# the layers; greedy tokens are reported, not required, since a rounding
+# can flip a near-tied argmax of random weights.
+TOL_PATH_BF16 = 3e-2
 TOL_W8A8_ROUTES, TOL_W8A8_FLOAT = 1e-5, 0.05
 PROFILE_STEPS, UNTRACED_STEPS = 4, 16
+MAX_ROWS_DECODE = 8                 # K1's decode tile serves M <= 8
 # a substring of each kernel's name in a profiler trace
+# K1's tiles by kernel name within its "FusedMatmul" launches
+K1_TILE_TAGS = {"tc": ("tc_tile_kernel",),
+                "decode": ("decode_tile_kernel", "decode_reduce_kernel"),
+                "simt": ("gemm_tile_kernel",)}
 KERNEL_TAGS = {"fused_matmul": "FusedMatmul",
                "grouped_matmul": "GroupedMatmul",
                "flash_attention": "flash_attention_kernel",
@@ -282,21 +303,62 @@ def ties_rows(gen, m, k, dtype):
     return x.to(dtype)
 
 
-def phase_kernels(cfg, moe_cfg, s_max):
+def served_k1_calls(arch, n_layers):
+    """Every distinct K1 call, as (k, n, glu, activation, softcap, bias,
+    out dtype), that one prefill and one decode step of ``arch`` at full
+    width, cut to ``n_layers`` layers, make in bf16."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.models.base import family_module
+    cfg = get_config(arch).with_(n_layers=n_layers)
+    mod = family_module(cfg)
+    params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(8),
+                      "cuda")
+    calls = {}
+    inner = mm_ops.fused_matmul_cuda      # the wrapper's 2-D launch
+
+    def recording(a, b, ep, ops, tile=None):
+        calls[(a.shape[1], b.shape[1], ep.glu, ep.activation, ep.softcap,
+               ep.bias_type.name.lower(), ep.out_dtype)] = None
+        return inner(a, b, ep, ops, tile)
+
+    mm_ops.fused_matmul_cuda = recording
+    try:
+        tokens = torch.randint(0, cfg.vocab_size, (1, 16), device="cuda")
+        cache = mod.init_cache(cfg, 1, 32, device="cuda")
+        logits, cache = mod.prefill(cfg, params, {"tokens": tokens}, cache)
+        mod.decode_step(cfg, params, logits.argmax(-1)[:, None], cache, 16)
+        torch.cuda.synchronize()
+    finally:
+        mm_ops.fused_matmul_cuda = inner
+    del params, cache
+    torch.cuda.empty_cache()
+    return list(calls)
+
+
+def phase_kernels(cfg, moe_cfg, s_max, served):
+    """``served``: arch -> its distinct K1 calls (``served_k1_calls``)."""
+    from repro_torch.kernels.matmul.ops import fused_matmul
     gen = torch.Generator(device="cuda").manual_seed(1)
     d, ff, vocab = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     results = []
 
-    def check_mm(name, tol, **case):
+    def check_mm(name, tol, tile, **case):
+        """One K1 case, which must run on ``tile``."""
         a, b, ep, ops = matmul_case(gen, **case)
+        before = dict(fused_matmul.launches_by_tile)
         out = run_matmul(a, b, ep, ops)
+        ran = [t for t, n in fused_matmul.launches_by_tile.items()
+               if n != before[t]]
         ref = plain_matmul(a, b, ep, ops)
         torch.cuda.synchronize()
         rel, diff = rel_err(out, ref)
         ok = (out.dtype == ref.dtype and out.shape == ref.shape
-              and rel <= tol and bool(torch.isfinite(out.double()).all()))
-        results.append({"kernel": "fused_matmul", "case": name, "rel": rel,
-                        "max_abs_err": diff, "tol": tol, "ok": ok})
+              and rel <= tol and bool(torch.isfinite(out.double()).all())
+              and ran == [tile])
+        results.append({"kernel": "fused_matmul", "case": name, "tile": ran,
+                        "rel": rel, "max_abs_err": diff, "tol": tol,
+                        "ok": ok})
 
     bf16 = torch.bfloat16
     for m in (4 * s_max, MAX_BATCH):               # prefill, decode rows
@@ -305,26 +367,47 @@ def phase_kernels(cfg, moe_cfg, s_max):
                               ("wi", d, 2 * ff, dict(glu=True, act="silu")),
                               ("wo", cfg.q_dim, d, {}),
                               ("mlp_wo", ff, d, {})):
-            check_mm(f"{tag} m={m}", TOL_BF16, m=m, k=k, n=n, dtype=bf16,
-                     **kw)
-    check_mm("logits m=4 fp32-out", TOL_BF16, m=MAX_BATCH, k=d, n=vocab,
-             dtype=bf16, out_dtype=torch.float32)
-    check_mm("ragged 5x72x200 all-epilogue bf16", TOL_BF16, m=5, k=72,
-             n=200, dtype=bf16, glu=True, act="gelu", bias="row",
+            check_mm(f"{tag} m={m}", TOL_BF16,
+                     "tc" if m > MAX_ROWS_DECODE else "decode", m=m, k=k,
+                     n=n, dtype=bf16, **kw)
+    check_mm("logits m=4 fp32-out", TOL_BF16, "decode", m=MAX_BATCH, k=d,
+             n=vocab, dtype=bf16, out_dtype=torch.float32)
+    check_mm("ragged 5x72x200 all-epilogue bf16", TOL_BF16, "decode", m=5,
+             k=72, n=200, dtype=bf16, glu=True, act="gelu", bias="row",
              scale_a=True, scale_b=True, residual=True, softcap=30.0)
-    check_mm("ragged 5x72x200 fp32", TOL_FP32, m=5, k=72, n=200,
+    check_mm("ragged 5x72x200 fp32", TOL_FP32, "decode", m=5, k=72, n=200,
              dtype=torch.float32, bias="full", act="tanh", residual=True)
-    check_mm("fp32 130x257x300 relu2", TOL_FP32, m=130, k=257, n=300,
-             dtype=torch.float32, act="relu2", bias="row")
-    check_mm("fp16 200x512x384 glu", TOL_BF16, m=200, k=512, n=384,
+    check_mm("fp32 130x257x300 relu2", TOL_FP32, "simt", m=130, k=257,
+             n=300, dtype=torch.float32, act="relu2", bias="row")
+    check_mm("fp16 200x512x384 glu", TOL_BF16, "tc", m=200, k=512, n=384,
              dtype=torch.float16, glu=True, act="gelu_tanh", scale_b=True)
-    check_mm("int8 exact 64x4096x256", 0.0, m=64, k=4096, n=256,
+    check_mm("int8 exact 64x4096x256", 0.0, "simt", m=64, k=4096, n=256,
              dtype=torch.int8, out_dtype=torch.int32)
-    check_mm("int8 exact 3x100x70", 0.0, m=3, k=100, n=70,
+    check_mm("int8 exact 3x100x70", 0.0, "decode", m=3, k=100, n=70,
              dtype=torch.int8, out_dtype=torch.int32)
-    check_mm("int8 scale_a scale_b row-bias 37x200x300", TOL_FP32, m=37,
-             k=200, n=300, dtype=torch.int8, bias="row", scale_a=True,
+    check_mm("int8 scale_a scale_b row-bias 37x200x300", TOL_FP32, "simt",
+             m=37, k=200, n=300, dtype=torch.int8, bias="row", scale_a=True,
              scale_b=True, act="sigmoid")
+    check_mm("tc ragged 70x1000x384 all-epilogue bf16", TOL_BF16, "tc", m=70,
+             k=1000, n=384, dtype=bf16, act="gelu", bias="row",
+             scale_a=True, scale_b=True, residual=True, softcap=30.0)
+    check_mm("bf16 K % 8 != 0: 70x100x128", TOL_BF16, "simt", m=70, k=100,
+             n=128, dtype=bf16, act="silu")
+    # every served model's K1 calls at its prefill and decode rows; the
+    # logits (fp32 out) run only at the decode rows, as they are served
+    for arch, calls in served.items():
+        for k, n, glu, act, softcap, bias, out_dt in calls:
+            for m in (4 * s_max, MAX_BATCH):
+                if out_dt == torch.float32 and m > MAX_ROWS_DECODE:
+                    continue
+                check_mm(f"{arch} ({m},{k})@({k},{n}){' GLU' * glu} {act}"
+                         f"{' softcap' * bool(softcap)}"
+                         f"{' bias' * (bias != 'zero')} -> {str(out_dt)[6:]}",
+                         TOL_BF16, "tc" if m > MAX_ROWS_DECODE else "decode",
+                         m=m, k=k, n=n, dtype=bf16, glu=glu, act=act,
+                         softcap=softcap,
+                         bias=None if bias == "zero" else bias,
+                         out_dtype=out_dt)
 
     def check_attn(name, tol, shape, dtype, zero_rows=None, **kw):
         q, k, v = attention_case(gen, *shape, dtype)
@@ -539,13 +622,16 @@ def phase_kernels_recurrent(g_cfg, r_cfg, s_max):
 # route (yi-6b, olmoe-1b-7b, recurrentgemma-2b, rwkv6-7b).
 # ---------------------------------------------------------------------------
 
-def phase_parity(arch, phase, n_layers=PARITY_LAYERS):
+def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
+                 tol=TOL_PATH):
+    """Kernel route against torch route; in fp32 the greedy tokens must
+    match too, in bf16 they are reported (see ``TOL_PATH_BF16``)."""
     from repro_torch import backend
     from repro_torch.configs.registry import get_config
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.base import family_module
-    cfg = get_config(arch).with_(n_layers=n_layers, dtype=torch.float32,
-                                 kv_cache_dtype=torch.float32)
+    cfg = get_config(arch).with_(n_layers=n_layers, dtype=dtype,
+                                 kv_cache_dtype=dtype)
     mod = family_module(cfg)
     gen = torch.Generator(device="cuda").manual_seed(2)
     params = mod.init(cfg, gen, "cuda")
@@ -553,7 +639,7 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS):
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))).cuda()
     picks = {}                  # route -> each router call's expert sets
 
-    def run(route):
+    def run(route, rcfg=cfg, rparams=params):
         inner = moe_lib.route
 
         def recording(rcfg, x2d, w_router):
@@ -563,15 +649,15 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS):
         prev = backend.set_default_matmul_backend(route)
         moe_lib.route = recording
         try:
-            rcfg = cfg.with_(backend=route)
+            rcfg = rcfg.with_(backend=route)
             cache = mod.init_cache(rcfg, 4, 64 + PARITY_DECODE + 1,
                                    device="cuda")
-            logits, cache = mod.prefill(rcfg, params, {"tokens": tokens},
+            logits, cache = mod.prefill(rcfg, rparams, {"tokens": tokens},
                                         cache)
             steps = [logits]
             for i in range(PARITY_DECODE):
                 tok = forced[i] if forced else steps[-1].argmax(-1)
-                logits, cache = mod.decode_step(rcfg, params, tok[:, None],
+                logits, cache = mod.decode_step(rcfg, rparams, tok[:, None],
                                                 cache, 64 + i)
                 steps.append(logits)
             torch.cuda.synchronize()
@@ -580,8 +666,12 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS):
             backend.set_default_matmul_backend(prev)
             moe_lib.route = inner
 
+    from repro_torch.kernels.matmul.ops import fused_matmul
     forced = []
+    fused_matmul.launches_by_tile = dict.fromkeys(fused_matmul
+                                                  .launches_by_tile, 0)
     kern = run("kernel")
+    tiles = dict(fused_matmul.launches_by_tile)
     forced.extend(s.argmax(-1) for s in kern[:-1])
     plain = run("torch")
     errs = [rel_err(k, p)[0] for k, p in zip(kern, plain)]
@@ -589,16 +679,30 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS):
             for k, p in zip(kern, plain)]
     finite = all(bool(torch.isfinite(k).all()) for k in kern)
     line = {"phase": phase, "config": f"{arch} width, {n_layers} "
-            "layers, fp32", "rel_err": errs, "tol": TOL_PATH,
+            f"layers, {str(dtype)[6:]}", "rel_err": errs, "tol": tol,
             "tokens_equal": same, "finite": finite}
     if cfg.moe is not None:
         pairs = list(zip(picks["kernel"], picks["torch"]))
         line["expert_choices"] = sum(a.shape[0] for a, _ in pairs)
         line["expert_choices_differing"] = sum(
             int((a != b).any(-1).sum()) for a, b in pairs)
+    if dtype == torch.bfloat16:
+        line["fused_matmul_by_tile_kernel_route"] = tiles
+        # how far each bf16 route lies from the same weights run in fp32
+        ref = run("torch", cfg.with_(dtype=torch.float32,
+                                     kv_cache_dtype=torch.float32),
+                  _to_fp32(params))
+        line["rel_err_vs_fp32"] = {
+            route: [rel_err(x.float(), r)[0] for x, r in zip(out, ref)]
+            for route, out in (("kernel", kern), ("torch", plain))}
     emit(line)
-    require(finite and all(e <= TOL_PATH for e in errs) and all(same),
+    require(finite and all(e <= tol for e in errs)
+            and (all(same) or dtype != torch.float32),
             f"{arch}: kernel route disagrees with the torch route")
+    if dtype == torch.bfloat16:
+        require(tiles["tc"] > 0 and tiles["decode"] > 0 and
+                tiles["simt"] == 0, f"{arch} bf16: K1 ran on {tiles}, not "
+                "on its tensor-core and decode tiles alone")
     del params
     torch.cuda.empty_cache()
 
@@ -608,9 +712,11 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS):
 # and rwkv6-7b through the kernels.
 # ---------------------------------------------------------------------------
 
-def phase_serve(arch, phase, counters):
+def phase_serve(arch, phase, counters, k1_tiles):
     """``counters``: kernel name -> wrapper whose ``launches`` the path
-    must raise above 0."""
+    must raise above 0; ``k1_tiles``: K1's launches by tile, reckoned from
+    the traffic, which the path must match."""
+    from repro_torch.kernels.matmul.ops import fused_matmul
     from repro_torch import backend
     from repro_torch.configs.registry import get_config
     from repro_torch.models.base import family_module
@@ -637,11 +743,13 @@ def phase_serve(arch, phase, counters):
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
+    fused_matmul.launches_by_tile = dict.fromkeys(k1_tiles, 0)
     t0 = time.perf_counter()
     outs = eng.run(max_new_tokens=MAX_NEW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    by_tile = dict(fused_matmul.launches_by_tile)
     batches = [{"padded_prompt": int(max(lengths[i * MAX_BATCH:
                                                  (i + 1) * MAX_BATCH])),
                 "prefill_ms": r.prefill_ms(),
@@ -661,16 +769,19 @@ def phase_serve(arch, phase, counters):
           "max_new_tokens": MAX_NEW, "batches": batches,
           "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": launches, "tokens_ok": ok_tokens,
+          "launches": launches, "fused_matmul_by_tile": by_tile,
+          "fused_matmul_by_tile_reckoned": k1_tiles, "tokens_ok": ok_tokens,
           "logits_finite": finite,
           "first_request": outs[0].tolist()})
     require(ok_tokens and finite, f"{arch}: serving produced malformed "
             "output")
     require(all(v > 0 for v in launches.values()),
             f"{arch}: a kernel of the path never launched: {launches}")
+    require(by_tile == k1_tiles, f"{arch}: K1 ran {by_tile} by tile, "
+            f"reckoned {k1_tiles}")
     del params, eng
     torch.cuda.empty_cache()
-    return launches
+    return {**launches, "fused_matmul_by_tile": by_tile}
 
 
 # ---------------------------------------------------------------------------
@@ -679,20 +790,57 @@ def phase_serve(arch, phase, counters):
 
 def _device_ms_by_kernel(prof, n):
     """(device kernel events, busy ms per call, ms per call by kernel
-    group) of a trace of ``n`` calls."""
+    group, K1's ms per call by tile) of a trace of ``n`` calls."""
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in device) / 1e3 / n
     groups = dict.fromkeys([*KERNEL_TAGS, "other"], 0.0)
+    k1_tiles = dict.fromkeys(K1_TILE_TAGS, 0.0)
     for e in device:
         g = next((name for name, tag in KERNEL_TAGS.items() if tag in e.key),
                  "other")
         groups[g] += e.self_device_time_total / 1e3 / n
-    return device, busy, groups
+        if g == "fused_matmul":
+            tile = next(t for t, tags in K1_TILE_TAGS.items()
+                        if any(tag in e.key for tag in tags))
+            k1_tiles[tile] += e.self_device_time_total / 1e3 / n
+    return device, busy, groups, k1_tiles
 
 
-def phase_profile(arch, phase, s_max):
+def k1_host_us():
+    """Host microseconds a K1 call takes on each tile, at a shape whose
+    device time is a few microseconds: 200 calls enqueued back to back,
+    timed on the host's clock to a synchronize.  The tensor-core tile's
+    figure includes encoding its two tensor maps; ``wrapper_decode`` is
+    the decode call through the wrapper (``ops.fused_matmul``), which adds
+    the reshapes and the operand checks."""
+    from repro_torch.core.fusion import Epilogue, EpilogueOperands
+    from repro_torch.kernels.matmul.matmul import fused_matmul_cuda
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {}
+    for tile, m in (("tc", 16), ("simt", 16), ("decode", MAX_BATCH)):
+        a = _rand(gen, (m, 64), torch.bfloat16)
+        b = _rand(gen, (64, 64), torch.bfloat16)
+        ep, ops = Epilogue(out_dtype=torch.bfloat16), EpilogueOperands()
+        for _ in range(20):
+            fused_matmul_cuda(a, b, ep, ops, tile)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fused_matmul_cuda(a, b, ep, ops, tile)
+        torch.cuda.synchronize()
+        out[tile] = (time.perf_counter() - t0) * 1e6 / 200
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fused_matmul(a, b)                 # the wrapper on top, decode tile
+    torch.cuda.synchronize()
+    out["wrapper_decode"] = (time.perf_counter() - t0) * 1e6 / 200
+    return out
+
+
+def phase_profile(arch, phase, s_max, host_cost=False):
     """Device time by kernel of the prefill of the serving batch (4
     requests at the longest batch's prompt length) and over
     ``PROFILE_STEPS`` decode steps after it, and the device's idle share
@@ -714,7 +862,8 @@ def phase_profile(arch, phase, s_max):
                              ProfilerActivity.CUDA]) as prof:
         logits, cache = mod.prefill(cfg, params, {"tokens": tokens}, cache)
         torch.cuda.synchronize()
-    _, prefill_busy, prefill_groups = _device_ms_by_kernel(prof, 1)
+    _, prefill_busy, prefill_groups, prefill_k1 = _device_ms_by_kernel(prof,
+                                                                        1)
     pos = s_max
 
     def steps(n):
@@ -735,13 +884,14 @@ def phase_profile(arch, phase, s_max):
         t0 = time.perf_counter()
         steps(PROFILE_STEPS)
         traced_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    device, busy, groups = _device_ms_by_kernel(prof, PROFILE_STEPS)
+    device, busy, groups, k1 = _device_ms_by_kernel(prof, PROFILE_STEPS)
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
     line = {"phase": phase, "config": f"{arch} full size, bf16, prefill of "
             f"({MAX_BATCH},{s_max}), then decode at batch {MAX_BATCH} from "
             f"position {s_max}", "steps": PROFILE_STEPS,
             "prefill_device_ms": prefill_busy,
             "prefill_device_ms_by_kernel": prefill_groups,
+            "prefill_fused_matmul_ms_by_tile": prefill_k1,
             "prefill_device_share_by_kernel": {
                 g: ms / prefill_busy for g, ms in prefill_groups.items()
                 if ms > 0} if prefill_busy else {},
@@ -750,12 +900,15 @@ def phase_profile(arch, phase, s_max):
             "device_busy_ms_per_step": busy,
             "device_idle_share": 1.0 - busy / step_ms,
             "device_ms_per_step_by_kernel": groups,
+            "fused_matmul_ms_per_step_by_tile": k1,
             "top_device_kernels": [
                 {"name": e.key[:160], "launches_per_step":
                  e.count / PROFILE_STEPS,
                  "ms_per_step": e.self_device_time_total / 1e3
                  / PROFILE_STEPS}
                 for e in top]}
+    if host_cost:
+        line["fused_matmul_host_us_per_call"] = k1_host_us()
     if cfg.tie_embeddings:
         emb = params["embedding"]
         line["tied_embedding_copy_ms"] = time_ms(
@@ -829,6 +982,17 @@ def phase_w8a8(cfg, s_max):
     return launches
 
 
+def _to_fp32(tree):
+    """A copy of a parameter tree with its floating tensors in fp32."""
+    if isinstance(tree, dict):
+        return {k: _to_fp32(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_fp32(v) for v in tree)
+    if torch.is_tensor(tree) and tree.is_floating_point():
+        return tree.float()
+    return tree
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -869,6 +1033,23 @@ def time_ms(fns: dict, reps: int = 10, warmup: int = 2,
     return {n: statistics.median(v) for n, v in samples.items()}
 
 
+def graph_ms(fns: dict, calls: int = 10) -> dict:
+    """``time_ms`` per call of ``calls`` calls of each callable captured in
+    one CUDA graph: a replay launches them back to back, so the host's
+    time a call (the wrapper's checks and allocations) is out of the
+    timing and what remains is the device's."""
+    replays = {}
+    for name, f in fns.items():
+        f()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(calls):
+                f()
+        replays[name] = g.replay
+    return {n: ms / calls for n, ms in time_ms(replays).items()}
+
+
 def bound(flops: float, nbytes: float, peak: float, bw: float):
     t_ops, t_bytes = flops / peak, nbytes / bw
     return (max(t_ops, t_bytes) * 1e3,
@@ -879,6 +1060,7 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
     """``path_launches``: path -> {kernel name: launches in that path}."""
     import torch.nn.functional as F
     from repro_torch.core.hardware import H100_SXM as chip
+    from repro_torch.kernels.matmul.matmul import tile_for
     from repro_torch.models.moe import moe_capacity
     gen = torch.Generator(device="cuda").manual_seed(4)
     kernels = []
@@ -889,25 +1071,50 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
-    # K1 at its largest path shape: the prefill GLU MLP input projection.
-    m, k, n = MAX_BATCH * s_max, cfg.d_model, 2 * cfg.d_ff
-    a, b, ep, ops = matmul_case(gen, m, k, n, torch.bfloat16, glu=True,
-                                act="silu")
-    t = time_ms({"kernel": lambda: run_matmul(a, b, ep, ops),
-                 "plain": lambda: plain_matmul(a, b, ep, ops),
-                 "library": lambda: torch.matmul(a, b)})
-    _, diff = rel_err(run_matmul(a, b, ep, ops), plain_matmul(a, b, ep, ops))
-    ms, by = bound(2.0 * m * n * k, 2.0 * (m * k + k * n + m * n // 2),
-                   chip.peak_bf16, chip.hbm_bw)
-    kernels.append({
-        "name": "fused_matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_matmul.cu",
-        "replaces": "src/repro/kernels/matmul/matmul.py:39",
-        **counts("fused_matmul"), "max_abs_err": diff,
-        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
-        "bound_by": by, "library_ms": t["library"],
-        "shape": f"bf16 ({m},{k})@({k},{n}) GLU-silu -> ({m},{n // 2})",
-        "library_call": "torch.matmul (no epilogue)"})
+    # K1 at its largest path shapes: the prefill GLU MLP input projection
+    # (tensor-core tile), the same weight at the decode rows and the
+    # logits at the decode rows (decode tile).  Each is timed as 10 calls
+    # replayed from a CUDA graph (``graph_ms``): at decode the wrapper's
+    # host time is of the order of the kernel's.  The weights (180 and
+    # 524 MB) exceed the 50 MB L2, so no call finds B cached.
+    k, n = cfg.d_model, 2 * cfg.d_ff
+    for tag, rows, n_b, glu, out_dt in (
+            ("prefill", MAX_BATCH * s_max, n, True, None),
+            ("decode", MAX_BATCH, n, True, None),
+            ("logits", MAX_BATCH, cfg.padded_vocab, False, torch.float32)):
+        a, b, ep, ops = matmul_case(gen, rows, k, n_b, torch.bfloat16,
+                                    glu=glu, act="silu" if glu else "none",
+                                    out_dtype=out_dt)
+
+        t = graph_ms({"kernel": lambda: run_matmul(a, b, ep, ops),
+                      "plain": lambda: plain_matmul(a, b, ep, ops),
+                      "library": lambda: torch.matmul(a, b)})
+        tile = tile_for(a, b, ep)
+        _, diff = rel_err(run_matmul(a, b, ep, ops),
+                          plain_matmul(a, b, ep, ops))
+        n_out = n_b // 2 if glu else n_b
+        out_bytes = (4 if out_dt == torch.float32 else 2) * rows * n_out
+        ms, by = bound(2.0 * rows * n_b * k,
+                       2.0 * (rows * k + k * n_b) + out_bytes,
+                       chip.peak_bf16, chip.hbm_bw)
+        kernels.append({
+            "name": "fused_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + (
+                "fused_matmul_sm90.cu" if tile == "tc" else
+                "decode_tile.cuh" if tile == "decode" else "gemm_tile.cuh"),
+            "replaces": "src/repro/kernels/matmul/matmul.py:39",
+            **counts("fused_matmul"),
+            "launches_by_tile": {
+                t_: sum(p_.get("fused_matmul_by_tile", {}).get(t_, 0)
+                        for p_ in path_launches.values())
+                for t_ in ("tc", "decode", "simt")},
+            "tile": tile, "max_abs_err": diff,
+            "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
+            "bound_by": by, "library_ms": t["library"],
+            "shape": f"{tag}: bf16 ({rows},{k})@({k},{n_b})"
+                     f"{' GLU-silu' if glu else ''} -> ({rows},{n_out})"
+                     f"{' fp32' if out_dt == torch.float32 else ''}",
+            "library_call": "torch.matmul (no epilogue)"})
 
     # K2 at its path shape: prefill attention of the longest batch.
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -1093,23 +1300,52 @@ def main() -> int:
     g_cfg, r_cfg = get_config(GRIFFIN_ARCH), get_config(RWKV_ARCH)
     s_max = max(padded_lengths(prompt_lengths()[0]))
     dense = {"fused_matmul": fused_matmul, "flash_attention": flash_attention}
+    # K1's launches by tile in each serving path, reckoned from the traffic:
+    # 2 batches (prefills at 221 and 90 tokens, each with one logits call
+    # at M = 4) and 2 x 15 decode steps, each with one logits call.  Per
+    # layer: yi-6b and OLMoE's attention 4 projections, yi-6b's MLP 2;
+    # RecurrentGemma's recurrent blocks 5 and attention blocks 4, MLP 2 on
+    # both, and its prefill runs the stack twice; RWKV-6's time mix 7 and
+    # channel mix 3.
+    steps = N_REQUESTS // MAX_BATCH * (MAX_NEW - 1)
+
+    def reckon(per_pass, passes=1):
+        """``per_pass``: K1 calls in one pass over the stack."""
+        return {"tc": 2 * passes * per_pass,
+                "decode": steps * (per_pass + 1) + 2, "simt": 0}
+    g_attn = sum(1 for i in range(g_cfg.n_layers) if i % 3 == 2)
+    k1_tiles = {
+        "serve": reckon(6 * cfg.n_layers),
+        "moe-serve": reckon(4 * moe_cfg.n_layers),
+        "griffin-serve": reckon(7 * (g_cfg.n_layers - g_attn) + 6 * g_attn,
+                                passes=2),
+        "rwkv-serve": reckon(10 * r_cfg.n_layers)}
     try:
         phase_build()
-        phase_kernels(cfg, moe_cfg, s_max)
+        served = {ARCH: served_k1_calls(ARCH, 1),
+                  MOE_ARCH: served_k1_calls(MOE_ARCH, 1),
+                  GRIFFIN_ARCH: served_k1_calls(GRIFFIN_ARCH, 3),
+                  RWKV_ARCH: served_k1_calls(RWKV_ARCH, 1)}
+        phase_kernels(cfg, moe_cfg, s_max, served)
         phase_kernels_recurrent(g_cfg, r_cfg, s_max)
         phase_parity(ARCH, "parity")
         phase_parity(MOE_ARCH, "moe-parity")
         phase_parity(GRIFFIN_ARCH, "griffin-parity", GRIFFIN_PARITY_LAYERS)
         phase_parity(RWKV_ARCH, "rwkv-parity")
+        phase_parity(ARCH, "parity-bf16", dtype=torch.bfloat16,
+                     tol=TOL_PATH_BF16)
         launches = {
-            "serve": phase_serve(ARCH, "serve", dense),
+            "serve": phase_serve(ARCH, "serve", dense, k1_tiles["serve"]),
             "moe-serve": phase_serve(MOE_ARCH, "moe-serve", {
-                **dense, "grouped_matmul": grouped_matmul}),
+                **dense, "grouped_matmul": grouped_matmul},
+                k1_tiles["moe-serve"]),
             "griffin-serve": phase_serve(GRIFFIN_ARCH, "griffin-serve", {
-                **dense, "rglru_scan": rglru_scan}),
+                **dense, "rglru_scan": rglru_scan},
+                k1_tiles["griffin-serve"]),
             "rwkv-serve": phase_serve(RWKV_ARCH, "rwkv-serve", {
-                "fused_matmul": fused_matmul, "rwkv6_scan": rwkv6_scan})}
-        phase_profile(ARCH, "profile", s_max)
+                "fused_matmul": fused_matmul, "rwkv6_scan": rwkv6_scan},
+                k1_tiles["rwkv-serve"])}
+        phase_profile(ARCH, "profile", s_max, host_cost=True)
         phase_profile(MOE_ARCH, "moe-profile", s_max)
         phase_profile(GRIFFIN_ARCH, "griffin-profile", s_max)
         phase_profile(RWKV_ARCH, "rwkv-profile", s_max)

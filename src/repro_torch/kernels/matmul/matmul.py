@@ -1,10 +1,19 @@
 """The fused GEMM + epilogue kernel (K1) and its plain version.
 
-``fused_matmul_cuda`` launches ``csrc/fused_matmul.cu``, the Hopper
-counterpart of the reference's Pallas ``fused_matmul_kernel``
-(``repro/kernels/matmul/matmul.py``).  ``fused_matmul_plain`` computes the
-same function with plain tensor ops: the CPU tests run it, and
-``chip_smoke.py`` holds the kernel against it on the card.
+``fused_matmul_cuda`` launches one of K1's three CUDA tiles, the Hopper
+counterparts of the reference's Pallas ``fused_matmul_kernel``
+(``repro/kernels/matmul/matmul.py``); ``select_tile`` alone decides which:
+
+* ``"decode"`` (``csrc/decode_tile.cuh``): M <= 8 rows, any input type;
+  bound by reading B once;
+* ``"tc"`` (``csrc/fused_matmul_sm90.cu``): bf16/fp16 with M > 8 whose
+  rows TMA can load (16-byte multiples); wgmma on the tensor cores;
+* ``"simt"`` (``csrc/gemm_tile.cuh``): everything else (fp32, int8,
+  rows TMA refuses).
+
+``fused_matmul_plain`` computes the same function with plain tensor ops:
+the CPU tests run it, and ``chip_smoke.py`` holds every tile against it
+on the card.
 
 Both take the 2-D problem the wrapper (``ops.fused_matmul``) prepared:
 ``a`` (M, K), ``b`` (K, N) with N = 2 * N_out under GLU (gate columns,
@@ -28,20 +37,94 @@ _OUT_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
               torch.int32: 3}
 _BIAS_CODES = {BiasType.ZERO: 0, BiasType.ROW: 1, BiasType.FULL: 2}
 
-_fn = None
+TILES = ("decode", "tc", "simt")
+DECODE_ROWS = 8          # the decode tile's largest M
+TMA_ALIGN = 8            # 16-bit elements in TMA's 16-byte row-stride unit
+DECODE_COLS = 256        # output columns a decode block owns
+DECODE_BLOCKS = 264      # blocks that fill the card: two on each of 132 SMs
+DECODE_MIN_ROWS = 128    # fewest K rows a split of the decode tile takes
+DECODE_ROUND = 64        # a split's K rows are a multiple of the rows one
+                         # round of the block's 8 warps loads
+
+_fn = None               # the SIMT tile (fused_matmul.cu)
+_decode_fn = None        # the decode tile (fused_matmul.cu)
+_tc_fn = None            # the tensor-core tile (fused_matmul_sm90.cu)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the epilogue's arguments, common to the three C entry points
+_EPI_ARGS = [_I, _P, _P, _P, _P, _F, _I, _I, _I, _P]
+
+
+def _bind(stem: str, symbol: str, head: list):
+    from repro_torch.kernels import build
+    fn = getattr(build.load(stem), symbol)
+    fn.argtypes = head + _EPI_ARGS
+    fn.restype = _I
+    return fn
 
 
 def _launcher():
     global _fn
     if _fn is None:
-        from repro_torch.kernels import build
-        fn = build.load("fused_matmul").fused_matmul_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, i, i, i, i, i, i, i, p, p, p, p,
-                       ctypes.c_float, i, i, i, p]
-        fn.restype = i
-        _fn = fn
+        _fn = _bind("fused_matmul", "fused_matmul_launch",
+                    [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I])
     return _fn
+
+
+def _decode_launcher():
+    global _decode_fn
+    if _decode_fn is None:
+        _decode_fn = _bind("fused_matmul", "fused_matmul_decode_launch",
+                           [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P])
+    return _decode_fn
+
+
+def _tc_launcher():
+    global _tc_fn
+    if _tc_fn is None:
+        _tc_fn = _bind("fused_matmul_sm90", "fused_matmul_tc_launch",
+                       [_I, _P, _P, _P, _I, _I, _I, _I])
+    return _tc_fn
+
+
+def select_tile(m: int, n: int, k: int, dtype: torch.dtype, glu: bool,
+                aligned: bool) -> str:
+    """The tile that computes an (m, k) @ (k, n) product.
+
+    ``aligned``: both operands start on 16-byte boundaries.  M <= 8 takes
+    the decode tile, whatever the type.  Above that, bf16 and fp16 take
+    the tensor-core tile when TMA can load every row: A's rows (k), B's
+    rows (n) and under GLU each half of B's row (n / 2) are whole 16-byte
+    units.  fp32 stays off the tensor cores (TF32 would break its parity
+    tolerance) and int8 too (wgmma's s8 form takes only K-major B, and
+    the weights are (K, N)); they and the rows TMA refuses take the SIMT
+    tile.  No tile falls back to another: a failed launch raises.
+    """
+    if m <= DECODE_ROWS:
+        return "decode"
+    if (dtype in (torch.bfloat16, torch.float16) and aligned
+            and k % TMA_ALIGN == 0 and n % TMA_ALIGN == 0
+            and (not glu or (n // 2) % TMA_ALIGN == 0)):
+        return "tc"
+    return "simt"
+
+
+def tile_for(a: torch.Tensor, b: torch.Tensor, ep: Epilogue) -> str:
+    """``select_tile`` for contiguous 2-D operands of one call."""
+    return select_tile(a.shape[0], b.shape[1], a.shape[1], a.dtype, ep.glu,
+                       a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+
+
+def decode_split(n_out: int, k: int) -> "tuple[int, int]":
+    """(splits, rows a split takes) of the decode tile's K: as many splits
+    as keep the blocks within one wave of ``DECODE_BLOCKS`` (a second,
+    partial wave would cost nearly a full one), none shorter than
+    ``DECODE_MIN_ROWS`` rows."""
+    tiles = -(-n_out // DECODE_COLS)
+    splits = max(1, min(DECODE_BLOCKS // tiles, k // DECODE_MIN_ROWS))
+    k_split = -(-k // splits)
+    k_split = -(-k_split // DECODE_ROUND) * DECODE_ROUND
+    return -(-k // k_split), k_split
 
 
 def fused_matmul_plain(a: torch.Tensor, b: torch.Tensor, ep: Epilogue,
@@ -63,8 +146,10 @@ def _f32(x, shape, device):
 
 
 def fused_matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue,
-                      ops: EpilogueOperands) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors."""
+                      ops: EpilogueOperands,
+                      tile: "str | None" = None) -> torch.Tensor:
+    """Launch the CUDA kernel on CUDA tensors, on ``tile`` (by default
+    ``select_tile``'s choice)."""
     if b.device != a.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
     if a.dtype not in _IN_CODES or b.dtype != a.dtype:
@@ -103,13 +188,30 @@ def fused_matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue,
     residual = ptr(ops.residual, (m, n_out)) if ep.has_residual else None
     vec_b = _aligned(b, n, vec) and (not ep.glu or n_out % vec == 0)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = _launcher()(
-        _IN_CODES[a.dtype], a.data_ptr(), b.data_ptr(), out.data_ptr(),
-        m, n, k, int(ep.glu), int(_aligned(a, k, vec)), int(vec_b),
-        _BIAS_CODES[ep.bias_type], bias, scale_a, scale_b, residual,
-        float(ep.softcap), ACTIVATION_IDS[ep.activation], int(ep.trivial),
-        _OUT_CODES[ep.out_dtype], stream)
+    tile = tile or tile_for(a, b, ep)
+    epi = (_BIAS_CODES[ep.bias_type], bias, scale_a, scale_b, residual,
+           float(ep.softcap), ACTIVATION_IDS[ep.activation], int(ep.trivial),
+           _OUT_CODES[ep.out_dtype], stream)
+    head = (_IN_CODES[a.dtype], a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            m, n, k, int(ep.glu))
+    if tile == "decode":
+        splits, k_split = decode_split(n_out, k)
+        ws = None
+        if splits > 1:
+            ws = torch.empty((splits, m, n), device=a.device,
+                             dtype=torch.int32 if a.dtype == torch.int8
+                             else torch.float32)
+            keep.append(ws)
+        err = _decode_launcher()(*head, int(vec_b), splits, k_split,
+                                 ws.data_ptr() if ws is not None else None,
+                                 *epi)
+    elif tile == "tc":
+        err = _tc_launcher()(*head, *epi)
+    elif tile == "simt":
+        err = _launcher()(*head, int(_aligned(a, k, vec)), int(vec_b), *epi)
+    else:
+        raise ValueError(f"unknown tile {tile!r}; one of {TILES}")
     if err != 0:
-        raise RuntimeError(f"fused_matmul kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"fused_matmul kernel launch failed ({tile} "
+                           f"tile): CUDA error {err}")
     return out

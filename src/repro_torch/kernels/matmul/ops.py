@@ -18,8 +18,8 @@ from repro_torch.core.fusion import (Epilogue, EpilogueOperands,
                                      _infer_policy)
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.task import BiasType
-from repro_torch.kernels.matmul.matmul import (fused_matmul_cuda,
-                                               fused_matmul_plain)
+from repro_torch.kernels.matmul.matmul import (TILES, fused_matmul_cuda,
+                                               fused_matmul_plain, tile_for)
 
 
 def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
@@ -28,9 +28,10 @@ def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
                  policy: Optional[PrecisionPolicy] = None) -> torch.Tensor:
     """epilogue(a @ b).  a: (..., M, K); b: (K, N) or (K, 2, N/2) for GLU.
 
-    CUDA tensors launch the kernel (and count the launch in
-    ``fused_matmul.launches``) or raise; CPU tensors run the plain
-    version.
+    CUDA tensors launch the kernel on the tile ``select_tile`` picks (and
+    count the launch in ``fused_matmul.launches`` and in
+    ``fused_matmul.launches_by_tile``) or raise; CPU tensors run the
+    plain version.
     """
     if policy is None:
         policy = _infer_policy(a)
@@ -54,11 +55,15 @@ def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
         residual=(operands.residual.reshape(-1, operands.residual.shape[-1])
                   if operands.residual is not None else None))
     if a2.is_cuda:
-        out = fused_matmul_cuda(a2, b2, epilogue, ops)
+        a2, b2 = a2.contiguous(), b2.contiguous()
+        tile = tile_for(a2, b2, epilogue)
+        out = fused_matmul_cuda(a2, b2, epilogue, ops, tile)
         fused_matmul.launches += 1
+        fused_matmul.launches_by_tile[tile] += 1
     else:
         out = fused_matmul_plain(a2, b2, epilogue, ops, policy.accum_dtype)
     return out.reshape(*lead, m, out.shape[-1])
 
 
 fused_matmul.launches = 0
+fused_matmul.launches_by_tile = dict.fromkeys(TILES, 0)

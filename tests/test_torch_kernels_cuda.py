@@ -47,24 +47,54 @@ def _rel(out, ref):
     return ((o - r).abs().max() / (r.abs().max() + 1e-30)).item()
 
 
-MM_CASES = [  # (m, k, n, dtype, out dtype, epilogue fields, tol)
-    (5, 72, 200, torch.bfloat16, None, {}, 3e-2),
+MM_CASES = [  # (m, k, n, dtype, out dtype, epilogue fields, tol, tile)
+    (5, 72, 200, torch.bfloat16, None, {}, 3e-2, "decode"),
     (4, 256, 512, torch.bfloat16, None, dict(glu=True, activation="silu"),
-     3e-2),
+     3e-2, "decode"),
     (70, 96, 130, torch.float32, None, dict(bias="full", activation="gelu",
-                                            has_residual=True), 1e-5),
-    (33, 257, 96, torch.float16, None, dict(bias="row", softcap=5.0), 3e-2),
-    (9, 100, 70, torch.int8, torch.int32, {}, 0.0),
+                                            has_residual=True), 1e-5, "simt"),
+    (33, 257, 96, torch.float16, None, dict(bias="row", softcap=5.0), 3e-2,
+     "simt"),
+    (9, 100, 70, torch.int8, torch.int32, {}, 0.0, "simt"),
     (66, 64, 48, torch.int8, torch.float32, dict(
         has_scale_a=True, has_scale_b=True, bias="row",
-        activation="relu2"), 1e-5),
+        activation="relu2"), 1e-5, "simt"),
+    # tensor-core tile: ragged M (70, 360, 884), K not a multiple of 64,
+    # GLU with silu and gelu_tanh, every epilogue field, bf16 and fp16
+    (70, 96, 256, torch.bfloat16, None, dict(glu=True, activation="silu"),
+     3e-2, "tc"),
+    (360, 1000, 384, torch.bfloat16, None, dict(
+        bias="row", has_scale_a=True, has_scale_b=True, has_residual=True,
+        softcap=30.0, activation="gelu"), 3e-2, "tc"),
+    (884, 4096, 1024, torch.bfloat16, None, dict(
+        glu=True, activation="gelu_tanh", bias="full"), 3e-2, "tc"),
+    (200, 520, 304, torch.float16, None, dict(glu=True, activation="silu",
+                                              has_residual=True), 3e-2, "tc"),
+    (130, 136, 200, torch.float16, torch.float32, dict(
+        activation="relu2", softcap=5.0), 3e-2, "tc"),
+    (9, 64, 64, torch.bfloat16, None, {}, 3e-2, "tc"),
+    # decode tile at M = 1, 4 and 8, K split across blocks where N is
+    # narrow (all but the 100-deep case)
+    (1, 4096, 512, torch.bfloat16, None, {}, 3e-2, "decode"),
+    (4, 4096, 22016, torch.bfloat16, None, dict(glu=True, activation="silu"),
+     3e-2, "decode"),
+    (8, 11008, 4096, torch.bfloat16, None, dict(has_residual=True), 3e-2,
+     "decode"),
+    (4, 4096, 6400, torch.bfloat16, torch.float32, dict(softcap=30.0), 3e-2,
+     "decode"),
+    (4, 100, 70, torch.float32, None, dict(bias="full", activation="tanh"),
+     1e-5, "decode"),
+    (8, 640, 96, torch.int8, torch.int32, {}, 0.0, "decode"),
+    (3, 1000, 130, torch.float16, None, dict(
+        glu=True, activation="gelu", bias="row", has_scale_a=True,
+        has_scale_b=True), 3e-2, "decode"),
+    # bf16 with K not a multiple of 8: TMA refuses the rows, SIMT serves
+    (70, 100, 128, torch.bfloat16, None, dict(activation="silu"), 3e-2,
+     "simt"),
 ]
 
 
-@pytest.mark.parametrize("case", MM_CASES, ids=lambda c: f"{c[0]}x{c[1]}x"
-                         f"{c[2]}-{str(c[3])[6:]}-{'-'.join(c[5]) or 'plain'}")
-def test_fused_matmul_kernel_vs_plain(card, case):
-    m, k, n, dt, out_dt, fields, tol = case
+def _mm_case(card, m, k, n, dt, out_dt, fields):
     fields = dict(fields)
     bias = fields.pop("bias", None)
     if dt == torch.int8:
@@ -89,14 +119,41 @@ def test_fused_matmul_kernel_vs_plain(card, case):
                              "full": BiasType.FULL}[bias],
                   out_dtype=out_dt or (torch.float32 if dt == torch.int8
                                        else dt), **fields)
+    return a, b, ep, ops
+
+
+@pytest.mark.parametrize("case", MM_CASES, ids=lambda c: f"{c[0]}x{c[1]}x"
+                         f"{c[2]}-{str(c[3])[6:]}-{'-'.join(c[5]) or 'plain'}")
+def test_fused_matmul_kernel_vs_plain(card, case):
+    m, k, n, dt, out_dt, fields, tol, tile = case
+    a, b, ep, ops = _mm_case(card, m, k, n, dt, out_dt, fields)
     before = mm_ops.fused_matmul.launches
+    by_tile = dict(mm_ops.fused_matmul.launches_by_tile)
     out = mm_ops.fused_matmul(a, b, epilogue=ep, operands=ops)
     assert mm_ops.fused_matmul.launches == before + 1
+    by_tile[tile] += 1
+    assert mm_ops.fused_matmul.launches_by_tile == by_tile
     ref = fused_matmul_plain(a, b, ep, ops, torch.int32 if dt == torch.int8
                              else torch.float32)
     torch.cuda.synchronize()
     assert out.dtype == ref.dtype and out.shape == ref.shape
+    if dt == torch.int8 and out_dt == torch.int32:
+        assert torch.equal(out, ref)
     assert _rel(out, ref) <= tol
+
+
+@pytest.mark.parametrize("tile,m", [("decode", 4), ("tc", 884)])
+def test_fused_matmul_tile_repeats_bit_for_bit(card, tile, m):
+    """No atomics: the same call gives the same bits twice, on the tile
+    the count names."""
+    a, b, ep, ops = _mm_case(card, m, 4096, 2 * 1024, torch.bfloat16, None,
+                             dict(glu=True, activation="silu"))
+    before = mm_ops.fused_matmul.launches_by_tile[tile]
+    one = mm_ops.fused_matmul(a, b, epilogue=ep, operands=ops)
+    two = mm_ops.fused_matmul(a, b, epilogue=ep, operands=ops)
+    torch.cuda.synchronize()
+    assert mm_ops.fused_matmul.launches_by_tile[tile] == before + 2
+    assert torch.equal(one, two)
 
 
 def test_fused_matmul_kernel_refuses_fp8(card):

@@ -10,6 +10,13 @@ drives it through the port's launch code.  It checks the kernels'
 indexing, masking, tiling and epilogue logic; it cannot check timing,
 the GPU memory model or what ``nvcc`` accepts (tests/
 test_torch_kernels_cuda.py does that on the card).  Skips without g++.
+
+The sources in ``build.CARD_ONLY`` are left out: K1's tensor-core tile
+(``fused_matmul_sm90.cu``) is TMA, mbarrier and wgmma PTX with driver
+types, none of which a CPU stand-in can run.  So the fixture routes every
+call ``select_tile`` sends to ``"tc"`` to the SIMT tile instead (of the
+K1 cases below, the fp16 70x40x96 GLU case); the card tests hold the
+tensor-core tile itself against the plain version.
 """
 
 import ctypes
@@ -66,6 +73,7 @@ inline std::vector<float> emu_dyn(1 << 20);
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 struct uint4 { unsigned x, y, z, w; };
+struct uint2 { unsigned x, y; };
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef struct CUstream_st* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -159,6 +167,8 @@ def emulated(tmp_path_factory):
     libs = {}
     procs = []
     for src in build.sources():
+        if src.stem in build.CARD_ONLY:
+            continue
         cpp = d / f"{src.stem}.cpp"
         cpp.write_text(_emulable(src.read_text()))
         libs[src.stem] = d / f"lib{src.stem}.so"
@@ -174,11 +184,16 @@ def emulated(tmp_path_factory):
 
 @pytest.fixture
 def bound(emulated, monkeypatch):
-    """Point the port's launchers at the emulated libraries."""
+    """Point the port's launchers at the emulated libraries; K1's calls
+    that ``select_tile`` sends to the card-only tensor-core tile run on
+    the SIMT tile."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     mm_fn = emulated["fused_matmul"].fused_matmul_launch
     mm_fn.argtypes = [i, p, p, p, i, i, i, i, i, i, i, p, p, p, p, f, i, i,
                       i, p]
+    dec_fn = emulated["fused_matmul"].fused_matmul_decode_launch
+    dec_fn.argtypes = [i, p, p, p, i, i, i, i, i, i, i, p, i, p, p, p, p, f,
+                       i, i, i, p]
     fa_fn = emulated["flash_attention"].flash_attention_launch
     fa_fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i,
                       ctypes.POINTER(ctypes.c_longlong), f, i, i, f, i, i, p]
@@ -190,9 +205,13 @@ def bound(emulated, monkeypatch):
     rg_fn.argtypes = [p, p, p, p, p, i, i, i, p]
     wkv_fn = emulated["rwkv6_wkv"].rwkv6_wkv_launch
     wkv_fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-    for fn in (mm_fn, fa_fn, gm_fn, qr_fn, rg_fn, wkv_fn):
+    for fn in (mm_fn, dec_fn, fa_fn, gm_fn, qr_fn, rg_fn, wkv_fn):
         fn.restype = i
     monkeypatch.setattr(mm, "_fn", mm_fn)
+    monkeypatch.setattr(mm, "_decode_fn", dec_fn)
+    select = mm.select_tile
+    monkeypatch.setattr(mm, "select_tile", lambda *args: (
+        "simt" if select(*args) == "tc" else select(*args)))
     monkeypatch.setattr(attn, "_fn", fa_fn)
     monkeypatch.setattr(gm, "_fn", gm_fn)
     monkeypatch.setattr(qr, "_fn", qr_fn)
@@ -212,6 +231,23 @@ def _rel(out, ref):
 
 MM_CASES = [  # (m, k, n, dtype, epilogue fields, tol); m <= 8: decode tile
     (5, 72, 200, torch.float32, {}, 1e-5),
+    # decode tile: M = 1, 4 and 8 rows, ragged N (scalar loads) and K,
+    # every epilogue field, and K split across blocks (k >= 256: a
+    # workspace and the fixed-order reduction kernel)
+    (1, 40, 27, torch.bfloat16, dict(activation="relu"), 3e-2),
+    (7, 300, 200, torch.float32, dict(bias="full", activation="tanh",
+                                      has_residual=True), 1e-5),
+    (4, 520, 90, torch.float16, dict(glu=True, activation="gelu_tanh",
+                                     bias="row", has_scale_a=True,
+                                     has_scale_b=True, has_residual=True,
+                                     softcap=5.0), 3e-2),
+    (8, 1100, 64, torch.int8, {}, 0.0),
+    (2, 77, 515, torch.int8, dict(bias="row", has_scale_a=True,
+                                  has_scale_b=True, activation="relu"), 1e-5),
+    (6, 256, 1040, torch.bfloat16, dict(bias="row", activation="gelu"),
+     3e-2),
+    (3, 264, 512, torch.bfloat16, dict(glu=True, activation="silu",
+                                       has_residual=True), 3e-2),
     (5, 72, 200, torch.bfloat16, dict(glu=True, activation="silu"), 3e-2),
     (70, 40, 96, torch.float32, dict(bias="row", activation="gelu",
                                      has_scale_a=True, has_scale_b=True,
@@ -257,6 +293,7 @@ def test_fused_matmul_source_vs_plain(bound, case):
                              "full": BiasType.FULL}[bias],
                   out_dtype=(torch.int32 if trivial else torch.float32
                              if dt == torch.int8 else dt), **fields)
+    assert mm.tile_for(a, b, ep) == ("decode" if m <= 8 else "simt")
     out = mm.fused_matmul_cuda(a, b, ep, ops)
     ref = mm.fused_matmul_plain(a, b, ep, ops, torch.int32
                                 if dt == torch.int8 else torch.float32)
@@ -264,6 +301,68 @@ def test_fused_matmul_source_vs_plain(bound, case):
     if trivial:
         assert torch.equal(out, ref)
     assert _rel(out, ref) <= tol
+
+
+def test_decode_split_covers_k_once():
+    """Split K reaches every row exactly once, in ranges of whole
+    64-row rounds, and only where N alone gives too few blocks, never
+    past one wave."""
+    for n_out, k in ((11008, 4096), (512, 4096), (4096, 11008),
+                     (64000, 4096), (45, 520), (27, 40), (100, 129)):
+        splits, k_split = mm.decode_split(n_out, k)
+        assert k_split % mm.DECODE_ROUND == 0
+        assert (splits - 1) * k_split < k <= splits * k_split
+        tiles = -(-n_out // mm.DECODE_COLS)
+        assert splits == 1 or tiles * splits <= mm.DECODE_BLOCKS
+    assert mm.decode_split(64000, 4096) == (1, 4096)
+    assert mm.decode_split(27, 40) == (1, 64)
+    assert mm.decode_split(11008, 4096) == (6, 704)
+
+
+# K1's calls on the served paths, (k, n, glu) per projection: prefill runs
+# them at M = 4 x 221 = 884 and 4 x 90 = 360 rows, decode and each
+# prefill's logits at M = 4.
+SERVED_K1 = {
+    "yi-6b": [(4096, 4096, False), (4096, 512, False), (4096, 22016, True),
+              (11008, 4096, False)],
+    "olmoe-1b-7b": [(2048, 2048, False), (2048, 64, False)],
+    "recurrentgemma-2b": [(2560, 2560, False), (2560, 256, False),
+                          (2560, 15360, True), (7680, 2560, False)],
+    "rwkv6-7b": [(4096, 4096, False), (4096, 160, False), (4096, 64, False),
+                 (4096, 14336, False), (14336, 4096, False)],
+}
+LOGITS_K1 = {"yi-6b": (4096, 64000), "olmoe-1b-7b": (2048, 50304),
+             "recurrentgemma-2b": (2560, 256000), "rwkv6-7b": (4096, 65536)}
+
+
+@pytest.mark.parametrize("arch", sorted(SERVED_K1))
+def test_select_tile_on_served_shapes(arch):
+    for k, n, glu in SERVED_K1[arch]:
+        for m in (884, 360):
+            assert mm.select_tile(m, n, k, torch.bfloat16, glu, True) == "tc"
+        assert mm.select_tile(4, n, k, torch.bfloat16, glu, True) == "decode"
+    k, n = LOGITS_K1[arch]
+    assert mm.select_tile(4, n, k, torch.bfloat16, False, True) == "decode"
+
+
+@pytest.mark.parametrize("case,tile", [
+    ((884, 4096, 4096, torch.float16, False, True), "tc"),
+    ((9, 4096, 4096, torch.bfloat16, False, True), "tc"),
+    ((8, 4096, 4096, torch.bfloat16, False, True), "decode"),
+    ((1, 37, 13, torch.float32, True, False), "decode"),
+    ((4, 4096, 22016, torch.int8, False, True), "decode"),
+    ((884, 4096, 4100, torch.bfloat16, False, True), "simt"),   # K % 8
+    ((884, 4100, 4096, torch.bfloat16, False, True), "simt"),   # N % 8
+    ((884, 40, 64, torch.bfloat16, True, True), "simt"),        # N/2 % 8
+    ((884, 48, 64, torch.bfloat16, True, True), "tc"),
+    ((884, 4096, 4096, torch.float32, False, True), "simt"),
+    ((884, 4096, 4096, torch.int8, False, True), "simt"),
+    ((884, 4096, 4096, torch.bfloat16, False, False), "simt"),  # unaligned
+], ids=lambda v: "-".join(map(str, v)).replace("torch.", "")
+    if isinstance(v, tuple) else v)
+def test_select_tile_rule(case, tile):
+    m, n, k, dt, glu, aligned = case
+    assert mm.select_tile(m, n, k, dt, glu, aligned) == tile
 
 
 ATTN_CASES = [  # (b, h, hkv, sq, sk, d, dtype, flags)
