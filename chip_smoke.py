@@ -92,8 +92,11 @@ TOL_PATH = 1e-4
 # output to bf16, so they differ by the rounding of sums taken in another
 # order (an ulp of bf16, 2^-8 relative, on some elements), carried through
 # the layers; greedy tokens are reported, not required, since a rounding
-# can flip a near-tied argmax of random weights.
-TOL_PATH_BF16 = 3e-2
+# can flip a near-tied argmax of random weights.  On an H100 the routes
+# read 1.04e-2 to 1.14e-2 of max |logit| apart, and each 1.30e-2 to
+# 1.58e-2 from the same weights in fp32: the limit is about 1.8 times the
+# widest gap between the routes and above the bf16 rounding's own reach.
+TOL_PATH_BF16 = 2e-2
 TOL_W8A8_ROUTES, TOL_W8A8_FLOAT = 1e-5, 0.05
 PROFILE_STEPS, UNTRACED_STEPS = 4, 16
 MAX_ROWS_DECODE = 8                 # K1's decode tile serves M <= 8
@@ -317,10 +320,10 @@ def served_k1_calls(arch, n_layers):
     calls = {}
     inner = mm_ops.fused_matmul_cuda      # the wrapper's 2-D launch
 
-    def recording(a, b, ep, ops, tile=None):
+    def recording(a, b, ep, ops):
         calls[(a.shape[1], b.shape[1], ep.glu, ep.activation, ep.softcap,
                ep.bias_type.name.lower(), ep.out_dtype)] = None
-        return inner(a, b, ep, ops, tile)
+        return inner(a, b, ep, ops)
 
     mm_ops.fused_matmul_cuda = recording
     try:
@@ -810,26 +813,31 @@ def _device_ms_by_kernel(prof, n):
 
 def k1_host_us():
     """Host microseconds a K1 call takes on each tile, at a shape whose
-    device time is a few microseconds: 200 calls enqueued back to back,
+    device time is a few microseconds and that ``select_tile`` sends to
+    that tile (fp32 for the SIMT tile): 200 calls enqueued back to back,
     timed on the host's clock to a synchronize.  The tensor-core tile's
     figure includes encoding its two tensor maps; ``wrapper_decode`` is
     the decode call through the wrapper (``ops.fused_matmul``), which adds
     the reshapes and the operand checks."""
     from repro_torch.core.fusion import Epilogue, EpilogueOperands
-    from repro_torch.kernels.matmul.matmul import fused_matmul_cuda
+    from repro_torch.kernels.matmul.matmul import fused_matmul_cuda, tile_for
     from repro_torch.kernels.matmul.ops import fused_matmul
     gen = torch.Generator(device="cuda").manual_seed(9)
     out = {}
-    for tile, m in (("tc", 16), ("simt", 16), ("decode", MAX_BATCH)):
-        a = _rand(gen, (m, 64), torch.bfloat16)
-        b = _rand(gen, (64, 64), torch.bfloat16)
-        ep, ops = Epilogue(out_dtype=torch.bfloat16), EpilogueOperands()
+    for tile, m, dtype in (("tc", 16, torch.bfloat16),
+                           ("simt", 16, torch.float32),
+                           ("decode", MAX_BATCH, torch.bfloat16)):
+        a = _rand(gen, (m, 64), dtype)
+        b = _rand(gen, (64, 64), dtype)
+        ep, ops = Epilogue(out_dtype=dtype), EpilogueOperands()
+        require(tile_for(a, b, ep) == tile,
+                f"host-time case for {tile} runs on {tile_for(a, b, ep)}")
         for _ in range(20):
-            fused_matmul_cuda(a, b, ep, ops, tile)
+            fused_matmul_cuda(a, b, ep, ops)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(200):
-            fused_matmul_cuda(a, b, ep, ops, tile)
+            fused_matmul_cuda(a, b, ep, ops)
         torch.cuda.synchronize()
         out[tile] = (time.perf_counter() - t0) * 1e6 / 200
     t0 = time.perf_counter()

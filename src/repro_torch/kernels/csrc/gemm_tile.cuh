@@ -146,7 +146,10 @@ gemm_tile_kernel(const T* __restrict__ A, const T* __restrict__ B,
 
 // Prefill tile: 64x64 outputs, 256 threads of 4x4 each.
 constexpr int L_BM = 64, L_BN = 64, L_BK = 32, L_TM = 4, L_TN = 4;
-// Decode tile: 8x32 outputs, 128 threads of 1x2 each, deep K steps.
+// Small-M tile: 8x32 outputs, 128 threads of 1x2 each, deep K steps.
+// Only K4 reaches it: K1's select_tile sends every M <= 8 call to
+// decode_tile.cuh, so K1's instantiations of this branch never run.  It
+// goes when K4 moves onto K1's tiles.
 constexpr int S_BM = 8, S_BN = 32, S_BK = 128, S_TM = 1, S_TN = 2;
 
 // ``batch`` problems of (M, K) @ (K, N); see the strides above.

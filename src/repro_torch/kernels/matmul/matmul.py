@@ -146,12 +146,13 @@ def _f32(x, shape, device):
 
 
 def fused_matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue,
-                      ops: EpilogueOperands,
-                      tile: "str | None" = None) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors, on ``tile`` (by default
-    ``select_tile``'s choice)."""
+                      ops: EpilogueOperands) -> torch.Tensor:
+    """Launch the CUDA kernel on contiguous CUDA tensors, on the tile
+    ``tile_for`` names."""
     if b.device != a.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("the CUDA fused matmul takes contiguous operands")
     if a.dtype not in _IN_CODES or b.dtype != a.dtype:
         raise NotImplementedError(
             f"the CUDA fused matmul takes float32, float16, bfloat16 or "
@@ -167,7 +168,6 @@ def fused_matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue,
     out = torch.empty((m, n_out), dtype=ep.out_dtype, device=a.device)
     if out.numel() == 0:
         return out
-    a, b = a.contiguous(), b.contiguous()
     vec = 16 // a.element_size()
     keep = []        # fp32 operand copies must outlive the launch
 
@@ -188,7 +188,7 @@ def fused_matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue,
     residual = ptr(ops.residual, (m, n_out)) if ep.has_residual else None
     vec_b = _aligned(b, n, vec) and (not ep.glu or n_out % vec == 0)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    tile = tile or tile_for(a, b, ep)
+    tile = tile_for(a, b, ep)
     epi = (_BIAS_CODES[ep.bias_type], bias, scale_a, scale_b, residual,
            float(ep.softcap), ACTIVATION_IDS[ep.activation], int(ep.trivial),
            _OUT_CODES[ep.out_dtype], stream)
@@ -207,10 +207,8 @@ def fused_matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue,
                                  *epi)
     elif tile == "tc":
         err = _tc_launcher()(*head, *epi)
-    elif tile == "simt":
-        err = _launcher()(*head, int(_aligned(a, k, vec)), int(vec_b), *epi)
     else:
-        raise ValueError(f"unknown tile {tile!r}; one of {TILES}")
+        err = _launcher()(*head, int(_aligned(a, k, vec)), int(vec_b), *epi)
     if err != 0:
         raise RuntimeError(f"fused_matmul kernel launch failed ({tile} "
                            f"tile): CUDA error {err}")

@@ -56,10 +56,9 @@ def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
                   if operands.residual is not None else None))
     if a2.is_cuda:
         a2, b2 = a2.contiguous(), b2.contiguous()
-        tile = tile_for(a2, b2, epilogue)
-        out = fused_matmul_cuda(a2, b2, epilogue, ops, tile)
+        out = fused_matmul_cuda(a2, b2, epilogue, ops)
         fused_matmul.launches += 1
-        fused_matmul.launches_by_tile[tile] += 1
+        fused_matmul.launches_by_tile[tile_for(a2, b2, epilogue)] += 1
     else:
         out = fused_matmul_plain(a2, b2, epilogue, ops, policy.accum_dtype)
     return out.reshape(*lead, m, out.shape[-1])

@@ -365,6 +365,15 @@ def test_select_tile_rule(case, tile):
     assert mm.select_tile(m, n, k, dt, glu, aligned) == tile
 
 
+def test_fused_matmul_cuda_takes_contiguous_operands():
+    """The wrapper makes the operands contiguous before it launches, so
+    that the tile it counts is the tile ``tile_for`` picks inside."""
+    a, b = torch.zeros(64, 16).t(), torch.zeros(64, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        mm.fused_matmul_cuda(a, b, Epilogue(out_dtype=torch.float32),
+                             EpilogueOperands())
+
+
 ATTN_CASES = [  # (b, h, hkv, sq, sk, d, dtype, flags)
     (1, 4, 2, 70, 70, 32, torch.float32, dict(causal=True)),
     (2, 4, 1, 33, 100, 64, torch.float32, dict(causal=True, window=16,
