@@ -15,20 +15,26 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 reference test suite's tolerances (K3 bit for bit); K1
                 at every distinct call of the four served models (recorded
                 from one prefill and one decode step at cut depth) at the
-                prefill and decode row counts, each on the tile that
-                serves it (``launches_by_tile``);
+                prefill and decode row counts, and K4 at OLMoE's served
+                capacities (C = 144, 64, 8, with and without the rows of
+                a seeded routing), each on the tile that serves it
+                (``launches_by_tile``);
 4. parity     — yi-6b at full width, 4 layers, fp32: prefill and 4 decode
                 steps through the kernels against the plain torch route;
                 parity-bf16 the same in bf16, which takes K1's
                 tensor-core and decode tiles through the model;
 5. moe-parity — the same for olmoe-1b-7b, with the count of (token,
                 layer) expert choices that differ between the routes;
+                moe-parity-bf16 the same in bf16, through K1's and K4's
+                tensor-core and decode tiles;
 6. serve      — yi-6b at full width and depth, bf16, seeded random
                 weights: 8 requests through ``ServingEngine`` with launch
                 counts, K1's by tile against the counts reckoned from the
                 traffic;
 7. moe-serve  — the same traffic through olmoe-1b-7b at full width and
-                depth (the grouped-matmul kernel on every expert MLP);
+                depth (the grouped-matmul kernel on every expert MLP),
+                K4's launches by tile against the counts reckoned from
+                the traffic;
 8. kernels-recurrent — the RG-LRU scan and the chunked RWKV-6 WKV
                 against their plain versions at the serving paths'
                 shapes, with initial states, ragged lengths, carried
@@ -54,7 +60,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
 13. the ``kernels`` line: per kernel, its launches in the paths above, its
    time at the paths' largest shapes beside its plain version, a library
    call and its roofline bound; K1 at prefill (tensor-core tile), decode
-   and logits (decode tile), timed from CUDA-graph replays.
+   and logits (decode tile), K4 at prefill (tensor-core tile), at decode
+   with every row full and with a seeded routing's rows (decode tile),
+   timed from CUDA-graph replays.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last line is ``{"ok": true, "device": {...}}``.  Any failed
@@ -65,6 +73,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -96,15 +105,18 @@ TOL_PATH = 1e-4
 # read 1.04e-2 to 1.14e-2 of max |logit| apart, and each 1.30e-2 to
 # 1.58e-2 from the same weights in fp32: the limit is about 1.8 times the
 # widest gap between the routes and above the bf16 rounding's own reach.
+# OLMoE's torch route takes the kernel route's expert choices in bf16
+# (``phase_parity``), so its gap is of the same kind.
 TOL_PATH_BF16 = 2e-2
 TOL_W8A8_ROUTES, TOL_W8A8_FLOAT = 1e-5, 0.05
 PROFILE_STEPS, UNTRACED_STEPS = 4, 16
 MAX_ROWS_DECODE = 8                 # K1's decode tile serves M <= 8
 # a substring of each kernel's name in a profiler trace
-# K1's tiles by kernel name within its "FusedMatmul" launches
-K1_TILE_TAGS = {"tc": ("tc_tile_kernel",),
+# K1's and K4's tiles by kernel name within their launches
+TILE_TAGS = {"tc": ("tc_tile_kernel",),
                 "decode": ("decode_tile_kernel", "decode_reduce_kernel"),
                 "simt": ("gemm_tile_kernel",)}
+TILED = ("fused_matmul", "grouped_matmul")     # the kernels with tiles
 KERNEL_TAGS = {"fused_matmul": "FusedMatmul",
                "grouped_matmul": "GroupedMatmul",
                "flash_attention": "flash_attention_kernel",
@@ -170,6 +182,27 @@ def phase_device():
 # Phase 2: build.
 # ---------------------------------------------------------------------------
 
+def ptxas_report(text):
+    """{kernel: "N registers, S bytes spill stores"} from nvcc's ``-Xptxas
+    -v`` log; a template kernel is named by its mangled arguments, e.g.
+    ``decode_tile_kernel<NS_11FusedMatmulE13__nv_bfloat16Li4ELb1>``."""
+    out, name, spill = {}, None, "?"
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            t = re.search(r"([a-z_]+_kernel)I(.+?)EEv", m.group(1))
+            name = f"{t.group(1)}<{t.group(2)}>" if t else m.group(1)[-60:]
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = f"{m.group(1)} registers, {spill} bytes spill stores"
+            name = None
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -181,8 +214,7 @@ def phase_build():
     for stem, path in libs.items():
         log = Path(str(path) + ".log")
         if log.exists():
-            ptxas[stem] = [ln.strip() for ln in log.read_text().splitlines()
-                           if "registers" in ln or "spill" in ln]
+            ptxas[stem] = ptxas_report(log.read_text())
     emit({"phase": "build", "seconds": seconds,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()},
           "ptxas": ptxas})
@@ -276,9 +308,26 @@ def grouped_case(gen, e, c, k, n, dtype, *, glu=False, act="none"):
     return x, w, ep
 
 
-def run_grouped(x, w, ep):
+def run_grouped(x, w, ep, **promises):
     from repro_torch.kernels.moe.ops import grouped_matmul
-    return grouped_matmul(x, w, epilogue=ep)
+    return grouped_matmul(x, w, epilogue=ep, **promises)
+
+
+def routed_rows(x, tokens, top_k, seed):
+    """The rows of a seeded routing of ``tokens`` tokens, each to top_k
+    distinct experts, as ``moe_apply_local`` makes them: expert e's rows
+    from min(count, C) on are zeroed in ``x`` (E, C, K) in place.
+    Returns the promises the layer would pass (``rows``, ``max_rows``,
+    ``max_experts``)."""
+    e, c, _ = x.shape
+    rng = np.random.default_rng(seed)
+    picks = np.stack([rng.choice(e, top_k, replace=False)
+                      for _ in range(tokens)])
+    counts = np.minimum(np.bincount(picks.ravel(), minlength=e), c)
+    for i, n in enumerate(counts):
+        x[i, n:] = 0
+    return dict(rows=torch.tensor(counts, dtype=torch.int32, device="cuda"),
+                max_rows=min(c, tokens), max_experts=min(e, tokens * top_k))
 
 
 def plain_grouped(x, w, ep):
@@ -342,6 +391,7 @@ def served_k1_calls(arch, n_layers):
 def phase_kernels(cfg, moe_cfg, s_max, served):
     """``served``: arch -> its distinct K1 calls (``served_k1_calls``)."""
     from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.kernels.moe.ops import grouped_matmul
     gen = torch.Generator(device="cuda").manual_seed(1)
     d, ff, vocab = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     results = []
@@ -440,30 +490,47 @@ def phase_kernels(cfg, moe_cfg, s_max, served):
     check_attn("fully masked rows are 0", TOL_FLASH_FP32,
                (1, 4, 1, 20, 40, hd), torch.float32, zero_rows=slice(0, 20),
                causal=True, window=4, q_start=100)
-    def check_gm(name, tol, *shape, **kw):
+    def check_gm(name, tol, tile, *shape, routed=None, **kw):
+        """One K4 case, which must run on ``tile``; ``routed``: the tokens
+        of a routing (seeded with that number) whose rows the call is
+        promised."""
         x, w, ep = grouped_case(gen, *shape, **kw)
-        out = run_grouped(x, w, ep)
+        promises = {} if routed is None else routed_rows(
+            x, routed, moe_cfg.moe.top_k, routed)
+        before = dict(grouped_matmul.launches_by_tile)
+        out = run_grouped(x, w, ep, **promises)
+        ran = [t for t, n in grouped_matmul.launches_by_tile.items()
+               if n != before[t]]
         ref = plain_grouped(x, w, ep)
         torch.cuda.synchronize()
         rel, diff = rel_err(out, ref)
         ok = (out.dtype == ref.dtype and out.shape == ref.shape
-              and rel <= tol and bool(torch.isfinite(out.double()).all()))
+              and rel <= tol and bool(torch.isfinite(out.double()).all())
+              and ran == [tile])
         results.append({"kernel": "grouped_matmul", "case": name,
-                        "rel": rel, "max_abs_err": diff, "tol": tol,
-                        "ok": ok})
+                        "tile": ran, "rel": rel, "max_abs_err": diff,
+                        "tol": tol, "ok": ok})
 
     e, dm, fe = moe_cfg.moe.n_experts, moe_cfg.d_model, \
         moe_cfg.moe.d_ff_expert
-    for c in (144, 64, 8):          # capacity at T = 884, 360 and decode
-        check_gm(f"wi GLU-silu ({e},{c},{dm})@({e},{dm},{2 * fe})",
-                 TOL_BF16, e, c, dm, 2 * fe, bf16, glu=True, act="silu")
-        check_gm(f"wo ({e},{c},{fe})@({e},{fe},{dm})", TOL_BF16, e, c, fe,
-                 dm, bf16)
-    check_gm("ragged fp32 (5,33,72)@(5,72,200) GLU-gelu", TOL_FP32, 5, 33,
-             72, 200, torch.float32, glu=True, act="gelu")
-    check_gm("int8 exact (8,40,256)@(8,256,96)", 0.0, 8, 40, 256, 96,
-             torch.int8)
-    check_gm("int8 exact decode (4,8,100,70)", 0.0, 4, 8, 100, 70,
+    # capacity at T = 884, 360 and decode, each on the tile the rule names,
+    # with every row full and with the rows of a seeded routing
+    for tokens, c in ((884, 144), (360, 64), (MAX_BATCH, 8)):
+        tile = "tc" if c > MAX_ROWS_DECODE else "decode"
+        for routed in (None, tokens):
+            tag = "" if routed is None else f" rows of {tokens} tokens"
+            check_gm(f"wi GLU-silu ({e},{c},{dm})@({e},{dm},{2 * fe}){tag}",
+                     TOL_BF16, tile, e, c, dm, 2 * fe, bf16, glu=True,
+                     act="silu", routed=routed)
+            check_gm(f"wo ({e},{c},{fe})@({e},{fe},{dm}){tag}", TOL_BF16,
+                     tile, e, c, fe, dm, bf16, routed=routed)
+    check_gm("ragged fp32 (5,33,72)@(5,72,200) GLU-gelu", TOL_FP32, "simt",
+             5, 33, 72, 200, torch.float32, glu=True, act="gelu")
+    check_gm("fp16 ragged C (3,70,520)@(3,520,384) GLU-silu", TOL_BF16, "tc",
+             3, 70, 520, 384, torch.float16, glu=True, act="silu")
+    check_gm("int8 exact (8,40,256)@(8,256,96)", 0.0, "simt", 8, 40, 256,
+             96, torch.int8)
+    check_gm("int8 exact decode (4,8,100,70)", 0.0, "decode", 4, 8, 100, 70,
              torch.int8)
 
     def check_q(name, x):
@@ -628,7 +695,12 @@ def phase_kernels_recurrent(g_cfg, r_cfg, s_max):
 def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
                  tol=TOL_PATH):
     """Kernel route against torch route; in fp32 the greedy tokens must
-    match too, in bf16 they are reported (see ``TOL_PATH_BF16``)."""
+    match too, in bf16 they are reported (see ``TOL_PATH_BF16``).  The
+    torch route decodes the kernel route's greedy tokens; an MoE model in
+    bf16 also routes each token to the kernel route's experts, since a
+    bf16 rounding flips near-tied top-k choices and a flipped choice moves
+    that token's output by far more than the tolerance (the torch route's
+    own choices are still counted: ``expert_choices_differing``)."""
     from repro_torch import backend
     from repro_torch.configs.registry import get_config
     from repro_torch.models import moe as moe_lib
@@ -641,13 +713,20 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
     rng = np.random.default_rng(3)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))).cuda()
     picks = {}                  # route -> each router call's expert sets
+    chosen = []                 # the kernel route's (gate, index) per call
+    follow = cfg.moe is not None and dtype == torch.bfloat16
 
     def run(route, rcfg=cfg, rparams=params):
         inner = moe_lib.route
+        kernel_choice = iter(chosen)
 
         def recording(rcfg, x2d, w_router):
             gate, idx = inner(rcfg, x2d, w_router)
             picks.setdefault(route, []).append(idx.sort(dim=-1).values)
+            if route == "kernel":
+                chosen.append((gate, idx))
+            elif follow:
+                return next(kernel_choice)
             return gate, idx
         prev = backend.set_default_matmul_backend(route)
         moe_lib.route = recording
@@ -670,11 +749,15 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
             moe_lib.route = inner
 
     from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.kernels.moe.ops import grouped_matmul
+    tiled = {"fused_matmul": fused_matmul}
+    if cfg.moe is not None:
+        tiled["grouped_matmul"] = grouped_matmul
     forced = []
-    fused_matmul.launches_by_tile = dict.fromkeys(fused_matmul
-                                                  .launches_by_tile, 0)
+    for fn in tiled.values():
+        fn.launches_by_tile = dict.fromkeys(fn.launches_by_tile, 0)
     kern = run("kernel")
-    tiles = dict(fused_matmul.launches_by_tile)
+    tiles = {name: dict(fn.launches_by_tile) for name, fn in tiled.items()}
     forced.extend(s.argmax(-1) for s in kern[:-1])
     plain = run("torch")
     errs = [rel_err(k, p)[0] for k, p in zip(kern, plain)]
@@ -689,8 +772,10 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
         line["expert_choices"] = sum(a.shape[0] for a, _ in pairs)
         line["expert_choices_differing"] = sum(
             int((a != b).any(-1).sum()) for a, b in pairs)
+        line["experts_follow_kernel_route"] = follow
     if dtype == torch.bfloat16:
-        line["fused_matmul_by_tile_kernel_route"] = tiles
+        for name, by_tile in tiles.items():
+            line[f"{name}_by_tile_kernel_route"] = by_tile
         # how far each bf16 route lies from the same weights run in fp32
         ref = run("torch", cfg.with_(dtype=torch.float32,
                                      kv_cache_dtype=torch.float32),
@@ -703,9 +788,11 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
             and (all(same) or dtype != torch.float32),
             f"{arch}: kernel route disagrees with the torch route")
     if dtype == torch.bfloat16:
-        require(tiles["tc"] > 0 and tiles["decode"] > 0 and
-                tiles["simt"] == 0, f"{arch} bf16: K1 ran on {tiles}, not "
-                "on its tensor-core and decode tiles alone")
+        for name, by_tile in tiles.items():
+            require(by_tile["tc"] > 0 and by_tile["decode"] > 0 and
+                    by_tile["simt"] == 0, f"{arch} bf16: {name} ran on "
+                    f"{by_tile}, not on its tensor-core and decode tiles "
+                    "alone")
     del params
     torch.cuda.empty_cache()
 
@@ -715,11 +802,11 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
 # and rwkv6-7b through the kernels.
 # ---------------------------------------------------------------------------
 
-def phase_serve(arch, phase, counters, k1_tiles):
+def phase_serve(arch, phase, counters, reckoned):
     """``counters``: kernel name -> wrapper whose ``launches`` the path
-    must raise above 0; ``k1_tiles``: K1's launches by tile, reckoned from
-    the traffic, which the path must match."""
-    from repro_torch.kernels.matmul.ops import fused_matmul
+    must raise above 0; ``reckoned``: kernel name (K1, and K4 where the
+    path has it) -> its launches by tile, reckoned from the traffic, which
+    the path must match."""
     from repro_torch import backend
     from repro_torch.configs.registry import get_config
     from repro_torch.models.base import family_module
@@ -746,13 +833,15 @@ def phase_serve(arch, phase, counters, k1_tiles):
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
-    fused_matmul.launches_by_tile = dict.fromkeys(k1_tiles, 0)
+    for name in reckoned:
+        counters[name].launches_by_tile = dict.fromkeys(TILE_TAGS, 0)
     t0 = time.perf_counter()
     outs = eng.run(max_new_tokens=MAX_NEW)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    by_tile = dict(fused_matmul.launches_by_tile)
+    by_tile = {f"{name}_by_tile": dict(counters[name].launches_by_tile)
+               for name in reckoned}
     batches = [{"padded_prompt": int(max(lengths[i * MAX_BATCH:
                                                  (i + 1) * MAX_BATCH])),
                 "prefill_ms": r.prefill_ms(),
@@ -772,19 +861,21 @@ def phase_serve(arch, phase, counters, k1_tiles):
           "max_new_tokens": MAX_NEW, "batches": batches,
           "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": launches, "fused_matmul_by_tile": by_tile,
-          "fused_matmul_by_tile_reckoned": k1_tiles, "tokens_ok": ok_tokens,
+          "launches": launches, **by_tile,
+          **{f"{name}_by_tile_reckoned": n for name, n in reckoned.items()},
+          "tokens_ok": ok_tokens,
           "logits_finite": finite,
           "first_request": outs[0].tolist()})
     require(ok_tokens and finite, f"{arch}: serving produced malformed "
             "output")
     require(all(v > 0 for v in launches.values()),
             f"{arch}: a kernel of the path never launched: {launches}")
-    require(by_tile == k1_tiles, f"{arch}: K1 ran {by_tile} by tile, "
-            f"reckoned {k1_tiles}")
+    for name, n in reckoned.items():
+        require(by_tile[f"{name}_by_tile"] == n, f"{arch}: {name} ran "
+                f"{by_tile[f'{name}_by_tile']} by tile, reckoned {n}")
     del params, eng
     torch.cuda.empty_cache()
-    return {**launches, "fused_matmul_by_tile": by_tile}
+    return {**launches, **by_tile}
 
 
 # ---------------------------------------------------------------------------
@@ -793,22 +884,22 @@ def phase_serve(arch, phase, counters, k1_tiles):
 
 def _device_ms_by_kernel(prof, n):
     """(device kernel events, busy ms per call, ms per call by kernel
-    group, K1's ms per call by tile) of a trace of ``n`` calls."""
+    group, K1's and K4's ms per call by tile) of a trace of ``n`` calls."""
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in device) / 1e3 / n
     groups = dict.fromkeys([*KERNEL_TAGS, "other"], 0.0)
-    k1_tiles = dict.fromkeys(K1_TILE_TAGS, 0.0)
+    tiles = {g: dict.fromkeys(TILE_TAGS, 0.0) for g in TILED}
     for e in device:
         g = next((name for name, tag in KERNEL_TAGS.items() if tag in e.key),
                  "other")
         groups[g] += e.self_device_time_total / 1e3 / n
-        if g == "fused_matmul":
-            tile = next(t for t, tags in K1_TILE_TAGS.items()
+        if g in tiles:
+            tile = next(t for t, tags in TILE_TAGS.items()
                         if any(tag in e.key for tag in tags))
-            k1_tiles[tile] += e.self_device_time_total / 1e3 / n
-    return device, busy, groups, k1_tiles
+            tiles[g][tile] += e.self_device_time_total / 1e3 / n
+    return device, busy, groups, tiles
 
 
 def k1_host_us():
@@ -870,8 +961,8 @@ def phase_profile(arch, phase, s_max, host_cost=False):
                              ProfilerActivity.CUDA]) as prof:
         logits, cache = mod.prefill(cfg, params, {"tokens": tokens}, cache)
         torch.cuda.synchronize()
-    _, prefill_busy, prefill_groups, prefill_k1 = _device_ms_by_kernel(prof,
-                                                                        1)
+    _, prefill_busy, prefill_groups, prefill_tiles = _device_ms_by_kernel(
+        prof, 1)
     pos = s_max
 
     def steps(n):
@@ -892,14 +983,15 @@ def phase_profile(arch, phase, s_max, host_cost=False):
         t0 = time.perf_counter()
         steps(PROFILE_STEPS)
         traced_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    device, busy, groups, k1 = _device_ms_by_kernel(prof, PROFILE_STEPS)
+    device, busy, groups, tiles = _device_ms_by_kernel(prof, PROFILE_STEPS)
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:10]
     line = {"phase": phase, "config": f"{arch} full size, bf16, prefill of "
             f"({MAX_BATCH},{s_max}), then decode at batch {MAX_BATCH} from "
             f"position {s_max}", "steps": PROFILE_STEPS,
             "prefill_device_ms": prefill_busy,
             "prefill_device_ms_by_kernel": prefill_groups,
-            "prefill_fused_matmul_ms_by_tile": prefill_k1,
+            **{f"prefill_{g}_ms_by_tile": t
+               for g, t in prefill_tiles.items() if any(t.values())},
             "prefill_device_share_by_kernel": {
                 g: ms / prefill_busy for g, ms in prefill_groups.items()
                 if ms > 0} if prefill_busy else {},
@@ -908,7 +1000,8 @@ def phase_profile(arch, phase, s_max, host_cost=False):
             "device_busy_ms_per_step": busy,
             "device_idle_share": 1.0 - busy / step_ms,
             "device_ms_per_step_by_kernel": groups,
-            "fused_matmul_ms_per_step_by_tile": k1,
+            **{f"{g}_ms_per_step_by_tile": t
+               for g, t in tiles.items() if any(t.values())},
             "top_device_kernels": [
                 {"name": e.key[:160], "launches_per_step":
                  e.count / PROFILE_STEPS,
@@ -1069,6 +1162,8 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
     import torch.nn.functional as F
     from repro_torch.core.hardware import H100_SXM as chip
     from repro_torch.kernels.matmul.matmul import tile_for
+    from repro_torch.kernels.moe.grouped_matmul import (
+        tile_for as grouped_tile_for)
     from repro_torch.models.moe import moe_capacity
     gen = torch.Generator(device="cuda").manual_seed(4)
     kernels = []
@@ -1115,7 +1210,7 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
             "launches_by_tile": {
                 t_: sum(p_.get("fused_matmul_by_tile", {}).get(t_, 0)
                         for p_ in path_launches.values())
-                for t_ in ("tc", "decode", "simt")},
+                for t_ in TILE_TAGS},
             "tile": tile, "max_abs_err": diff,
             "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
             "bound_by": by, "library_ms": t["library"],
@@ -1156,30 +1251,62 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
 
     # K4 at the MoE path's shapes: OLMoE's gate/up projection (the larger
     # of its two expert GEMMs) at the capacity of the 221-token prefill
-    # batch and at decode, where most of its launches are.
+    # batch (tensor-core tile) and at decode (decode tile), once with every
+    # row full and once with the rows of a seeded 4-token top-8 routing, as
+    # a served step passes them.  Each is timed as 10 calls replayed from
+    # a CUDA graph, as K1; the weights (537 MB, 218 MB for the routed
+    # experts) exceed the 50 MB L2.  The routed call's bound counts the
+    # bytes of the experts that hold a row, the rows they hold and the
+    # whole output, and the operations on those rows.
     e, dm, fe = moe_cfg.moe.n_experts, moe_cfg.d_model, \
         moe_cfg.moe.d_ff_expert
-    for tag, rows in (("prefill", MAX_BATCH * s_max), ("decode", MAX_BATCH)):
-        c = moe_capacity(moe_cfg, rows)
+    for tag, tokens, routed in (("prefill", MAX_BATCH * s_max, False),
+                                ("decode", MAX_BATCH, False),
+                                ("decode, routed", MAX_BATCH, True)):
+        c = moe_capacity(moe_cfg, tokens)
         x, w, ep = grouped_case(gen, e, c, dm, 2 * fe, torch.bfloat16,
                                 glu=True, act="silu")
-        t = time_ms({"kernel": lambda: run_grouped(x, w, ep),
-                     "plain": lambda: plain_grouped(x, w, ep),
-                     "library": lambda: torch.bmm(x, w)})
-        _, diff = rel_err(run_grouped(x, w, ep), plain_grouped(x, w, ep))
-        ms, by = bound(2.0 * e * c * dm * 2 * fe,
-                       2.0 * (x.numel() + w.numel() + e * c * fe),
+        promises = (routed_rows(x, tokens, moe_cfg.moe.top_k, 11) if routed
+                    else {})
+        fns = {"kernel": lambda: run_grouped(x, w, ep, **promises),
+               "plain": lambda: plain_grouped(x, w, ep),
+               "library": lambda: torch.bmm(x, w)}
+        if routed:      # the same call without the split that max_experts
+            fns["unsplit"] = lambda: run_grouped(   # sizes
+                x, w, ep, **{**promises, "max_experts": None})
+        t = graph_ms(fns)
+        tile = grouped_tile_for(x, w, ep)
+        _, diff = rel_err(run_grouped(x, w, ep, **promises),
+                          plain_grouped(x, w, ep))
+        rows = (promises["rows"].cpu() if routed
+                else torch.full((e,), c, dtype=torch.int32))
+        active, n_rows = int((rows > 0).sum()), int(rows.sum())
+        ms, by = bound(2.0 * n_rows * dm * 2 * fe,
+                       2.0 * (n_rows * dm + active * dm * 2 * fe
+                              + e * c * fe),
                        chip.peak_bf16, chip.hbm_bw)
         kernels.append({
             "name": "grouped_matmul", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+            "source": "src/repro_torch/kernels/csrc/" + (
+                "grouped_matmul_sm90.cu" if tile == "tc" else
+                "grouped_matmul.cu"),
             "replaces": "src/repro/kernels/moe/grouped_matmul.py:21",
-            **counts("grouped_matmul"), "max_abs_err": diff,
+            **counts("grouped_matmul"),
+            "launches_by_tile": {
+                t_: sum(p_.get("grouped_matmul_by_tile", {}).get(t_, 0)
+                        for p_ in path_launches.values())
+                for t_ in TILE_TAGS},
+            "tile": tile, "max_abs_err": diff,
             "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
             "bound_by": by, "library_ms": t["library"],
+            **({"ms_without_max_experts": t["unsplit"]} if routed else {}),
             "shape": f"{tag}: bf16 ({e},{c},{dm})@({e},{dm},{2 * fe}) "
-                     f"GLU-silu -> ({e},{c},{fe})",
-            "library_call": "torch.bmm in bf16 (no epilogue)"})
+                     f"GLU-silu -> ({e},{c},{fe})" + (
+                         f", rows of a seeded {tokens}-token top-"
+                         f"{moe_cfg.moe.top_k} routing: {active} experts, "
+                         f"{n_rows} rows" if routed else ""),
+            "library_call": "torch.bmm in bf16 on the full shape (no "
+                            "epilogue)"})
 
     # K3 at the W8A8 path's shape: the fp32 activations of the input
     # projection, timed with a cold L2 (a 64 MB write before each call).
@@ -1317,10 +1444,12 @@ def main() -> int:
     # channel mix 3.
     steps = N_REQUESTS // MAX_BATCH * (MAX_NEW - 1)
 
-    def reckon(per_pass, passes=1):
-        """``per_pass``: K1 calls in one pass over the stack."""
+    def reckon(per_pass, passes=1, logits=1):
+        """``per_pass``: calls in one pass over the stack; ``logits``: K1's
+        logits call after each pass (K4 has none)."""
         return {"tc": 2 * passes * per_pass,
-                "decode": steps * (per_pass + 1) + 2, "simt": 0}
+                "decode": steps * (per_pass + logits) + 2 * logits,
+                "simt": 0}
     g_attn = sum(1 for i in range(g_cfg.n_layers) if i % 3 == 2)
     k1_tiles = {
         "serve": reckon(6 * cfg.n_layers),
@@ -1328,6 +1457,10 @@ def main() -> int:
         "griffin-serve": reckon(7 * (g_cfg.n_layers - g_attn) + 6 * g_attn,
                                 passes=2),
         "rwkv-serve": reckon(10 * r_cfg.n_layers)}
+    # K4: both expert GEMMs of every OLMoE layer, the prefills' (C = 144
+    # and 64) on the tensor-core tile, the decode steps' (C = 8) on the
+    # decode tile: 64 tc and 960 decode launches
+    k4_tiles = reckon(2 * moe_cfg.n_layers, logits=0)
     try:
         phase_build()
         served = {ARCH: served_k1_calls(ARCH, 1),
@@ -1342,17 +1475,21 @@ def main() -> int:
         phase_parity(RWKV_ARCH, "rwkv-parity")
         phase_parity(ARCH, "parity-bf16", dtype=torch.bfloat16,
                      tol=TOL_PATH_BF16)
+        phase_parity(MOE_ARCH, "moe-parity-bf16", dtype=torch.bfloat16,
+                     tol=TOL_PATH_BF16)
         launches = {
-            "serve": phase_serve(ARCH, "serve", dense, k1_tiles["serve"]),
+            "serve": phase_serve(ARCH, "serve", dense,
+                                 {"fused_matmul": k1_tiles["serve"]}),
             "moe-serve": phase_serve(MOE_ARCH, "moe-serve", {
                 **dense, "grouped_matmul": grouped_matmul},
-                k1_tiles["moe-serve"]),
+                {"fused_matmul": k1_tiles["moe-serve"],
+                 "grouped_matmul": k4_tiles}),
             "griffin-serve": phase_serve(GRIFFIN_ARCH, "griffin-serve", {
                 **dense, "rglru_scan": rglru_scan},
-                k1_tiles["griffin-serve"]),
+                {"fused_matmul": k1_tiles["griffin-serve"]}),
             "rwkv-serve": phase_serve(RWKV_ARCH, "rwkv-serve", {
                 "fused_matmul": fused_matmul, "rwkv6_scan": rwkv6_scan},
-                k1_tiles["rwkv-serve"])}
+                {"fused_matmul": k1_tiles["rwkv-serve"]})}
         phase_profile(ARCH, "profile", s_max, host_cost=True)
         phase_profile(MOE_ARCH, "moe-profile", s_max)
         phase_profile(GRIFFIN_ARCH, "griffin-profile", s_max)

@@ -31,7 +31,7 @@ NVCC_TIMEOUT_S = 600
 # Sources only a Hopper card can run: their PTX (TMA, wgmma, mbarriers)
 # and driver types (CUtensorMap) have no CPU stand-in, so the emulated
 # tests (tests/test_torch_kernels_emulated.py) leave them out.
-CARD_ONLY = frozenset({"fused_matmul_sm90"})
+CARD_ONLY = frozenset({"fused_matmul_sm90", "grouped_matmul_sm90"})
 
 _lock = threading.Lock()
 _libs: "dict[str, ctypes.CDLL]" = {}

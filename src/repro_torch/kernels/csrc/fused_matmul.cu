@@ -42,7 +42,7 @@ extern "C" int fused_matmul_launch(
   const Epi ep = make_epi(glu, bias_type, bias, scale_a, scale_b, residual,
                           softcap, act, trivial, out_code, out);
   return gemm_tile_dispatch<FusedMatmul>(
-      in_code, A, B, M, N, K, 1, 0, 0, 0, vec_a, vec_b, ep,
+      in_code, A, B, M, N, K, 1, 0, 0, nullptr, vec_a, vec_b, ep,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -57,7 +57,8 @@ extern "C" int fused_matmul_decode_launch(
     int trivial, int out_code, void* stream) {
   const Epi ep = make_epi(glu, bias_type, bias, scale_a, scale_b, residual,
                           softcap, act, trivial, out_code, out);
+  const DecodeArgs args{A, B, 1, M, N, K, 0, 0, nullptr, splits, k_split,
+                        vec_b, ws};
   return decode_tile_dispatch<FusedMatmul>(
-      in_code, A, B, M, N, K, splits, k_split, vec_b, ws, ep,
-      static_cast<cudaStream_t>(stream));
+      in_code, args, M, ep, static_cast<cudaStream_t>(stream));
 }

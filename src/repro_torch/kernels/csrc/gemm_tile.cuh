@@ -8,19 +8,20 @@
 // GLU, residual, cast) in those registers before its one store.  Operand
 // tiles are staged through shared memory with coalesced 16-byte loads
 // wherever the row length and alignment allow, and per-element masked
-// loads at ragged edges, so any M, N, K works.  A small-M tile (8 rows,
-// 128-deep K steps) serves K4's decode; a 64x64 tile serves the rest.
-// K1 sends its M <= 8 calls to decode_tile.cuh instead, and its bf16 and
-// fp16 prefill to the tensor-core tile (fused_matmul_sm90.cu).  The
-// epilogue is in epilogue.cuh.
+// loads at ragged edges, so any M, N, K works.  One 64x64 tile serves
+// what neither the decode tile (M <= 8, decode_tile.cuh) nor the
+// tensor-core tile (bf16/fp16, tc_tile.cuh) takes: fp32, int8 and rows
+// TMA refuses.  The epilogue is in epilogue.cuh.
 //
 // ``Tag`` only names the instantiation (a profiler then tells K1's
 // launches from K4's); it changes no code.
 //
-// Batch z reads A + z * stride_a and B + z * stride_b (in elements) and
-// writes out + z * out_stride (in bytes).  The epilogue operands (bias,
-// scale_a, scale_b, residual) are not offset: a batched caller (K4) passes
-// none of them.
+// Batch z reads A + z * stride_a and B + z * stride_b (in elements); its
+// output row r is row z * M + r of one (batch * M, N_out) output, so the
+// epilogue operands (bias, scale_a, scale_b, residual) serve only a batch
+// of one: a batched caller (K4) passes none of them.  ``rows`` (K4,
+// optional, on the device): rows[z] promises that A[z, rows[z]:] is zero;
+// a row tile at or past it loads nothing and writes epilogue(0).
 //
 // Under GLU, B is (K, 2, N/2) flattened to (K, N): output column j reads
 // gate column j and up column N/2 + j.  A block's shared B tile holds its
@@ -36,7 +37,8 @@ template <typename Tag, typename T, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 gemm_tile_kernel(const T* __restrict__ A, const T* __restrict__ B,
                  int M, int N, int K, long long stride_a, long long stride_b,
-                 long long out_stride, int vec_a, int vec_b, Epi ep) {
+                 const int* __restrict__ rows, int vec_a, int vec_b,
+                 Epi ep) {
   using acc_t = typename AccOf<T>::type;
   constexpr int THREADS = (BM / TM) * (BN / TN);
   constexpr int VEC = 16 / sizeof(T);   // elements in one 16-byte load
@@ -48,7 +50,6 @@ gemm_tile_kernel(const T* __restrict__ A, const T* __restrict__ B,
 
   A += blockIdx.z * stride_a;
   B += blockIdx.z * stride_b;
-  ep.out = static_cast<char*>(ep.out) + blockIdx.z * out_stride;
 
   const int glu = ep.glu;
   const int n_out = glu ? N / 2 : N;     // output columns
@@ -56,6 +57,8 @@ gemm_tile_kernel(const T* __restrict__ A, const T* __restrict__ B,
   const int bno = glu ? BN / 2 : BN;     // output columns per block
   const int o0 = blockIdx.x * bno;
   const int m0 = blockIdx.y * BM;
+  // a row tile at or past rows[z] holds only zero rows: no K step
+  const int k_end = rows && m0 >= rows[blockIdx.z] ? 0 : K;
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);
   const int ty = tid / (BN / TN);
@@ -74,7 +77,7 @@ gemm_tile_kernel(const T* __restrict__ A, const T* __restrict__ B,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
     // A tile: BM rows x BK, consecutive threads along K (coalesced).
     for (int q = tid; q < BM * BK / VEC; q += THREADS) {
       const int m = q / (BK / VEC);
@@ -139,70 +142,55 @@ gemm_tile_kernel(const T* __restrict__ A, const T* __restrict__ B,
       const int col = o0 + (glu ? tx * (TN / 2) : tx * TN) + j;
       if (col < n_out)
         finish<acc_t>(acc[i][j], glu ? acc[i][(j + TN / 2) % TN] : acc_t(0),
-                      row, col, N, ep);
+                      blockIdx.z * M + row, col, N, ep);
     }
   }
 }
 
-// Prefill tile: 64x64 outputs, 256 threads of 4x4 each.
+// 64x64 outputs, 256 threads of 4x4 each.
 constexpr int L_BM = 64, L_BN = 64, L_BK = 32, L_TM = 4, L_TN = 4;
-// Small-M tile: 8x32 outputs, 128 threads of 1x2 each, deep K steps.
-// Only K4 reaches it: K1's select_tile sends every M <= 8 call to
-// decode_tile.cuh, so K1's instantiations of this branch never run.  It
-// goes when K4 moves onto K1's tiles.
-constexpr int S_BM = 8, S_BN = 32, S_BK = 128, S_TM = 1, S_TN = 2;
 
 // ``batch`` problems of (M, K) @ (K, N); see the strides above.
 template <typename Tag, typename T>
 void gemm_tile_launch(const void* A, const void* B, int M, int N, int K,
                       int batch, long long stride_a, long long stride_b,
-                      long long out_stride, int vec_a, int vec_b,
-                      const Epi& ep, cudaStream_t stream) {
+                      const int* rows, int vec_a, int vec_b, const Epi& ep,
+                      cudaStream_t stream) {
   const int n_out = ep.glu ? N / 2 : N;
-  const T* a = static_cast<const T*>(A);
-  const T* b = static_cast<const T*>(B);
-  if (M <= S_BM) {
-    const int bno = ep.glu ? S_BN / 2 : S_BN;
-    dim3 grid((n_out + bno - 1) / bno, (M + S_BM - 1) / S_BM, batch);
-    constexpr int threads = (S_BM / S_TM) * (S_BN / S_TN);
-    gemm_tile_kernel<Tag, T, S_BM, S_BN, S_BK, S_TM, S_TN>
-        <<<grid, threads, 0, stream>>>(a, b, M, N, K, stride_a, stride_b,
-                                       out_stride, vec_a, vec_b, ep);
-  } else {
-    const int bno = ep.glu ? L_BN / 2 : L_BN;
-    dim3 grid((n_out + bno - 1) / bno, (M + L_BM - 1) / L_BM, batch);
-    constexpr int threads = (L_BM / L_TM) * (L_BN / L_TN);
-    gemm_tile_kernel<Tag, T, L_BM, L_BN, L_BK, L_TM, L_TN>
-        <<<grid, threads, 0, stream>>>(a, b, M, N, K, stride_a, stride_b,
-                                       out_stride, vec_a, vec_b, ep);
-  }
+  const int bno = ep.glu ? L_BN / 2 : L_BN;
+  dim3 grid((n_out + bno - 1) / bno, (M + L_BM - 1) / L_BM, batch);
+  constexpr int threads = (L_BM / L_TM) * (L_BN / L_TN);
+  gemm_tile_kernel<Tag, T, L_BM, L_BN, L_BK, L_TM, L_TN>
+      <<<grid, threads, 0, stream>>>(static_cast<const T*>(A),
+                                     static_cast<const T*>(B), M, N, K,
+                                     stride_a, stride_b, rows, vec_a, vec_b,
+                                     ep);
 }
 
 // Dispatch on the input type code; returns the CUDA error of the launch.
 template <typename Tag>
-int gemm_tile_dispatch(int in_code, const void* A, const void* B,
-                              int M, int N, int K, int batch,
-                              long long stride_a, long long stride_b,
-                              long long out_stride, int vec_a, int vec_b,
-                              const Epi& ep, cudaStream_t s) {
+int gemm_tile_dispatch(int in_code, const void* A, const void* B, int M,
+                       int N, int K, int batch, long long stride_a,
+                       long long stride_b, const int* rows, int vec_a,
+                       int vec_b, const Epi& ep, cudaStream_t s) {
   cudaGetLastError();   // clear any stale error so the check below is ours
   switch (in_code) {
     case IN_F32:
       gemm_tile_launch<Tag, float>(A, B, M, N, K, batch, stride_a, stride_b,
-                              out_stride, vec_a, vec_b, ep, s);
+                                   rows, vec_a, vec_b, ep, s);
       break;
     case IN_F16:
       gemm_tile_launch<Tag, __half>(A, B, M, N, K, batch, stride_a, stride_b,
-                               out_stride, vec_a, vec_b, ep, s);
+                                    rows, vec_a, vec_b, ep, s);
       break;
     case IN_BF16:
       gemm_tile_launch<Tag, __nv_bfloat16>(A, B, M, N, K, batch, stride_a,
-                                      stride_b, out_stride, vec_a, vec_b,
-                                      ep, s);
+                                           stride_b, rows, vec_a, vec_b, ep,
+                                           s);
       break;
     case IN_I8:
       gemm_tile_launch<Tag, int8_t>(A, B, M, N, K, batch, stride_a, stride_b,
-                               out_stride, vec_a, vec_b, ep, s);
+                                    rows, vec_a, vec_b, ep, s);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,8 +6,9 @@ counterparts of the reference's Pallas ``fused_matmul_kernel``
 
 * ``"decode"`` (``csrc/decode_tile.cuh``): M <= 8 rows, any input type;
   bound by reading B once;
-* ``"tc"`` (``csrc/fused_matmul_sm90.cu``): bf16/fp16 with M > 8 whose
-  rows TMA can load (16-byte multiples); wgmma on the tensor cores;
+* ``"tc"`` (``csrc/fused_matmul_sm90.cu``, the tile of
+  ``csrc/tc_tile.cuh``): bf16/fp16 with M > 8 whose rows TMA can load
+  (16-byte multiples); wgmma on the tensor cores;
 * ``"simt"`` (``csrc/gemm_tile.cuh``): everything else (fp32, int8,
   rows TMA refuses).
 
@@ -89,7 +90,8 @@ def _tc_launcher():
 
 def select_tile(m: int, n: int, k: int, dtype: torch.dtype, glu: bool,
                 aligned: bool) -> str:
-    """The tile that computes an (m, k) @ (k, n) product.
+    """The tile that computes an (m, k) @ (k, n) product: K1's rule, and
+    K4's with m = C, the rows of one expert.
 
     ``aligned``: both operands start on 16-byte boundaries.  M <= 8 takes
     the decode tile, whatever the type.  Above that, bf16 and fp16 take
@@ -115,12 +117,14 @@ def tile_for(a: torch.Tensor, b: torch.Tensor, ep: Epilogue) -> str:
                        a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
 
 
-def decode_split(n_out: int, k: int) -> "tuple[int, int]":
+def decode_split(n_out: int, k: int,
+                 groups: int = 1) -> "tuple[int, int]":
     """(splits, rows a split takes) of the decode tile's K: as many splits
     as keep the blocks within one wave of ``DECODE_BLOCKS`` (a second,
     partial wave would cost nearly a full one), none shorter than
-    ``DECODE_MIN_ROWS`` rows."""
-    tiles = -(-n_out // DECODE_COLS)
+    ``DECODE_MIN_ROWS`` rows.  ``groups``: the problems that do work (K4:
+    the experts that can hold a row), each with its own column tiles."""
+    tiles = groups * -(-n_out // DECODE_COLS)
     splits = max(1, min(DECODE_BLOCKS // tiles, k // DECODE_MIN_ROWS))
     k_split = -(-k // splits)
     k_split = -(-k_split // DECODE_ROUND) * DECODE_ROUND

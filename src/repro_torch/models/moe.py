@@ -46,19 +46,25 @@ def moe_init(cfg: ArchConfig, gen: torch.Generator, device=None):
     return p
 
 
-def _expert_ffn(cfg: ArchConfig, wi, wo, x):
+def _expert_ffn(cfg: ArchConfig, wi, wo, x, occupancy=None):
     """x: (E_l, C, d) -> (E_l, C, d) through the per-expert GLU MLP.
 
     ``cfg.backend == "kernel"`` runs the grouped-GEMM kernel (its plain
     version on CPU tensors); ``"torch"`` and ``"dense"`` run the einsum
-    form, accumulating in fp32.
+    form, accumulating in fp32.  ``occupancy``: the kernel's promises of
+    zero rows in ``x`` (``rows``, ``max_rows``, ``max_experts`` of
+    ``grouped_matmul``), passed on to the second GEMM too where the first
+    one's epilogue keeps zero rows zero.
     """
     if cfg.backend == "kernel":
-        from repro_torch.kernels.moe.ops import grouped_matmul
-        h = grouped_matmul(x, wi, epilogue=Epilogue(
-            activation=cfg.mlp_activation, glu=cfg.mlp_glu,
-            out_dtype=x.dtype))
-        return grouped_matmul(h, wo)
+        from repro_torch.kernels.moe.ops import (grouped_matmul,
+                                                 keeps_zero_rows)
+        occupancy = occupancy or {}
+        ep = Epilogue(activation=cfg.mlp_activation, glu=cfg.mlp_glu,
+                      out_dtype=x.dtype)
+        h = grouped_matmul(x, wi, epilogue=ep, **occupancy)
+        return grouped_matmul(h, wo,
+                              **(occupancy if keeps_zero_rows(ep) else {}))
     if cfg.backend not in ("torch", "dense"):
         raise ValueError(f"unknown MoE backend {cfg.backend!r}; use "
                          "'kernel', 'torch' or 'dense'")
@@ -123,7 +129,14 @@ def moe_apply_local(cfg: ArchConfig, x2d, w_router, wi_local, wo_local,
     disp[slot] = torch.where(keep[:, None], x2d[token], 0.0).to(x2d.dtype)
     disp = disp[:-1].reshape(e_local, capacity, d)
 
-    y = _expert_ffn(cfg, wi_local, wo_local, disp)         # (E_l, C, d)
+    # Expert e's kept tokens fill rows [0, rows[e]) of its capacity block
+    # and the rest stay zero; top-k picks distinct experts per token, so
+    # no expert holds more than t rows, and at most t * k experts hold one.
+    occupancy = dict(
+        rows=torch.clamp(counts[:e_local], max=capacity).to(torch.int32),
+        max_rows=min(capacity, t), max_experts=min(e_local, t * k))
+    y = _expert_ffn(cfg, wi_local, wo_local, disp,
+                    occupancy)                             # (E_l, C, d)
     y_flat = y.reshape(trash, d)
 
     contrib = torch.where(

@@ -1,6 +1,8 @@
 """The CUDA kernels (K1 fused matmul, K2 flash attention, K3 row
 quantiser, K4 grouped MoE matmul, K5 RG-LRU scan, K6 chunked RWKV-6 WKV)
-against their plain versions on the card, at small and ragged shapes.
+against their plain versions on the card, at small and ragged shapes; K1
+and K4 on each of their tiles, K4 with and without its zero-row
+promises.
 
 These need a Hopper card and nvcc; elsewhere they skip.  On the card:
 
@@ -213,19 +215,53 @@ def test_async_engine_uses_a_side_stream(card):
     assert torch.equal(out, torch.full((64, 32), 128.0, device="cuda"))
 
 
-GM_CASES = [  # (e, c, k, n, dtype, epilogue fields, tol); c <= 8: decode tile
-    (5, 33, 72, 200, torch.float32, dict(glu=True, activation="gelu"), 1e-5),
+GM_CASES = [  # (e, c, k, n, dtype, epilogue fields, tol, tile, rows,
+    #             max_rows, max_experts)
+    (5, 33, 72, 200, torch.float32, dict(glu=True, activation="gelu"), 1e-5,
+     "simt", None, None, None),
+    (3, 70, 96, 130, torch.float16, {}, 3e-2, "simt", None, None, None),
+    (3, 9, 100, 70, torch.int8, {}, 0.0, "simt", None, None, None),
+    (3, 70, 64, 48, torch.int8, {}, 0.0, "simt", [0, 64, 70], None, None),
+    # tensor-core tile: C = 9, 70, 144 and 200 (64-row tiles at 9, 128-row
+    # at 70 and 200, 192-row at 144), ragged C, K not a multiple of 64, GLU silu,
+    # bf16 and fp16, with and without rows (an empty expert, a skipped
+    # row tile, a partial last one)
+    (4, 9, 520, 256, torch.bfloat16, dict(glu=True, activation="silu"),
+     3e-2, "tc", None, None, None),
+    (3, 70, 200, 384, torch.float16, dict(glu=True, activation="silu"),
+     3e-2, "tc", None, None, None),
+    (8, 144, 2048, 512, torch.bfloat16, dict(glu=True, activation="silu"),
+     3e-2, "tc", None, None, None),
+    (3, 200, 136, 200, torch.float16, dict(activation="relu2", softcap=5.0),
+     3e-2, "tc", None, None, None),
+    (4, 144, 520, 256, torch.bfloat16, dict(glu=True, activation="silu"),
+     3e-2, "tc", [0, 64, 100, 144], None, None),
+    (3, 200, 1000, 128, torch.float16, {}, 3e-2, "tc", [129, 0, 200], None,
+     None),
+    # decode tile: C = 1, 4 and 8, with and without rows, K split across
+    # blocks where the experts give too few (all but the 100-deep case)
     (4, 8, 256, 512, torch.bfloat16, dict(glu=True, activation="silu"),
-     3e-2),
-    (3, 70, 96, 130, torch.float16, {}, 3e-2),
-    (3, 9, 100, 70, torch.int8, {}, 0.0),
+     3e-2, "decode", None, None, None),
+    (6, 1, 2048, 512, torch.bfloat16, dict(glu=True, activation="silu"),
+     3e-2, "decode", None, None, None),
+    (6, 1, 2048, 512, torch.bfloat16, dict(glu=True, activation="silu"),
+     3e-2, "decode", [1, 0, 0, 1, 0, 1], 1, 3),
+    (6, 4, 2048, 512, torch.bfloat16, dict(glu=True, activation="silu"),
+     3e-2, "decode", [4, 0, 1, 0, 3, 2], None, None),
+    (6, 8, 1024, 2048, torch.bfloat16, {}, 3e-2, "decode",
+     [4, 0, 0, 4, 1, 0], 4, 3),
+    (5, 4, 100, 130, torch.float32, dict(activation="tanh"), 1e-5, "decode",
+     [2, 0, 0, 4, 1], None, None),
+    (5, 8, 640, 96, torch.int8, {}, 0.0, "decode", [0, 8, 3, 0, 1], None,
+     None),
 ]
 
 
-@pytest.mark.parametrize("case", GM_CASES, ids=lambda c: f"{c[0]}x{c[1]}x"
-                         f"{c[2]}x{c[3]}-{str(c[4])[6:]}")
-def test_grouped_matmul_kernel_vs_plain(card, case):
-    e, c, k, n, dt, fields, tol = case
+def _gm_case(card, e, c, k, n, dt, fields, rows=None, tile=None):
+    """Inputs of one K4 case; with ``rows``, x is zero from rows[e] on in
+    ``x_ref`` and NaN (127 in int8) in ``x`` wherever no block of ``tile``
+    may load it (rows at or past rows[e] on the decode tile, whole row
+    tiles at or past it on the others)."""
     if dt == torch.int8:
         x = torch.randint(-127, 128, (e, c, k), generator=card,
                           device="cuda", dtype=dt)
@@ -235,19 +271,63 @@ def test_grouped_matmul_kernel_vs_plain(card, case):
         x = torch.randn(e, c, k, generator=card, device="cuda").to(dt)
         w = (torch.randn(e, k, n, generator=card, device="cuda")
              / k ** .5).to(dt)
-    ep = Epilogue(**fields)
-    before = gm_ops.grouped_matmul.launches
-    out = gm_ops.grouped_matmul(x, w, epilogue=ep)
-    assert gm_ops.grouped_matmul.launches == before + 1
+    x_ref = x.clone()
+    if rows is not None:
+        # the tensor-core tile's rows (grouped_matmul_sm90.cu): of 64, 128
+        # and 192, the tallest of those that compute the fewest rows
+        tc_bm = min((-(-c // bm) * bm, -bm) for bm in (64, 128, 192))[1]
+        bm = {"decode": 1, "simt": 64, "tc": -tc_bm}[tile]
+        for i, r in enumerate(rows):
+            x_ref[i, r:] = 0
+            skip = -(-r // bm) * bm
+            x[i, :skip] = x_ref[i, :skip]
+            x[i, skip:] = 127 if dt == torch.int8 else float("nan")
+        rows = torch.tensor(rows, dtype=torch.int32, device="cuda")
     int8 = dt == torch.int8
-    ref = grouped_matmul_plain(
-        x, w, Epilogue(out_dtype=torch.int32 if int8 else dt, **fields),
-        torch.int32 if int8 else torch.float32)
+    ep = Epilogue(out_dtype=torch.int32 if int8 else dt, **fields)
+    return x, x_ref, w, ep, rows
+
+
+@pytest.mark.parametrize("case", GM_CASES, ids=lambda c: f"{c[0]}x{c[1]}x"
+                         f"{c[2]}x{c[3]}-{str(c[4])[6:]}-{c[7]}"
+                         f"{'-rows' if c[8] else ''}")
+def test_grouped_matmul_kernel_vs_plain(card, case):
+    e, c, k, n, dt, fields, tol, tile, rows, max_rows, max_experts = case
+    x, x_ref, w, ep, rows = _gm_case(card, e, c, k, n, dt, fields, rows,
+                                     tile)
+    before = gm_ops.grouped_matmul.launches
+    by_tile = dict(gm_ops.grouped_matmul.launches_by_tile)
+    out = gm_ops.grouped_matmul(x, w, epilogue=ep, rows=rows,
+                                max_rows=max_rows, max_experts=max_experts)
+    assert gm_ops.grouped_matmul.launches == before + 1
+    by_tile[tile] += 1
+    assert gm_ops.grouped_matmul.launches_by_tile == by_tile
+    int8 = dt == torch.int8
+    ref = grouped_matmul_plain(x_ref, w, ep,
+                               torch.int32 if int8 else torch.float32)
     torch.cuda.synchronize()
     assert out.dtype == ref.dtype and out.shape == ref.shape
     if int8:
         assert torch.equal(out, ref)
-    assert _rel(out, ref) <= tol
+    for i in range(e):              # every expert on its own scale
+        assert _rel(out[i], ref[i]) <= tol
+
+
+@pytest.mark.parametrize("tile,c,rows", [
+    ("tc", 144, None), ("tc", 144, [144, 0, 3, 77]),
+    ("decode", 8, None), ("decode", 8, [4, 0, 1, 3])])
+def test_grouped_matmul_tile_repeats_bit_for_bit(card, tile, c, rows):
+    """No atomics: the same call gives the same bits twice, on the tile
+    the count names (the decode case splits K)."""
+    x, _, w, ep, rows = _gm_case(card, 4, c, 2048, 2 * 512, torch.bfloat16,
+                                 dict(glu=True, activation="silu"), rows,
+                                 tile)
+    before = gm_ops.grouped_matmul.launches_by_tile[tile]
+    one = gm_ops.grouped_matmul(x, w, epilogue=ep, rows=rows)
+    two = gm_ops.grouped_matmul(x, w, epilogue=ep, rows=rows)
+    torch.cuda.synchronize()
+    assert gm_ops.grouped_matmul.launches_by_tile[tile] == before + 2
+    assert torch.equal(one, two)
 
 
 @pytest.mark.parametrize("m,k,dt", [(37, 200, torch.float32),

@@ -11,12 +11,14 @@ indexing, masking, tiling and epilogue logic; it cannot check timing,
 the GPU memory model or what ``nvcc`` accepts (tests/
 test_torch_kernels_cuda.py does that on the card).  Skips without g++.
 
-The sources in ``build.CARD_ONLY`` are left out: K1's tensor-core tile
-(``fused_matmul_sm90.cu``) is TMA, mbarrier and wgmma PTX with driver
-types, none of which a CPU stand-in can run.  So the fixture routes every
-call ``select_tile`` sends to ``"tc"`` to the SIMT tile instead (of the
-K1 cases below, the fp16 70x40x96 GLU case); the card tests hold the
-tensor-core tile itself against the plain version.
+The sources in ``build.CARD_ONLY`` are left out: the tensor-core tile of
+K1 and K4 (``fused_matmul_sm90.cu``, ``grouped_matmul_sm90.cu`` on
+``tc_tile.cuh``) is TMA, mbarrier and wgmma PTX with driver types, none
+of which a CPU stand-in can run.  So the fixture routes every call
+``select_tile`` sends to ``"tc"`` to the SIMT tile instead (of the cases
+below, K1's fp16 70x40x96 GLU case and K4's 16-bit cases with C > 8);
+the card tests hold the tensor-core tile itself against the plain
+version.
 """
 
 import ctypes
@@ -51,13 +53,14 @@ using std::max; using std::min;
 #define __forceinline__ inline
 #define __noinline__ __attribute__((noinline))
 #define __shared__ static
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 gridDim;
 inline std::barrier<>* emu_bar;
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 inline float emu_shfl[1024];
@@ -83,6 +86,7 @@ cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) {
   return cudaSuccess;
 }
 template <class F> void emu_launch(dim3 g, dim3 b, F f) {
+  gridDim = g;
   for (unsigned z = 0; z < g.z; ++z)
     for (unsigned y = 0; y < g.y; ++y)
       for (unsigned x = 0; x < g.x; ++x) {
@@ -184,9 +188,9 @@ def emulated(tmp_path_factory):
 
 @pytest.fixture
 def bound(emulated, monkeypatch):
-    """Point the port's launchers at the emulated libraries; K1's calls
-    that ``select_tile`` sends to the card-only tensor-core tile run on
-    the SIMT tile."""
+    """Point the port's launchers at the emulated libraries; K1's and K4's
+    calls that ``select_tile`` sends to the card-only tensor-core tile run
+    on the SIMT tile."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     mm_fn = emulated["fused_matmul"].fused_matmul_launch
     mm_fn.argtypes = [i, p, p, p, i, i, i, i, i, i, i, p, p, p, p, f, i, i,
@@ -198,14 +202,18 @@ def bound(emulated, monkeypatch):
     fa_fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i,
                       ctypes.POINTER(ctypes.c_longlong), f, i, i, f, i, i, p]
     gm_fn = emulated["grouped_matmul"].grouped_matmul_launch
-    gm_fn.argtypes = [i, p, p, p, i, i, i, i, i, i, i, f, i, i, i, i, p]
+    gm_fn.argtypes = [i, p, p, p, i, i, i, i, i, i, i, p, f, i, i, i, p]
+    gm_dec_fn = emulated["grouped_matmul"].grouped_matmul_decode_launch
+    gm_dec_fn.argtypes = [i, p, p, p, i, i, i, i, i, i, i, i, i, p, p, f, i,
+                          i, i, p]
     qr_fn = emulated["quantize_rowwise"].quantize_rowwise_launch
     qr_fn.argtypes = [i, p, p, p, i, i, p]
     rg_fn = emulated["rglru_scan"].rglru_scan_launch
     rg_fn.argtypes = [p, p, p, p, p, i, i, i, p]
     wkv_fn = emulated["rwkv6_wkv"].rwkv6_wkv_launch
     wkv_fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-    for fn in (mm_fn, dec_fn, fa_fn, gm_fn, qr_fn, rg_fn, wkv_fn):
+    for fn in (mm_fn, dec_fn, fa_fn, gm_fn, gm_dec_fn, qr_fn, rg_fn,
+               wkv_fn):
         fn.restype = i
     monkeypatch.setattr(mm, "_fn", mm_fn)
     monkeypatch.setattr(mm, "_decode_fn", dec_fn)
@@ -214,6 +222,7 @@ def bound(emulated, monkeypatch):
         "simt" if select(*args) == "tc" else select(*args)))
     monkeypatch.setattr(attn, "_fn", fa_fn)
     monkeypatch.setattr(gm, "_fn", gm_fn)
+    monkeypatch.setattr(gm, "_decode_fn", gm_dec_fn)
     monkeypatch.setattr(qr, "_fn", qr_fn)
     monkeypatch.setattr(rg, "_fn", rg_fn)
     monkeypatch.setattr(wkv, "_fn", wkv_fn)
@@ -409,38 +418,130 @@ def test_flash_attention_source_fully_masked_rows_are_zero(bound):
     assert torch.equal(out, torch.zeros_like(out))
 
 
-GM_CASES = [  # (e, c, k, n, dtype, epilogue fields, tol); c <= 8: decode tile
-    (3, 5, 72, 200, torch.float32, {}, 1e-5),
-    (2, 8, 64, 96, torch.bfloat16, dict(glu=True, activation="silu"), 3e-2),
-    (2, 70, 40, 96, torch.float32, dict(glu=True, activation="gelu"), 1e-5),
+GM_CASES = [  # (e, c, k, n, dtype, epilogue fields, tol, tile the rule picks)
+    (3, 5, 72, 200, torch.float32, {}, 1e-5, "decode"),
+    (2, 8, 64, 96, torch.bfloat16, dict(glu=True, activation="silu"), 3e-2,
+     "decode"),
+    (2, 70, 40, 96, torch.float32, dict(glu=True, activation="gelu"), 1e-5,
+     "simt"),
     (2, 66, 48, 64, torch.float16, dict(activation="relu2", softcap=4.0),
-     3e-2),
-    (2, 9, 33, 64, torch.int8, {}, 0.0),
+     3e-2, "tc"),
+    (2, 9, 33, 64, torch.int8, {}, 0.0, "simt"),
+    # the decode tile with several experts: C = 1, 4 and 8, GLU and not,
+    # every input type, K split across blocks (all but the last two)
+    (3, 1, 300, 40, torch.bfloat16, dict(glu=True, activation="silu"), 3e-2,
+     "decode"),
+    (2, 4, 520, 90, torch.float16, dict(activation="gelu_tanh",
+                                        softcap=5.0), 3e-2, "decode"),
+    (3, 8, 1100, 64, torch.int8, {}, 0.0, "decode"),
+    (2, 4, 256, 130, torch.float32, dict(glu=True, activation="tanh"), 1e-5,
+     "decode"),
+    (4, 1, 40, 27, torch.int8, {}, 0.0, "decode"),
+    (2, 8, 100, 48, torch.float16, dict(glu=True, activation="relu"), 3e-2,
+     "decode"),
 ]
+SELECT_TILE = mm.select_tile     # the rule itself, before ``bound`` patches
+
+
+def _gm_inputs(e, c, k, n, dt, seed):
+    g = torch.Generator().manual_seed(seed)
+    if dt == torch.int8:
+        return (torch.randint(-127, 128, (e, c, k), generator=g, dtype=dt),
+                torch.randint(-127, 128, (e, k, n), generator=g, dtype=dt))
+    return (torch.randn(e, c, k, generator=g).to(dt),
+            (torch.randn(e, k, n, generator=g) / k ** .5).to(dt))
+
+
+def _gm_check(x, w, fields, tol, tile, x_ref=None, **promises):
+    """K4's source on ``x`` against the plain version on ``x_ref`` (x
+    unless given), each expert on its own scale; the tile the rule picks
+    (the SIMT tile stands in for ``"tc"``)."""
+    e, c, k = x.shape
+    int8 = x.dtype == torch.int8
+    ep = Epilogue(out_dtype=torch.int32 if int8 else x.dtype, **fields)
+    assert SELECT_TILE(c, w.shape[2], k, x.dtype, ep.glu, True) == tile
+    assert gm.tile_for(x, w, ep) == ("simt" if tile == "tc" else tile)
+    out = gm.grouped_matmul_cuda(x, w, ep, **promises)
+    ref = gm.grouped_matmul_plain(x if x_ref is None else x_ref, w, ep,
+                                  torch.int32 if int8 else torch.float32)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    if int8:
+        assert torch.equal(out, ref)
+    for i in range(e):
+        assert _rel(out[i], ref[i]) <= tol
 
 
 @pytest.mark.parametrize("case", GM_CASES, ids=lambda c: f"{c[0]}x{c[1]}x"
                          f"{c[2]}x{c[3]}-{str(c[4])[6:]}-"
                          f"{'-'.join(c[5]) or 'plain'}")
 def test_grouped_matmul_source_vs_plain(bound, case):
-    e, c, k, n, dt, fields, tol = case
-    g = torch.Generator().manual_seed(e * c * k + n)
-    if dt == torch.int8:
-        x = torch.randint(-127, 128, (e, c, k), generator=g, dtype=dt)
-        w = torch.randint(-127, 128, (e, k, n), generator=g, dtype=dt)
-    else:
-        x = torch.randn(e, c, k, generator=g).to(dt)
-        w = torch.randn(e, k, n, generator=g).to(dt)
-    int8 = dt == torch.int8
-    ep = Epilogue(out_dtype=torch.int32 if int8 else dt, **fields)
-    out = gm.grouped_matmul_cuda(x, w, ep)
-    ref = gm.grouped_matmul_plain(x, w, ep,
-                                  torch.int32 if int8 else torch.float32)
-    assert out.dtype == ref.dtype and out.shape == ref.shape
-    if int8:
-        assert torch.equal(out, ref)
-    for i in range(e):              # every expert on its own scale
-        assert _rel(out[i], ref[i]) <= tol
+    e, c, k, n, dt, fields, tol, tile = case
+    x, w = _gm_inputs(e, c, k, n, dt, e * c * k + n)
+    _gm_check(x, w, fields, tol, tile)
+
+
+GM_ROWS_CASES = [  # (e, c, k, n, dtype, fields, rows, max_rows, max_experts,
+    #                 tol, tile)
+    # the decode tile: empty experts, K split across blocks
+    (4, 8, 300, 64, torch.bfloat16, dict(glu=True, activation="silu"),
+     [3, 0, 8, 1], None, None, 3e-2, "decode"),
+    # max_rows below C (4 of 8 rows in registers), max_experts splitting K
+    (4, 8, 520, 96, torch.int8, {}, [4, 0, 2, 0], 4, 2, 0.0, "decode"),
+    (3, 8, 64, 40, torch.float16, dict(activation="silu"), [1, 0, 1], 1, 2,
+     3e-2, "decode"),
+    # every expert empty: epilogue(0) everywhere (0.5 under sigmoid)
+    (3, 4, 64, 40, torch.float32, dict(activation="sigmoid"), [0, 0, 0],
+     None, None, 1e-5, "decode"),
+    # the SIMT tile: an empty expert, one full 64-row tile and a skipped
+    # one, a partial last row tile, a full expert
+    (4, 70, 48, 64, torch.float32, dict(glu=True, activation="gelu"),
+     [0, 64, 66, 70], None, None, 1e-5, "simt"),
+    (3, 70, 40, 48, torch.int8, {}, [70, 0, 5], None, None, 0.0, "simt"),
+    # the tensor-core tile's calls (on the SIMT tile here), all empty
+    (2, 70, 48, 64, torch.bfloat16, dict(activation="relu"), [0, 0], None,
+     None, 3e-2, "tc"),
+]
+
+
+@pytest.mark.parametrize("case", GM_ROWS_CASES,
+                         ids=lambda c: f"{c[1]}-{str(c[4])[6:]}-rows"
+                         f"{'_'.join(map(str, c[6]))}-{c[10]}")
+def test_grouped_matmul_source_with_rows(bound, case):
+    """``rows`` promises zeros from rows[e] on; the result equals the
+    plain version on the zero-padded x.  What no block of the tile may
+    load (every row at or past rows[e] on the decode tile, whole 64-row
+    tiles at or past it on the SIMT tile) is poisoned with NaN (127 in
+    int8), so a load of it would show in the result."""
+    e, c, k, n, dt, fields, rows, max_rows, max_experts, tol, tile = case
+    x, w = _gm_inputs(e, c, k, n, dt, e * c * k + n + 1)
+    x_ref = x.clone()
+    for i, r in enumerate(rows):
+        x_ref[i, r:] = 0
+        skip = r if tile == "decode" else -(-r // 64) * 64
+        x[i, :skip] = x_ref[i, :skip]
+        x[i, skip:] = 127 if dt == torch.int8 else float("nan")
+    _gm_check(x, w, fields, tol, tile, x_ref,
+              rows=torch.tensor(rows, dtype=torch.int32), max_rows=max_rows,
+              max_experts=max_experts)
+    if tile == "decode":       # the split cases really split
+        n_out = n // 2 if fields.get("glu") else n
+        splits, _ = mm.decode_split(n_out, k, max_experts or e)
+        assert (splits > 1) == (k >= 256)
+
+
+@pytest.mark.parametrize("tokens,tile", [(884, "tc"), (360, "tc"),
+                                         (4, "decode")])
+def test_select_tile_on_olmoe_grouped_shapes(tokens, tile):
+    """OLMoE's two expert GEMMs at the capacity of the served prefills
+    (C = 144 and 64) and of decode (C = 8), bf16."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.moe import moe_capacity
+    cfg = get_config("olmoe-1b-7b")
+    c = moe_capacity(cfg, tokens)
+    assert c == {884: 144, 360: 64, 4: 8}[tokens]
+    d, ff = cfg.d_model, cfg.moe.d_ff_expert
+    for k, n, glu in ((d, 2 * ff, True), (ff, d, False)):
+        assert mm.select_tile(c, n, k, torch.bfloat16, glu, True) == tile
 
 
 def _ties(m, k, dt):

@@ -24,7 +24,8 @@ from repro.models.base import family_module as j_family  # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
 from repro_torch import backend                          # noqa: E402
 from repro_torch.configs.registry import get_config      # noqa: E402
-from repro_torch.core.fusion import Epilogue             # noqa: E402
+from repro_torch.core.fusion import (ACTIVATIONS, NO_OPERANDS,  # noqa: E402
+                                     Epilogue, apply_epilogue)
 from repro_torch.kernels.moe import ops as gm_ops        # noqa: E402
 from repro_torch.models import moe                       # noqa: E402
 from repro_torch.models import transformer as tt         # noqa: E402
@@ -124,16 +125,51 @@ def test_grouped_matmul_raises_instead_of_falling_back(monkeypatch):
     with pytest.raises(RuntimeError, match="error 700"):
         gm_ops.grouped_matmul(x, torch.ones(2, 4, 6))
     assert gm_ops.grouped_matmul.launches == before
-    # A launch that returns a CUDA error raises too.
-    monkeypatch.setattr(gm, "_launcher", lambda: lambda *a: 700)
+    # A launch that returns a CUDA error raises too, on every tile.
+    for launcher in ("_launcher", "_decode_launcher", "_tc_launcher"):
+        monkeypatch.setattr(gm, launcher, lambda: lambda *a: 700)
 
     class _Stream:
         cuda_stream = None
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: _Stream())
-    with pytest.raises(RuntimeError, match="CUDA error 700"):
-        gm.grouped_matmul_cuda(torch.ones(2, 3, 4), torch.ones(2, 4, 6),
-                               Epilogue(out_dtype=torch.float32))
+    for c, dt, tile in ((3, torch.float32, "decode"),
+                        (9, torch.float32, "simt"),
+                        (16, torch.bfloat16, "tc")):
+        x, w = torch.ones(2, c, 16, dtype=dt), torch.ones(2, 16, 8, dtype=dt)
+        ep = Epilogue(out_dtype=dt)
+        assert gm.tile_for(x, w, ep) == tile
+        with pytest.raises(RuntimeError, match=f"{tile} tile.*CUDA error 700"):
+            gm.grouped_matmul_cuda(x, w, ep)
+
+
+def test_grouped_matmul_checks_rows_and_ignores_them_on_the_cpu():
+    """``rows`` is int32 of shape (E,) on x's device; the plain version
+    computes the same function without it."""
+    x = torch.randn(3, 5, 8)
+    x[0, 2:] = 0
+    x[1] = 0
+    w = torch.randn(3, 8, 6)
+    rows = torch.tensor([2, 0, 5], dtype=torch.int32)
+    torch.testing.assert_close(
+        gm_ops.grouped_matmul(x, w, rows=rows, max_rows=5, max_experts=2),
+        gm_ops.grouped_matmul(x, w), rtol=0, atol=0)
+    for bad in (rows.long(), rows[:2], torch.zeros(1, 3, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="rows must be int32"):
+            gm_ops.grouped_matmul(x, w, rows=bad)
+
+
+@pytest.mark.parametrize("activation", sorted(ACTIVATIONS))
+@pytest.mark.parametrize("glu", [False, True])
+def test_keeps_zero_rows_walks_every_activation(activation, glu):
+    """The rule that decides whether the second expert GEMM may take the
+    first one's ``rows``: true exactly where the epilogue maps a zero
+    accumulator to zero (all but sigmoid without GLU)."""
+    ep = Epilogue(activation=activation, glu=glu, softcap=5.0,
+                  out_dtype=torch.float32)
+    zero = apply_epilogue(torch.zeros(2, 4), ep, NO_OPERANDS)
+    assert gm_ops.keeps_zero_rows(ep) == bool((zero == 0).all())
+    assert gm_ops.keeps_zero_rows(ep) == (glu or activation != "sigmoid")
 
 
 # ---------------------------------------------------------------------------
@@ -144,15 +180,43 @@ def _capture(monkeypatch, module, store):
     """Record the (E, C, d) buffer each call hands to ``_expert_ffn``."""
     inner = module._expert_ffn
 
-    def spy(cfg, wi, wo, x):
+    def spy(cfg, wi, wo, x, *args):
         store.append(np.asarray(x))
-        return inner(cfg, wi, wo, x)
+        return inner(cfg, wi, wo, x, *args)
     monkeypatch.setattr(module, "_expert_ffn", spy)
 
 
-@pytest.mark.parametrize("port_route", ["kernel", "torch"])
+def _holding_promises(monkeypatch, calls):
+    """Make every grouped call check the promises it is handed against
+    its ``x`` (rows[e] tight: the rows before it are tokens, the rows from
+    it zero) and compute as the kernel does, on the rows below them only;
+    record (rows, max_rows, max_experts) of each call."""
+    inner = gm_ops.grouped_matmul
+
+    def holding(x, w, *, epilogue=Epilogue(), rows=None, max_rows=None,
+                max_experts=None):
+        calls.append((rows, max_rows, max_experts))
+        if rows is not None:
+            live = torch.arange(x.shape[1])[None, :] < rows[:, None].long()
+            nonzero = (x != 0).any(-1)
+            assert torch.equal(nonzero, live)
+            assert int(rows.max()) <= max_rows
+            assert int((rows > 0).sum()) <= max_experts
+            x = torch.where(live[..., None], x, 0)
+        return inner(x, w, epilogue=epilogue)
+    monkeypatch.setattr(gm_ops, "grouped_matmul", holding)
+
+
+@pytest.mark.parametrize("port_route", ["kernel", "torch", "kernel-rows"])
 @pytest.mark.parametrize("capacity", ["T*k", 2])
 def test_moe_apply_local_matches_jax(monkeypatch, capacity, port_route):
+    """``kernel-rows``: the kernel route with each grouped call holding
+    the zero-row promises the layer makes and computing on the promised
+    rows alone."""
+    calls = []
+    if port_route == "kernel-rows":
+        _holding_promises(monkeypatch, calls)
+        port_route = "kernel"
     jcfg, tcfg = _cfgs("olmoe-1b-7b", port_route=port_route)
     jp = j_moe.moe_init(jcfg, jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp))
@@ -176,6 +240,10 @@ def test_moe_apply_local_matches_jax(monkeypatch, capacity, port_route):
     np.testing.assert_array_equal(tbuf[0], jbuf[0])
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-5)
+    if calls:     # both GEMMs took the promises: GLU keeps zero rows zero
+        assert len(calls) == 2 and calls[0] == calls[1]
+        assert calls[0][1:] == (min(cap, t), min(jcfg.moe.n_experts,
+                                                 t * jcfg.moe.top_k))
 
 
 def test_expert_windows_sum_to_the_whole():
