@@ -17,7 +17,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 from one prefill and one decode step at cut depth) at the
                 prefill and decode row counts, and K4 at OLMoE's served
                 capacities (C = 144, 64, 8, with and without the rows of
-                a seeded routing), each on the tile that serves it
+                a seeded routing), K2 at the three attention paths'
+                shapes, ragged, masked, softcapped and on the transposed
+                views the models pass, each on the tile that serves it
                 (``launches_by_tile``);
 4. parity     — yi-6b at full width, 4 layers, fp32: prefill and 4 decode
                 steps through the kernels against the plain torch route;
@@ -29,8 +31,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 tensor-core and decode tiles;
 6. serve      — yi-6b at full width and depth, bf16, seeded random
                 weights: 8 requests through ``ServingEngine`` with launch
-                counts, K1's by tile against the counts reckoned from the
-                traffic;
+                counts, K1's and K2's by tile against the counts reckoned
+                from the traffic;
 7. moe-serve  — the same traffic through olmoe-1b-7b at full width and
                 depth (the grouped-matmul kernel on every expert MLP),
                 K4's launches by tile against the counts reckoned from
@@ -61,8 +63,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
    time at the paths' largest shapes beside its plain version, a library
    call and its roofline bound; K1 at prefill (tensor-core tile), decode
    and logits (decode tile), K4 at prefill (tensor-core tile), at decode
-   with every row full and with a seeded routing's rows (decode tile),
-   timed from CUDA-graph replays.
+   with every row full and with a seeded routing's rows (decode tile), K2
+   at head_dim 128 and 256 (tensor-core tile, beside the SIMT tile at the
+   same shape), timed from CUDA-graph replays.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last line is ``{"ok": true, "device": {...}}``.  Any failed
@@ -111,15 +114,18 @@ TOL_PATH_BF16 = 2e-2
 TOL_W8A8_ROUTES, TOL_W8A8_FLOAT = 1e-5, 0.05
 PROFILE_STEPS, UNTRACED_STEPS = 4, 16
 MAX_ROWS_DECODE = 8                 # K1's decode tile serves M <= 8
-# a substring of each kernel's name in a profiler trace
-# K1's and K4's tiles by kernel name within their launches
-TILE_TAGS = {"tc": ("tc_tile_kernel",),
+# the tiled kernels' tiles, each by substrings of its kernel names in a
+# profiler trace
+MM_TILE_TAGS = {"tc": ("tc_tile_kernel",),
                 "decode": ("decode_tile_kernel", "decode_reduce_kernel"),
                 "simt": ("gemm_tile_kernel",)}
-TILED = ("fused_matmul", "grouped_matmul")     # the kernels with tiles
+TILE_TAGS = {"fused_matmul": MM_TILE_TAGS, "grouped_matmul": MM_TILE_TAGS,
+             "flash_attention": {"tc": ("flash_attention_tc_kernel",),
+                                 "simt": ("flash_attention_kernel",)}}
+# a substring of each kernel's name in a profiler trace
 KERNEL_TAGS = {"fused_matmul": "FusedMatmul",
                "grouped_matmul": "GroupedMatmul",
-               "flash_attention": "flash_attention_kernel",
+               "flash_attention": "flash_attention_",
                "quantize_rowwise": "quantize_rowwise_kernel",
                "rglru_scan": "rglru_scan_kernel",
                "rwkv6_wkv": "rwkv6_wkv_kernel"}
@@ -280,7 +286,12 @@ def plain_matmul(a, b, ep, ops):
     return fused_matmul_plain(a, b, ep, ops, acc)
 
 
-def attention_case(gen, b, h, hkv, sq, sk, d, dtype):
+def attention_case(gen, b, h, hkv, sq, sk, d, dtype, transposed=False):
+    """q (b, h, sq, d), k and v (b, hkv, sk, d); ``transposed``: each is a
+    (b, s, heads, d) tensor seen through ``transpose(1, 2)``."""
+    if transposed:
+        return tuple(_rand(gen, (b, s, n, d), dtype).transpose(1, 2)
+                     for s, n in ((sq, h), (sk, hkv), (sk, hkv)))
     return (_rand(gen, (b, h, sq, d), dtype),
             _rand(gen, (b, hkv, sk, d), dtype),
             _rand(gen, (b, hkv, sk, d), dtype))
@@ -390,6 +401,7 @@ def served_k1_calls(arch, n_layers):
 
 def phase_kernels(cfg, moe_cfg, s_max, served):
     """``served``: arch -> its distinct K1 calls (``served_k1_calls``)."""
+    from repro_torch.kernels.attention.ops import flash_attention
     from repro_torch.kernels.matmul.ops import fused_matmul
     from repro_torch.kernels.moe.ops import grouped_matmul
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -462,32 +474,67 @@ def phase_kernels(cfg, moe_cfg, s_max, served):
                          bias=None if bias == "zero" else bias,
                          out_dtype=out_dt)
 
-    def check_attn(name, tol, shape, dtype, zero_rows=None, **kw):
-        q, k, v = attention_case(gen, *shape, dtype)
+    def check_attn(name, tol, tile, shape, dtype, zero_rows=None,
+                   transposed=False, **kw):
+        """One K2 case, which must run on ``tile``; ``transposed``: q, k, v
+        are (B, S, H, D) memory seen as (B, H, S, D), as the models'
+        ``qkv_project`` passes them."""
+        q, k, v = attention_case(gen, *shape, dtype, transposed=transposed)
         kw = dict(sm_scale=shape[-1] ** -0.5, window=0, softcap=0.0,
                   q_start=0) | kw
+        before = dict(flash_attention.launches_by_tile)
         out = run_attention(q, k, v, **kw)
+        ran = [t for t, n in flash_attention.launches_by_tile.items()
+               if n != before[t]]
         ref = plain_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         rel, diff = rel_err(out, ref)
         ok = (out.dtype == ref.dtype and out.shape == ref.shape
-              and rel <= tol and bool(torch.isfinite(out.double()).all()))
+              and rel <= tol and bool(torch.isfinite(out.double()).all())
+              and ran == [tile])
         if zero_rows is not None:
             ok = ok and bool((out[:, :, zero_rows] == 0).all())
         results.append({"kernel": "flash_attention", "case": name,
-                        "rel": rel, "max_abs_err": diff, "tol": tol,
-                        "ok": ok})
+                        "tile": ran, "rel": rel, "max_abs_err": diff,
+                        "tol": tol, "ok": ok})
 
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    check_attn(f"path b=4 s={s_max} bf16", TOL_FLASH_BF16,
-               (MAX_BATCH, h, hkv, s_max, s_max, hd), bf16, causal=True)
-    check_attn("fp32 window+softcap+q_start, Sq<Sk", TOL_FLASH_FP32,
+    mh, mhkv = moe_cfg.n_heads, moe_cfg.n_kv_heads
+    for s in (s_max, min(padded_lengths(prompt_lengths()[0]))):
+        check_attn(f"yi-6b path b=4 {h}/{hkv} s={s} d={hd} bf16",
+                   TOL_FLASH_BF16, "tc", (MAX_BATCH, h, hkv, s, s, hd), bf16,
+                   causal=True)
+    check_attn(f"yi-6b path b=4 s={s_max} transposed views",
+               TOL_FLASH_BF16, "tc", (MAX_BATCH, h, hkv, s_max, s_max, hd),
+               bf16, transposed=True, causal=True)
+    check_attn(f"olmoe path b=4 {mh}/{mhkv} s={s_max} d={moe_cfg.head_dim} "
+               "bf16 transposed views", TOL_FLASH_BF16, "tc",
+               (MAX_BATCH, mh, mhkv, s_max, s_max, moe_cfg.head_dim), bf16,
+               transposed=True, causal=True)
+    for sq in (1, 63, 65, 300):
+        check_attn(f"tc Sq=Sk={sq} d=128 GQA 4/2", TOL_FLASH_BF16, "tc",
+                   (2, 4, 2, sq, sq, 128), bf16, causal=True)
+    check_attn("tc Sq<Sk q_start=250 d=128", TOL_FLASH_BF16, "tc",
+               (2, 4, 2, 50, 300, 128), bf16, causal=True, q_start=250)
+    check_attn("bf16 non-causal ragged d=64", TOL_FLASH_BF16, "tc",
+               (1, 4, 4, 70, 33, 64), bf16, causal=False)
+    check_attn("fp16 non-causal ragged d=64", TOL_FLASH_BF16, "tc",
+               (1, 4, 4, 70, 33, 64), torch.float16, causal=False)
+    check_attn("tc softcap 50 d=128", TOL_FLASH_BF16, "tc",
+               (2, 8, 2, 200, 200, 128), bf16, causal=True, softcap=50.0)
+    check_attn("tc window 37 cuts key tiles, q_start=11 d=128",
+               TOL_FLASH_BF16, "tc", (2, 4, 1, 250, 261, 128), bf16,
+               causal=True, window=37, q_start=11)
+    # queries at 100..119 with a window of 4 see none of the 40 keys
+    check_attn("tc fully masked rows are 0 d=128 bf16", TOL_FLASH_BF16,
+               "tc", (1, 4, 1, 20, 40, hd), bf16, zero_rows=slice(0, 20),
+               causal=True, window=4, q_start=100)
+    check_attn("fp32 window+softcap+q_start, Sq<Sk", TOL_FLASH_FP32, "simt",
                (2, 8, 2, 50, 300, hd), torch.float32, causal=True,
                window=64, softcap=50.0, q_start=200)
-    check_attn("bf16 non-causal ragged d=64", TOL_FLASH_BF16,
-               (1, 4, 4, 70, 33, 64), bf16, causal=False)
-    # queries at 100..119 with a window of 4 see none of the 40 keys
-    check_attn("fully masked rows are 0", TOL_FLASH_FP32,
+    check_attn("bf16 d=32 ragged (padded dims)", TOL_FLASH_BF16, "simt",
+               (1, 4, 4, 70, 33, 32), bf16, causal=False)
+    check_attn("fully masked rows are 0", TOL_FLASH_FP32, "simt",
                (1, 4, 1, 20, 40, hd), torch.float32, zero_rows=slice(0, 20),
                causal=True, window=4, q_start=100)
     def check_gm(name, tol, tile, *shape, routed=None, **kw):
@@ -669,18 +716,29 @@ def phase_kernels_recurrent(g_cfg, r_cfg, s_max):
            torch.cat([o1, o2], dim=2), o, TOL_WKV_FP32)
     record("rwkv6_wkv", "two calls: final state", s2, s, TOL_WKV_FP32)
 
+    from repro_torch.kernels.attention.ops import flash_attention
     hq, hkv, hd = g_cfg.n_heads, g_cfg.n_kv_heads, g_cfg.head_dim
-    for name, shape, dt, window, tol in (
+    for name, shape, dt, window, tol, tile, transposed in (
             (f"path b={b} s={s_max} d={hd} MQA {hq}/{hkv} bf16",
              (b, hq, hkv, s_max, s_max, hd), bf16, g_cfg.window,
-             TOL_FLASH_BF16),
+             TOL_FLASH_BF16, "tc", False),
+            (f"path b={b} s={s_max} d={hd} MQA bf16 transposed views",
+             (b, hq, hkv, s_max, s_max, hd), bf16, g_cfg.window,
+             TOL_FLASH_BF16, "tc", True),
+            (f"d={hd} MQA bf16 window 64", (2, hq, hkv, 300, 300, hd), bf16,
+             64, TOL_FLASH_BF16, "tc", False),
             (f"d={hd} MQA fp32 window 64", (2, hq, hkv, 300, 300, hd), f32,
-             64, TOL_FLASH_FP32)):
-        q, kk, vv = attention_case(gen, *shape, dt)
+             64, TOL_FLASH_FP32, "simt", False)):
+        q, kk, vv = attention_case(gen, *shape, dt, transposed=transposed)
         kw = dict(sm_scale=hd ** -0.5, causal=True, window=window,
                   softcap=0.0, q_start=0)
-        record("flash_attention", name, run_attention(q, kk, vv, **kw),
-               plain_attention(q, kk, vv, **kw), tol)
+        before = dict(flash_attention.launches_by_tile)
+        out = run_attention(q, kk, vv, **kw)
+        ran = [t for t, n in flash_attention.launches_by_tile.items()
+               if n != before[t]]
+        record("flash_attention", name, out, plain_attention(q, kk, vv, **kw),
+               tol, extra_ok=ran == [tile])
+        results[-1]["tile"] = ran
     emit({"phase": "kernels-recurrent", "cases": results})
     require(all(r["ok"] for r in results),
             "kernel mismatch: " + ", ".join(r["case"] for r in results
@@ -748,11 +806,20 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
             backend.set_default_matmul_backend(prev)
             moe_lib.route = inner
 
+    from repro_torch.kernels.attention.ops import flash_attention
     from repro_torch.kernels.matmul.ops import fused_matmul
     from repro_torch.kernels.moe.ops import grouped_matmul
     tiled = {"fused_matmul": fused_matmul}
     if cfg.moe is not None:
         tiled["grouped_matmul"] = grouped_matmul
+    if cfg.family != "rwkv6":                   # RWKV-6 has no attention
+        tiled["flash_attention"] = flash_attention
+    # the tiles each kernel must run on, and no other: in bf16 K1 and K4 on
+    # their tensor-core and decode tiles and K2 on its tensor-core tile;
+    # in fp32 K2 on its SIMT tile
+    want = ({"fused_matmul": ("tc", "decode"),
+             "grouped_matmul": ("tc", "decode"), "flash_attention": ("tc",)}
+            if dtype == torch.bfloat16 else {"flash_attention": ("simt",)})
     forced = []
     for fn in tiled.values():
         fn.launches_by_tile = dict.fromkeys(fn.launches_by_tile, 0)
@@ -773,9 +840,9 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
         line["expert_choices_differing"] = sum(
             int((a != b).any(-1).sum()) for a, b in pairs)
         line["experts_follow_kernel_route"] = follow
+    for name, by_tile in tiles.items():
+        line[f"{name}_by_tile_kernel_route"] = by_tile
     if dtype == torch.bfloat16:
-        for name, by_tile in tiles.items():
-            line[f"{name}_by_tile_kernel_route"] = by_tile
         # how far each bf16 route lies from the same weights run in fp32
         ref = run("torch", cfg.with_(dtype=torch.float32,
                                      kv_cache_dtype=torch.float32),
@@ -787,12 +854,13 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
     require(finite and all(e <= tol for e in errs)
             and (all(same) or dtype != torch.float32),
             f"{arch}: kernel route disagrees with the torch route")
-    if dtype == torch.bfloat16:
-        for name, by_tile in tiles.items():
-            require(by_tile["tc"] > 0 and by_tile["decode"] > 0 and
-                    by_tile["simt"] == 0, f"{arch} bf16: {name} ran on "
-                    f"{by_tile}, not on its tensor-core and decode tiles "
-                    "alone")
+    for name, by_tile in tiles.items():
+        on = want.get(name)
+        require(on is None or (
+            all(by_tile[t] > 0 for t in on)
+            and all(n == 0 for t, n in by_tile.items() if t not in on)),
+            f"{arch} {str(dtype)[6:]}: {name} ran on {by_tile}, not on its "
+            f"{' and '.join(on or ())} tiles alone")
     del params
     torch.cuda.empty_cache()
 
@@ -804,9 +872,9 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
 
 def phase_serve(arch, phase, counters, reckoned):
     """``counters``: kernel name -> wrapper whose ``launches`` the path
-    must raise above 0; ``reckoned``: kernel name (K1, and K4 where the
-    path has it) -> its launches by tile, reckoned from the traffic, which
-    the path must match."""
+    must raise above 0; ``reckoned``: kernel name (K1, K2 and K4 where the
+    path has them) -> its launches by tile, reckoned from the traffic,
+    which the path must match."""
     from repro_torch import backend
     from repro_torch.configs.registry import get_config
     from repro_torch.models.base import family_module
@@ -834,7 +902,7 @@ def phase_serve(arch, phase, counters, reckoned):
     for fn in counters.values():
         fn.launches = 0
     for name in reckoned:
-        counters[name].launches_by_tile = dict.fromkeys(TILE_TAGS, 0)
+        counters[name].launches_by_tile = dict.fromkeys(TILE_TAGS[name], 0)
     t0 = time.perf_counter()
     outs = eng.run(max_new_tokens=MAX_NEW)
     torch.cuda.synchronize()
@@ -884,19 +952,20 @@ def phase_serve(arch, phase, counters, reckoned):
 
 def _device_ms_by_kernel(prof, n):
     """(device kernel events, busy ms per call, ms per call by kernel
-    group, K1's and K4's ms per call by tile) of a trace of ``n`` calls."""
+    group, K1's, K2's and K4's ms per call by tile) of a trace of ``n``
+    calls."""
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in device) / 1e3 / n
     groups = dict.fromkeys([*KERNEL_TAGS, "other"], 0.0)
-    tiles = {g: dict.fromkeys(TILE_TAGS, 0.0) for g in TILED}
+    tiles = {g: dict.fromkeys(tags, 0.0) for g, tags in TILE_TAGS.items()}
     for e in device:
         g = next((name for name, tag in KERNEL_TAGS.items() if tag in e.key),
                  "other")
         groups[g] += e.self_device_time_total / 1e3 / n
         if g in tiles:
-            tile = next(t for t, tags in TILE_TAGS.items()
+            tile = next(t for t, tags in TILE_TAGS[g].items()
                         if any(tag in e.key for tag in tags))
             tiles[g][tile] += e.self_device_time_total / 1e3 / n
     return device, busy, groups, tiles
@@ -1161,6 +1230,8 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
     """``path_launches``: path -> {kernel name: launches in that path}."""
     import torch.nn.functional as F
     from repro_torch.core.hardware import H100_SXM as chip
+    from repro_torch.kernels.attention.attention import (
+        flash_attention_simt, tile_for as attention_tile_for)
     from repro_torch.kernels.matmul.matmul import tile_for
     from repro_torch.kernels.moe.grouped_matmul import (
         tile_for as grouped_tile_for)
@@ -1173,6 +1244,55 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
                    if name in n}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
+
+    def by_tile(name):
+        return {t_: sum(p_.get(f"{name}_by_tile", {}).get(t_, 0)
+                        for p_ in path_launches.values())
+                for t_ in TILE_TAGS[name]}
+
+    def k2_row(h, hkv, hd, window, tag):
+        """K2 at a prefill path's shape, bf16 (4, h, s_max, hd), on the
+        tile the rule names, beside its SIMT tile at the same shape, the
+        plain version and SDPA; each timed as 10 calls replayed from a
+        CUDA graph (``graph_ms``), as K1: a call's host time (two tensor
+        maps to encode) is of the order of its device time."""
+        q, kk, v = attention_case(gen, MAX_BATCH, h, hkv, s_max, s_max, hd,
+                                  torch.bfloat16)
+        k_rep, v_rep = (x.repeat_interleave(h // hkv, dim=1) for x in (kk, v))
+        kw = dict(sm_scale=hd ** -0.5, causal=True, window=window,
+                  softcap=0.0, q_start=0)
+        t = graph_ms({
+            "kernel": lambda: run_attention(q, kk, v, **kw),
+            "simt": lambda: flash_attention_simt(q, kk, v, **kw),
+            "plain": lambda: plain_attention(q, kk, v, **kw),
+            "library": lambda: F.scaled_dot_product_attention(
+                q, k_rep, v_rep, is_causal=True, scale=hd ** -0.5)})
+        ref = plain_attention(q, kk, v, **kw)
+        _, diff = rel_err(run_attention(q, kk, v, **kw), ref)
+        _, diff_simt = rel_err(flash_attention_simt(q, kk, v, **kw), ref)
+        tile = attention_tile_for(q, kk, v)
+        pairs = s_max * (s_max + 1) // 2               # causal (q, k) pairs
+        ms, by = bound(4.0 * MAX_BATCH * h * pairs * hd,
+                       2.0 * (2 * q.numel() + kk.numel() + v.numel()),
+                       chip.peak_bf16, chip.hbm_bw)
+        kernels.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + (
+                "flash_attention_sm90.cu" if tile == "tc" else
+                "flash_attention.cu"),
+            "replaces": "src/repro/kernels/attention/attention.py:34",
+            **counts("flash_attention"),
+            "launches_by_tile": by_tile("flash_attention"),
+            "tile": tile, "max_abs_err": diff,
+            "ms": t["kernel"], "simt_ms": t["simt"],
+            "simt_max_abs_err": diff_simt, "plain_ms": t["plain"],
+            "bound_ms": ms, "bound_by": by, "library_ms": t["library"],
+            "timing": "per call, median of 10 replays (in turns) of a CUDA "
+                      "graph of 10 calls",
+            "shape": f"bf16 q ({MAX_BATCH},{h},{s_max},{hd}) kv "
+                     f"({MAX_BATCH},{hkv},{s_max},{hd}) causal{tag}",
+            "library_call": "F.scaled_dot_product_attention on KV heads "
+                            "repeated to H beforehand"})
 
     # K1 at its largest path shapes: the prefill GLU MLP input projection
     # (tensor-core tile), the same weight at the decode rows and the
@@ -1207,10 +1327,7 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
                 "decode_tile.cuh" if tile == "decode" else "gemm_tile.cuh"),
             "replaces": "src/repro/kernels/matmul/matmul.py:39",
             **counts("fused_matmul"),
-            "launches_by_tile": {
-                t_: sum(p_.get("fused_matmul_by_tile", {}).get(t_, 0)
-                        for p_ in path_launches.values())
-                for t_ in TILE_TAGS},
+            "launches_by_tile": by_tile("fused_matmul"),
             "tile": tile, "max_abs_err": diff,
             "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
             "bound_by": by, "library_ms": t["library"],
@@ -1219,35 +1336,9 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
                      f"{' fp32' if out_dt == torch.float32 else ''}",
             "library_call": "torch.matmul (no epilogue)"})
 
-    # K2 at its path shape: prefill attention of the longest batch.
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q, kk, v = attention_case(gen, MAX_BATCH, h, hkv, s_max, s_max, hd,
-                              torch.bfloat16)
-    k_rep, v_rep = (x.repeat_interleave(h // hkv, dim=1) for x in (kk, v))
-    kw = dict(sm_scale=hd ** -0.5, causal=True, window=0, softcap=0.0,
-              q_start=0)
-    t = time_ms({
-        "kernel": lambda: run_attention(q, kk, v, **kw),
-        "plain": lambda: plain_attention(q, kk, v, **kw),
-        "library": lambda: F.scaled_dot_product_attention(
-            q, k_rep, v_rep, is_causal=True, scale=hd ** -0.5)})
-    _, diff = rel_err(run_attention(q, kk, v, **kw),
-                      plain_attention(q, kk, v, **kw))
-    pairs = s_max * (s_max + 1) // 2                   # causal (q, k) pairs
-    ms, by = bound(4.0 * MAX_BATCH * h * pairs * hd,
-                   2.0 * (2 * q.numel() + kk.numel() + v.numel()),
-                   chip.peak_bf16, chip.hbm_bw)
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/attention/attention.py:34",
-        **counts("flash_attention"), "max_abs_err": diff,
-        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
-        "bound_by": by, "library_ms": t["library"],
-        "shape": f"bf16 q ({MAX_BATCH},{h},{s_max},{hd}) kv "
-                 f"({MAX_BATCH},{hkv},{s_max},{hd}) causal",
-        "library_call": "F.scaled_dot_product_attention on KV heads "
-                        "repeated to H beforehand"})
+    # K2 at yi-6b's prefill attention of the longest batch (head_dim 128,
+    # GQA 32/4); RecurrentGemma's (head_dim 256) comes after K3.
+    k2_row(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 0, "")
 
     # K4 at the MoE path's shapes: OLMoE's gate/up projection (the larger
     # of its two expert GEMMs) at the capacity of the 221-token prefill
@@ -1292,10 +1383,7 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
                 "grouped_matmul.cu"),
             "replaces": "src/repro/kernels/moe/grouped_matmul.py:21",
             **counts("grouped_matmul"),
-            "launches_by_tile": {
-                t_: sum(p_.get("grouped_matmul_by_tile", {}).get(t_, 0)
-                        for p_ in path_launches.values())
-                for t_ in TILE_TAGS},
+            "launches_by_tile": by_tile("grouped_matmul"),
             "tile": tile, "max_abs_err": diff,
             "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
             "bound_by": by, "library_ms": t["library"],
@@ -1334,35 +1422,8 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
 
     # K2 at head_dim 256: RecurrentGemma's prefill attention (MQA 10/1,
     # window 2048, longer than the prompt).
-    h, hkv, hd = g_cfg.n_heads, g_cfg.n_kv_heads, g_cfg.head_dim
-    q, kk, v = attention_case(gen, MAX_BATCH, h, hkv, s_max, s_max, hd,
-                              torch.bfloat16)
-    k_rep, v_rep = (x.repeat_interleave(h // hkv, dim=1) for x in (kk, v))
-    kw = dict(sm_scale=hd ** -0.5, causal=True, window=g_cfg.window,
-              softcap=0.0, q_start=0)
-    t = time_ms({
-        "kernel": lambda: run_attention(q, kk, v, **kw),
-        "plain": lambda: plain_attention(q, kk, v, **kw),
-        "library": lambda: F.scaled_dot_product_attention(
-            q, k_rep, v_rep, is_causal=True, scale=hd ** -0.5)})
-    _, diff = rel_err(run_attention(q, kk, v, **kw),
-                      plain_attention(q, kk, v, **kw))
-    pairs = s_max * (s_max + 1) // 2                   # causal (q, k) pairs
-    ms, by = bound(4.0 * MAX_BATCH * h * pairs * hd,
-                   2.0 * (2 * q.numel() + kk.numel() + v.numel()),
-                   chip.peak_bf16, chip.hbm_bw)
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/attention/attention.py:34",
-        **counts("flash_attention"), "max_abs_err": diff,
-        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
-        "bound_by": by, "library_ms": t["library"],
-        "shape": f"bf16 q ({MAX_BATCH},{h},{s_max},{hd}) kv "
-                 f"({MAX_BATCH},{hkv},{s_max},{hd}) causal, window "
-                 f"{g_cfg.window}",
-        "library_call": "F.scaled_dot_product_attention on KV heads "
-                        "repeated to H beforehand"})
+    k2_row(g_cfg.n_heads, g_cfg.n_kv_heads, g_cfg.head_dim, g_cfg.window,
+           f", window {g_cfg.window}")
 
     # K5 at RecurrentGemma's prefill shape, from a carried state (the
     # stateful pass), cold L2.  About ten operations per element: exp,
@@ -1461,6 +1522,13 @@ def main() -> int:
     # and 64) on the tensor-core tile, the decode steps' (C = 8) on the
     # decode tile: 64 tc and 960 decode launches
     k4_tiles = reckon(2 * moe_cfg.n_layers, logits=0)
+    # K2: one prefill call an attention layer, a pass and a batch, all bf16
+    # at head_dim 128 or 256 on the tensor-core tile: yi-6b 32 x 2 = 64,
+    # OLMoE 16 x 2 = 32, RecurrentGemma 8 x 2 passes x 2 = 32
+    k2_tiles = {
+        "serve": {"tc": 2 * cfg.n_layers, "simt": 0},
+        "moe-serve": {"tc": 2 * moe_cfg.n_layers, "simt": 0},
+        "griffin-serve": {"tc": 2 * 2 * g_attn, "simt": 0}}
     try:
         phase_build()
         served = {ARCH: served_k1_calls(ARCH, 1),
@@ -1479,14 +1547,17 @@ def main() -> int:
                      tol=TOL_PATH_BF16)
         launches = {
             "serve": phase_serve(ARCH, "serve", dense,
-                                 {"fused_matmul": k1_tiles["serve"]}),
+                                 {"fused_matmul": k1_tiles["serve"],
+                                  "flash_attention": k2_tiles["serve"]}),
             "moe-serve": phase_serve(MOE_ARCH, "moe-serve", {
                 **dense, "grouped_matmul": grouped_matmul},
                 {"fused_matmul": k1_tiles["moe-serve"],
-                 "grouped_matmul": k4_tiles}),
+                 "grouped_matmul": k4_tiles,
+                 "flash_attention": k2_tiles["moe-serve"]}),
             "griffin-serve": phase_serve(GRIFFIN_ARCH, "griffin-serve", {
                 **dense, "rglru_scan": rglru_scan},
-                {"fused_matmul": k1_tiles["griffin-serve"]}),
+                {"fused_matmul": k1_tiles["griffin-serve"],
+                 "flash_attention": k2_tiles["griffin-serve"]}),
             "rwkv-serve": phase_serve(RWKV_ARCH, "rwkv-serve", {
                 "fused_matmul": fused_matmul, "rwkv6_scan": rwkv6_scan},
                 {"fused_matmul": k1_tiles["rwkv-serve"]})}

@@ -1,10 +1,19 @@
 """The flash-attention kernel (K2) and its plain version.
 
-``flash_attention_cuda`` launches ``csrc/flash_attention.cu``, the Hopper
-counterpart of the reference's Pallas ``flash_attention_kernel``
-(``repro/kernels/attention/attention.py``).  ``flash_attention_plain``
-computes the same function densely with plain tensor ops: the CPU tests
-run it, and ``chip_smoke.py`` holds the kernel against it on the card.
+``flash_attention_cuda`` launches one of K2's two CUDA tiles, the Hopper
+counterparts of the reference's Pallas ``flash_attention_kernel``
+(``repro/kernels/attention/attention.py``); ``select_tile`` alone decides
+which:
+
+* ``"tc"`` (``csrc/flash_attention_sm90.cu``): bf16/fp16 at head_dim 64,
+  128 or 256 whose pointers and strides TMA can take; wgmma on the
+  tensor cores, q, k and v loaded by TMA through their own strides;
+* ``"simt"`` (``csrc/flash_attention.cu``): everything else (fp32, other
+  head dims, which it zero-pads, and views TMA refuses).
+
+``flash_attention_plain`` computes the same function densely with plain
+tensor ops: the CPU tests run it, and ``chip_smoke.py`` holds each tile
+against it on the card.
 
 q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, H, Sq, D) in q's dtype.
 Query head h reads KV head h // (H / Hkv); query row i sits at position
@@ -23,23 +32,71 @@ import torch.nn.functional as F
 from repro_torch.kernels.attention.ref import attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (32, 64, 128, 256)  # head dims the kernel is instantiated for
+_HEAD_DIMS = (32, 64, 128, 256)  # head dims the SIMT tile is built for
+TC_HEAD_DIMS = (64, 128, 256)    # head dims the tensor-core tile is built for
+TILES = ("tc", "simt")
+TMA_ALIGN = 8            # 16-bit elements in TMA's 16-byte stride unit
 
-_fn = None
+_fn = None               # the SIMT tile (flash_attention.cu)
+_tc_fn = None            # the tensor-core tile (flash_attention_sm90.cu)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+
+
+def _bind(stem: str, symbol: str, argtypes: list):
+    from repro_torch.kernels import build
+    fn = getattr(build.load(stem), symbol)
+    fn.argtypes = argtypes
+    fn.restype = _I
+    return fn
 
 
 def _launcher():
     global _fn
     if _fn is None:
-        from repro_torch.kernels import build
-        fn = build.load("flash_attention").flash_attention_launch
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, i, p, p, p, p, i, i, i, i, i,
-                       ctypes.POINTER(ctypes.c_longlong), f, i, i, f, i, i,
-                       p]
-        fn.restype = i
-        _fn = fn
+        _fn = _bind("flash_attention", "flash_attention_launch",
+                    [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,
+                     _F, _I, _I, _F, _I, _I, _P])
     return _fn
+
+
+def _tc_launcher():
+    global _tc_fn
+    if _tc_fn is None:
+        _tc_fn = _bind("flash_attention_sm90", "flash_attention_tc_launch",
+                       [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,
+                        _F, _I, _I, _F, _I, _P])
+    return _tc_fn
+
+
+def select_tile(dtype: torch.dtype, d: int, aligned: bool,
+                strides) -> str:
+    """The tile that computes one call: K2's rule.
+
+    ``aligned``: q, k and v start on 16-byte boundaries; ``strides``:
+    their element strides along B, H and S, of the dims longer than 1
+    (TMA never steps along the others).  bf16 and fp16 at head_dim 64,
+    128 or 256 take the tensor-core tile when every stride is a positive
+    whole 16-byte unit, as TMA needs; fp32 stays off the tensor cores
+    (its parity tolerance is 1e-3, and P would be rounded), and it, the
+    head dims the SIMT tile pads and the views TMA refuses take the SIMT
+    tile.  No tile falls back to another: a failed launch raises.
+    """
+    if (dtype in (torch.bfloat16, torch.float16) and d in TC_HEAD_DIMS
+            and aligned and all(s > 0 and s % TMA_ALIGN == 0
+                                for s in strides)):
+        return "tc"
+    return "simt"
+
+
+def tile_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``select_tile`` for the q, k and v of one call."""
+    tensors = (q, k, v)
+    return select_tile(
+        q.dtype, q.shape[-1], all(x.data_ptr() % 16 == 0 for x in tensors),
+        [s for x in tensors for n, s in zip(x.shape[:3], x.stride()[:3])
+         if n > 1])
 
 
 def flash_attention_plain(q, k, v, *, sm_scale: float, causal: bool,
@@ -51,13 +108,52 @@ def flash_attention_plain(q, k, v, *, sm_scale: float, causal: bool,
 
 def flash_attention_cuda(q, k, v, *, sm_scale: float, causal: bool,
                          window: int, softcap: float, q_start: int):
-    """Launch the CUDA kernel on CUDA tensors."""
+    """Launch the CUDA kernel on CUDA tensors with unit stride along the
+    head dim, on the tile ``tile_for`` names."""
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
         raise NotImplementedError(
             f"the CUDA flash attention takes float32, float16 or bfloat16 "
             f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if any(x.stride(-1) != 1 for x in (q, k, v)):
+        raise ValueError("the CUDA flash attention takes q, k, v with unit "
+                         "stride along the head dim")
+    launch = flash_attention_tc if tile_for(q, k, v) == "tc" else \
+        flash_attention_simt
+    return launch(q, k, v, sm_scale=sm_scale, causal=causal, window=window,
+                  softcap=softcap, q_start=q_start)
+
+
+def flash_attention_tc(q, k, v, *, sm_scale: float, causal: bool,
+                       window: int, softcap: float, q_start: int):
+    """The tensor-core tile on q, k, v as they lie: no copy, no padding.
+    Strides of dims of length 1 are passed as D (any whole 16-byte unit
+    serves a dim TMA never steps along)."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
+    if o.numel() == 0:
+        return o
+    if sk == 0:                 # no key: every query gives 0
+        return o.zero_()
+    strides = [s if n > 1 else d for x in (q, k, v, o)
+               for n, s in zip(x.shape[:3], x.stride()[:3])]
+    err = _tc_launcher()(
+        _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        o.data_ptr(), b, h, hkv, sq, sk, (ctypes.c_longlong * 12)(*strides),
+        float(sm_scale), int(causal), int(window), float(softcap),
+        int(q_start), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed (tc "
+                           f"tile): CUDA error {err}")
+    return o
+
+
+def flash_attention_simt(q, k, v, *, sm_scale: float, causal: bool,
+                         window: int, softcap: float, q_start: int):
+    """The SIMT tile, at any of the three dtypes; head dims below 256
+    that it is not built for are zero-padded."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dk = next((x for x in _HEAD_DIMS if x >= d), None)
@@ -65,7 +161,6 @@ def flash_attention_cuda(q, k, v, *, sm_scale: float, causal: bool,
         raise NotImplementedError(f"head_dim {d} > {_HEAD_DIMS[-1]}")
     if dk != d:      # zero columns change no score and give 0 outputs
         q, k, v = (F.pad(x, (0, dk - d)) for x in (q, k, v))
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
     o = torch.empty((b, h, sq, dk), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o[..., :d]
@@ -81,6 +176,6 @@ def flash_attention_cuda(q, k, v, *, sm_scale: float, causal: bool,
         int(q_start), int(vec),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash_attention kernel launch failed (simt "
+                           f"tile): CUDA error {err}")
     return o if dk == d else o[..., :d]

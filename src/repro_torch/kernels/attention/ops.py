@@ -1,9 +1,10 @@
 """Wrapper of the flash-attention kernel (K2), plus decode attention.
 
-``flash_attention`` sends CUDA tensors to the kernel (which masks ragged
-lengths itself, so nothing is padded to blocks) and CPU tensors to its
-plain version.  ``decode_attention`` (one query against a long cache) is
-plain tensor code, as in the reference.
+``flash_attention`` sends CUDA tensors to the kernel, on the tile
+``select_tile`` picks (each masks ragged lengths itself, so nothing is
+padded to blocks), and CPU tensors to its plain version.
+``decode_attention`` (one query against a long cache) is plain tensor
+code, as in the reference.
 """
 
 from __future__ import annotations
@@ -12,8 +13,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.attention.attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
+from repro_torch.kernels.attention.attention import (TILES,
+                                                     flash_attention_cuda,
+                                                     flash_attention_plain,
+                                                     tile_for)
 
 
 def flash_attention(q, k, v, *, sm_scale: Optional[float] = None,
@@ -21,9 +24,10 @@ def flash_attention(q, k, v, *, sm_scale: Optional[float] = None,
                     softcap: float = 0.0, q_start: int = 0):
     """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, H, Sq, D).
 
-    CUDA tensors launch the kernel (and count the launch in
-    ``flash_attention.launches``) or raise; CPU tensors run the plain
-    version.
+    CUDA tensors launch the kernel on the tile ``select_tile`` picks
+    (and count the launch in ``flash_attention.launches`` and in
+    ``flash_attention.launches_by_tile``) or raise; CPU tensors run the
+    plain version.
     """
     h, d = q.shape[1], q.shape[-1]
     hkv = k.shape[1]
@@ -34,13 +38,17 @@ def flash_attention(q, k, v, *, sm_scale: Optional[float] = None,
     kw = dict(sm_scale=sm_scale, causal=causal, window=window,
               softcap=softcap, q_start=q_start)
     if q.is_cuda:
+        q, k, v = (x if x.stride(-1) == 1 else x.contiguous()
+                   for x in (q, k, v))
         out = flash_attention_cuda(q, k, v, **kw)
         flash_attention.launches += 1
+        flash_attention.launches_by_tile[tile_for(q, k, v)] += 1
         return out
     return flash_attention_plain(q, k, v, **kw)
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_tile = dict.fromkeys(TILES, 0)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *,

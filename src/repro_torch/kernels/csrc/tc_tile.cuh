@@ -42,14 +42,13 @@
 // clusters, TMA stores.
 //
 // The host side encodes the two tensor maps on every call with
-// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint, so the
-// libraries need no -lcuda.
+// cuTensorMapEncodeTiled (sm90.cuh's encode_fn), so the libraries need no
+// -lcuda.
 
 #pragma once
 
-#include <cuda.h>   // CUtensorMap and its enums: types only
-
 #include "epilogue.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -67,54 +66,6 @@ template <int WG> struct TcShape {
   static constexpr int STAGE_BYTES = A_BYTES + 2 * TC_P_BYTES;
   static constexpr int SMEM_BYTES = TC_STAGES * STAGE_BYTES + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// Wait for the completion of the barrier's phase of parity ``parity``.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-
-// A 3-D box of ``map`` at (c0 innermost, c1, c2) into shared memory; its
-// bytes count against ``bar``'s expected transaction.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor for the 128-byte swizzle: start
-// address, leading and stride byte offsets (all in 16-byte units).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-       | (static_cast<uint64_t>(lbo >> 4) << 16)
-       | (static_cast<uint64_t>(sbo >> 4) << 32)
-       | (1ull << 62);
-}
 
 // d += A (64 x 16, K-major) @ B (16 x 128, MN-major), fp32 accumulators.
 template <typename T>
@@ -297,29 +248,6 @@ tc_tile_kernel(const __grid_constant__ CUtensorMap map_a,
                       z * M + row, col, N, ep);
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                            : nullptr;
-  }();
-  return fn;
 }
 
 // Z row-major (rows, cols) 16-bit matrices, one after another, loaded as

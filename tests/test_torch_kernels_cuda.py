@@ -1,7 +1,7 @@
 """The CUDA kernels (K1 fused matmul, K2 flash attention, K3 row
 quantiser, K4 grouped MoE matmul, K5 RG-LRU scan, K6 chunked RWKV-6 WKV)
-against their plain versions on the card, at small and ragged shapes; K1
-and K4 on each of their tiles, K4 with and without its zero-row
+against their plain versions on the card, at small and ragged shapes; K1,
+K2 and K4 on each of their tiles, K4 with and without its zero-row
 promises.
 
 These need a Hopper card and nvcc; elsewhere they skip.  On the card:
@@ -200,6 +200,88 @@ def test_flash_attention_fully_masked_rows_are_zero(card):
     out = attn_ops.flash_attention(q, k, v, causal=True, window=4,
                                    q_start=100)
     assert torch.equal(out, torch.zeros_like(out))
+
+
+TC_ATTN_CASES = [  # (b, h, hkv, sq, sk, d, dtype, flags, transposed)
+    # the served paths: yi-6b GQA 32/4, OLMoE 16/16 (both d=128), and
+    # RecurrentGemma MQA 10/1 at d=256 with its window, on the views
+    # qkv_project passes
+    (4, 32, 4, 221, 221, 128, torch.bfloat16, dict(causal=True), False),
+    (4, 32, 4, 90, 90, 128, torch.bfloat16, dict(causal=True), True),
+    (4, 16, 16, 221, 221, 128, torch.bfloat16, dict(causal=True), True),
+    (4, 10, 1, 221, 221, 256, torch.bfloat16,
+     dict(causal=True, window=2048), True),
+    # ragged Sq and Sk, one query, non-causal, softcap, windows that cut
+    # inside a key tile, q_start with Sq < Sk, fp16, d = 64
+    (2, 4, 2, 1, 1, 64, torch.float16, dict(causal=True), False),
+    (2, 4, 2, 63, 100, 64, torch.bfloat16, dict(causal=False), False),
+    (2, 4, 2, 65, 65, 128, torch.float16, dict(causal=True, softcap=50.0),
+     False),
+    (1, 8, 2, 300, 300, 128, torch.bfloat16, dict(causal=True, window=37),
+     True),
+    (2, 4, 1, 50, 300, 128, torch.bfloat16,
+     dict(causal=True, q_start=250, window=64), False),
+    (2, 10, 1, 130, 70, 256, torch.float16,
+     dict(causal=False, softcap=30.0), True),
+    (1, 4, 4, 200, 200, 256, torch.bfloat16,
+     dict(causal=True, window=100, q_start=5), False),
+]
+
+
+def _attn_inputs(card, b, h, hkv, sq, sk, d, dt, transposed):
+    """q, k, v; ``transposed``: (B, S, heads, D) memory seen as
+    (B, heads, S, D), as the models pass them."""
+    def one(n, s):
+        if transposed:
+            return torch.randn(b, s, n, d, generator=card,
+                               device="cuda").to(dt).transpose(1, 2)
+        return torch.randn(b, n, s, d, generator=card, device="cuda").to(dt)
+    return one(h, sq), one(hkv, sk), one(hkv, sk)
+
+
+@pytest.mark.parametrize("case", TC_ATTN_CASES, ids=lambda c: (
+    f"b{c[0]}h{c[1]}kv{c[2]}q{c[3]}k{c[4]}d{c[5]}-{str(c[6])[6:]}-"
+    + "-".join(f"{k}{v}" for k, v in c[7].items()) + "-T" * c[8]))
+def test_flash_attention_tc_tile_vs_plain(card, case):
+    """K2's tensor-core tile against the plain version: bf16 tolerance
+    (P is rounded to q's dtype before P V, which the plain version does
+    not do), bit-identical on a second run (no atomics), one launch
+    counted on the tile."""
+    b, h, hkv, sq, sk, d, dt, flags, transposed = case
+    q, k, v = _attn_inputs(card, b, h, hkv, sq, sk, d, dt, transposed)
+    before = dict(attn_ops.flash_attention.launches_by_tile)
+    out = attn_ops.flash_attention(q, k, v, **flags)
+    assert attn_ops.flash_attention.launches_by_tile == {
+        **before, "tc": before["tc"] + 1}
+    kw = dict(sm_scale=d ** -0.5, window=0, softcap=0.0, q_start=0) | flags
+    ref = flash_attention_plain(q, k, v, **kw)
+    again = attn_ops.flash_attention(q, k, v, **flags)
+    torch.cuda.synchronize()
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, ref) <= 4e-2
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_attention_tc_tile_fully_masked_rows_are_zero(card, d):
+    """Queries at 20..159 with a window of 4 against 40 keys: those at 43
+    and on see none and give bf16 zeros exactly, not NaN, both beside rows
+    that see keys (the first query tile) and in a tile that sees none."""
+    q = torch.randn(1, 2, 140, d, generator=card, device="cuda").to(
+        torch.bfloat16)
+    k, v = (torch.randn(1, 1, 40, d, generator=card, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    kw = dict(causal=True, window=4, q_start=20)
+    before = attn_ops.flash_attention.launches_by_tile["tc"]
+    out = attn_ops.flash_attention(q, k, v, **kw)
+    assert attn_ops.flash_attention.launches_by_tile["tc"] == before + 1
+    ref = flash_attention_plain(q, k, v, sm_scale=d ** -0.5, softcap=0.0,
+                                **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, :, 23:], torch.zeros_like(out[:, :, 23:]))
+    assert bool((out[:, :, :23] != 0).any())
+    assert _rel(out, ref) <= 4e-2
 
 
 def test_async_engine_uses_a_side_stream(card):

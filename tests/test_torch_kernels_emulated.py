@@ -13,12 +13,13 @@ test_torch_kernels_cuda.py does that on the card).  Skips without g++.
 
 The sources in ``build.CARD_ONLY`` are left out: the tensor-core tile of
 K1 and K4 (``fused_matmul_sm90.cu``, ``grouped_matmul_sm90.cu`` on
-``tc_tile.cuh``) is TMA, mbarrier and wgmma PTX with driver types, none
-of which a CPU stand-in can run.  So the fixture routes every call
+``tc_tile.cuh``) and K2's (``flash_attention_sm90.cu``) are TMA,
+mbarrier and wgmma PTX with driver types, none of which a CPU stand-in
+can run.  So the fixture routes every call K1's, K4's or K2's
 ``select_tile`` sends to ``"tc"`` to the SIMT tile instead (of the cases
-below, K1's fp16 70x40x96 GLU case and K4's 16-bit cases with C > 8);
-the card tests hold the tensor-core tile itself against the plain
-version.
+below, K1's fp16 70x40x96 GLU case, K4's 16-bit cases with C > 8 and
+K2's 16-bit cases at head_dim 64, 128 and 256); the card tests hold the
+tensor-core tiles themselves against the plain versions.
 """
 
 import ctypes
@@ -188,9 +189,9 @@ def emulated(tmp_path_factory):
 
 @pytest.fixture
 def bound(emulated, monkeypatch):
-    """Point the port's launchers at the emulated libraries; K1's and K4's
-    calls that ``select_tile`` sends to the card-only tensor-core tile run
-    on the SIMT tile."""
+    """Point the port's launchers at the emulated libraries; K1's, K4's
+    and K2's calls that their ``select_tile`` sends to a card-only
+    tensor-core tile run on the SIMT tile."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     mm_fn = emulated["fused_matmul"].fused_matmul_launch
     mm_fn.argtypes = [i, p, p, p, i, i, i, i, i, i, i, p, p, p, p, f, i, i,
@@ -221,6 +222,9 @@ def bound(emulated, monkeypatch):
     monkeypatch.setattr(mm, "select_tile", lambda *args: (
         "simt" if select(*args) == "tc" else select(*args)))
     monkeypatch.setattr(attn, "_fn", fa_fn)
+    attn_select = attn.select_tile
+    monkeypatch.setattr(attn, "select_tile", lambda *args: (
+        "simt" if attn_select(*args) == "tc" else attn_select(*args)))
     monkeypatch.setattr(gm, "_fn", gm_fn)
     monkeypatch.setattr(gm, "_decode_fn", gm_dec_fn)
     monkeypatch.setattr(qr, "_fn", qr_fn)
@@ -407,6 +411,32 @@ def test_flash_attention_source_vs_plain(bound, case):
     ref = attn.flash_attention_plain(q, k, v, **kw)
     assert out.dtype == ref.dtype and out.shape == ref.shape
     assert _rel(out, ref) <= (1e-3 if dt == torch.float32 else 4e-2)
+
+
+def test_flash_attention_tc_source_is_card_only(emulated):
+    """The emulated build leaves out K2's tensor-core tile, whose TMA and
+    wgmma have no CPU stand-in, and keeps its SIMT tile."""
+    assert "flash_attention_sm90" in build.CARD_ONLY
+    assert (build.CSRC / "flash_attention_sm90.cu").exists()
+    assert "flash_attention_sm90" not in emulated
+    assert "flash_attention" in emulated
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16],
+                         ids=lambda v: str(v)[6:])
+def test_flash_attention_source_on_transposed_views(bound, dt):
+    """q, k, v as ``qkv_project`` passes them: (B, S, H, D) memory seen
+    as (B, H, S, D), which the rule sends to the tensor-core tile on the
+    card and the emulation runs on the SIMT tile through its strides."""
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 37, 4, 128, generator=g).to(dt).transpose(1, 2)
+    k, v = (torch.randn(2, 37, 2, 128, generator=g).to(dt).transpose(1, 2)
+            for _ in range(2))
+    kw = dict(sm_scale=128 ** -0.5, causal=True, window=16, softcap=0.0,
+              q_start=0)
+    out = attn.flash_attention_cuda(q, k, v, **kw)
+    ref = attn.flash_attention_plain(q, k, v, **kw)
+    assert _rel(out, ref) <= 4e-2
 
 
 def test_flash_attention_source_fully_masked_rows_are_zero(bound):
