@@ -42,12 +42,13 @@
 //     64-key tiles: 80 KB of shared memory at head_dim 128, so two blocks
 //     share an SM and one's loads overlap the other's products (at 256,
 //     160 KB, one block an SM: its O accumulator alone is 128 registers a
-//     thread).  On an H100 this ran 15% faster at yi-6b's shape than two
-//     warpgroups on 128 rows with 128-key tiles, and 32-key tiles, which
-//     would fit two blocks an SM at 256, ran 5% slower there; the grid
-//     runs the query tiles of one head, then the next head, so the heads
-//     that share a KV head run side by side and K and V stream from
-//     device memory about once, and the longest causal tiles start first.
+//     thread).  On an H100 this ran faster at the served head_dim-128
+//     shapes than two warpgroups on 128 rows with 128-key tiles (one
+//     block an SM), and 32-key tiles, which would fit two blocks an SM at
+//     256, ran slower there (PERF.md §6).  The grid runs the query tiles
+//     of one head, then the next head, so the heads that share a KV head
+//     run side by side and K and V stream from device memory about once,
+//     and the longest causal tiles start first.
 // Later work: a producer warp, S of tile j+1 overlapping the softmax of
 // tile j, TMA stores of O.
 
