@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels: the
 // tile of K1 and K4 (tc_tile.cuh) and K2's tensor-core flash attention
 // (flash_attention_sm90.cu).  Shared-memory addresses, mbarriers, TMA
-// loads, wgmma shared-memory descriptors and the driver's tensor-map
-// encoder, reached through cudaGetDriverEntryPoint so that no library
-// needs -lcuda.  Card-only: none of it has a CPU stand-in.
+// loads, wgmma shared-memory descriptors and cuTensorMapEncodeTiled,
+// looked up at run time (encode_fn) so that no library needs -lcuda.
+// Card-only: none of it has a CPU stand-in.
 
 #pragma once
 

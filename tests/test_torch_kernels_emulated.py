@@ -14,8 +14,8 @@ test_torch_kernels_cuda.py does that on the card).  Skips without g++.
 The sources in ``build.CARD_ONLY`` are left out: the tensor-core tile of
 K1 and K4 (``fused_matmul_sm90.cu``, ``grouped_matmul_sm90.cu`` on
 ``tc_tile.cuh``) and K2's (``flash_attention_sm90.cu``) are TMA,
-mbarrier and wgmma PTX with driver types, none of which a CPU stand-in
-can run.  So the fixture routes every call K1's, K4's or K2's
+mbarrier and wgmma PTX with ``CUtensorMap`` arguments, none of which a
+CPU stand-in can run.  So the fixture routes every call K1's, K4's or K2's
 ``select_tile`` sends to ``"tc"`` to the SIMT tile instead (of the cases
 below, K1's fp16 70x40x96 GLU case, K4's 16-bit cases with C > 8 and
 K2's 16-bit cases at head_dim 64, 128 and 256); the card tests hold the
