@@ -19,12 +19,16 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 capacities (C = 144, 64, 8, with and without the rows of
                 a seeded routing), K2 at the three attention paths'
                 shapes, ragged, masked, softcapped and on the transposed
-                views the models pass, each on the tile that serves it
-                (``launches_by_tile``);
+                views the models pass, each query row against its own
+                scale (``row_rel_err``), each case on the tile that
+                serves it (``launches_by_tile``);
 4. parity     — yi-6b at full width, 4 layers, fp32: prefill and 4 decode
                 steps through the kernels against the plain torch route;
                 parity-bf16 the same in bf16, which takes K1's
-                tensor-core and decode tiles through the model;
+                tensor-core and decode tiles and K2's tensor-core tile
+                through the model, and reports how far each route lies
+                from the torch route with P rounded to bf16 in its
+                prefill attention, as that tile rounds it;
 5. moe-parity — the same for olmoe-1b-7b, with the count of (token,
                 layer) expert choices that differ between the routes;
                 moe-parity-bf16 the same in bf16, through K1's and K4's
@@ -75,6 +79,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import re
 import statistics
@@ -97,7 +102,18 @@ N_REQUESTS, MAX_BATCH, CACHE_LEN, MAX_NEW = 8, 4, 512, 16
 PROMPT_RANGE = (16, 256)            # inclusive, drawn with numpy seed 0
 PARITY_LAYERS, PARITY_DECODE = 4, 4
 GRIFFIN_PARITY_LAYERS = 6           # two (rec, rec, attn) triples
-TOL_BF16, TOL_FP32, TOL_FLASH_BF16, TOL_FLASH_FP32 = 3e-2, 1e-5, 4e-2, 1e-3
+TOL_BF16, TOL_FP32 = 3e-2, 1e-5
+# K2 (flash attention) is held row by row (``row_rel_err``): each query
+# row's max |out - ref| against that row's own max |ref|.  Row 0 of a
+# causal call is one V row (|ref| near 4 for unit normals) while a row
+# that averages a few hundred keys lies near 0.1-0.3, so one limit on the
+# whole tensor's max |ref| would let a late row err by as much as its
+# whole value.  A bf16 output carries 8 significant bits: one rounding
+# step is 2^-7 = 7.8e-3 of the row's max at most, and the tensor-core
+# tile's rounding of P to q's dtype adds about 1e-3.  On an H100 every
+# bf16 case reads 7.69e-3 to 7.81e-3, fp16 9.4e-4, fp32 7.6e-7: the
+# limit is 2.6 times the widest reading.
+TOL_FLASH_BF16, TOL_FLASH_FP32 = 2e-2, 1e-3
 TOL_WKV_FP32 = 1e-4
 TOL_PATH = 1e-4
 # bf16 parity: both routes accumulate in fp32 and round each projection's
@@ -109,7 +125,10 @@ TOL_PATH = 1e-4
 # 1.58e-2 from the same weights in fp32: the limit is about 1.8 times the
 # widest gap between the routes and above the bf16 rounding's own reach.
 # OLMoE's torch route takes the kernel route's expert choices in bf16
-# (``phase_parity``), so its gap is of the same kind.
+# (``phase_parity``), so its gap is of the same kind.  K2's tensor-core
+# tile adds one rounding the torch route does not make (P to bf16): it
+# alone moves OLMoE's prefill logits by 1.73e-2, and the kernel route
+# lies at most 1.52e-2 from a torch route that makes it too.
 TOL_PATH_BF16 = 2e-2
 TOL_W8A8_ROUTES, TOL_W8A8_FLOAT = 1e-5, 0.05
 PROFILE_STEPS, UNTRACED_STEPS = 4, 16
@@ -150,6 +169,18 @@ def rel_err(out, ref):
     diff = (o - r).abs().max().item() if o.numel() else 0.0
     scale = r.abs().max().item() if r.numel() else 0.0
     return diff / (scale + 1e-30), diff
+
+
+def row_rel_err(out, ref):
+    """(max over rows of max |out - ref| / max |ref| along the last dim,
+    max |out - ref|) in float64; a row whose ref is all 0 (a query that
+    sees no key) is held to its absolute error."""
+    o, r = out.double(), ref.double()
+    if not o.numel():
+        return 0.0, 0.0
+    diff, scale = (o - r).abs().amax(-1), r.abs().amax(-1)
+    rel = diff / torch.where(scale > 0, scale, 1.0)
+    return rel.max().item(), diff.max().item()
 
 
 def require(cond: bool, msg: str) -> None:
@@ -488,15 +519,16 @@ def phase_kernels(cfg, moe_cfg, s_max, served):
                if n != before[t]]
         ref = plain_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        rel, diff = rel_err(out, ref)
-        ok = (out.dtype == ref.dtype and out.shape == ref.shape
-              and rel <= tol and bool(torch.isfinite(out.double()).all())
-              and ran == [tile])
+        same = out.dtype == ref.dtype and out.shape == ref.shape
+        (rel, diff), (rel_all, _) = ((row_rel_err(out, ref), rel_err(out, ref))
+                                     if same else ((None, None),) * 2)
+        ok = (same and rel <= tol and ran == [tile]
+              and bool(torch.isfinite(out.double()).all()))
         if zero_rows is not None:
             ok = ok and bool((out[:, :, zero_rows] == 0).all())
         results.append({"kernel": "flash_attention", "case": name,
-                        "tile": ran, "rel": rel, "max_abs_err": diff,
-                        "tol": tol, "ok": ok})
+                        "tile": ran, "rel": rel, "rel_of_max_ref": rel_all,
+                        "max_abs_err": diff, "tol": tol, "ok": ok})
 
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     mh, mhkv = moe_cfg.n_heads, moe_cfg.n_kv_heads
@@ -660,9 +692,9 @@ def phase_kernels_recurrent(g_cfg, r_cfg, s_max):
     gen = torch.Generator(device="cuda").manual_seed(7)
     results = []
 
-    def record(kernel, name, out, ref, tol, extra_ok=True):
+    def record(kernel, name, out, ref, tol, extra_ok=True, err=rel_err):
         torch.cuda.synchronize()
-        rel, diff = rel_err(out, ref)
+        rel, diff = err(out, ref)
         ok = (out.dtype == ref.dtype and out.shape == ref.shape
               and rel <= tol and bool(torch.isfinite(out.double()).all())
               and extra_ok)
@@ -737,7 +769,7 @@ def phase_kernels_recurrent(g_cfg, r_cfg, s_max):
         ran = [t for t, n in flash_attention.launches_by_tile.items()
                if n != before[t]]
         record("flash_attention", name, out, plain_attention(q, kk, vv, **kw),
-               tol, extra_ok=ran == [tile])
+               tol, extra_ok=ran == [tile], err=row_rel_err)
         results[-1]["tile"] = ran
     emit({"phase": "kernels-recurrent", "cases": results})
     require(all(r["ok"] for r in results),
@@ -761,6 +793,7 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
     own choices are still counted: ``expert_choices_differing``)."""
     from repro_torch import backend
     from repro_torch.configs.registry import get_config
+    from repro_torch.models import common
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.base import family_module
     cfg = get_config(arch).with_(n_layers=n_layers, dtype=dtype,
@@ -850,6 +883,20 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
         line["rel_err_vs_fp32"] = {
             route: [rel_err(x.float(), r)[0] for x, r in zip(out, ref)]
             for route, out in (("kernel", kern), ("torch", plain))}
+        if "flash_attention" in tiled:
+            # the share of the gap that K2's tensor-core tile makes by
+            # rounding P to bf16 before P V: the torch route again with
+            # that rounding (``pv_bf16``) in its prefill attention
+            chunked = common.attention_chunked
+            common.attention_chunked = functools.partial(chunked,
+                                                         pv_bf16=True)
+            try:
+                rounded = run("torch")
+            finally:
+                common.attention_chunked = chunked
+            line["rel_err_vs_torch_pv_bf16"] = {
+                route: [rel_err(x, r)[0] for x, r in zip(out, rounded)]
+                for route, out in (("kernel", kern), ("torch", plain))}
     emit(line)
     require(finite and all(e <= tol for e in errs)
             and (all(same) or dtype != torch.float32),

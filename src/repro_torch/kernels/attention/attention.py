@@ -109,7 +109,9 @@ def flash_attention_plain(q, k, v, *, sm_scale: float, causal: bool,
 def flash_attention_cuda(q, k, v, *, sm_scale: float, causal: bool,
                          window: int, softcap: float, q_start: int):
     """Launch the CUDA kernel on CUDA tensors with unit stride along the
-    head dim, on the tile ``tile_for`` names."""
+    head dim, on the tile ``tile_for`` names: (output, that tile), or
+    (output, None) where there is nothing to launch (an empty output, or
+    no key, which gives 0)."""
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
@@ -119,24 +121,22 @@ def flash_attention_cuda(q, k, v, *, sm_scale: float, causal: bool,
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("the CUDA flash attention takes q, k, v with unit "
                          "stride along the head dim")
-    launch = flash_attention_tc if tile_for(q, k, v) == "tc" else \
-        flash_attention_simt
+    if q.numel() == 0 or k.shape[2] == 0:
+        return q.new_zeros(q.shape), None
+    tile = tile_for(q, k, v)
+    launch = flash_attention_tc if tile == "tc" else flash_attention_simt
     return launch(q, k, v, sm_scale=sm_scale, causal=causal, window=window,
-                  softcap=softcap, q_start=q_start)
+                  softcap=softcap, q_start=q_start), tile
 
 
 def flash_attention_tc(q, k, v, *, sm_scale: float, causal: bool,
                        window: int, softcap: float, q_start: int):
-    """The tensor-core tile on q, k, v as they lie: no copy, no padding.
-    Strides of dims of length 1 are passed as D (any whole 16-byte unit
-    serves a dim TMA never steps along)."""
+    """The tensor-core tile on q, k, v as they lie (non-empty, with a
+    key): no copy, no padding.  Strides of dims of length 1 are passed as
+    D (any whole 16-byte unit serves a dim TMA never steps along)."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
-    if o.numel() == 0:
-        return o
-    if sk == 0:                 # no key: every query gives 0
-        return o.zero_()
     strides = [s if n > 1 else d for x in (q, k, v, o)
                for n, s in zip(x.shape[:3], x.stride()[:3])]
     err = _tc_launcher()(
@@ -152,8 +152,8 @@ def flash_attention_tc(q, k, v, *, sm_scale: float, causal: bool,
 
 def flash_attention_simt(q, k, v, *, sm_scale: float, causal: bool,
                          window: int, softcap: float, q_start: int):
-    """The SIMT tile, at any of the three dtypes; head dims below 256
-    that it is not built for are zero-padded."""
+    """The SIMT tile, at any of the three dtypes, on a non-empty q and a
+    key; head dims below 256 that it is not built for are zero-padded."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     dk = next((x for x in _HEAD_DIMS if x >= d), None)
@@ -162,8 +162,6 @@ def flash_attention_simt(q, k, v, *, sm_scale: float, causal: bool,
     if dk != d:      # zero columns change no score and give 0 outputs
         q, k, v = (F.pad(x, (0, dk - d)) for x in (q, k, v))
     o = torch.empty((b, h, sq, dk), dtype=q.dtype, device=q.device)
-    if o.numel() == 0:
-        return o[..., :d]
     tensors = (q, k, v, o)
     strides = [s for x in tensors for s in x.stride()[:3]]
     elems = 16 // q.element_size()

@@ -15,8 +15,7 @@ import torch
 
 from repro_torch.kernels.attention.attention import (TILES,
                                                      flash_attention_cuda,
-                                                     flash_attention_plain,
-                                                     tile_for)
+                                                     flash_attention_plain)
 
 
 def flash_attention(q, k, v, *, sm_scale: Optional[float] = None,
@@ -25,9 +24,9 @@ def flash_attention(q, k, v, *, sm_scale: Optional[float] = None,
     """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, H, Sq, D).
 
     CUDA tensors launch the kernel on the tile ``select_tile`` picks
-    (and count the launch in ``flash_attention.launches`` and in
-    ``flash_attention.launches_by_tile``) or raise; CPU tensors run the
-    plain version.
+    (and count the launch, where there was one, in
+    ``flash_attention.launches`` and in ``flash_attention.launches_by_tile``)
+    or raise; CPU tensors run the plain version.
     """
     h, d = q.shape[1], q.shape[-1]
     hkv = k.shape[1]
@@ -40,9 +39,10 @@ def flash_attention(q, k, v, *, sm_scale: Optional[float] = None,
     if q.is_cuda:
         q, k, v = (x if x.stride(-1) == 1 else x.contiguous()
                    for x in (q, k, v))
-        out = flash_attention_cuda(q, k, v, **kw)
-        flash_attention.launches += 1
-        flash_attention.launches_by_tile[tile_for(q, k, v)] += 1
+        out, tile = flash_attention_cuda(q, k, v, **kw)
+        if tile is not None:
+            flash_attention.launches += 1
+            flash_attention.launches_by_tile[tile] += 1
         return out
     return flash_attention_plain(q, k, v, **kw)
 

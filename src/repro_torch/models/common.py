@@ -138,13 +138,15 @@ def apply_rope(x, positions, theta: float = 1e4):
 # ---------------------------------------------------------------------------
 
 def attention_chunked(q, k, v, *, sm_scale, causal=True, window=0,
-                      softcap=0.0, q_start=0, chunk=1024):
+                      softcap=0.0, q_start=0, chunk=1024, pv_bf16=False):
     """Online-softmax attention over KV chunks in plain tensor ops: the
-    counterpart of the reference's ``attention_xla_chunked`` (without its
-    ``pv_bf16`` lever).
+    counterpart of the reference's ``attention_xla_chunked``.
 
     q: (B, H, Sq, D); k/v: (B, Hkv, Sk, D).  Peak live memory is one
     (B, H, Sq, chunk) score block instead of (B, H, Sq, Sk).
+    ``pv_bf16``, as in the reference, rounds the probability block and V
+    to bf16 for the P·V product (fp32 accumulation): the rounding K2's
+    tensor-core tile makes in bf16.
     """
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -175,6 +177,8 @@ def attention_chunked(q, k, v, *, sm_scale, causal=True, window=0,
         p = torch.where(mask, torch.exp(s - m_new), 0.0)
         alpha = torch.exp(m - m_new)
         l = alpha * l + p.sum(dim=-1, keepdim=True)
+        if pv_bf16:     # bf16 products are exact in fp32
+            p, vj = (x.to(torch.bfloat16).float() for x in (p, vj))
         acc = alpha * acc + torch.einsum("bnqk,bnkd->bnqd", p, vj)
         m = m_new
     l = torch.where(l == 0.0, 1.0, l)

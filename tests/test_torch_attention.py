@@ -99,6 +99,22 @@ def test_chunked_torch_route_vs_jax_xla_chunked(flags):
     assert _err(out, ref) <= 1e-5
 
 
+@pytest.mark.parametrize("flags", [dict(causal=True),
+                                   dict(causal=True, window=8, softcap=4.0),
+                                   dict(causal=False, q_start=3)],
+                         ids=["causal", "window-softcap", "q_start"])
+def test_chunked_torch_route_pv_bf16_vs_jax_xla_chunked(flags):
+    """``pv_bf16`` rounds P and V to bf16 as the reference's lever does:
+    the two agree as closely as without it, while each lies a bf16
+    rounding from the fp32 product."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(3, 2, 4, 2, 37, 37, 16)
+    kw = dict(sm_scale=0.25, chunk=16, **flags)
+    out = tcm.attention_chunked(tq, tk, tv, pv_bf16=True, **kw)
+    ref = jcm.attention_xla_chunked(jq, jk, jv, pv_bf16=True, **kw)
+    assert _err(out, ref) <= 1e-5
+    assert _err(out, tcm.attention_chunked(tq, tk, tv, **kw)) > 1e-4
+
+
 @pytest.mark.parametrize("backend", ["kernel", "torch", "dense"])
 def test_attention_dispatch_routes_agree(backend):
     cfg = get_config("yi-6b", reduced=True).with_(backend=backend)

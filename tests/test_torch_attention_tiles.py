@@ -95,3 +95,19 @@ def test_cpu_wrapper_runs_the_plain_version(dt):
     assert (ops.flash_attention.launches,
             ops.flash_attention.launches_by_tile) == before
     assert set(ops.flash_attention.launches_by_tile) == set(attn.TILES)
+
+
+@pytest.mark.parametrize("sq,sk", [(0, 9), (9, 0)], ids=["no-query",
+                                                         "no-key"])
+def test_cuda_entry_launches_nothing_without_work(sq, sk):
+    """An empty output or a call without keys needs no kernel: the CUDA
+    entry returns zeros and names no tile (so the wrapper counts no
+    launch) before it looks for a card or a build."""
+    q = torch.randn(1, 2, sq, 128).to(bf16)
+    k, v = (torch.randn(1, 1, sk, 128).to(bf16) for _ in range(2))
+    out, tile = attn.flash_attention_cuda(q, k, v, sm_scale=1.0,
+                                          causal=True, window=0,
+                                          softcap=0.0, q_start=0)
+    assert tile is None
+    assert out.shape == q.shape and out.dtype == bf16
+    assert torch.equal(out, torch.zeros_like(out))

@@ -49,6 +49,16 @@ def _rel(out, ref):
     return ((o - r).abs().max() / (r.abs().max() + 1e-30)).item()
 
 
+def _row_rel(out, ref):
+    """The largest of each row's max |out - ref| over its own max |ref|
+    (absolute where ref's row is 0): late causal rows, which average many
+    keys, are held as tightly as row 0."""
+    o, r = out.double(), ref.double()
+    scale = r.abs().amax(-1)
+    return ((o - r).abs().amax(-1)
+            / torch.where(scale > 0, scale, 1.0)).max().item()
+
+
 MM_CASES = [  # (m, k, n, dtype, out dtype, epilogue fields, tol, tile)
     (5, 72, 200, torch.bfloat16, None, {}, 3e-2, "decode"),
     (4, 256, 512, torch.bfloat16, None, dict(glu=True, activation="silu"),
@@ -243,10 +253,11 @@ def _attn_inputs(card, b, h, hkv, sq, sk, d, dt, transposed):
     f"b{c[0]}h{c[1]}kv{c[2]}q{c[3]}k{c[4]}d{c[5]}-{str(c[6])[6:]}-"
     + "-".join(f"{k}{v}" for k, v in c[7].items()) + "-T" * c[8]))
 def test_flash_attention_tc_tile_vs_plain(card, case):
-    """K2's tensor-core tile against the plain version: bf16 tolerance
-    (P is rounded to q's dtype before P V, which the plain version does
-    not do), bit-identical on a second run (no atomics), one launch
-    counted on the tile."""
+    """K2's tensor-core tile against the plain version, row by row within
+    2e-2 (a 16-bit output's rounding step is up to 7.8e-3 of its row's
+    max, and P is rounded to q's dtype before P V, which the plain
+    version does not do), bit-identical on a second run (no atomics), one
+    launch counted on the tile."""
     b, h, hkv, sq, sk, d, dt, flags, transposed = case
     q, k, v = _attn_inputs(card, b, h, hkv, sq, sk, d, dt, transposed)
     before = dict(attn_ops.flash_attention.launches_by_tile)
@@ -259,7 +270,7 @@ def test_flash_attention_tc_tile_vs_plain(card, case):
     torch.cuda.synchronize()
     assert out.dtype == ref.dtype and out.shape == ref.shape
     assert bool(torch.isfinite(out).all())
-    assert _rel(out, ref) <= 4e-2
+    assert _row_rel(out, ref) <= 2e-2
     assert torch.equal(out, again)
 
 
@@ -281,7 +292,7 @@ def test_flash_attention_tc_tile_fully_masked_rows_are_zero(card, d):
     torch.cuda.synchronize()
     assert torch.equal(out[:, :, 23:], torch.zeros_like(out[:, :, 23:]))
     assert bool((out[:, :, :23] != 0).any())
-    assert _rel(out, ref) <= 4e-2
+    assert _row_rel(out, ref) <= 2e-2
 
 
 def test_async_engine_uses_a_side_stream(card):

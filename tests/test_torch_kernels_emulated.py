@@ -407,8 +407,9 @@ def test_flash_attention_source_vs_plain(bound, case):
     q = torch.randn(b, h, sq, d, generator=g).to(dt)
     k, v = (torch.randn(b, hkv, sk, d, generator=g).to(dt) for _ in range(2))
     kw = dict(sm_scale=d ** -0.5, window=0, softcap=0.0, q_start=0) | flags
-    out = attn.flash_attention_cuda(q, k, v, **kw)
+    out, tile = attn.flash_attention_cuda(q, k, v, **kw)
     ref = attn.flash_attention_plain(q, k, v, **kw)
+    assert tile == "simt"
     assert out.dtype == ref.dtype and out.shape == ref.shape
     assert _rel(out, ref) <= (1e-3 if dt == torch.float32 else 4e-2)
 
@@ -434,7 +435,7 @@ def test_flash_attention_source_on_transposed_views(bound, dt):
             for _ in range(2))
     kw = dict(sm_scale=128 ** -0.5, causal=True, window=16, softcap=0.0,
               q_start=0)
-    out = attn.flash_attention_cuda(q, k, v, **kw)
+    out, _ = attn.flash_attention_cuda(q, k, v, **kw)
     ref = attn.flash_attention_plain(q, k, v, **kw)
     assert _rel(out, ref) <= 4e-2
 
@@ -442,9 +443,9 @@ def test_flash_attention_source_on_transposed_views(bound, dt):
 def test_flash_attention_source_fully_masked_rows_are_zero(bound):
     q = torch.randn(1, 2, 8, 32)
     k, v = torch.randn(1, 1, 40, 32), torch.randn(1, 1, 40, 32)
-    out = attn.flash_attention_cuda(q, k, v, sm_scale=32 ** -0.5,
-                                    causal=True, window=4, softcap=0.0,
-                                    q_start=100)
+    out, _ = attn.flash_attention_cuda(q, k, v, sm_scale=32 ** -0.5,
+                                       causal=True, window=4, softcap=0.0,
+                                       q_start=100)
     assert torch.equal(out, torch.zeros_like(out))
 
 
