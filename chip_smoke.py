@@ -44,14 +44,18 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
 8. kernels-recurrent — the RG-LRU scan and the chunked RWKV-6 WKV
                 against their plain versions at the serving paths'
                 shapes, with initial states, ragged lengths, carried
-                state and the decay limits; flash attention at head_dim
-                256 (MQA 10/1, causal, window);
+                state and the decay limits; the WKV in bf16 and fp16 on
+                its tensor-core tile (chunks 32 and 64, the model's
+                transposed views; output also row by row, bit-identical
+                reruns) and in fp32 on its SIMT tile; flash attention at
+                head_dim 256 (MQA 10/1, causal, window);
 9. griffin-parity, rwkv-parity — the parity of phases 4-5 for
                 recurrentgemma-2b (6 layers: two triples) and rwkv6-7b
                 (4 layers);
 10. griffin-serve, rwkv-serve — the traffic of phase 6 through
                 recurrentgemma-2b (RG-LRU kernel on every recurrent block)
-                and rwkv6-7b (WKV kernel on every time-mix block) at full
+                and rwkv6-7b (WKV kernel on every time-mix block, its
+                launches by tile against the count reckoned) at full
                 width and depth;
 11. profile, moe-profile, griffin-profile, rwkv-profile — device time by
                 kernel of one prefill and over a few decode steps of each
@@ -68,8 +72,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
    call and its roofline bound; K1 at prefill (tensor-core tile), decode
    and logits (decode tile), K4 at prefill (tensor-core tile), at decode
    with every row full and with a seeded routing's rows (decode tile), K2
-   at head_dim 128 and 256 (tensor-core tile, beside the SIMT tile at the
-   same shape), timed from CUDA-graph replays.
+   at head_dim 128 and 256 and K6 at RWKV-6's prefill shape (tensor-core
+   tiles, beside the SIMT tiles at the same shapes), timed from CUDA-graph
+   replays.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last line is ``{"ok": true, "device": {...}}``.  Any failed
@@ -140,14 +145,16 @@ MM_TILE_TAGS = {"tc": ("tc_tile_kernel",),
                 "simt": ("gemm_tile_kernel",)}
 TILE_TAGS = {"fused_matmul": MM_TILE_TAGS, "grouped_matmul": MM_TILE_TAGS,
              "flash_attention": {"tc": ("flash_attention_tc_kernel",),
-                                 "simt": ("flash_attention_kernel",)}}
+                                 "simt": ("flash_attention_kernel",)},
+             "rwkv6_wkv": {"tc": ("rwkv6_wkv_tc_kernel",),
+                           "simt": ("rwkv6_wkv_kernel",)}}
 # a substring of each kernel's name in a profiler trace
 KERNEL_TAGS = {"fused_matmul": "FusedMatmul",
                "grouped_matmul": "GroupedMatmul",
                "flash_attention": "flash_attention_",
                "quantize_rowwise": "quantize_rowwise_kernel",
                "rglru_scan": "rglru_scan_kernel",
-               "rwkv6_wkv": "rwkv6_wkv_kernel"}
+               "rwkv6_wkv": "rwkv6_wkv_"}
 
 
 class PhaseFailed(Exception):
@@ -661,16 +668,22 @@ def plain_lru(log_a, x, h0=None):
     return rglru_scan_plain(log_a, x, h0)
 
 
-def wkv_case(gen, b, h, t, c, dtype, *, s0=False, lw_value=None):
+def wkv_case(gen, b, h, t, c, dtype, *, s0=False, lw_value=None,
+             transposed=False):
     """WKV inputs: r, k, v in ``dtype``; lw = -exp(clip(w, -8, 6)) in
-    fp32 (the model's clip), or the constant ``lw_value``; u, s0 fp32."""
-    shape = (b, h, t, c)
-    r, k, v = (_rand(gen, shape, dtype) for _ in range(3))
+    fp32 (the model's clip), or the constant ``lw_value``; u, s0 fp32.
+    ``transposed``: r, k, v and lw are (B, T, H, C) memory seen as
+    (B, H, T, C), as ``time_mix`` passes them."""
+    shape = (b, t, h, c) if transposed else (b, h, t, c)
+
+    def view(x):
+        return x.transpose(1, 2) if transposed else x
+    r, k, v = (view(_rand(gen, shape, dtype)) for _ in range(3))
     if lw_value is None:
         w = _rand(gen, shape, torch.float32) * 1.5 - 1.0
-        lw = -torch.exp(torch.clamp(w, -8.0, 6.0))
+        lw = view(-torch.exp(torch.clamp(w, -8.0, 6.0)))
     else:
-        lw = torch.full(shape, lw_value, device="cuda")
+        lw = view(torch.full(shape, lw_value, device="cuda"))
     u = _rand(gen, (h, c), torch.float32) * 0.3
     state = _rand(gen, (b, h, c, c), torch.float32) * 0.3 if s0 else None
     return r, k, v, lw, u, state
@@ -718,35 +731,78 @@ def phase_kernels_recurrent(g_cfg, r_cfg, s_max):
     record("rglru_scan", "log_a -> 0 keeps h0", h, ref, TOL_FP32,
            extra_ok=bool((h_last - init).abs().max() < 0.05))
 
-    bf16, f32 = torch.bfloat16, torch.float32
+    # K6 on the tile each case must run on: bf16 and fp16 at head size 64
+    # on the tensor-core tile, fp32 on the SIMT tile.  The output is held
+    # against the plain version over the whole tensor and, in 16 bits, row
+    # by row too (each token's row against its own max |ref|, as K2's);
+    # the fp32 state at 1e-4 on both tiles; a second run must repeat the
+    # first bit for bit (no atomics).
+    from repro_torch.kernels.rwkv6.ops import rwkv6_scan
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     hh, hs = r_cfg.n_heads, r_cfg.rwkv.head_size
     path = (b, hh, s_max, hs)
-    for name, shape, dt, chunk, kw in (
-            (f"path {path} bf16 chunk 64 with state", path, bf16, 64,
-             dict(s0=True)),
-            (f"path {path} fp32 chunk 32", path, f32, 32, {}),
-            ("ragged (2,8,100,64) fp32 chunk 64 with state", (2, 8, 100, 64),
-             f32, 64, dict(s0=True)),
-            ("lw = -exp(6) fp32 chunk 64", path, f32, 64,
-             dict(lw_value=-float(np.exp(6.0)))),
-            ("lw = -exp(-8) fp32 chunk 64", path, f32, 64,
-             dict(lw_value=-float(np.exp(-8.0))))):
-        args = wkv_case(gen, *shape, dt, **kw)
-        (o, s), (ref, ref_s) = (run_wkv(*args, chunk=chunk),
-                                plain_wkv(*args, chunk=chunk))
-        record("rwkv6_wkv", name, o, ref,
-               TOL_BF16 if dt == bf16 else TOL_WKV_FP32)
+    e6, e_8 = -float(np.exp(6.0)), -float(np.exp(-8.0))
+
+    def run_tiled(args, chunk):
+        before = dict(rwkv6_scan.launches_by_tile)
+        out = run_wkv(*args, chunk=chunk)
+        ran = [t for t, n in rwkv6_scan.launches_by_tile.items()
+               if n != before[t]]
+        return out, ran
+
+    def record_wkv(name, o, s, ref, ref_s, dt, extra_ok, **info):
+        tol = TOL_WKV_FP32 if dt == f32 else TOL_BF16
+        record("rwkv6_wkv", name, o, ref, tol, extra_ok=extra_ok)
+        results[-1].update(info)
+        if dt != f32:
+            record("rwkv6_wkv", name + ": row by row", o, ref, TOL_BF16,
+                   err=row_rel_err)
         record("rwkv6_wkv", name + ": state", s, ref_s, TOL_WKV_FP32)
-    # two calls with the state carried equal one call
-    r, k, v, lw, u, _ = wkv_case(gen, *path, f32)
-    o, s = run_wkv(r, k, v, lw, u, chunk=64)
-    cut = s_max // 2
-    o1, s1 = run_wkv(*(z[:, :, :cut] for z in (r, k, v, lw)), u, chunk=64)
-    o2, s2 = run_wkv(*(z[:, :, cut:] for z in (r, k, v, lw)), u, s1,
-                     chunk=64)
-    record("rwkv6_wkv", f"two calls ({cut} + rest) with the state carried",
-           torch.cat([o1, o2], dim=2), o, TOL_WKV_FP32)
-    record("rwkv6_wkv", "two calls: final state", s2, s, TOL_WKV_FP32)
+
+    wkv_cases = [
+        (f"path {path} fp32 chunk 32", path, f32, 32, "simt", {}),
+        ("ragged (2,8,100,64) fp32 chunk 64 with state", (2, 8, 100, 64),
+         f32, 64, "simt", dict(s0=True)),
+        ("lw = -exp(6) fp32 chunk 64", path, f32, 64, "simt",
+         dict(lw_value=e6)),
+        ("lw = -exp(-8) fp32 chunk 64", path, f32, 64, "simt",
+         dict(lw_value=e_8)),
+        ("lw = -exp(6) bf16 chunk 64", path, bf16, 64, "tc",
+         dict(lw_value=e6)),
+        ("lw = -exp(-8) bf16 chunk 64", path, bf16, 64, "tc",
+         dict(lw_value=e_8))]
+    for dt in (bf16, f16):
+        tag = str(dt)[6:]
+        wkv_cases += [
+            (f"path {path} {tag} chunk 64 with state", path, dt, 64, "tc",
+             dict(s0=True)),
+            (f"path {path} {tag} chunk 32", path, dt, 32, "tc", {}),
+            (f"ragged (2,8,100,64) {tag} chunk 64 with state",
+             (2, 8, 100, 64), dt, 64, "tc", dict(s0=True)),
+            (f"ragged (2,8,5,64) {tag} chunk 32 with state", (2, 8, 5, 64),
+             dt, 32, "tc", dict(s0=True)),
+            (f"path {path} {tag} chunk 64 with state, (B, T, H, C) views",
+             path, dt, 64, "tc", dict(s0=True, transposed=True))]
+    for name, shape, dt, chunk, tile, kw in wkv_cases:
+        args = wkv_case(gen, *shape, dt, **kw)
+        (o, s), ran = run_tiled(args, chunk)
+        o2, s2 = run_wkv(*args, chunk=chunk)
+        same = bool(torch.equal(o, o2) and torch.equal(s, s2))
+        ref, ref_s = plain_wkv(*args, chunk=chunk)
+        record_wkv(name, o, s, ref, ref_s, dt, ran == [tile] and same,
+                   tile=ran, bit_identical_rerun=same)
+    # two calls with the state carried equal one call, on each tile
+    for dt, tile in ((f32, "simt"), (bf16, "tc")):
+        r, k, v, lw, u, _ = wkv_case(gen, *path, dt)
+        (o, s), ran = run_tiled((r, k, v, lw, u), 64)
+        cut = s_max // 2
+        (o1, s1), ran1 = run_tiled(
+            (*(z[:, :, :cut] for z in (r, k, v, lw)), u), 64)
+        (o2, s2), ran2 = run_tiled(
+            (*(z[:, :, cut:] for z in (r, k, v, lw)), u, s1), 64)
+        record_wkv(f"two calls ({cut} + rest) {str(dt)[6:]} with the state "
+                   "carried", torch.cat([o1, o2], dim=2), s2, o, s, dt,
+                   ran == ran1 == ran2 == [tile], tile=ran)
 
     from repro_torch.kernels.attention.ops import flash_attention
     hq, hkv, hd = g_cfg.n_heads, g_cfg.n_kv_heads, g_cfg.head_dim
@@ -845,14 +901,19 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
     tiled = {"fused_matmul": fused_matmul}
     if cfg.moe is not None:
         tiled["grouped_matmul"] = grouped_matmul
-    if cfg.family != "rwkv6":                   # RWKV-6 has no attention
+    if cfg.family == "rwkv6":                   # RWKV-6 has no attention
+        from repro_torch.kernels.rwkv6.ops import rwkv6_scan
+        tiled["rwkv6_scan"] = rwkv6_scan
+    else:
         tiled["flash_attention"] = flash_attention
     # the tiles each kernel must run on, and no other: in bf16 K1 and K4 on
-    # their tensor-core and decode tiles and K2 on its tensor-core tile;
-    # in fp32 K2 on its SIMT tile
+    # their tensor-core and decode tiles, K2 and K6 on their tensor-core
+    # tiles; in fp32 K2 and K6 on their SIMT tiles
     want = ({"fused_matmul": ("tc", "decode"),
-             "grouped_matmul": ("tc", "decode"), "flash_attention": ("tc",)}
-            if dtype == torch.bfloat16 else {"flash_attention": ("simt",)})
+             "grouped_matmul": ("tc", "decode"), "flash_attention": ("tc",),
+             "rwkv6_scan": ("tc",)}
+            if dtype == torch.bfloat16 else {"flash_attention": ("simt",),
+                                             "rwkv6_scan": ("simt",)})
     forced = []
     for fn in tiled.values():
         fn.launches_by_tile = dict.fromkeys(fn.launches_by_tile, 0)
@@ -949,7 +1010,8 @@ def phase_serve(arch, phase, counters, reckoned):
     for fn in counters.values():
         fn.launches = 0
     for name in reckoned:
-        counters[name].launches_by_tile = dict.fromkeys(TILE_TAGS[name], 0)
+        counters[name].launches_by_tile = dict.fromkeys(
+            counters[name].launches_by_tile, 0)
     t0 = time.perf_counter()
     outs = eng.run(max_new_tokens=MAX_NEW)
     torch.cuda.synchronize()
@@ -1282,6 +1344,8 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
     from repro_torch.kernels.matmul.matmul import tile_for
     from repro_torch.kernels.moe.grouped_matmul import (
         tile_for as grouped_tile_for)
+    from repro_torch.kernels.rwkv6.rwkv6 import (
+        rwkv6_wkv_simt, tile_for as wkv_tile_for)
     from repro_torch.models.moe import moe_capacity
     gen = torch.Generator(device="cuda").manual_seed(4)
     kernels = []
@@ -1293,9 +1357,11 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
                 "launches_by_path": by_path}
 
     def by_tile(name):
-        return {t_: sum(p_.get(f"{name}_by_tile", {}).get(t_, 0)
-                        for p_ in path_launches.values())
-                for t_ in TILE_TAGS[name]}
+        out = {}
+        for p_ in path_launches.values():
+            for t_, n in p_.get(f"{name}_by_tile", {}).items():
+                out[t_] = out.get(t_, 0) + n
+        return out
 
     def k2_row(h, hkv, hd, window, tag):
         """K2 at a prefill path's shape, bf16 (4, h, s_max, hd), on the
@@ -1496,34 +1562,60 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
                         "recurrence"})
 
     # K6 at RWKV-6's serving prefill shape (chunk 64, carried state, bf16
-    # r, k, v), cold L2.  Operations of the chunked form on this run's
-    # tokens, all in fp32 as the function defines them: per (batch, head)
-    # and chunk of n tokens, the inter-chunk product and the state update
-    # 2 n C^2 each, the pairwise term n(n-1)/2 pairs of C (r k, the
-    # exponent's difference, exp, the sum: 5 operations) plus its 2 C
-    # against V, and about 12 n C for the prefix sum, the bonus and the
-    # scalings.
+    # r, k, v) on the tile the rule names, beside its SIMT tile at the
+    # same shape and the plain version, each timed as 10 calls replayed
+    # from a CUDA graph (``graph_ms``), as K2: the tensor-core tile's
+    # device time is of the order of a call's host time.  Operations of
+    # the chunked form on this run's tokens, per (batch, head) and chunk
+    # of n tokens: the products the tensor-core tile runs (the inter-chunk
+    # product and the state update, 2 n C^2 each, and P V, 2 C a pair of
+    # the n(n-1)/2), and the rest in fp32 (a pair's r k, exponent
+    # difference, exp and sum: 5 operations a channel; about 12 n C for
+    # the prefix sum, the bonus and the scalings).  ``bound_ms`` puts the
+    # products at the bf16 tensor-core peak and the rest at the fp32
+    # peak, the larger of that and the bytes; ``bound_fp32_ms`` is the
+    # reckoning of earlier PRs' rows, every operation at the fp32 peak.
     hh, hs = r_cfg.n_heads, r_cfg.rwkv.head_size
     args = wkv_case(gen, b, hh, s_max, hs, torch.bfloat16, s0=True)
-    t = time_ms({"kernel": lambda: run_wkv(*args, chunk=64),
-                 "plain": lambda: plain_wkv(*args, chunk=64)},
-                flush=lambda: scratch.fill_(0.0))
-    _, diff = rel_err(run_wkv(*args, chunk=64)[0],
-                      plain_wkv(*args, chunk=64)[0])
-    lens = [min(64, s_max - i) for i in range(0, s_max, 64)]
-    ops = b * hh * sum(4 * n * hs * hs + n * (n - 1) // 2 * hs * 7
-                       + 12 * n * hs for n in lens)
     r, k, v, lw, u, s0 = args
+    s_out = torch.empty_like(s0)
+
+    def simt():
+        return rwkv6_wkv_simt(r, k, v, lw, u, s0, s_out, chunk=64)
+    t = graph_ms({"kernel": lambda: run_wkv(*args, chunk=64),
+                  "simt": simt,
+                  "plain": lambda: plain_wkv(*args, chunk=64)})
+    ref = plain_wkv(*args, chunk=64)[0]
+    _, diff = rel_err(run_wkv(*args, chunk=64)[0], ref)
+    _, diff_simt = rel_err(simt(), ref)
+    tile = wkv_tile_for(r, k, v, lw, chunk=64)
+    lens = [min(64, s_max - i) for i in range(0, s_max, 64)]
+    pairs = sum(n * (n - 1) // 2 for n in lens)
+    mma_ops = b * hh * (4 * s_max * hs * hs + 2 * pairs * hs)
+    fp32_ops = b * hh * (5 * pairs * hs + 12 * s_max * hs)
     nbytes = (2 * 4 * r.numel()                  # r, k, v read, o written
               + 4 * (lw.numel() + u.numel() + 2 * s0.numel()))
-    ms, by = bound(float(ops), float(nbytes), chip.peak_fp32, chip.hbm_bw)
+    t_ops = mma_ops / chip.peak_bf16 + fp32_ops / chip.peak_fp32
+    t_bytes = nbytes / chip.hbm_bw
+    ms32, by32 = bound(float(mma_ops + fp32_ops), float(nbytes),
+                       chip.peak_fp32, chip.hbm_bw)
     kernels.append({
         "name": "rwkv6_wkv", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+        "source": "src/repro_torch/kernels/csrc/" + (
+            "rwkv6_wkv_sm90.cu" if tile == "tc" else "rwkv6_wkv.cu"),
         "replaces": "src/repro/kernels/rwkv6/rwkv6.py:32",
-        **counts("rwkv6_scan"), "max_abs_err": diff,
-        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
-        "bound_by": by, "library_ms": None,
+        **counts("rwkv6_scan"),
+        "launches_by_tile": by_tile("rwkv6_scan"),
+        "tile": tile, "max_abs_err": diff,
+        "ms": t["kernel"], "simt_ms": t["simt"],
+        "simt_max_abs_err": diff_simt, "plain_ms": t["plain"],
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_fp32_ms": ms32, "bound_fp32_by": by32,
+        "tensor_core_flop": mma_ops, "fp32_flop": fp32_ops, "bytes": nbytes,
+        "library_ms": None,
+        "timing": "per call, median of 10 replays (in turns) of a CUDA "
+                  "graph of 10 calls",
         "shape": f"bf16 r, k, v ({b},{hh},{s_max},{hs}), fp32 lw, u "
                  f"({hh},{hs}), state ({b},{hh},{hs},{hs}), chunk 64",
         "library_call": "none: no single PyTorch call computes the "
@@ -1576,6 +1668,10 @@ def main() -> int:
         "serve": {"tc": 2 * cfg.n_layers, "simt": 0},
         "moe-serve": {"tc": 2 * moe_cfg.n_layers, "simt": 0},
         "griffin-serve": {"tc": 2 * 2 * g_attn, "simt": 0}}
+    # K6: one call a time-mix layer and a prefill, bf16 at head size 64 on
+    # the tensor-core tile: 32 x 2 = 64 (a decode step runs the oracle's
+    # single step, no K6)
+    k6_tiles = {"tc": 2 * r_cfg.n_layers, "simt": 0}
     try:
         phase_build()
         served = {ARCH: served_k1_calls(ARCH, 1),
@@ -1607,7 +1703,8 @@ def main() -> int:
                  "flash_attention": k2_tiles["griffin-serve"]}),
             "rwkv-serve": phase_serve(RWKV_ARCH, "rwkv-serve", {
                 "fused_matmul": fused_matmul, "rwkv6_scan": rwkv6_scan},
-                {"fused_matmul": k1_tiles["rwkv-serve"]})}
+                {"fused_matmul": k1_tiles["rwkv-serve"],
+                 "rwkv6_scan": k6_tiles})}
         phase_profile(ARCH, "profile", s_max, host_cost=True)
         phase_profile(MOE_ARCH, "moe-profile", s_max)
         phase_profile(GRIFFIN_ARCH, "griffin-profile", s_max)

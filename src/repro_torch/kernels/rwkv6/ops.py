@@ -1,31 +1,38 @@
 """Wrapper of the chunked RWKV-6 WKV kernel (K6).
 
-The kernel masks the ragged last chunk itself, so unlike the reference
-wrapper nothing is padded, and there is no ``interpret``.  It takes an
+CUDA tensors go to the kernel, on the tile ``select_tile`` picks; each
+tile masks the ragged last chunk itself, so unlike the reference wrapper
+nothing is padded, and there is no ``interpret``.  It takes an
 initial state and returns the final one, which the reference's kernel
 does not.
 """
 
 from __future__ import annotations
 
-from repro_torch.kernels.rwkv6.rwkv6 import rwkv6_chunked, rwkv6_wkv_cuda
+from repro_torch.kernels.rwkv6.rwkv6 import (TILES, rwkv6_chunked,
+                                             rwkv6_wkv_cuda)
 
 
 def rwkv6_scan(r, k, v, lw, u, *, chunk: int = 32, initial_state=None):
     """r/k/v/lw: (B, H, T, C); u: (H, C) -> (o (B, H, T, C), state
     (B, H, C, C) fp32).
 
-    CUDA tensors launch the kernel (and count the launch in
-    ``rwkv6_scan.launches``) or raise; CPU tensors run the plain version.
+    CUDA tensors launch the kernel on the tile ``select_tile`` picks
+    (and count the launch, where there was one, in
+    ``rwkv6_scan.launches`` and ``rwkv6_scan.launches_by_tile``) or
+    raise; CPU tensors run the plain version.
     """
     if r.dim() != 4:
         raise ValueError(f"r must be (B, H, T, C), got {tuple(r.shape)}")
     kw = dict(chunk=chunk, initial_state=initial_state)
     if r.is_cuda:
-        out = rwkv6_wkv_cuda(r, k, v, lw, u, **kw)
-        rwkv6_scan.launches += 1
-        return out
+        o, state, tile = rwkv6_wkv_cuda(r, k, v, lw, u, **kw)
+        if tile is not None:
+            rwkv6_scan.launches += 1
+            rwkv6_scan.launches_by_tile[tile] += 1
+        return o, state
     return rwkv6_chunked(r, k, v, lw, u, **kw)
 
 
 rwkv6_scan.launches = 0
+rwkv6_scan.launches_by_tile = dict.fromkeys(TILES, 0)

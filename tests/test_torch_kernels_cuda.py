@@ -1,7 +1,7 @@
 """The CUDA kernels (K1 fused matmul, K2 flash attention, K3 row
 quantiser, K4 grouped MoE matmul, K5 RG-LRU scan, K6 chunked RWKV-6 WKV)
 against their plain versions on the card, at small and ragged shapes; K1,
-K2 and K4 on each of their tiles, K4 with and without its zero-row
+K2, K4 and K6 on each of their tiles, K4 with and without its zero-row
 promises.
 
 These need a Hopper card and nvcc; elsewhere they skip.  On the card:
@@ -483,3 +483,83 @@ def test_rwkv6_wkv_kernel_vs_plain(card, case):
     torch.cuda.synchronize()
     assert o.dtype == ref.dtype == dt and o.shape == ref.shape
     assert _rel(o, ref) <= tol and _rel(s, ref_s) <= 1e-4
+
+
+WKV_TC_CASES = [  # (b, h, t, chunk, dtype, initial state, lw, transposed)
+    (4, 64, 221, 64, torch.bfloat16, True, None, False),   # the served call
+    (4, 64, 221, 64, torch.float16, True, None, False),
+    (4, 64, 221, 32, torch.bfloat16, False, None, False),  # ``forward``'s
+    (2, 8, 100, 64, torch.float16, True, None, False),
+    (2, 8, 5, 32, torch.bfloat16, True, None, False),
+    (2, 8, 100, 64, torch.bfloat16, True, None, True),     # the model's views
+    (2, 8, 221, 64, torch.bfloat16, False, -403.4287934927351, False),
+    (2, 8, 221, 64, torch.bfloat16, False, -3.354626279025119e-4, False),
+]
+
+
+def _wkv_inputs(card, b, h, t, dt, with_s0, lw_value, transposed, c=64):
+    """r, k, v in ``dt``; lw = -exp(clip(w, -8, 6)) as the model makes it
+    (or the constant ``lw_value``); ``transposed``: (B, T, H, C) memory
+    seen as (B, H, T, C), as ``time_mix`` passes them."""
+    shape = (b, t, h, c) if transposed else (b, h, t, c)
+
+    def view(x):
+        return x.transpose(1, 2) if transposed else x
+    r, k, v = (view(torch.randn(shape, generator=card, device="cuda").to(dt))
+               for _ in range(3))
+    if lw_value is None:
+        w = torch.randn(shape, generator=card, device="cuda") * 1.5 - 1.0
+        lw = view(-torch.exp(w.clamp(-8.0, 6.0)))
+    else:
+        lw = view(torch.full(shape, lw_value, device="cuda"))
+    u = torch.randn(h, c, generator=card, device="cuda") * 0.3
+    s0 = (torch.randn(b, h, c, c, generator=card, device="cuda") * 0.3
+          if with_s0 else None)
+    return r, k, v, lw, u, s0
+
+
+@pytest.mark.parametrize("case", WKV_TC_CASES, ids=lambda c: (
+    f"b{c[0]}h{c[1]}t{c[2]}L{c[3]}-{str(c[4])[6:]}" + "-s0" * c[5]
+    + (f"-lw{c[6]:.3g}" if c[6] is not None else "") + "-T" * c[7]))
+def test_rwkv6_wkv_tc_tile_vs_plain(card, case):
+    """K6's tensor-core tile against the plain version: the output within
+    3e-2 over the whole tensor and row by row (each token's row against
+    its own max |ref|: operands and P are rounded to 16 bits), the fp32
+    state within 1e-4, every value finite at the decay limits,
+    bit-identical on a second run (no atomics), one launch counted on
+    the tile."""
+    b, h, t, chunk, dt, with_s0, lw_value, transposed = case
+    r, k, v, lw, u, s0 = _wkv_inputs(card, b, h, t, dt, with_s0, lw_value,
+                                     transposed)
+    before = dict(wkv_ops.rwkv6_scan.launches_by_tile)
+    o, s = wkv_ops.rwkv6_scan(r, k, v, lw, u, chunk=chunk, initial_state=s0)
+    assert wkv_ops.rwkv6_scan.launches_by_tile == {
+        **before, "tc": before["tc"] + 1}
+    ref, ref_s = rwkv6_chunked(r, k, v, lw, u, chunk=chunk, initial_state=s0)
+    o2, s2 = wkv_ops.rwkv6_scan(r, k, v, lw, u, chunk=chunk,
+                                initial_state=s0)
+    torch.cuda.synchronize()
+    assert o.dtype == ref.dtype == dt and o.shape == ref.shape
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
+    assert _rel(o, ref) <= 3e-2 and _row_rel(o, ref) <= 3e-2
+    assert _rel(s, ref_s) <= 1e-4
+    assert torch.equal(o, o2) and torch.equal(s, s2)
+
+
+def test_rwkv6_wkv_tc_tile_carries_the_state(card):
+    """Two calls with the state carried give one call's output (within
+    3e-2, row by row) and final state (within 1e-4), on the tile."""
+    r, k, v, lw, u, _ = _wkv_inputs(card, 4, 64, 221, torch.bfloat16, False,
+                                    None, False)
+    before = wkv_ops.rwkv6_scan.launches_by_tile["tc"]
+    o, s = wkv_ops.rwkv6_scan(r, k, v, lw, u, chunk=64)
+    cut = 110
+    o1, s1 = wkv_ops.rwkv6_scan(*(x[:, :, :cut] for x in (r, k, v, lw)), u,
+                                chunk=64)
+    o2, s2 = wkv_ops.rwkv6_scan(*(x[:, :, cut:] for x in (r, k, v, lw)), u,
+                                chunk=64, initial_state=s1)
+    torch.cuda.synchronize()
+    assert wkv_ops.rwkv6_scan.launches_by_tile["tc"] == before + 3
+    both = torch.cat([o1, o2], dim=2)
+    assert _rel(both, o) <= 3e-2 and _row_rel(both, o) <= 3e-2
+    assert _rel(s2, s) <= 1e-4

@@ -14,12 +14,14 @@ test_torch_kernels_cuda.py does that on the card).  Skips without g++.
 The sources in ``build.CARD_ONLY`` are left out: the tensor-core tile of
 K1 and K4 (``fused_matmul_sm90.cu``, ``grouped_matmul_sm90.cu`` on
 ``tc_tile.cuh``) and K2's (``flash_attention_sm90.cu``) are TMA,
-mbarrier and wgmma PTX with ``CUtensorMap`` arguments, none of which a
-CPU stand-in can run.  So the fixture routes every call K1's, K4's or K2's
-``select_tile`` sends to ``"tc"`` to the SIMT tile instead (of the cases
-below, K1's fp16 70x40x96 GLU case, K4's 16-bit cases with C > 8 and
-K2's 16-bit cases at head_dim 64, 128 and 256); the card tests hold the
-tensor-core tiles themselves against the plain versions.
+mbarrier and wgmma PTX with ``CUtensorMap`` arguments, and K6's
+(``rwkv6_wkv_sm90.cu``) is ``mma.sync`` PTX, none of which a CPU
+stand-in can run.  So the fixture routes every call K1's, K4's, K2's or
+K6's ``select_tile`` sends to ``"tc"`` to the SIMT tile instead (of the
+cases below, K1's fp16 70x40x96 GLU case, K4's 16-bit cases with C > 8,
+K2's 16-bit cases at head_dim 64, 128 and 256 and K6's 16-bit cases at
+head size 64); the card tests hold the tensor-core tiles themselves
+against the plain versions.
 """
 
 import ctypes
@@ -189,8 +191,8 @@ def emulated(tmp_path_factory):
 
 @pytest.fixture
 def bound(emulated, monkeypatch):
-    """Point the port's launchers at the emulated libraries; K1's, K4's
-    and K2's calls that their ``select_tile`` sends to a card-only
+    """Point the port's launchers at the emulated libraries; K1's, K4's,
+    K2's and K6's calls that their ``select_tile`` sends to a card-only
     tensor-core tile run on the SIMT tile."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     mm_fn = emulated["fused_matmul"].fused_matmul_launch
@@ -230,6 +232,9 @@ def bound(emulated, monkeypatch):
     monkeypatch.setattr(qr, "_fn", qr_fn)
     monkeypatch.setattr(rg, "_fn", rg_fn)
     monkeypatch.setattr(wkv, "_fn", wkv_fn)
+    wkv_select = wkv.select_tile
+    monkeypatch.setattr(wkv, "select_tile", lambda *args: (
+        "simt" if wkv_select(*args) == "tc" else wkv_select(*args)))
 
     class _Stream:
         cuda_stream = None
@@ -472,6 +477,7 @@ GM_CASES = [  # (e, c, k, n, dtype, epilogue fields, tol, tile the rule picks)
      "decode"),
 ]
 SELECT_TILE = mm.select_tile     # the rule itself, before ``bound`` patches
+SELECT_WKV = wkv.select_tile
 
 
 def _gm_inputs(e, c, k, n, dt, seed):
@@ -628,8 +634,40 @@ def test_rwkv6_wkv_source_vs_plain(bound, case):
     lw = -torch.exp(torch.randn(b, h, t, c, generator=g) * 0.5)
     u = torch.randn(h, c, generator=g) * 0.5
     s0 = torch.randn(b, h, c, c, generator=g) * 0.3 if with_s0 else None
-    o, s = wkv.rwkv6_wkv_cuda(r, k, v, lw, u, chunk=chunk, initial_state=s0)
+    o, s, tile = wkv.rwkv6_wkv_cuda(r, k, v, lw, u, chunk=chunk,
+                                    initial_state=s0)
     ref, ref_s = wkv.rwkv6_chunked(r, k, v, lw, u, chunk=chunk,
                                    initial_state=s0)
+    assert tile == "simt"
     assert o.dtype == ref.dtype == dt and o.shape == ref.shape
     assert _rel(o, ref) <= tol and _rel(s, ref_s) <= 1e-4
+
+
+def test_rwkv6_wkv_tc_source_is_card_only(emulated):
+    """The emulated build leaves out K6's tensor-core tile, whose mma.sync
+    has no CPU stand-in, and keeps its SIMT tile."""
+    assert "rwkv6_wkv_sm90" in build.CARD_ONLY
+    assert (build.CSRC / "rwkv6_wkv_sm90.cu").exists()
+    assert "rwkv6_wkv_sm90" not in emulated
+    assert "rwkv6_wkv" in emulated
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16],
+                         ids=lambda v: str(v)[6:])
+def test_rwkv6_wkv_tc_calls_run_on_the_simt_source(bound, dt):
+    """r, k, v and lw as ``time_mix`` passes them ((B, T, H, C) memory
+    seen as (B, H, T, C)), which the rule sends to the tensor-core tile
+    on the card; the emulation runs them on the SIMT tile, on copies."""
+    g = torch.Generator().manual_seed(11)
+    b, t, h, c = 2, 45, 2, 64
+    r, k, v = (torch.randn(b, t, h, c, generator=g).to(dt).transpose(1, 2)
+               for _ in range(3))
+    lw = -torch.exp(torch.randn(b, t, h, c, generator=g) * 0.5).transpose(
+        1, 2)
+    u = torch.randn(h, c, generator=g) * 0.5
+    assert SELECT_WKV(dt, c, 64, True, [t * h * c * 2, c * 2, h * c * 2]) \
+        == "tc"
+    o, s, tile = wkv.rwkv6_wkv_cuda(r, k, v, lw, u, chunk=64)
+    ref, ref_s = wkv.rwkv6_chunked(r, k, v, lw, u, chunk=64)
+    assert tile == "simt"
+    assert _rel(o, ref) <= 3e-2 and _rel(s, ref_s) <= 1e-4
