@@ -44,11 +44,12 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
 8. kernels-recurrent — the RG-LRU scan and the chunked RWKV-6 WKV
                 against their plain versions at the serving paths'
                 shapes, with initial states, ragged lengths, carried
-                state and the decay limits; the WKV in bf16 and fp16 on
-                its tensor-core tile (chunks 32 and 64, the model's
-                transposed views; output also row by row, bit-identical
-                reruns) and in fp32 on its SIMT tile; flash attention at
-                head_dim 256 (MQA 10/1, causal, window);
+                state and the decay limits (the scan bit for bit); the
+                WKV in bf16 and fp16 on its tensor-core tile (chunks 32
+                and 64, the model's transposed views; output also row by
+                row, bit-identical reruns) and in fp32 on its SIMT tile;
+                flash attention at head_dim 256 (MQA 10/1, causal,
+                window);
 9. griffin-parity, rwkv-parity — the parity of phases 4-5 for
                 recurrentgemma-2b (6 layers: two triples) and rwkv6-7b
                 (4 layers);
@@ -74,7 +75,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
    with every row full and with a seeded routing's rows (decode tile), K2
    at head_dim 128 and 256 and K6 at RWKV-6's prefill shape (tensor-core
    tiles, beside the SIMT tiles at the same shapes), timed from CUDA-graph
-   replays.
+   replays; K3 and K5 from CUDA-graph replays over copies of their inputs
+   that together exceed the L2 (``rotating``), with the older single-call
+   timing beside it.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  The last line is ``{"ok": true, "device": {...}}``.  Any failed
@@ -152,7 +155,7 @@ TILE_TAGS = {"fused_matmul": MM_TILE_TAGS, "grouped_matmul": MM_TILE_TAGS,
 KERNEL_TAGS = {"fused_matmul": "FusedMatmul",
                "grouped_matmul": "GroupedMatmul",
                "flash_attention": "flash_attention_",
-               "quantize_rowwise": "quantize_rowwise_kernel",
+               "quantize_rowwise": "quantize_rowwise_",
                "rglru_scan": "rglru_scan_kernel",
                "rwkv6_wkv": "rwkv6_wkv_"}
 
@@ -636,7 +639,16 @@ def phase_kernels(cfg, moe_cfg, s_max, served):
                      (rows, d, torch.float32), (rows, ff, torch.float32)):
         check_q(f"{str(dt)[6:]} ({m},{k})", (_rand(gen, (m, k),
                                                     torch.float32) * 3).to(dt))
+    # the register path takes rows of whole 16-byte vectors of at most
+    # 16 x 768 elements from an aligned base (all the cases above); the
+    # loop path the rest
     check_q("ragged fp32 (37,200)", _rand(gen, (37, 200), torch.float32))
+    check_q("loop path: ragged K fp32 (37,201)",
+            _rand(gen, (37, 201), torch.float32))
+    check_q("loop path: K past the register limit fp32 (3,16400)",
+            _rand(gen, (3, 16400), torch.float32))
+    check_q("loop path: unaligned base fp32 (6,512)",
+            _rand(gen, (6 * 512 + 1,), torch.float32)[1:].view(6, 512))
     check_q("zero row and .5 ties fp32 (6,4096)",
             ties_rows(gen, 6, d, torch.float32))
     check_q("zero row and .5 ties bf16 (6,4096)", ties_rows(gen, 6, d, bf16))
@@ -714,22 +726,33 @@ def phase_kernels_recurrent(g_cfg, r_cfg, s_max):
         results.append({"kernel": kernel, "case": name, "rel": rel,
                         "max_abs_err": diff, "tol": tol, "ok": ok})
 
+    # K5 keeps each channel's chain in one thread, in time order, with the
+    # plain version's roundings: every case must equal it bit for bit
+    # (max_abs_err 0), at both prefill passes' shapes, ragged and T = 1.
     b, c = MAX_BATCH, g_cfg.rnn.d_rnn
+    s_short = min(padded_lengths(prompt_lengths()[0]))
     for name, shape, h0 in ((f"path ({b},{s_max},{c})", (b, s_max, c), False),
                             (f"path ({b},{s_max},{c}) with h0",
                              (b, s_max, c), True),
-                            ("ragged (3,37,300) with h0", (3, 37, 300), True)):
+                            (f"path ({b},{s_short},{c}) with h0",
+                             (b, s_short, c), True),
+                            ("ragged (3,37,300) with h0", (3, 37, 300), True),
+                            ("ragged C (3,40,17)", (3, 40, 17), False),
+                            ("T = 1 (2,1,64)", (2, 1, 64), False)):
         log_a, x, init = lru_case(gen, *shape, h0=h0)
         (h, h_last), (ref, ref_last) = (run_lru(log_a, x, init),
                                         plain_lru(log_a, x, init))
-        record("rglru_scan", name, h, ref, TOL_FP32)
-        record("rglru_scan", name + ": h_T", h_last, ref_last, TOL_FP32)
+        record("rglru_scan", name, h, ref, TOL_FP32,
+               extra_ok=bool(torch.equal(h, ref)))
+        record("rglru_scan", name + ": h_T", h_last, ref_last, TOL_FP32,
+               extra_ok=bool(torch.equal(h_last, ref_last)))
     # log_a -> 0: a -> 1 and beta -> 0, a pure integrator that keeps h0
     _, x, init = lru_case(gen, b, s_max, c, h0=True)
     log_a = torch.full_like(x, -1e-9)
     (h, h_last), (ref, _) = run_lru(log_a, x, init), plain_lru(log_a, x, init)
     record("rglru_scan", "log_a -> 0 keeps h0", h, ref, TOL_FP32,
-           extra_ok=bool((h_last - init).abs().max() < 0.05))
+           extra_ok=bool((h_last - init).abs().max() < 0.05
+                         and torch.equal(h, ref)))
 
     # K6 on the tile each case must run on: bf16 and fp16 at head size 64
     # on the tensor-core tile, fp32 on the SIMT tile.  The output is held
@@ -1329,6 +1352,21 @@ def graph_ms(fns: dict, calls: int = 10) -> dict:
     return {n: ms / calls for n, ms in time_ms(replays).items()}
 
 
+def rotating(fn, copies):
+    """A callable that calls ``fn`` on the next of ``copies`` (argument
+    tuples) in turn and keeps what each call returns.  Under ``graph_ms``
+    each captured call then reads inputs and writes outputs that the
+    calls just before it did not touch: with copies that together exceed
+    the 50 MB L2, every call's reads come from device memory, as a
+    served call's do."""
+    calls, kept = [0], []
+
+    def call():
+        kept.append(fn(*copies[calls[0] % len(copies)]))
+        calls[0] += 1
+    return call
+
+
 def bound(flops: float, nbytes: float, peak: float, bw: float):
     t_ops, t_bytes = flops / peak, nbytes / bw
     return (max(t_ops, t_bytes) * 1e3,
@@ -1509,14 +1547,27 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
             "library_call": "torch.bmm in bf16 on the full shape (no "
                             "epilogue)"})
 
-    # K3 at the W8A8 path's shape: the fp32 activations of the input
-    # projection, timed with a cold L2 (a 64 MB write before each call).
-    rows, d = MAX_BATCH * s_max, cfg.d_model
-    x = torch.randn(rows, d, generator=gen, device="cuda") * 3
+    # K3 at the W8A8 path's shapes: the fp32 activations of the input
+    # projection (the row) and of the output projection (``ff_*``), both
+    # on the register path, timed as 10 calls replayed from a CUDA graph
+    # (``graph_ms``) over 4 copies of x (4 x 18 MB with the outputs at
+    # d_model), so each call's reads are cold; ``single_call_ms`` is the
+    # older timing (one call between CUDA events after a 64 MB write, so
+    # a call's host time falls inside the window).
+    rows, d, ff = MAX_BATCH * s_max, cfg.d_model, cfg.d_ff
+    copies = [(torch.randn(rows, d, generator=gen, device="cuda") * 3,)
+              for _ in range(4)]
+    ff_copies = [(torch.randn(rows, ff, generator=gen, device="cuda") * 3,)
+                 for _ in range(4)]
+    x = copies[0][0]
+    t = graph_ms({"kernel": rotating(run_quant, copies),
+                  "plain": rotating(plain_quant, copies),
+                  "ff_kernel": rotating(run_quant, ff_copies),
+                  "ff_plain": rotating(plain_quant, ff_copies)})
     scratch = torch.empty(16 * 2 ** 20, device="cuda")
-    t = time_ms({"kernel": lambda: run_quant(x),
-                 "plain": lambda: plain_quant(x)},
-                flush=lambda: scratch.fill_(0.0))
+    single = time_ms({"kernel": lambda: run_quant(x),
+                      "plain": lambda: plain_quant(x)},
+                     flush=lambda: scratch.fill_(0.0))
     (q, s), (q_ref, s_ref) = run_quant(x), plain_quant(x)
     diff = max((q.int() - q_ref.int()).abs().max().item(),
                (s - s_ref).abs().max().item())
@@ -1529,7 +1580,15 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
         **counts("quantize_rowwise"), "max_abs_err": diff,
         "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
         "bound_by": by, "library_ms": None,
-        "shape": f"fp32 ({rows},{d}) -> int8 ({rows},{d}), fp32 ({rows},)",
+        "single_call_ms": single["kernel"],
+        "single_call_plain_ms": single["plain"],
+        "ff_ms": t["ff_kernel"], "ff_plain_ms": t["ff_plain"],
+        "ff_bound_ms": bound(3.0 * rows * ff, 5.0 * rows * ff + 4.0 * rows,
+                             chip.peak_fp32, chip.hbm_bw)[0],
+        "timing": "per call, median of 10 replays (in turns) of a CUDA "
+                  "graph of 10 calls over 4 copies of the inputs",
+        "shape": f"fp32 ({rows},{d}) -> int8 ({rows},{d}), fp32 ({rows},)"
+                 f"; ff_*: fp32 ({rows},{ff})",
         "library_call": "none: no single PyTorch call computes a per-row "
                         "absmax int8 quantisation"})
 
@@ -1539,14 +1598,18 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
            f", window {g_cfg.window}")
 
     # K5 at RecurrentGemma's prefill shape, from a carried state (the
-    # stateful pass), cold L2.  About ten operations per element: exp,
-    # expm1, sqrt, three multiplies, an add and the doubling.
+    # stateful pass), timed as K3: graph replays over 4 copies of the
+    # inputs (4 x 27 MB with the outputs), and the older single-call
+    # timing beside it.  About ten operations per element: exp, expm1,
+    # sqrt, three multiplies, an add and the doubling.
     b, c = MAX_BATCH, g_cfg.rnn.d_rnn
-    log_a, x, h0 = lru_case(gen, b, s_max, c, h0=True)
-    scratch = torch.empty(16 * 2 ** 20, device="cuda")
-    t = time_ms({"kernel": lambda: run_lru(log_a, x, h0),
-                 "plain": lambda: plain_lru(log_a, x, h0)},
-                flush=lambda: scratch.fill_(0.0))
+    copies = [lru_case(gen, b, s_max, c, h0=True) for _ in range(4)]
+    log_a, x, h0 = copies[0]
+    t = graph_ms({"kernel": rotating(run_lru, copies),
+                  "plain": rotating(plain_lru, copies)})
+    single = time_ms({"kernel": lambda: run_lru(log_a, x, h0),
+                      "plain": lambda: plain_lru(log_a, x, h0)},
+                     flush=lambda: scratch.fill_(0.0))
     _, diff = rel_err(run_lru(log_a, x, h0)[0], plain_lru(log_a, x, h0)[0])
     ms, by = bound(10.0 * x.numel(), 4.0 * (3 * x.numel() + 2 * b * c),
                    chip.peak_fp32, chip.hbm_bw)
@@ -1557,6 +1620,10 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
         **counts("rglru_scan"), "max_abs_err": diff,
         "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
         "bound_by": by, "library_ms": None,
+        "single_call_ms": single["kernel"],
+        "single_call_plain_ms": single["plain"],
+        "timing": "per call, median of 10 replays (in turns) of a CUDA "
+                  "graph of 10 calls over 4 copies of the inputs",
         "shape": f"fp32 log_a, x ({b},{s_max},{c}), h0 ({b},{c}) -> h, h_T",
         "library_call": "none: no single PyTorch call computes the "
                         "recurrence"})

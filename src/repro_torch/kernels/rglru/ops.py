@@ -1,9 +1,10 @@
 """Wrapper of the RG-LRU scan kernel (K5).
 
-The kernel masks nothing and pads nothing: one thread per (batch,
-channel) walks any T, so unlike the reference wrapper there is no
-``chunk``, ``block_c`` or ``interpret``.  It also takes an initial state
-and returns the final one, which the reference's kernel does not.
+The kernel pads nothing: a block on 32 channels of one batch row walks
+any T in chunks and masks a ragged C itself, so unlike the reference
+wrapper there is no ``chunk``, ``block_c`` or ``interpret``.  It also
+takes an initial state and returns the final one, which the reference's
+kernel does not.
 """
 
 from __future__ import annotations

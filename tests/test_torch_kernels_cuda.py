@@ -423,9 +423,17 @@ def test_grouped_matmul_tile_repeats_bit_for_bit(card, tile, c, rows):
     assert torch.equal(one, two)
 
 
+# the register path (rows of whole 16-byte vectors, at most 16 x 768
+# elements, from an aligned base) at the W8A8 path's shapes, and the loop
+# path (ragged K, K past the register limit)
 @pytest.mark.parametrize("m,k,dt", [(37, 200, torch.float32),
                                     (64, 4096, torch.bfloat16),
-                                    (5, 300, torch.float16)],
+                                    (5, 300, torch.float16),
+                                    (884, 4096, torch.float32),
+                                    (884, 4096, torch.bfloat16),
+                                    (884, 11008, torch.float32),
+                                    (37, 201, torch.float32),
+                                    (3, 16400, torch.float32)],
                          ids=lambda v: str(v).replace("torch.", ""))
 def test_quantize_rowwise_kernel_bit_exact(card, m, k, dt):
     x = (torch.randn(m, k, generator=card, device="cuda") * 3).to(dt)
@@ -456,6 +464,24 @@ def test_rglru_scan_kernel_vs_plain(card, b, t, c, h0):
     torch.cuda.synchronize()
     assert h.shape == ref.shape and h.dtype == torch.float32
     assert _rel(h, ref) <= 1e-5 and _rel(h_last, ref_last) <= 1e-5
+
+
+@pytest.mark.parametrize("b,t,c,h0", [(4, 221, 2560, True),
+                                      (4, 90, 2560, True), (3, 37, 300, True),
+                                      (3, 40, 17, False), (2, 1, 64, False)])
+def test_rglru_scan_kernel_bit_identical(card, b, t, c, h0):
+    """Each channel's chain in one thread, in time order, with the plain
+    version's roundings: h and h_T equal it bit for bit, at the prefill
+    passes' shapes (log_a as the recurrent block makes it) and ragged."""
+    lam = torch.rand(c, generator=card, device="cuda") * 4.0 + 2.0
+    gate = torch.sigmoid(torch.randn(b, t, c, generator=card, device="cuda"))
+    log_a = -8.0 * torch.nn.functional.softplus(lam) * gate
+    x = torch.randn(b, t, c, generator=card, device="cuda")
+    init = torch.randn(b, c, generator=card, device="cuda") if h0 else None
+    h, h_last = rg_ops.rglru_scan(log_a, x, init)
+    ref, ref_last = rglru_scan_plain(log_a, x, init)
+    torch.cuda.synchronize()
+    assert torch.equal(h, ref) and torch.equal(h_last, ref_last)
 
 
 WKV_CASES = [  # (b, h, t, c, chunk, dtype, initial state, tol)

@@ -63,7 +63,7 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 inline thread_local dim3 threadIdx, blockIdx;
-inline dim3 gridDim;
+inline dim3 gridDim, blockDim;
 inline std::barrier<>* emu_bar;
 inline void __syncthreads() { emu_bar->arrive_and_wait(); }
 inline float emu_shfl[1024];
@@ -79,6 +79,7 @@ inline std::vector<float> emu_dyn(1 << 20);
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 struct uint4 { unsigned x, y, z, w; };
+struct float4 { float x, y, z, w; };
 struct uint2 { unsigned x, y; };
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef struct CUstream_st* cudaStream_t;
@@ -90,6 +91,7 @@ cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) {
 }
 template <class F> void emu_launch(dim3 g, dim3 b, F f) {
   gridDim = g;
+  blockDim = b;
   for (unsigned z = 0; z < g.z; ++z)
     for (unsigned y = 0; y < g.y; ++y)
       for (unsigned x = 0; x < g.x; ++x) {
@@ -591,9 +593,18 @@ def _ties(m, k, dt):
     return x.to(dt)
 
 
+# quantize_rowwise.cu's register path takes rows of whole 16-byte vectors
+# (K % 4 == 0 in fp32, K % 8 == 0 in 16 bits) of at most 16 x 768
+# elements from an aligned base; the loop path every other row
 @pytest.mark.parametrize("m,k,dt", [(37, 200, torch.float32),
                                     (5, 300, torch.bfloat16),
-                                    (3, 64, torch.float16)],
+                                    (3, 64, torch.float16),
+                                    (7, 512, torch.float32),
+                                    (7, 512, torch.bfloat16),
+                                    (7, 512, torch.float16),
+                                    (3, 11008, torch.float32),
+                                    (5, 301, torch.float32),
+                                    (2, 16400, torch.float32)],
                          ids=lambda v: str(v).replace("torch.", ""))
 def test_quantize_rowwise_source_bit_exact(bound, m, k, dt):
     g = torch.Generator().manual_seed(k)
@@ -604,17 +615,48 @@ def test_quantize_rowwise_source_bit_exact(bound, m, k, dt):
         assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
 
 
+def test_quantize_rowwise_source_unaligned_base(bound):
+    """Rows of whole vectors from a base 4 bytes past a 16-byte boundary
+    take the loop path, bit-exact too."""
+    g = torch.Generator().manual_seed(3)
+    x = (torch.randn(6 * 512 + 1, generator=g) * 3)[1:].view(6, 512)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    q, s = qr.quantize_rowwise_cuda(x)
+    q_ref, s_ref = qr.quantize_rowwise_plain(x)
+    assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
+
+
+# the chunked scan (chunks of rglru_scan.cu's CHUNK steps, 32 channels a
+# block): T shorter and longer than a chunk with a ragged tail, C a
+# multiple of 32 or not, T = 1
 @pytest.mark.parametrize("b,t,c,h0", [(2, 37, 300, True), (1, 5, 64, False),
-                                      (3, 1, 17, True)])
+                                      (3, 1, 17, True), (2, 70, 300, True),
+                                      (3, 40, 17, False), (2, 1, 64, False),
+                                      (1, 131, 33, True)])
 def test_rglru_scan_source_vs_plain(bound, b, t, c, h0):
     g = torch.Generator().manual_seed(t * c)
     log_a = -torch.nn.functional.softplus(torch.randn(b, t, c, generator=g))
     x = torch.randn(b, t, c, generator=g)
     init = torch.randn(b, c, generator=g) if h0 else None
-    h, h_last = rg.rglru_scan_cuda(log_a, x, init)
+    # the reference first: in a fresh process, the first parallel torch
+    # op after the emulation's thousands of threads has returned wrong
+    # values in one worker's share of the tensor
     ref, ref_last = rg.rglru_scan_plain(log_a, x, init)
+    h, h_last = rg.rglru_scan_cuda(log_a, x, init)
     assert h.dtype == ref.dtype and h.shape == ref.shape
     assert _rel(h, ref) <= 1e-5 and _rel(h_last, ref_last) <= 1e-5
+
+
+def test_rglru_scan_source_pure_integrator_limit(bound):
+    """log_a -> 0: a -> 1 and beta -> 0, so the scan keeps h0 over chunks."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 70, 40, generator=g)
+    init = torch.randn(2, 40, generator=g)
+    log_a = torch.full_like(x, -1e-9)
+    ref, ref_last = rg.rglru_scan_plain(log_a, x, init)
+    h, h_last = rg.rglru_scan_cuda(log_a, x, init)
+    assert _rel(h, ref) <= 1e-5 and _rel(h_last, ref_last) <= 1e-5
+    assert (h_last - init).abs().max() < 0.05
 
 
 WKV_CASES = [  # (b, h, t, c, chunk, dtype, initial state, tol)
