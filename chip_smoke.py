@@ -58,17 +58,33 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 and rwkv6-7b (WKV kernel on every time-mix block, its
                 launches by tile against the count reckoned) at full
                 width and depth;
-11. profile, moe-profile, griffin-profile, rwkv-profile — device time by
+11. exec       — yi-6b's serving step at full width as the TaskGraph the
+                DES prices, lowered and run through the backend registry:
+                ``backend.get("kernel")`` runs the int8 prefill (4 x 221
+                tokens) and decode (4 tokens) steps at 64 x 64 tiles, one
+                K1 launch per matrix tile (7,728 simt, 552 decode), every
+                GEMM bit for bit against one ``cute_matmul`` on each
+                route; ``get("kernel", granularity="panel")`` one bf16
+                gate-up GEMM with a fused GLU (4,816 launches on K1's
+                tensor-core tile) within 2e-2; ``get("desim")`` the decode
+                step again, its numbers equal to the kernel backend's,
+                its cycles simulated cycles of the paper's CPU matrix
+                unit; K1's launches by tile against the counts reckoned
+                from the graphs; the card's wall time a ``run_graph``, the
+                host's time a dispatch, the DES's host time and the
+                metrics registry's ``backend_calls_total`` and
+                ``backend_seconds`` p50;
+12. profile, moe-profile, griffin-profile, rwkv-profile — device time by
                 kernel of one prefill and over a few decode steps of each
                 served model (``torch.profiler``), K1's by tile, the
                 device's idle share of a decode step, and for tied
                 embeddings the time of the transposed copy the logits
                 take; K1's host time a call on each tile (yi-6b);
                 measurement only;
-12. w8a8       — yi-6b's MLP at full width through ``quantize_mlp`` and
+13. w8a8       — yi-6b's MLP at full width through ``quantize_mlp`` and
                 the W8A8 layers (row-quantiser kernel, int8 fused matmul)
                 against the plain route and the float MLP;
-13. the ``kernels`` line: per kernel, its launches in the paths above, its
+14. the ``kernels`` line: per kernel, its launches in the paths above, its
    time at the paths' largest shapes beside its plain version, a library
    call and its roofline bound; K1 at prefill (tensor-core tile), decode
    and logits (decode tile), K4 at prefill (tensor-core tile), at decode
@@ -1079,6 +1095,270 @@ def phase_serve(arch, phase, counters, reckoned):
 
 
 # ---------------------------------------------------------------------------
+# The TaskGraph executed on the card: one IR, priced by the DES and run
+# through the backend registry, one K1 launch per matrix tile.
+# ---------------------------------------------------------------------------
+
+def _reckon_tiles(graph):
+    """K1's launches by tile for ``graph``: one per matrix node, on the
+    tile ``select_tile`` names for its accumulator-tile call."""
+    from repro_torch.core.precision import policy
+    from repro_torch.kernels.matmul.matmul import TILES, select_tile
+    out = dict.fromkeys(TILES, 0)
+    for node in graph.matmul_nodes():
+        t = node.tile
+        out[select_tile(t.m, t.n, node.task.k,
+                        policy(node.task.data_type).in_dtype, False,
+                        True)] += 1
+    return out
+
+
+def _operands(gen, shapes, dtype):
+    """``{gemm label: (a, b)}`` on the card for ``shapes``, ``{gemm label:
+    (m, k, n)}``: int8 in [-8, 8), the range of the reference's
+    ``BatchSchedule.example_operands``, or bf16 normals with B scaled as
+    a weight."""
+    ops = {}
+    for label, (m, k, n) in shapes.items():
+        if dtype == torch.int8:
+            ops[label] = tuple(
+                torch.randint(-8, 8, shape, generator=gen, dtype=torch.int8,
+                              device="cuda") for shape in ((m, k), (k, n)))
+        else:
+            a = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+            b = (torch.randn((k, n), generator=gen, device="cuda")
+                 / k ** 0.5).to(dtype)
+            ops[label] = (a, b)
+    return ops
+
+
+def _timed_run(eng, graph, ops):
+    """``eng.run_graph`` with K1's counts set to 0 just before and read
+    just after: (result, host-clock seconds ending in a synchronize,
+    launches by tile, the host's time in ``AsyncMatmulEngine.dispatch``:
+    asyncMatMul of one tile, K1's wrapper and launch included)."""
+    from repro_torch.core.engine import AsyncMatmulEngine
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    inner, spent = AsyncMatmulEngine.dispatch, []
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return inner(self, *args, **kwargs)
+        finally:
+            spent.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    fused_matmul.launches = 0
+    fused_matmul.launches_by_tile = dict.fromkeys(
+        fused_matmul.launches_by_tile, 0)
+    AsyncMatmulEngine.dispatch = timed
+    try:
+        t0 = time.perf_counter()
+        r = eng.run_graph(graph, ops)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        AsyncMatmulEngine.dispatch = inner
+    by_tile = dict(fused_matmul.launches_by_tile)
+    require(fused_matmul.launches == sum(by_tile.values()),
+            "K1's launch count and its count by tile disagree")
+    host = {"dispatch_host_s": sum(spent),
+            "dispatch_host_us_median": statistics.median(spent) * 1e6,
+            "dispatch_host_us_mean": sum(spent) / len(spent) * 1e6}
+    return r, wall, by_tile, host
+
+
+def _k1_call_host_us(graph, ops):
+    """Host µs (medians) of one K1 call a matrix tile of ``graph``, made
+    directly on the current stream, outside the engine: on the graph's B
+    column slices, which K1's wrapper copies contiguous on every call,
+    and on contiguous copies made beforehand.  Measurement only: the
+    launches are not the path's."""
+    from repro_torch.core.fusion import Epilogue, cute_matmul
+    ep = Epilogue(out_dtype=torch.int32)
+    tiles = []
+    for node in graph.matmul_nodes():
+        a, b = ops[node.layer]
+        t = node.tile
+        b_t = b[:, t.n0:t.n0 + t.n]
+        tiles.append((a[t.m0:t.m0 + t.m], b_t, b_t.contiguous()))
+    out = {}
+    for name, pick in (("strided_b", 1), ("contiguous_b", 2)):
+        spent = []
+        torch.cuda.synchronize()
+        for tile in tiles:
+            t0 = time.perf_counter()
+            cute_matmul(tile[0], tile[pick], epilogue=ep, backend="kernel")
+            spent.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        out[name] = statistics.median(spent) * 1e6
+    return out
+
+
+def phase_exec(cfg, s_max, card):
+    """yi-6b's serving step at full width as a TaskGraph, lowered and run
+    through the backend registry (``repro_torch.backend``):
+
+    * ``get("kernel")`` runs the prefill step (the 4 x ``s_max`` padded
+      batch) and the decode step (4 tokens), int8, TILE granularity at
+      ``CASE_STUDY``'s 64 x 64 tiles: every matrix tile is one K1 launch
+      (simt at prefill, decode at decode), and every GEMM's output must
+      equal one ``cute_matmul`` of the same operands, bit for bit, on the
+      torch route (exact through float64) and on the kernel route;
+    * ``get("kernel", granularity="panel")`` runs one bf16 GEMM with a
+      fused GLU silu, yi-6b's gate-up projection: K1's tensor-core tile
+      on every tile, the regions' epilogues in plain ops, held within
+      ``TOL_PATH_BF16`` of one ``cute_matmul`` on each route;
+    * ``get("desim")`` runs the decode step's graph again: simulated
+      cycles of the paper's CPU matrix unit (not card time) and the
+      numbers, which must equal the kernel backend's bit for bit.
+
+    K1's launches by tile must equal the counts reckoned from each graph.
+    The default metrics registry is on for the phase: each ``run_graph``
+    is counted and timed per backend."""
+    from repro_torch import backend, obs
+    from repro_torch.core.fusion import Epilogue, cute_matmul
+    from repro_torch.core.precision import DataType
+    from repro_torch.core.task import MatMulTask
+    from repro_torch.serving.engine import _step_layer
+    from repro_torch.sim.lower import gemm_labels
+
+    require(backend.default_matmul_backend() == "kernel",
+            "the default matmul route is not the kernel")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    reg = obs.default_registry()
+    reg.clear()
+    obs.enable_metrics()
+    graphs, total = {}, {}
+    try:
+        kern = backend.get("kernel")
+        outs = {}
+        for step, tokens in (("prefill", MAX_BATCH * s_max),
+                             ("decode", MAX_BATCH)):
+            layer = _step_layer(cfg, step, tokens, cfg.n_layers)
+            t0 = time.perf_counter()
+            graph = kern.lower([layer])
+            lower_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sim = backend.get("desim").run_graph(graph)
+            des_s = time.perf_counter() - t0
+            ops = _operands(gen, {f"{step}/g{i}": (t.m, t.k, t.n)
+                                  for i, t in enumerate(layer.gemms)},
+                            torch.int8)
+            require(list(ops) == gemm_labels(graph),
+                    f"exec {step}: the graph's GEMMs are not the step's")
+            r, wall, by_tile, host = _timed_run(kern, graph, ops)
+            reckoned = _reckon_tiles(graph)
+            exact = {}
+            for route in ("torch", "kernel"):
+                exact[route] = all(
+                    torch.equal(r.outputs[label],
+                                cute_matmul(a, b, backend=route))
+                    for label, (a, b) in ops.items())
+            on_card = all(o.is_cuda and o.dtype == torch.int32
+                          for o in r.outputs.values())
+            outs[step] = (graph, ops, r.outputs)
+            if step == "decode":
+                host["k1_call_host_us_median"] = _k1_call_host_us(graph,
+                                                                  ops)
+            graphs[step] = {
+                "step": f"{ARCH} {step}, {tokens} tokens, int8, 64x64 "
+                        "tiles, TILE granularity, fused",
+                "gemms_mnk": {f"{step}/g{i}": [t.m, t.n, t.k]
+                              for i, t in enumerate(layer.gemms)},
+                **graph.stats(), "lower_host_s": lower_s,
+                "des_host_s": des_s,
+                "des_simulated_cycles": sim.cycles,
+                "des_simulated_matrix_utilization": sim.utilization,
+                "run_graph_s": wall,
+                "wall_us_per_tile": wall / graph.stats()["matmul"] * 1e6,
+                **host, "fused_matmul_by_tile": by_tile,
+                "fused_matmul_by_tile_reckoned": reckoned,
+                "bit_exact_vs_cute_matmul": exact, "outputs_on_card": on_card}
+            require(by_tile == reckoned, f"exec {step}: K1 ran {by_tile} "
+                    f"by tile, reckoned {reckoned}")
+            require(all(exact.values()) and on_card,
+                    f"exec {step}: the graph's outputs differ from "
+                    f"cute_matmul: {exact}")
+            for t_, n in by_tile.items():
+                total[t_] = total.get(t_, 0) + n
+            del r
+
+        # the decode step once more, through the DES backend: both halves
+        graph, ops, kern_outs = outs.pop("decode")
+        r, wall, by_tile, host = _timed_run(backend.get("desim"), graph,
+                                            ops)
+        same = all(torch.equal(r.outputs[k], kern_outs[k])
+                   for k in kern_outs)
+        graphs["decode-desim"] = {
+            "run_graph_s": wall, **host, "fused_matmul_by_tile": by_tile,
+            "des_simulated_cycles": r.cycles,
+            "des_simulated_seconds_at_unit_clock": r.seconds,
+            "des_simulated_matrix_utilization": r.utilization,
+            "outputs_equal_kernel_backend": same}
+        require(by_tile == _reckon_tiles(graph), f"exec decode-desim: K1 "
+                f"ran {by_tile} by tile")
+        require(same, "exec: the desim backend's numbers differ from the "
+                "kernel backend's")
+        for t_, n in by_tile.items():
+            total[t_] += n
+        del outs, ops, kern_outs, r
+
+        # one bf16 GEMM with a fused GLU, at PANEL granularity
+        d, ff, rows = cfg.d_model, cfg.d_ff, MAX_BATCH * s_max
+        panel = backend.get("kernel", granularity="panel")
+        ep = Epilogue(activation=cfg.mlp_activation, glu=True,
+                      out_dtype=torch.bfloat16)
+        task = MatMulTask(m=rows, n=2 * ff, k=d, data_type=DataType.BF16)
+        graph = panel.lower(task, epilogue=ep)
+        a, b = _operands(gen, {"glu": (rows, d, 2 * ff)},
+                         torch.bfloat16)["glu"]
+        r, wall, by_tile, host = _timed_run(panel, graph,
+                                            backend.MatMulOperands(a, b))
+        reckoned = _reckon_tiles(graph)
+        errs = {route: rel_err(r.output, cute_matmul(
+            a, b.view(d, 2, ff), epilogue=ep, backend=route))[0]
+            for route in ("torch", "kernel")}
+        graphs["glu-bf16"] = {
+            "step": f"{ARCH} gate-up projection ({rows},{d}) @ ({d},2x{ff}) "
+                    f"bf16, GLU {cfg.mlp_activation}, PANEL granularity",
+            **graph.stats(), "run_graph_s": wall,
+            "wall_us_per_tile": wall / graph.stats()["matmul"] * 1e6,
+            **host, "fused_matmul_by_tile": by_tile,
+            "fused_matmul_by_tile_reckoned": reckoned,
+            "rel_err_vs_cute_matmul": errs, "tol": TOL_PATH_BF16,
+            "output_shape": list(r.output.shape),
+            "finite": bool(torch.isfinite(r.output).all())}
+        require(by_tile == reckoned, f"exec glu-bf16: K1 ran {by_tile} by "
+                f"tile, reckoned {reckoned}")
+        require(graphs["glu-bf16"]["finite"]
+                and tuple(r.output.shape) == (rows, ff)
+                and max(errs.values()) <= TOL_PATH_BF16,
+                f"exec glu-bf16: {errs} against {TOL_PATH_BF16}")
+        for t_, n in by_tile.items():
+            total[t_] += n
+        snap = reg.snapshot()
+    finally:
+        obs.disable_metrics()
+        reg.clear()
+    metrics = {
+        "backend_calls_total": {
+            row["labels"]["backend"]: row["value"]
+            for row in snap["counters"]["backend_calls_total"]},
+        "backend_seconds_p50": {
+            row["labels"]["backend"]: row["p50"]
+            for row in snap["histograms"]["backend_seconds"]}}
+    emit({"phase": "exec", "card": card, "graphs": graphs,
+          "fused_matmul_by_tile": total, "metrics": metrics,
+          "note": "des_* cycles are simulated cycles of the paper's CPU "
+                  "matrix unit (SHUTTLE, 2 GHz), not card time; "
+                  "run_graph_s is the card's wall time on the host clock"})
+    torch.cuda.empty_cache()
+    return {"fused_matmul": sum(total.values()),
+            "fused_matmul_by_tile": total}
+
+
+# ---------------------------------------------------------------------------
 # Where a prefill's and a decode step's device time goes (torch.profiler).
 # ---------------------------------------------------------------------------
 
@@ -1691,7 +1971,7 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
 
 
 def main() -> int:
-    phase_device()
+    card = phase_device()
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.attention.ops import flash_attention
     from repro_torch.kernels.matmul.ops import fused_matmul
@@ -1771,7 +2051,8 @@ def main() -> int:
             "rwkv-serve": phase_serve(RWKV_ARCH, "rwkv-serve", {
                 "fused_matmul": fused_matmul, "rwkv6_scan": rwkv6_scan},
                 {"fused_matmul": k1_tiles["rwkv-serve"],
-                 "rwkv6_scan": k6_tiles})}
+                 "rwkv6_scan": k6_tiles}),
+            "exec": phase_exec(cfg, s_max, card)}
         phase_profile(ARCH, "profile", s_max, host_cost=True)
         phase_profile(MOE_ARCH, "moe-profile", s_max)
         phase_profile(GRIFFIN_ARCH, "griffin-profile", s_max)

@@ -1,8 +1,56 @@
-"""``repro_torch.backend``: the executing matmul routes of the port."""
+"""``repro_torch.backend`` — execution engines behind one contract.
 
-from repro_torch.backend.registry import (ROUTES, default_matmul_backend,
-                                          matmul_backend_string,
+One :class:`~repro_torch.backend.base.Backend` protocol —
+``dispatch(task, operands) -> handle``, ``check(handle)``,
+``wait(handle)``, ``run_graph(TaskGraph)`` — with first-class
+granularity (``tile | panel | layer``) and epilogue fusion, and three
+registered implementations:
+
+=================  =======================================================
+``get("kernel")``  the hand-written CUDA fused matmul (K1), one launch
+                   per matrix tile of the graph (the reference's
+                   ``pallas``)
+``get("torch")``   ``torch.matmul`` + the epilogue as tensor ops (the
+                   reference's ``jax``)
+``get("desim")``   the discrete-event machine model — per-resource
+                   timelines in simulated cycles of the paper's CPU
+                   matrix unit — and, given operands, the numbers from
+                   executing the *same* graph on the default route
+=================  =======================================================
+
+The registry also holds the model zoo's matmul route
+(``set_default_matmul_backend``; ``"kernel"`` by default).  The
+reference's analytical, cluster and sharded backends and its tuned
+dispatch are not ported yet.
+
+Typical use::
+
+    from repro_torch import backend
+    from repro_torch.core.task import MatMulTask
+
+    b = backend.get("desim", granularity="panel")
+    h = b.dispatch(MatMulTask(m=512, n=512, k=4096))      # asyncMatMul
+    r = b.wait(h)                                         # checkMatmul
+    r.cycles, r.timeline                                  # DES payload
+"""
+
+from repro_torch.backend.base import (Backend, DispatchHandle, ExecResult,
+                                      MatMulOperands, NO_MATMUL_OPERANDS)
+from repro_torch.backend.registry import (ALIASES, available,
+                                          default_matmul_backend, get,
+                                          matmul_backend_string, register,
+                                          resolve,
                                           set_default_matmul_backend)
 
-__all__ = ["ROUTES", "default_matmul_backend", "matmul_backend_string",
-           "set_default_matmul_backend"]
+# Importing the implementation modules registers them.
+from repro_torch.backend.eager import KernelBackend, TorchBackend
+from repro_torch.backend.desim_backend import DESimBackend
+
+__all__ = [
+    "Backend", "DispatchHandle", "ExecResult", "MatMulOperands",
+    "NO_MATMUL_OPERANDS",
+    "ALIASES", "available", "default_matmul_backend", "get",
+    "matmul_backend_string", "register", "resolve",
+    "set_default_matmul_backend",
+    "KernelBackend", "TorchBackend", "DESimBackend",
+]

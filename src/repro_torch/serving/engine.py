@@ -7,8 +7,10 @@ goes through the flash kernel when ``cfg.backend == "kernel"``.
 
 ``generate`` is the synchronous core: prefill the prompt batch, then a
 Python decode loop (the reference's ``lax.scan``) with greedy or
-temperature sampling.  The reference's planning half (``plan``,
-``evaluate_schedule``, ``BatchSchedule``, metrics) is not ported yet.
+temperature sampling.  ``_step_layer`` is one serving step as the
+``LayerTrace`` the TaskGraph lowering takes.  The reference's planning
+half (``plan``, ``evaluate_schedule``, ``BatchSchedule``, metrics) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.precision import DataType
+from repro_torch.core.simulator import VECTOR_OP_INSTRS, LayerTrace
+from repro_torch.core.task import MatMulTask
 from repro_torch.models.base import ArchConfig, family_module
 
 
@@ -115,6 +120,35 @@ def generate(cfg: ArchConfig, params, batch, *, max_new_tokens: int,
     return GenerateResult(tokens=torch.stack(out, dim=1), logits_last=logits,
                           steps=max_new_tokens,
                           marks=(start, prefilled, _mark(tokens.device)))
+
+
+def _step_layer(cfg: ArchConfig, name: str, tokens: int,
+                repeat: int) -> LayerTrace:
+    """One serving step as a fused region: the four projection GEMMs of a
+    representative transformer layer (int8, the paper's W8A8 pipeline)
+    plus first-order vector work (norms, dequant, activation, residual)."""
+    d = cfg.d_model
+    mlp_n = cfg.d_ff * (2 if cfg.mlp_glu else 1)
+    gemms = (
+        MatMulTask(m=tokens, n=cfg.q_dim + 2 * cfg.kv_dim, k=d,
+                   data_type=DataType.INT8),
+        MatMulTask(m=tokens, n=d, k=cfg.q_dim, data_type=DataType.INT8),
+        MatMulTask(m=tokens, n=mlp_n, k=d, data_type=DataType.INT8),
+        MatMulTask(m=tokens, n=d, k=cfg.d_ff, data_type=DataType.INT8),
+    )
+    act = (cfg.mlp_activation if cfg.mlp_activation in VECTOR_OP_INSTRS
+           else "eltwise_misc")
+    vector_ops = {
+        "rmsnorm": 2.0 * tokens * d,
+        "dequant": float(sum(t.m * t.n for t in gemms)),
+        act: float(tokens * cfg.d_ff),
+        "residual": 2.0 * tokens * d,
+    }
+    if cfg.mlp_glu:
+        vector_ops["glu_mul"] = float(tokens * cfg.d_ff)
+    return LayerTrace(name, gemms, vector_ops=vector_ops,
+                      intermediate_bytes=4.0 * tokens * mlp_n,
+                      repeat=repeat)
 
 
 class ServingEngine:

@@ -163,8 +163,10 @@ def test_default_route_is_kernel_and_restorable():
     prev = backend.set_default_matmul_backend("torch")
     try:
         assert backend.matmul_backend_string() == "torch"
+        # the DES prices schedules and serves no projection
         with pytest.raises(ValueError):
-            backend.set_default_matmul_backend("xla")
+            backend.set_default_matmul_backend("desim")
+        assert backend.matmul_backend_string() == "torch"
     finally:
         backend.set_default_matmul_backend(prev)
     assert backend.matmul_backend_string() == "kernel"
