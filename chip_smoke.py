@@ -13,12 +13,13 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 version, at the paths' shapes plus ragged, int8,
                 fp32/fp16, masking and rounding-tie cases, with the
                 reference test suite's tolerances (K3 bit for bit); K1
-                at every distinct call of the four served models (recorded
+                at every distinct call of the five served models (recorded
                 from one prefill and one decode step at cut depth) at the
                 prefill and decode row counts, and K4 at OLMoE's served
                 capacities (C = 144, 64, 8, with and without the rows of
-                a seeded routing), K2 at the three attention paths'
-                shapes, ragged, masked, softcapped and on the transposed
+                a seeded routing), K2 at the four attention paths'
+                shapes (gemma2-2b's local and global layers with its
+                softcap 50 at head_dim 256), ragged, masked, softcapped and on the transposed
                 views the models pass, each query row against its own
                 scale (``row_rel_err``), each case on the tile that
                 serves it (``launches_by_tile``);
@@ -81,10 +82,35 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 embeddings the time of the transposed copy the logits
                 take; K1's host time a call on each tile (yi-6b);
                 measurement only;
-13. w8a8       — yi-6b's MLP at full width through ``quantize_mlp`` and
+13. paged      — ``paged_flash_attention`` on a shuffled block table of
+                16-token pages equal bit for bit to the contiguous
+                ``flash_attention`` (yi-6b's and RecurrentGemma's prefill
+                shapes on K2's tensor-core tile, yi-6b's in fp32 on its
+                SIMT tile), ``paged_decode_attention`` to
+                ``decode_attention`` at yi-6b's decode shape;
+14. gemma-parity, gemma-serve — phase 4's parity and phase 6's traffic
+                for gemma2-2b (softcaps 50 in K2 and 30 in K1's logits,
+                head_dim 256, tied embeddings), K1's and K2's launches by
+                tile against the counts reckoned from the traffic;
+15. plan       — a planning-only ``ServingEngine(cfg, None)`` on yi-6b at
+                full width prices the launcher's traffic on ``desim``,
+                ``analytical`` and ``desim-cluster`` under three policies,
+                and the serve traffic on ``analytical`` under the three
+                and on ``desim-cluster`` under full prefill, equal to the
+                reference's recorded numbers (``REFERENCE``, from
+                ``scripts/record_smoke_constants.py``); runs the
+                launcher traffic's full-prefill schedule with operands
+                through K1 on desim and desim-cluster (bit-exact against
+                ``cute_matmul``, equal to each other, launches by tile as
+                reckoned); then
+                ``launch.serve --plan desim --metrics-out``;
+16. online     — the online closed loop (Poisson arrivals, chunked
+                prefill, a paged KV pool that evicts and refills) equal to
+                the reference's, and ``launch.serve --qps``; host only;
+17. w8a8       — yi-6b's MLP at full width through ``quantize_mlp`` and
                 the W8A8 layers (row-quantiser kernel, int8 fused matmul)
                 against the plain route and the float MLP;
-14. the ``kernels`` line: per kernel, its launches in the paths above, its
+18. the ``kernels`` line: per kernel, its launches in the paths above, its
    time at the paths' largest shapes beside its plain version, a library
    call and its roofline bound; K1 at prefill (tensor-core tile), decode
    and logits (decode tile), K4 at prefill (tensor-core tile), at decode
@@ -138,6 +164,334 @@ TOL_BF16, TOL_FP32 = 3e-2, 1e-5
 # bf16 case reads 7.69e-3 to 7.81e-3, fp16 9.4e-4, fp32 7.6e-7: the
 # limit is 2.6 times the widest reading.
 TOL_FLASH_BF16, TOL_FLASH_FP32 = 2e-2, 1e-3
+GEMMA_ARCH = "gemma2-2b"
+PAGED_BLOCK = 16                    # KV tokens a page
+# planning (phase ``plan``), request i arriving at i x PLAN_ARRIVAL_GAP
+# simulated cycles (1 ms at the paper's unit's 2 GHz); ``desim`` models
+# one matrix unit, the cluster forms 4.  Two traffics: the launcher's
+# (6 prompts of 4 + (i * 3) % 12 tokens), priced in all 9 cases and the
+# one a schedule is executed for; and the serve phase's (``prompt_lengths``:
+# 8 prompts of up to 221 tokens, prefill graphs of 7,728 tiles), priced
+# in the cases of PLAN_SERVE_CASES.  The serve traffic's other 5 cases
+# (desim, and desim-cluster's chunked-prefill and auto) are left out:
+# on an H100 machine's host they took 130 s together, twice the 4 priced
+# here (``scripts/time_plan_pricing.py``).
+PLAN_PROMPTS = tuple(4 + (i * 3) % 12 for i in range(6))
+PLAN_ARRIVAL_GAP = 2.0e6
+PLAN_POLICIES = ("full-prefill", "chunked-prefill", "auto")
+PLAN_CASES = tuple((backend_name, units, policy)
+                   for backend_name, units in (("desim", 1),
+                                               ("analytical", 4),
+                                               ("desim-cluster", 4))
+                   for policy in PLAN_POLICIES)
+PLAN_SERVE_CASES = tuple(("analytical", 4, policy)
+                         for policy in PLAN_POLICIES) + (
+                             ("desim-cluster", 4, "full-prefill"),)
+PLAN_LAUNCH_ARGV = ["--arch", ARCH, "--plan", "desim", "--arrival-gap",
+                    str(PLAN_ARRIVAL_GAP)]
+# the online closed loop (phase ``online``): 16 seeded Poisson arrivals at
+# 16 requests/s of the unit's clock, chunked prefill, a hot KV pool of 10
+# blocks of 16 tokens (one 128-token prompt and its 16 new tokens need 9),
+# so blocks are evicted and refilled and some decode streams preempted
+ONLINE_QPS, ONLINE_REQUESTS = 16.0, 16
+ONLINE_ENGINE = dict(max_batch=MAX_BATCH, max_new_tokens=MAX_NEW,
+                     policy="chunked-prefill", kv_hot_blocks=10)
+ONLINE_LAUNCH_ARGV = ["--arch", ARCH, "--qps", "16", "--plan", "analytical"]
+# The reference's numbers for phases ``plan`` and ``online``: the output of
+#     PYTHONPATH=src python scripts/record_smoke_constants.py
+# (the JAX package on the CPU at the arguments above: planning-only
+# ``repro.serving.engine.ServingEngine(cfg, None)`` with
+# ``evaluate_schedule`` / ``price_steps`` / ``decode_latency_stats``,
+# ``repro.serving.online.OnlineServingEngine.run`` and the reference
+# launcher ``repro.launch.serve.main``).  Cycles are simulated cycles of
+# the paper's CPU matrix unit; the DES and the analytical form are
+# deterministic Python, so the port must equal them exactly.
+REFERENCE = {'launcher': {'online': ('[online:analytical] offered=16 req/s '
+                                     'policy=full-prefill: 6/6 requests over '
+                                     '11 admission epochs in _s wall',
+                                     '  '
+                                     '-----------------------------------------------',
+                                     '  policy                   full-prefill',
+                                     '  requests (completed)     6 (6)',
+                                     '  admission epochs         11',
+                                     '  TTFT p50 / p99           26090249 / '
+                                     '31114295 cyc',
+                                     '  ITL  p50 / p99           497792 / '
+                                     '497792 cyc',
+                                     '  makespan                 927524345 '
+                                     'cyc',
+                                     '  goodput                  13 req/s',
+                                     '  preemptions / evictions  0 / 0',
+                                     '  request spans            120 across 6 '
+                                     'requests',
+                                     '  '
+                                     '-----------------------------------------------'),
+                          'plan': ('[plan:desim] policy=full-prefill: 4 steps '
+                                   '(2 prefill), graph slice 46621035 cyc '
+                                   '(matrix_util=26.1%); full schedule '
+                                   '9193355869 cyc = 4596677.9 us',
+                                   '[plan:desim] TTFT (first token from '
+                                   'arrival) p50=736407719 cyc p99=5306456057 '
+                                   'cyc, inter-token p50=267238863 cyc, '
+                                   'overlap=chained makespan=9199355869 cyc',
+                                   '[plan:desim] per-resource utilization: '
+                                   'mem_loader=87.1% dispatcher=0.1% '
+                                   'scratchpad=87.1% pe_array=27.5% '
+                                   'vector_unit=2.1%',
+                                   '  '
+                                   '----------------------------------------',
+                                   '  policy / overlap  full-prefill / '
+                                   'chained',
+                                   '  steps (prefill)   4 (2)',
+                                   '  TTFT p50 / p99    736407719 / '
+                                   '5306456057 cyc',
+                                   '  ITL  p50 / p99    267238863 / 267238863 '
+                                   'cyc',
+                                   '  makespan          9199355869 cyc',
+                                   '  matrix util       26.1%',
+                                   '  request spans     120 across 6 requests',
+                                   '  '
+                                   '----------------------------------------')},
+             'online': {'kv': {'allocs': 98,
+                               'evictions': 18,
+                               'frees': 91,
+                               'refill_bytes': 5767168.0,
+                               'refills': 11},
+                        'kv_digest': 'dd4342a8c59803515c5d191e178c376c64f2098ee4046b48d6e8dcec8f30a958',
+                        'span_digest': '0d8d63a504f1db4b8d1f1e8db2a4add6b4405fa1c14fca76d8e8eb3930682fbc',
+                        'span_violations': [],
+                        'summary': {'completed': 16.0,
+                                    'epochs': 30.0,
+                                    'evictions': 0.0,
+                                    'goodput_qps': 12.177974651374434,
+                                    'itl_p50': 497794.04257273674,
+                                    'itl_p99': 547484.394203186,
+                                    'makespan': 2627694745.315339,
+                                    'preemptions': 2.0,
+                                    'ttft_p50': 25961774.564350605,
+                                    'ttft_p99': 61493857.24632788}},
+             'plan': {'analytical/auto': {'graph_cycles': 18671860.86956521,
+                                          'policy': 'decode-priority',
+                                          'stats': {'decode_p50': 187091199.99999997,
+                                                    'decode_p99': 327077982.6086956,
+                                                    'decode_tokens': 96.0,
+                                                    'itl_p50': 68870678.2608695,
+                                                    'itl_p99': 145986782.60869566,
+                                                    'makespan': 1364015443.4782608,
+                                                    'ttft_p50': 187091199.99999997,
+                                                    'ttft_p99': 327077982.6086956},
+                                          'step_cycles': [116281878.26086955,
+                                                          66809321.73913042,
+                                                          77116104.34782608,
+                                                          1033060173.9130435,
+                                                          64747965.217391305],
+                                          'steps': 5,
+                                          'units': 4},
+                      'analytical/chunked-prefill': {'graph_cycles': 16829495.652173914,
+                                                     'policy': 'chunked-prefill',
+                                                     'stats': {'decode_p50': 201520695.65217388,
+                                                               'decode_p99': 264391373.91304344,
+                                                               'decode_tokens': 96.0,
+                                                               'itl_p50': 68870678.26086956,
+                                                               'itl_p99': 68870678.26086974,
+                                                               'makespan': 1301328834.7826087,
+                                                               'ttft_p50': 201520695.65217388,
+                                                               'ttft_p99': 264391373.91304344},
+                                                     'step_cycles': [116281878.26086955,
+                                                                     81238817.39130434,
+                                                                     1033060173.9130435,
+                                                                     64747965.217391305],
+                                                     'steps': 4,
+                                                     'units': 4},
+                      'analytical/full-prefill': {'graph_cycles': 16490852.173913036,
+                                                  'policy': 'full-prefill',
+                                                  'stats': {'decode_p50': 187091199.99999997,
+                                                            'decode_p99': 1325095095.6521735,
+                                                            'decode_tokens': 96.0,
+                                                            'itl_p50': 66809321.73913038,
+                                                            'itl_p99': 66809321.739130616,
+                                                            'makespan': 2304314573.913043,
+                                                            'ttft_p50': 187091199.99999997,
+                                                            'ttft_p99': 1325095095.6521735},
+                                                  'step_cycles': [116281878.26086955,
+                                                                  1068949147.8260868,
+                                                                  77116104.34782608,
+                                                                  1035967443.4782609],
+                                                  'steps': 4,
+                                                  'units': 4},
+                      'desim-cluster/auto': {'graph_cycles': 18683862.173910834,
+                                             'policy': 'decode-priority',
+                                             'stats': {'decode_p50': 187390766.3768052,
+                                                       'decode_p99': 327502868.40578103,
+                                                       'decode_tokens': 96.0,
+                                                       'itl_p50': 68911986.08694983,
+                                                       'itl_p99': 146112102.02897584,
+                                                       'makespan': 1365038594.782495,
+                                                       'ttft_p50': 187390766.3768052,
+                                                       'ttft_p99': 327502868.40578103},
+                                             'step_cycles': [116559772.75361027,
+                                                             66830993.62319492,
+                                                             77200115.94202603,
+                                                             1033679791.3042476,
+                                                             64767921.159416094],
+                                             'steps': 5,
+                                             'units': 4},
+                      'desim-cluster/chunked-prefill': {'graph_cycles': 16834102.753620133,
+                                                        'policy': 'chunked-prefill',
+                                                        'stats': {'decode_p50': 201903953.62318194,
+                                                                  'decode_p99': 264815939.71013176,
+                                                                  'decode_tokens': 96.0,
+                                                                  'itl_p50': 68911986.08694983,
+                                                                  'itl_p99': 68911986.08694994,
+                                                                  'makespan': 1302351666.0868459,
+                                                                  'ttft_p50': 201903953.62318194,
+                                                                  'ttft_p99': 264815939.71013176},
+                                                        'step_cycles': [116559772.75361027,
+                                                                        81344180.86957166,
+                                                                        1033679791.3042476,
+                                                                        64767921.159416094],
+                                                        'steps': 4,
+                                                        'units': 4},
+                      'desim-cluster/full-prefill': {'graph_cycles': 16501712.6086937,
+                                                     'policy': 'full-prefill',
+                                                     'stats': {'decode_p50': 187390766.3768052,
+                                                               'decode_p99': 1325823707.8261714,
+                                                               'decode_tokens': 96.0,
+                                                               'itl_p50': 66830993.62319493,
+                                                               'itl_p99': 66830993.62319499,
+                                                               'makespan': 2305342525.217413,
+                                                               'ttft_p50': 187390766.3768052,
+                                                               'ttft_p99': 1325823707.8261714},
+                                                     'step_cycles': [116559772.75361027,
+                                                                     1069295897.9711187,
+                                                                     77200115.94202603,
+                                                                     1036286738.5506575],
+                                                     'steps': 4,
+                                                     'units': 4},
+                      'desim/auto': {'graph_cycles': 55229938.46393584,
+                                     'policy': 'decode-priority',
+                                     'stats': {'decode_p50': 736407718.95678,
+                                               'decode_p99': 1314364710.0290887,
+                                               'decode_tokens': 96.0,
+                                               'itl_p50': 275484916.86953115,
+                                               'itl_p99': 583956991.0723088,
+                                               'makespan': 5438146867.014209,
+                                               'ttft_p50': 736407718.95678,
+                                               'ttft_p99': 1314364710.0290887},
+                                     'step_cycles': [465168856.1161677,
+                                                     267238862.84061223,
+                                                     308472074.2027776,
+                                                     4132273753.0429664,
+                                                     258993320.81168464],
+                                     'steps': 5,
+                                     'units': 1},
+                      'desim/chunked-prefill': {'graph_cycles': 47394174.78285144,
+                                                'policy': 'chunked-prefill',
+                                                'stats': {'decode_p50': 794135355.3623122,
+                                                          'decode_p99': 1063620272.2318432,
+                                                          'decode_tokens': 96.0,
+                                                          'itl_p50': 275484916.86953115,
+                                                          'itl_p99': 275484916.86953163,
+                                                          'makespan': 5187402429.216963,
+                                                          'ttft_p50': 794135355.3623122,
+                                                          'ttft_p99': 1063620272.2318432},
+                                                'step_cycles': [465168856.1161677,
+                                                                324966499.2461445,
+                                                                4132273753.0429664,
+                                                                258993320.81168464],
+                                                'steps': 4,
+                                                'units': 1},
+                      'desim/full-prefill': {'graph_cycles': 46621034.81168474,
+                                             'policy': 'full-prefill',
+                                             'stats': {'decode_p50': 736407718.95678,
+                                                       'decode_p99': 5306456056.580426,
+                                                       'decode_tokens': 96.0,
+                                                       'itl_p50': 267238862.84061217,
+                                                       'itl_p99': 267238862.8406124,
+                                                       'makespan': 9199355868.755695,
+                                                       'ttft_p50': 736407718.95678,
+                                                       'ttft_p99': 5306456056.580426},
+                                             'step_cycles': [465168856.1161677,
+                                                             4275821805.4497957,
+                                                             308472074.2027776,
+                                                             4143893132.986954],
+                                             'steps': 4,
+                                             'units': 1}},
+             'plan_serve': {'analytical/auto': {'graph_cycles': 99774747.8260869,
+                                                'policy': 'decode-priority',
+                                                'stats': {'decode_p50': 1861541426.0869567,
+                                                          'decode_p99': 2738446608.695652,
+                                                          'decode_tokens': 128.0,
+                                                          'itl_p50': 70932034.78260851,
+                                                          'itl_p99': 581409391.3043478,
+                                                          'makespan': 3802181704.3478265,
+                                                          'ttft_p50': 1861541426.0869567,
+                                                          'ttft_p99': 2738446608.695652},
+                                                'step_cycles': [514600069.56521744,
+                                                                514600069.56521744,
+                                                                514600069.56521744,
+                                                                244931895.6521739,
+                                                                66809321.73913042,
+                                                                514600069.56521744,
+                                                                66809321.73913042,
+                                                                232563756.52173913,
+                                                                993048486.9565219,
+                                                                133618643.47826084],
+                                                'steps': 10,
+                                                'units': 4},
+                            'analytical/chunked-prefill': {'graph_cycles': 97815791.30434771,
+                                                           'policy': 'chunked-prefill',
+                                                           'stats': {'decode_p50': 2376141495.652174,
+                                                                     'decode_p99': 2675760000.0,
+                                                                     'decode_tokens': 128.0,
+                                                                     'itl_p50': 70932034.78260851,
+                                                                     'itl_p99': 236686469.5652175,
+                                                                     'makespan': 3739495095.6521745,
+                                                                     'ttft_p50': 2376141495.652174,
+                                                                     'ttft_p99': 2675760000.0},
+                                                           'step_cycles': [514600069.56521744,
+                                                                           514600069.56521744,
+                                                                           514600069.56521744,
+                                                                           244931895.6521739,
+                                                                           581409391.3043479,
+                                                                           236686469.5652174,
+                                                                           993048486.9565219,
+                                                                           133618643.47826084],
+                                                           'steps': 8,
+                                                           'units': 4},
+                            'analytical/full-prefill': {'graph_cycles': 95412730.43478344,
+                                                        'policy': 'full-prefill',
+                                                        'stats': {'decode_p50': 1861541426.0869567,
+                                                                  'decode_p99': 3669654400.0,
+                                                                  'decode_tokens': 128.0,
+                                                                  'itl_p50': 66809321.7391305,
+                                                                  'itl_p99': 66809321.739130974,
+                                                                  'makespan': 4679794226.086956,
+                                                                  'ttft_p50': 1861541426.0869567,
+                                                                  'ttft_p99': 3669654400.0},
+                                                        'step_cycles': [1788732104.3478262,
+                                                                        1068949147.8260868,
+                                                                        747163826.0869565,
+                                                                        1068949147.8260868],
+                                                        'steps': 4,
+                                                        'units': 4},
+                            'desim-cluster/full-prefill': {'graph_cycles': 95586914.8610836,
+                                                           'policy': 'full-prefill',
+                                                           'stats': {'decode_p50': 1865532933.036282,
+                                                                     'decode_p99': 3675651615.935287,
+                                                                     'decode_tokens': 128.0,
+                                                                     'itl_p50': 66830993.623194695,
+                                                                     'itl_p99': 66830993.62319565,
+                                                                     'makespan': 4686116520.283211,
+                                                                     'ttft_p50': 1865532933.036282,
+                                                                     'ttft_p99': 3675651615.935287},
+                                                           'step_cycles': [1792701939.4130871,
+                                                                           1069295897.9711187,
+                                                                           748822784.9278865,
+                                                                           1069295897.9711187],
+                                                           'steps': 4,
+                                                           'units': 4}}}
+
 TOL_WKV_FP32 = 1e-4
 TOL_PATH = 1e-4
 # bf16 parity: both routes accumulate in fp32 and round each projection's
@@ -174,6 +528,7 @@ KERNEL_TAGS = {"fused_matmul": "FusedMatmul",
                "quantize_rowwise": "quantize_rowwise_",
                "rglru_scan": "rglru_scan_kernel",
                "rwkv6_wkv": "rwkv6_wkv_"}
+
 
 
 class PhaseFailed(Exception):
@@ -290,6 +645,11 @@ def phase_build():
 def prompt_lengths():
     rng = np.random.default_rng(0)
     return rng.integers(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, N_REQUESTS), rng
+
+
+def serve_prompts():
+    """The serve traffic's prompt lengths as ints."""
+    return tuple(int(n) for n in prompt_lengths()[0])
 
 
 def padded_lengths(lengths):
@@ -456,7 +816,7 @@ def served_k1_calls(arch, n_layers):
     return list(calls)
 
 
-def phase_kernels(cfg, moe_cfg, s_max, served):
+def phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served):
     """``served``: arch -> its distinct K1 calls (``served_k1_calls``)."""
     from repro_torch.kernels.attention.ops import flash_attention
     from repro_torch.kernels.matmul.ops import fused_matmul
@@ -569,6 +929,17 @@ def phase_kernels(cfg, moe_cfg, s_max, served):
                "bf16 transposed views", TOL_FLASH_BF16, "tc",
                (MAX_BATCH, mh, mhkv, s_max, s_max, moe_cfg.head_dim), bf16,
                transposed=True, causal=True)
+    # gemma2-2b's prefill: its local layers (window 4096) and global ones
+    # (no window), both with the attention softcap
+    gh, ghkv, ghd = gemma_cfg.n_heads, gemma_cfg.n_kv_heads, gemma_cfg.head_dim
+    for window in (gemma_cfg.window, 0):
+        check_attn(f"gemma2-2b path b=4 {gh}/{ghkv} s={s_max} d={ghd} "
+                   f"softcap {gemma_cfg.attn_softcap:g} window {window} "
+                   "bf16 transposed views", TOL_FLASH_BF16, "tc",
+                   (MAX_BATCH, gh, ghkv, s_max, s_max, ghd), bf16,
+                   transposed=True, causal=True, window=window,
+                   softcap=gemma_cfg.attn_softcap,
+                   sm_scale=gemma_cfg.sm_scale)
     for sq in (1, 63, 65, 300):
         check_attn(f"tc Sq=Sk={sq} d=128 GQA 4/2", TOL_FLASH_BF16, "tc",
                    (2, 4, 2, sq, sq, 128), bf16, causal=True)
@@ -1359,6 +1730,348 @@ def phase_exec(cfg, s_max, card):
 
 
 # ---------------------------------------------------------------------------
+# Paged attention: the block-table gather, then K2 as in the contiguous
+# call.
+# ---------------------------------------------------------------------------
+
+def phase_paged(cfg, g_cfg, s_max):
+    """``paged_flash_attention`` on a KV cache scattered into pages of
+    ``PAGED_BLOCK`` tokens under a shuffled block table must equal the
+    contiguous ``flash_attention`` call bit for bit, on the tile the
+    contiguous call takes: yi-6b's prefill (bf16, tc tile), RecurrentGemma's
+    d=256 MQA with a window that bites (bf16, tc tile) and yi-6b's in fp32
+    (simt tile).  ``paged_decode_attention`` must equal ``decode_attention``
+    at yi-6b's decode shape against a 512-slot cache, with and without a
+    window.  K2's counts are set to 0 before each paged call and read after
+    it; the contiguous calls are the comparison, not the path."""
+    from repro_torch.kernels.attention.attention import tile_for
+    from repro_torch.kernels.attention.ops import (decode_attention,
+                                                   flash_attention)
+    from repro_torch.kernels.attention.paged import (paged_decode_attention,
+                                                     paged_flash_attention,
+                                                     to_paged)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    path = dict.fromkeys(flash_attention.launches_by_tile, 0)
+    cases = {}
+    # (name, heads, kv heads, head_dim, dtype, window, the tile it must take)
+    for name, h, hkv, d, dtype, window, tile in (
+            (f"{ARCH} prefill", cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+             torch.bfloat16, 0, "tc"),
+            (f"{GRIFFIN_ARCH} prefill, window 64", g_cfg.n_heads,
+             g_cfg.n_kv_heads, g_cfg.head_dim, torch.bfloat16, 64, "tc"),
+            (f"{ARCH} prefill fp32", cfg.n_heads, cfg.n_kv_heads,
+             cfg.head_dim, torch.float32, 0, "simt")):
+        q, k, v = attention_case(gen, MAX_BATCH, h, hkv, s_max, s_max, d,
+                                 dtype)
+        kw = dict(sm_scale=d ** -0.5, causal=True, window=window)
+        ref = flash_attention(q, k, v, **kw)
+        k_pages, v_pages, table = to_paged(k, v, PAGED_BLOCK, seed=1)
+        torch.cuda.synchronize()
+        flash_attention.launches_by_tile = dict.fromkeys(path, 0)
+        out = paged_flash_attention(q, k_pages, v_pages, table,
+                                    seq_len=s_max, **kw)
+        torch.cuda.synchronize()
+        by_tile = dict(flash_attention.launches_by_tile)
+        for t_, n in by_tile.items():
+            path[t_] += n
+        cases[name] = {
+            "q": list(q.shape), "kv": list(k.shape), "dtype": str(dtype)[6:],
+            "pages": list(k_pages.shape), "table": list(table.shape),
+            "by_tile": by_tile, "contiguous_tile": tile_for(q, k, v),
+            "equal_contiguous": bool(torch.equal(out, ref)),
+            "row_rel_err_vs_plain": row_rel_err(
+                out, plain_attention(q, k, v, softcap=0.0, q_start=0,
+                                     **kw))[0]}
+        require(cases[name]["equal_contiguous"], f"paged {name}: differs "
+                "from the contiguous flash_attention")
+        require(by_tile == {**dict.fromkeys(path, 0), tile: 1}
+                and cases[name]["contiguous_tile"] == tile,
+                f"paged {name}: K2 ran {by_tile}, not once on {tile}")
+    # decode: q (4, 32, 1, 128) against a 512-slot bf16 cache, cache_len
+    # 222..237 (a prefill of 221 and 1..16 decode steps)
+    q, k, v = attention_case(gen, MAX_BATCH, cfg.n_heads, cfg.n_kv_heads, 1,
+                             CACHE_LEN, cfg.head_dim, torch.bfloat16)
+    cache_len = torch.tensor([s_max + 1 + 5 * i for i in range(MAX_BATCH)],
+                             device="cuda")
+    k_pages, v_pages, table = to_paged(k, v, PAGED_BLOCK, seed=2)
+    for window in (0, 128):
+        name = f"{ARCH} decode, window {window}"
+        out = paged_decode_attention(q, k_pages, v_pages, table, cache_len,
+                                     seq_len=CACHE_LEN, window=window)
+        ref = decode_attention(q, k, v, cache_len, window=window)
+        cases[name] = {"q": list(q.shape), "kv": list(k.shape),
+                       "cache_len": cache_len.tolist(),
+                       "equal_contiguous": bool(torch.equal(out, ref))}
+        require(cases[name]["equal_contiguous"], f"paged {name}: differs "
+                "from decode_attention")
+    emit({"phase": "paged", "block_tokens": PAGED_BLOCK, "cases": cases,
+          "flash_attention_by_tile": path})
+    return {"flash_attention": sum(path.values()),
+            "flash_attention_by_tile": path}
+
+
+# ---------------------------------------------------------------------------
+# The planning front door: schedules priced by the DES and the analytical
+# form, one executed through K1, then ``launch.serve --plan``.
+# ---------------------------------------------------------------------------
+
+def span_digest(log) -> str:
+    """SHA-256 of a ``SpanLog``'s JSON (request, phase, start, end)."""
+    import hashlib
+    return hashlib.sha256(json.dumps(log.to_json(), sort_keys=True)
+                          .encode()).hexdigest()
+
+
+def launcher_text(raw: str) -> "tuple[str, ...]":
+    """The launcher's ``[plan:…]`` / ``[online:…]`` lines and tables:
+    its served tokens, metrics path and wall-clock seconds cut out."""
+    return tuple(re.sub(r" in [0-9.]+s wall", " in _s wall", ln)
+                 for ln in raw.splitlines()
+                 if not re.match(r"served |  req\d+: |metrics snapshot -> ",
+                                 ln))
+
+
+def run_launcher(argv):
+    """``launch.serve.main(argv)``: (its standard output, host seconds)."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def plan_engine(cfg, prompts):
+    """A planning-only ``ServingEngine(cfg, None)`` holding ``prompts``
+    (lengths), request i arriving at i x ``PLAN_ARRIVAL_GAP`` cycles."""
+    from repro_torch.serving.engine import ServingEngine
+    eng = ServingEngine(cfg, None, max_batch=MAX_BATCH)
+    for i, n in enumerate(prompts):
+        eng.submit(torch.zeros(n, dtype=torch.int64),
+                   arrival_time=i * PLAN_ARRIVAL_GAP)
+    return eng
+
+
+def price_cases(cfg, eng, cases, ref):
+    """Each (backend, units, policy) of ``cases`` priced by
+    ``evaluate_schedule`` and ``price_steps``: chosen policy, graph
+    cycles, per-step cycles and ``decode_latency_stats`` must equal
+    ``ref`` (the reference's, keyed "backend/policy"), and a span log
+    must validate.  Returns (a line per case, host seconds)."""
+    from repro_torch.serving.scheduler import (decode_latency_stats,
+                                               price_steps)
+    sweep, t_sweep = {}, time.perf_counter()
+    for name, units, policy in cases:
+        key = f"{name}/{policy}"
+        t0 = time.perf_counter()
+        sched, res = eng.evaluate_schedule(
+            name, max_new_tokens=MAX_NEW, units=units, policy=policy,
+            workload=False)
+        steps = price_steps(sched, name)
+        got = {"policy": sched.policy, "units": sched.units,
+               "steps": len(sched.steps), "graph_cycles": res.cycles,
+               "step_cycles": steps,
+               "stats": decode_latency_stats(sched, steps, cfg.n_layers)}
+        log = res.detail.get("span_log")
+        sweep[key] = {"policy": got["policy"], "steps": got["steps"],
+                      "graph_cycles": got["graph_cycles"],
+                      "ttft_p99": got["stats"]["ttft_p99"],
+                      "makespan": got["stats"]["makespan"],
+                      "equal_reference": got == ref[key],
+                      "span_violations": None if log is None
+                      else len(log.validate()),
+                      "host_s": time.perf_counter() - t0}
+        require(got == ref[key], f"plan {key}: {got} differs from the "
+                f"reference's {ref[key]}")
+        require(log is None or not log.validate(),
+                f"plan {key}: the span log does not validate")
+    return sweep, time.perf_counter() - t_sweep
+
+
+def phase_plan(cfg, launcher_reckoned):
+    """Planning-only ``ServingEngine(cfg, None)``s (yi-6b at full width
+    and depth) price the launcher's traffic (``PLAN_PROMPTS``) in each of
+    ``PLAN_CASES`` and the serve traffic (``serve_prompts``) in each of
+    ``PLAN_SERVE_CASES``, requests arriving every ``PLAN_ARRIVAL_GAP``
+    cycles (``price_cases``: equal to the reference's ``REFERENCE``,
+    recorded by ``scripts/record_smoke_constants.py``).  The launcher
+    traffic's full-prefill schedule then runs with ``example_operands`` on
+    the card through ``desim`` (one unit) and ``desim-cluster`` (4 units,
+    output-tile), TILE granularity: one K1 launch per matrix tile, by
+    tile as reckoned from the graph; every GEMM equal to one
+    ``cute_matmul`` bit for bit; the two backends' numbers equal; each
+    run's cycles those of the pricing and its span log valid.  Last,
+    ``launch.serve.main`` with ``--plan desim --metrics-out``: its plan
+    lines equal the reference launcher's, and it serves its 6 requests on
+    the card, K1's and K2's launches by tile equal to
+    ``launcher_reckoned``.  All cycles are simulated cycles of the
+    paper's CPU matrix unit, not card time."""
+    from repro_torch import backend
+    from repro_torch.core.fusion import cute_matmul
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.serving.scheduler import backend_kwargs_for
+    ref = REFERENCE["plan"]
+    eng = plan_engine(cfg, PLAN_PROMPTS)
+    sweep, sweep_s = price_cases(cfg, eng, PLAN_CASES, ref)
+    serve_sweep, serve_sweep_s = price_cases(
+        cfg, plan_engine(cfg, serve_prompts()), PLAN_SERVE_CASES,
+        REFERENCE["plan_serve"])
+
+    # the full-prefill schedule, executed through K1 on two backends
+    scheds = {"desim": eng.plan(MAX_NEW, units=1),
+              "desim-cluster": eng.plan(MAX_NEW, units=4)}
+    require(repr(scheds["desim"].layers)
+            == repr(scheds["desim-cluster"].layers),
+            "plan: the 1- and 4-unit schedules differ in their steps")
+    ops = scheds["desim-cluster"].example_operands(0, "cuda")
+    runs, outs, total = {}, {}, {}
+    for name, sched in scheds.items():
+        be = backend.get(name, **backend_kwargs_for(sched,
+                                                    units=sched.units))
+        graph = be.lower(sched)
+        if hasattr(be, "partition"):
+            graph = be.partition(graph).graph
+        reckoned = _reckon_tiles(graph)
+        torch.cuda.synchronize()
+        fused_matmul.launches = 0
+        fused_matmul.launches_by_tile = dict.fromkeys(reckoned, 0)
+        t0 = time.perf_counter()
+        r = eng.run_schedule(sched, name, operands=ops, workload=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_tile = dict(fused_matmul.launches_by_tile)
+        launched = fused_matmul.launches
+        exact = all(torch.equal(r.outputs[label],
+                                cute_matmul(a, b, backend="kernel"))
+                    for label, (a, b) in ops.items())
+        priced = ref[f"{name}/full-prefill"]["graph_cycles"]
+        bad_spans = r.detail["span_log"].validate()
+        runs[name] = {"units": sched.units, "matmul_nodes":
+                      graph.stats()["matmul"], "run_schedule_s": wall,
+                      "fused_matmul_by_tile": by_tile,
+                      "fused_matmul_by_tile_reckoned": reckoned,
+                      "bit_exact_vs_cute_matmul": exact,
+                      "simulated_cycles": r.cycles,
+                      "cycles_equal_pricing": r.cycles == priced,
+                      "span_violations": len(bad_spans)}
+        require(by_tile == reckoned and launched == sum(by_tile.values()),
+                f"plan exec {name}: K1 ran "
+                f"{by_tile} by tile, reckoned {reckoned}")
+        require(exact, f"plan exec {name}: a GEMM differs from cute_matmul")
+        require(r.cycles == priced and not bad_spans,
+                f"plan exec {name}: cycles {r.cycles} against {priced}, "
+                f"span violations {bad_spans}")
+        outs[name] = r.outputs
+        for t_, n in by_tile.items():
+            total[t_] = total.get(t_, 0) + n
+        del r
+    same = all(torch.equal(outs["desim"][k], outs["desim-cluster"][k])
+               for k in ops)
+    require(same and list(outs["desim"]) == list(ops),
+            "plan exec: desim and desim-cluster give different numbers")
+    del outs, ops
+
+    # the front door: launch.serve --plan desim --metrics-out
+    metrics_path = ROOT / "build" / "smoke_plan_metrics.json"
+    metrics_path.parent.mkdir(parents=True, exist_ok=True)
+    fused_matmul.launches_by_tile = dict.fromkeys(total, 0)
+    flash_attention.launches_by_tile = dict.fromkeys(
+        flash_attention.launches_by_tile, 0)
+    raw, launch_s = run_launcher(PLAN_LAUNCH_ARGV
+                                 + ["--metrics-out", str(metrics_path)])
+    k1_launch = dict(fused_matmul.launches_by_tile)
+    k2_launch = dict(flash_attention.launches_by_tile)
+    served = re.search(r"served (\d+) requests, (\d+) tokens on (\S+) "
+                       r"in ([0-9.]+)s", raw)
+    lines = launcher_text(raw)
+    want = REFERENCE["launcher"]["plan"]
+    snap = json.loads(metrics_path.read_text())
+    plans = sum(row["value"]
+                for row in snap["counters"].get("serving_plans_total", []))
+    emit({"phase": "plan", "config": f"{ARCH} full width and depth "
+          f"({cfg.n_layers} layers), planning only; prompts "
+          f"{list(PLAN_PROMPTS)}, arrival gap {PLAN_ARRIVAL_GAP:.0f} cycles",
+          "sweep": sweep, "sweep_host_s": sweep_s,
+          "serve_traffic": {"prompts": list(serve_prompts()),
+                            "sweep": serve_sweep,
+                            "sweep_host_s": serve_sweep_s},
+          "exec": runs,
+          "exec_backends_equal": same,
+          "launcher": {"argv": PLAN_LAUNCH_ARGV, "host_s": launch_s,
+                       "lines_equal_reference": lines == want,
+                       "served": served.group(0) if served else None,
+                       "fused_matmul_by_tile": k1_launch,
+                       "flash_attention_by_tile": k2_launch,
+                       "by_tile_reckoned": launcher_reckoned,
+                       "metrics_plans_total": plans},
+          "note": "cycles are simulated cycles of the paper's CPU matrix "
+                  "unit (2 GHz), not card time"})
+    require(lines == want, "plan: the launcher's plan lines differ from "
+            f"the reference's: {lines} against {want}")
+    require(served is not None and served.group(1) == "6"
+            and served.group(3) == "cuda" and plans >= 1,
+            "plan: the launcher did not serve its 6 requests on the card "
+            "or wrote no plan counter")
+    require(k1_launch == launcher_reckoned["fused_matmul"]
+            and k2_launch == launcher_reckoned["flash_attention"],
+            f"plan: the launcher's serving ran K1 {k1_launch}, K2 "
+            f"{k2_launch}, reckoned {launcher_reckoned}")
+    for t_, n in k1_launch.items():
+        total[t_] += n
+    torch.cuda.empty_cache()
+    return {"fused_matmul": sum(total.values()),
+            "fused_matmul_by_tile": total,
+            "flash_attention": sum(k2_launch.values()),
+            "flash_attention_by_tile": k2_launch}
+
+
+def phase_online(cfg):
+    """The online closed loop on yi-6b at full width (``ONLINE_ENGINE``:
+    chunked prefill, a hot KV pool small enough to evict and refill),
+    ``ONLINE_REQUESTS`` seeded Poisson arrivals at ``ONLINE_QPS``: its
+    ``OnlineResult.summary()`` (TTFT/ITL percentiles, goodput, epochs,
+    preemptions), the KV cache's counters and trace digest and the span
+    log's digest must equal the reference's, and the span log must
+    validate; then ``launch.serve.main`` with ``--qps`` once, its online
+    lines against the reference launcher's.  Host only: it proves the
+    front door runs on the card's machine, not the card's speed."""
+    from repro_torch.serving.arrivals import PoissonArrivals, qps_to_gap
+    from repro_torch.serving.online import OnlineServingEngine
+    t0 = time.perf_counter()
+    eng = OnlineServingEngine(cfg, **ONLINE_ENGINE)
+    res = eng.run(PoissonArrivals(mean_gap=qps_to_gap(ONLINE_QPS,
+                                                      eng.freq_hz),
+                                  n=ONLINE_REQUESTS, seed=0))
+    loop_s = time.perf_counter() - t0
+    got = {"summary": res.summary(), "kv": eng.kv_cache.counters,
+           "kv_digest": eng.kv_cache.trace_digest(),
+           "span_digest": span_digest(res.span_log),
+           "span_violations": res.span_log.validate()}
+    raw, launch_s = run_launcher(ONLINE_LAUNCH_ARGV)
+    lines = launcher_text(raw)
+    want = REFERENCE["launcher"]["online"]
+    emit({"phase": "online", "config": f"{ARCH} full width and depth, "
+          f"{ONLINE_REQUESTS} Poisson arrivals at {ONLINE_QPS:.0f} req/s "
+          f"(seed 0), {ONLINE_ENGINE}", **got,
+          "equal_reference": got == REFERENCE["online"],
+          "loop_host_s": loop_s,
+          "launcher": {"argv": ONLINE_LAUNCH_ARGV, "host_s": launch_s,
+                       "lines_equal_reference": lines == want},
+          "note": "cycles are simulated cycles of the paper's CPU matrix "
+                  "unit; the loop runs on the host"})
+    require(got == REFERENCE["online"], f"online: {got} differs from the "
+            f"reference's {REFERENCE['online']}")
+    require(res.n_preemptions > 0 and got["kv"]["refills"] > 0,
+            "online: no request was preempted or no KV block refilled")
+    require(lines == want, "online: the launcher's online lines differ "
+            f"from the reference's: {lines} against {want}")
+
+
+# ---------------------------------------------------------------------------
 # Where a prefill's and a decode step's device time goes (torch.profiler).
 # ---------------------------------------------------------------------------
 
@@ -1979,13 +2692,15 @@ def main() -> int:
     from repro_torch.kernels.rglru.ops import rglru_scan
     from repro_torch.kernels.rwkv6.ops import rwkv6_scan
     cfg, moe_cfg = get_config(ARCH), get_config(MOE_ARCH)
+    gemma_cfg = get_config(GEMMA_ARCH)
     g_cfg, r_cfg = get_config(GRIFFIN_ARCH), get_config(RWKV_ARCH)
     s_max = max(padded_lengths(prompt_lengths()[0]))
     dense = {"fused_matmul": fused_matmul, "flash_attention": flash_attention}
     # K1's launches by tile in each serving path, reckoned from the traffic:
     # 2 batches (prefills at 221 and 90 tokens, each with one logits call
     # at M = 4) and 2 x 15 decode steps, each with one logits call.  Per
-    # layer: yi-6b and OLMoE's attention 4 projections, yi-6b's MLP 2;
+    # layer: yi-6b's, gemma2-2b's and OLMoE's attention 4 projections,
+    # yi-6b's and gemma2-2b's MLP 2;
     # RecurrentGemma's recurrent blocks 5 and attention blocks 4, MLP 2 on
     # both, and its prefill runs the stack twice; RWKV-6's time mix 7 and
     # channel mix 3.
@@ -2003,18 +2718,21 @@ def main() -> int:
         "moe-serve": reckon(4 * moe_cfg.n_layers),
         "griffin-serve": reckon(7 * (g_cfg.n_layers - g_attn) + 6 * g_attn,
                                 passes=2),
-        "rwkv-serve": reckon(10 * r_cfg.n_layers)}
+        "rwkv-serve": reckon(10 * r_cfg.n_layers),
+        "gemma-serve": reckon(6 * gemma_cfg.n_layers)}
     # K4: both expert GEMMs of every OLMoE layer, the prefills' (C = 144
     # and 64) on the tensor-core tile, the decode steps' (C = 8) on the
     # decode tile: 64 tc and 960 decode launches
     k4_tiles = reckon(2 * moe_cfg.n_layers, logits=0)
     # K2: one prefill call an attention layer, a pass and a batch, all bf16
     # at head_dim 128 or 256 on the tensor-core tile: yi-6b 32 x 2 = 64,
-    # OLMoE 16 x 2 = 32, RecurrentGemma 8 x 2 passes x 2 = 32
+    # OLMoE 16 x 2 = 32, RecurrentGemma 8 x 2 passes x 2 = 32, gemma2-2b
+    # 26 x 2 = 52
     k2_tiles = {
         "serve": {"tc": 2 * cfg.n_layers, "simt": 0},
         "moe-serve": {"tc": 2 * moe_cfg.n_layers, "simt": 0},
-        "griffin-serve": {"tc": 2 * 2 * g_attn, "simt": 0}}
+        "griffin-serve": {"tc": 2 * 2 * g_attn, "simt": 0},
+        "gemma-serve": {"tc": 2 * gemma_cfg.n_layers, "simt": 0}}
     # K6: one call a time-mix layer and a prefill, bf16 at head size 64 on
     # the tensor-core tile: 32 x 2 = 64 (a decode step runs the oracle's
     # single step, no K6)
@@ -2024,8 +2742,9 @@ def main() -> int:
         served = {ARCH: served_k1_calls(ARCH, 1),
                   MOE_ARCH: served_k1_calls(MOE_ARCH, 1),
                   GRIFFIN_ARCH: served_k1_calls(GRIFFIN_ARCH, 3),
-                  RWKV_ARCH: served_k1_calls(RWKV_ARCH, 1)}
-        phase_kernels(cfg, moe_cfg, s_max, served)
+                  RWKV_ARCH: served_k1_calls(RWKV_ARCH, 1),
+                  GEMMA_ARCH: served_k1_calls(GEMMA_ARCH, 2)}
+        phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served)
         phase_kernels_recurrent(g_cfg, r_cfg, s_max)
         phase_parity(ARCH, "parity")
         phase_parity(MOE_ARCH, "moe-parity")
@@ -2057,6 +2776,19 @@ def main() -> int:
         phase_profile(MOE_ARCH, "moe-profile", s_max)
         phase_profile(GRIFFIN_ARCH, "griffin-profile", s_max)
         phase_profile(RWKV_ARCH, "rwkv-profile", s_max)
+        launches["paged"] = phase_paged(cfg, g_cfg, s_max)
+        phase_parity(GEMMA_ARCH, "gemma-parity")
+        launches["gemma-serve"] = phase_serve(
+            GEMMA_ARCH, "gemma-serve", dense,
+            {"fused_matmul": k1_tiles["gemma-serve"],
+             "flash_attention": k2_tiles["gemma-serve"]})
+        # the launcher's 6 requests make 2 batches (of 4 and 2, prompts
+        # of 13 and 15 padded tokens, K1's tensor-core tile) and 2 x 15
+        # decode steps, as the serve traffic does: the same reckoning
+        launches["plan"] = phase_plan(
+            cfg, {"fused_matmul": k1_tiles["serve"],
+                  "flash_attention": k2_tiles["serve"]})
+        phase_online(cfg)
         launches["w8a8"] = phase_w8a8(cfg, s_max)
         kernels = phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, launches)
     except PhaseFailed as e:

@@ -3,24 +3,32 @@
 One :class:`~repro_torch.backend.base.Backend` protocol —
 ``dispatch(task, operands) -> handle``, ``check(handle)``,
 ``wait(handle)``, ``run_graph(TaskGraph)`` — with first-class
-granularity (``tile | panel | layer``) and epilogue fusion, and three
-registered implementations:
+granularity (``tile | panel | layer``), epilogue fusion and a cluster
+``units`` dimension, and five registered implementations:
 
-=================  =======================================================
-``get("kernel")``  the hand-written CUDA fused matmul (K1), one launch
-                   per matrix tile of the graph (the reference's
-                   ``pallas``)
-``get("torch")``   ``torch.matmul`` + the epilogue as tensor ops (the
-                   reference's ``jax``)
-``get("desim")``   the discrete-event machine model — per-resource
-                   timelines in simulated cycles of the paper's CPU
-                   matrix unit — and, given operands, the numbers from
-                   executing the *same* graph on the default route
-=================  =======================================================
+=========================  =================================================
+``get("kernel")``          the hand-written CUDA fused matmul (K1), one
+                           launch per matrix tile of the graph (the
+                           reference's ``pallas``)
+``get("torch")``           ``torch.matmul`` + the epilogue as tensor ops
+                           (the reference's ``jax``)
+``get("desim")``           the discrete-event machine model — per-resource
+                           timelines in simulated cycles of the paper's CPU
+                           matrix unit — and, given operands, the numbers
+                           from executing the *same* graph on the default
+                           route
+``get("analytical")``      ``core.simulator`` closed forms, contention-
+                           aware at ``units=N`` — cycles only
+``get("desim-cluster")``   N matrix units behind one shared, bandwidth-
+                           partitioned loader (``sim.partition`` shards
+                           the graph) — contended per-unit timelines, and
+                           given operands the partitioned graph executed
+                           on the default route
+=========================  =================================================
 
 The registry also holds the model zoo's matmul route
 (``set_default_matmul_backend``; ``"kernel"`` by default).  The
-reference's analytical, cluster and sharded backends and its tuned
+reference's ``sharded`` backend (``shard_map`` over a mesh) and its tuned
 dispatch are not ported yet.
 
 Typical use::
@@ -45,6 +53,8 @@ from repro_torch.backend.registry import (ALIASES, available,
 # Importing the implementation modules registers them.
 from repro_torch.backend.eager import KernelBackend, TorchBackend
 from repro_torch.backend.desim_backend import DESimBackend
+from repro_torch.backend.analytical_backend import AnalyticalBackend
+from repro_torch.backend.cluster_backend import ClusterDESimBackend
 
 __all__ = [
     "Backend", "DispatchHandle", "ExecResult", "MatMulOperands",
@@ -52,5 +62,6 @@ __all__ = [
     "ALIASES", "available", "default_matmul_backend", "get",
     "matmul_backend_string", "register", "resolve",
     "set_default_matmul_backend",
-    "KernelBackend", "TorchBackend", "DESimBackend",
+    "KernelBackend", "TorchBackend", "DESimBackend", "AnalyticalBackend",
+    "ClusterDESimBackend",
 ]

@@ -4,7 +4,8 @@ The paper's central software claim is that a single asynchronous matmul
 abstraction "conceals hardware details … and supports a unified software
 stack" across four CPU platforms.  :class:`Backend` is that abstraction
 for this repository: every engine — plain torch ops, the hand-written
-CUDA fused-matmul kernel, the discrete-event machine model — implements
+CUDA fused-matmul kernel, the discrete-event machine model, the
+closed-form analytical model — implements
 the same four verbs with the paper's vocabulary:
 
 * ``dispatch(task, operands) -> DispatchHandle`` — ``asyncMatMul``:
@@ -127,9 +128,9 @@ class Backend(abc.ABC):
         from repro_torch.sim.graph import Granularity
         if units != 1 and not self.supports_units:
             raise ValueError(
-                f"backend {self.name!r} models a single matrix unit; "
-                f"units={units} needs a cluster backend, which the port "
-                "does not have yet")
+                f"backend {self.name!r} models a single matrix unit; for "
+                f"units={units} use 'desim-cluster' (timelines) or "
+                "'analytical' (the contention-aware closed form)")
         self.unit = unit
         self.platform = platform
         self.vector = vector
@@ -233,7 +234,8 @@ class Backend(abc.ABC):
         only); same dict shape as ``core.simulator.simulate_workload``."""
         raise NotImplementedError(
             f"backend {self.name!r} executes numbers but has no workload "
-            "cost model; use backend.get('desim')")
+            "cost model; use backend.get('desim') or "
+            "backend.get('analytical')")
 
     def __repr__(self) -> str:
         return (f"<{type(self).__name__} {self.name!r} "

@@ -5,7 +5,8 @@ matmul route.
 front door goes through; registering a new engine is a
 ``@register("name")`` decoration away.  ``ALIASES`` accepts the
 reference's spellings: ``"jax"`` and ``"xla"`` name the plain-ops route
-``"torch"``, ``"pallas"`` the CUDA kernel route ``"kernel"``.
+``"torch"``, ``"pallas"`` the CUDA kernel route ``"kernel"``, and
+``"analytic"`` the closed form ``"analytical"``.
 
 The reference's tuned capability dispatch (``get_tuned``,
 ``tuned_config``, ...) needs its ``tune`` package, which the port has not
@@ -21,7 +22,8 @@ from repro_torch.backend.base import Backend
 _REGISTRY: "dict[str, Type[Backend]]" = {}
 
 #: the reference's backend names -> the port's registry names.
-ALIASES = {"jax": "torch", "xla": "torch", "pallas": "kernel"}
+ALIASES = {"analytic": "analytical", "jax": "torch", "xla": "torch",
+           "pallas": "kernel"}
 
 
 def register(name: str, *,

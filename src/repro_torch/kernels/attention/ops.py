@@ -18,6 +18,16 @@ from repro_torch.kernels.attention.attention import (TILES,
                                                      flash_attention_plain)
 
 
+def _pad_axis(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
+    """Zero-pad ``x`` along ``axis`` up to a multiple of ``mult``."""
+    pad = (-x.shape[axis]) % mult
+    if pad == 0:
+        return x
+    widths = [0, 0] * (x.ndim - axis % x.ndim)
+    widths[-1] = pad
+    return torch.nn.functional.pad(x, widths)
+
+
 def flash_attention(q, k, v, *, sm_scale: Optional[float] = None,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_start: int = 0):

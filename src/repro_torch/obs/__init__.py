@@ -1,15 +1,16 @@
-"""Observability: metrics registry and instrumentation.
+"""Observability: metrics registry, lifecycle spans, instrumentation.
 
 * :mod:`repro_torch.obs.metrics` — counters / gauges / histograms with
   ``p50/p90/p99``, JSON-snapshot and Prometheus-text exporters, behind
   a **disabled-by-default** process registry (a copy of the reference's
   ``repro/obs/metrics.py``);
+* :mod:`repro_torch.obs.spans` — per-request lifecycle :class:`SpanLog`
+  (``arrival → admission → prefill(.chunk_j) → decode_iter_k →
+  complete``) joined from a :class:`BatchSchedule` and a priced
+  timeline (a copy of the reference's ``repro/obs/spans.py``);
 * :func:`instrument` — the shared decorator the backend wrappers put on
   ``run_graph`` / ``run_workload``: wall-clock timings into the default
   registry, one attribute check and a plain call when it is disabled.
-
-The reference's per-request lifecycle spans (``obs/spans.py``) read the
-serving scheduler's schedules, which the port has not carried over yet.
 """
 
 from __future__ import annotations
@@ -21,10 +22,12 @@ from repro_torch.obs.metrics import (Counter, Gauge, Histogram,
                                      MetricsRegistry, NULL_METRIC,
                                      default_registry, disable_metrics,
                                      enable_metrics)
+from repro_torch.obs.spans import Span, SpanAssembler, SpanLog
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL_METRIC",
-    "default_registry", "disable_metrics", "enable_metrics", "instrument",
+    "Span", "SpanAssembler", "SpanLog", "default_registry",
+    "disable_metrics", "enable_metrics", "instrument",
 ]
 
 

@@ -137,8 +137,9 @@ def workload_to_graph(unit: MatrixUnitConfig, layers: "list[LayerTrace]", *,
           over-approximation every pre-overlap caller used.
         * ``"relaxed"`` — step *i*'s deps are only the sinks of the
           steps named by ``step_deps[i]`` (its true data hazards, e.g.
-          the per-request KV/activation chain the reference's
-          ``serving.engine.BatchSchedule.step_deps`` computes).  Steps with no hazard between them carry **no
+          the per-request KV/activation chain a
+          :meth:`~repro_torch.serving.engine.BatchSchedule.step_deps`
+          computes).  Steps with no hazard between them carry **no
           edge**: placed on disjoint units they genuinely run
           concurrently, and per-unit resource ordering is left to the
           DES (same-unit steps still serialise on the dispatcher, banks
@@ -153,7 +154,7 @@ def workload_to_graph(unit: MatrixUnitConfig, layers: "list[LayerTrace]", *,
         and approximated by the analytical backend.  ``None`` means
         everything is available at t = 0.
     :param refill_bytes: per-step KV-cache refill bytes (paged-KV
-        residency — the reference's ``serving.kvcache``): a step owing a
+        residency — see :mod:`repro_torch.serving.kvcache`): a step owing a
         nonzero refill gets a ``memory`` node ``<name>/kv_refill``
         *ahead of its tiles*, riding the shared/private
         ``BandwidthResource`` loaders exactly like a spill round-trip,

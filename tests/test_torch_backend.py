@@ -71,13 +71,15 @@ def _run_both(name_j, name_t, gran, task_kw, a, b, j_ep=None, t_ep=None,
 
 class TestRegistry:
     def test_available(self):
-        assert backend.available() == ("desim", "kernel", "torch")
+        assert backend.available() == ("analytical", "desim",
+                                       "desim-cluster", "kernel", "torch")
 
     @pytest.mark.parametrize("alias,canon", [("jax", "torch"),
                                              ("xla", "torch"),
                                              ("pallas", "kernel"),
                                              ("kernel", "kernel"),
-                                             ("desim", "desim")])
+                                             ("desim", "desim"),
+                                             ("analytic", "analytical")])
     def test_aliases_resolve(self, alias, canon):
         assert backend.resolve(alias) == canon
         assert backend.get(alias).name == canon
@@ -442,3 +444,65 @@ def test_kernel_backend_counts_no_launch_on_cpu():
     eng.run_graph(eng.lower(MatMulTask(m=M, n=N, k=K)),
                   backend.MatMulOperands(to_torch(a), to_torch(b)))
     assert mm_ops.fused_matmul.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The analytical and cluster backends.
+# ---------------------------------------------------------------------------
+
+class TestAnalyticalAndCluster:
+    def test_analytic_alias_resolves_as_in_the_reference(self):
+        assert backend.resolve("analytic") == j_backend.resolve("analytic") \
+            == "analytical"
+        assert backend.get("analytic").name == "analytical"
+
+    @pytest.mark.parametrize("name", ["analytical", "desim-cluster"])
+    def test_capability_flags_equal_the_reference(self, name):
+        t, j = backend.get(name, units=2), j_backend.get(name, units=2)
+        for flag in ("executes", "models_time", "supports_units", "units"):
+            assert getattr(t, flag) == getattr(j, flag), flag
+        with pytest.raises(ValueError):
+            backend.get(name, units=2, strategy="diagonal")
+
+    @pytest.mark.parametrize("units,strategy", [(1, "row-panel"),
+                                                (2, "row-panel"),
+                                                (4, "output-tile"),
+                                                (3, "layer-pipeline")])
+    @pytest.mark.parametrize("name", ["analytical", "desim-cluster"])
+    def test_cycles_equal_the_reference(self, name, units, strategy):
+        for task_kw in (dict(m=512, n=512, k=4096), dict(m=M, n=N, k=K)):
+            je = j_backend.get(name, units=units, strategy=strategy)
+            te = backend.get(name, units=units, strategy=strategy)
+            jr = je.run_graph(je.lower(JTask(**task_kw)))
+            tr = te.run_graph(te.lower(MatMulTask(**task_kw)))
+            assert (tr.cycles, tr.utilization, tr.seconds) == \
+                (jr.cycles, jr.utilization, jr.seconds)
+            assert tr.detail == jr.detail or name == "desim-cluster"
+            if name == "desim-cluster":
+                for key in ("utilizations", "unit_utilizations",
+                            "loader_utilization", "loader_contention",
+                            "step_spans", "partition"):
+                    assert tr.detail[key] == jr.detail[key], key
+
+    @pytest.mark.parametrize("gran", GRANS)
+    def test_cluster_executes_int8_bit_exact(self, gran):
+        a, b = _int8(7, (M, K), (K, N))
+        task_kw = dict(m=M, n=N, k=K)
+        je = j_backend.get("desim-cluster", units=2, strategy="output-tile",
+                           granularity=gran)
+        te = backend.get("desim-cluster", units=2, strategy="output-tile",
+                         granularity=gran)
+        jr = je.run_graph(je.lower(JTask(**task_kw)), j_backend.MatMulOperands(
+            a=jnp.asarray(a), b=jnp.asarray(b)))
+        tr = te.run_graph(te.lower(MatMulTask(**task_kw)),
+                          backend.MatMulOperands(a=to_torch(a),
+                                                 b=to_torch(b)))
+        assert tr.cycles == jr.cycles
+        assert np.array_equal(tr.output.numpy(), np.asarray(jr.output))
+
+    def test_analytical_returns_cycles_without_numbers(self):
+        te, je = backend.get("analytical"), j_backend.get("analytical")
+        tr = te.run_graph(te.lower(MatMulTask(m=64, n=64, k=64)))
+        jr = je.run_graph(je.lower(JTask(m=64, n=64, k=64)))
+        assert tr.output is None and jr.output is None
+        assert tr.cycles == jr.cycles > 0

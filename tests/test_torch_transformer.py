@@ -205,7 +205,7 @@ def test_generate_greedy_matches_forward_argmax():
 def test_unported_parts_raise():
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError):
-        get_config("gemma2-2b")
+        get_config("whisper-tiny")
     with pytest.raises(NotImplementedError):
         family_module(tcfg.with_(family="encdec"))
     with pytest.raises(ValueError):
@@ -222,8 +222,14 @@ def test_launcher_serves_on_cpu_and_refuses_unported_modes(capsys):
                 "--max-new", "3"])
     out = capsys.readouterr().out
     assert "served 3 requests, 9 tokens on cpu" in out
-    with pytest.raises(SystemExit, match="not yet ported"):
-        serve.main(["--reduced", "--device", "cpu", "--plan", "desim"])
+    serve.main(["--reduced", "--device", "cpu", "--requests", "2",
+                "--max-new", "2", "--plan", "desim"])
+    out = capsys.readouterr().out
+    assert out.startswith("[plan:desim] policy=full-prefill: 2 steps")
+    assert "served 2 requests, 4 tokens on cpu" in out
+    with pytest.raises(SystemExit):           # the encoder-decoder family
+        serve.main(["--arch", "whisper-tiny", "--reduced", "--device",
+                    "cpu"])
 
 
 def test_launcher_serves_olmoe_on_cpu(capsys):
