@@ -13,13 +13,17 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 version, at the paths' shapes plus ragged, int8,
                 fp32/fp16, masking and rounding-tie cases, with the
                 reference test suite's tolerances (K3 bit for bit); K1
-                at every distinct call of the five served models (recorded
+                at every distinct call of the eight served models (recorded
                 from one prefill and one decode step at cut depth) at the
-                prefill and decode row counts, and K4 at OLMoE's served
-                capacities (C = 144, 64, 8, with and without the rows of
-                a seeded routing), K2 at the four attention paths'
-                shapes (gemma2-2b's local and global layers with its
-                softcap 50 at head_dim 256), ragged, masked, softcapped and on the transposed
+                prefill and decode row counts (Whisper's, internvl2-1b's
+                and gemma2-27b's at their own served rows), and K4 at
+                OLMoE's served capacities (C = 144, 64, 8, with and
+                without the rows of a seeded routing), K2 at the
+                attention paths' shapes (gemma2-2b's local and global
+                layers with its softcap 50 at head_dim 256; Whisper's
+                encoder and cross-attention over 1500 frames,
+                internvl2-1b's group of 7, gemma2-27b's local and global
+                layers), ragged, masked, softcapped and on the transposed
                 views the models pass, each query row against its own
                 scale (``row_rel_err``), each case on the tile that
                 serves it (``launches_by_tile``);
@@ -75,7 +79,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 host's time a dispatch, the DES's host time and the
                 metrics registry's ``backend_calls_total`` and
                 ``backend_seconds`` p50;
-12. profile, moe-profile, griffin-profile, rwkv-profile — device time by
+12. profile, moe-profile, griffin-profile, rwkv-profile (and, after
+    phase 15, gemma27-profile) — device time by
                 kernel of one prefill and over a few decode steps of each
                 served model (``torch.profiler``), K1's by tile, the
                 device's idle share of a decode step, and for tied
@@ -92,7 +97,21 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 for gemma2-2b (softcaps 50 in K2 and 30 in K1's logits,
                 head_dim 256, tied embeddings), K1's and K2's launches by
                 tile against the counts reckoned from the traffic;
-15. plan       — a planning-only ``ServingEngine(cfg, None)`` on yi-6b at
+15. whisper-parity, whisper-serve, internvl-parity, internvl-serve,
+    gemma27-parity, gemma27-serve — phase 4's parity (fp32: Whisper at
+                full size, 4 + 4 layers; internvl2-1b 4 layers; gemma2-27b
+                one (local, global) pair) with seeded stub-frontend
+                inputs that differ by row, and phase 6's traffic at full
+                size in bf16: Whisper's non-GLU GELU MLP and its K2 calls
+                over 1500 audio frames (the encoder, and the
+                cross-attention at prefill and at every decode step),
+                internvl2-1b's QKV bias and GQA 14/2 on prompts of 256
+                vision-prefix positions and the text, gemma2-27b (27.2 B
+                parameters, 54.45 GB) with its 73,728-wide GLU and tied
+                256,000-wide logits; K1's and K2's launches by tile
+                against the counts reckoned from the traffic, peak memory
+                over the initialisation and over the run;
+16. plan       — a planning-only ``ServingEngine(cfg, None)`` on yi-6b at
                 full width prices the launcher's traffic on ``desim``,
                 ``analytical`` and ``desim-cluster`` under three policies,
                 and the serve traffic on ``analytical`` under the three
@@ -104,19 +123,29 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 ``cute_matmul``, equal to each other, launches by tile as
                 reckoned); then
                 ``launch.serve --plan desim --metrics-out``;
-16. online     — the online closed loop (Poisson arrivals, chunked
+17. tune       — the full-space autotune of the four platforms
+                regenerating the shipped tuning caches byte for byte,
+                ``measure_decode_regime`` equal to the reference's, and
+                the launcher's traffic planned with ``tuned=True`` on 2
+                units and run with operands through
+                ``get_tuned("desim-cluster")``: K1 at the cache's panel
+                granularity, bit-exact against ``cute_matmul``, launches
+                by tile as reckoned, cycles the reference's;
+18. online     — the online closed loop (Poisson arrivals, chunked
                 prefill, a paged KV pool that evicts and refills) equal to
                 the reference's, and ``launch.serve --qps``; host only;
-17. w8a8       — yi-6b's MLP at full width through ``quantize_mlp`` and
+19. w8a8       — yi-6b's MLP at full width through ``quantize_mlp`` and
                 the W8A8 layers (row-quantiser kernel, int8 fused matmul)
                 against the plain route and the float MLP;
-18. the ``kernels`` line: per kernel, its launches in the paths above, its
+20. the ``kernels`` line: per kernel, its launches in the paths above, its
    time at the paths' largest shapes beside its plain version, a library
    call and its roofline bound; K1 at prefill (tensor-core tile), decode
    and logits (decode tile), K4 at prefill (tensor-core tile), at decode
    with every row full and with a seeded routing's rows (decode tile), K2
-   at head_dim 128 and 256 and K6 at RWKV-6's prefill shape (tensor-core
-   tiles, beside the SIMT tiles at the same shapes), timed from CUDA-graph
+   at head_dim 128 and 256 and at Whisper's encoder and cross-attention
+   decode shapes (head_dim 64), and K6 at RWKV-6's prefill shape
+   (tensor-core tiles, beside the SIMT tiles at the same shapes), timed
+   from CUDA-graph
    replays; K3 and K5 from CUDA-graph replays over copies of their inputs
    that together exceed the L2 (``rotating``), with the older single-call
    timing beside it.
@@ -165,6 +194,23 @@ TOL_BF16, TOL_FP32 = 3e-2, 1e-5
 # limit is 2.6 times the widest reading.
 TOL_FLASH_BF16, TOL_FLASH_FP32 = 2e-2, 1e-3
 GEMMA_ARCH = "gemma2-2b"
+# this slice's served models: Whisper's encoder-decoder at full size (4 +
+# 4 layers, 1500 audio frames), internvl2-1b (its 256 vision-prefix
+# embeddings replace the first 256 of each prompt's positions, so its
+# prompts are 256 placeholder tokens and the serve traffic's text) and
+# gemma2-27b (27.2 B parameters, 54.45 GB in bf16 of the card's 80)
+WHISPER_ARCH, INTERNVL_ARCH, GEMMA27_ARCH = ("whisper-tiny", "internvl2-1b",
+                                             "gemma2-27b")
+INTERNVL_PARITY_LAYERS = 4
+GEMMA27_PARITY_LAYERS = 2           # one (local, global) pair
+# the tune phase: the launcher's traffic planned with tuned=True on 2
+# units under decode-priority (the tuning cache's "sched|u2|decode"
+# bucket: granularity "panel" on the dispatch platform, shuttle), all
+# requests arriving at 0 as the launcher's default --arrival-gap has it:
+# with PLAN_ARRIVAL_GAP the reference's fair-share loader exhausts the
+# DES's event budget on this schedule (after 138 s on a CPU host), and
+# the port keeps that loader verbatim
+TUNE_UNITS, TUNE_POLICY = 2, "decode-priority"
 PAGED_BLOCK = 16                    # KV tokens a page
 # planning (phase ``plan``), request i arriving at i x PLAN_ARRIVAL_GAP
 # simulated cycles (1 ms at the paper's unit's 2 GHz); ``desim`` models
@@ -490,7 +536,42 @@ REFERENCE = {'launcher': {'online': ('[online:analytical] offered=16 req/s '
                                                                            748822784.9278865,
                                                                            1069295897.9711187],
                                                            'steps': 4,
-                                                           'units': 4}}}
+                                                           'units': 4}},
+             'tune': {'regime': {'boom': {'fusion_speedup': 2.524830244234549,
+                                          'speedup': 2.524830244234549,
+                                          'tuned': 111566.80193236712,
+                                          'tuned_speedup': 1.1432390671856747,
+                                          'tuned_unfused': 281687.23577136605,
+                                          'untuned': 127547.52657004831,
+                                          'untuned_unfused': 281687.23577136605},
+                                 'kunminghu': {'fusion_speedup': 2.50951003901761,
+                                               'speedup': 2.50951003901761,
+                                               'tuned': 112484.27053140095,
+                                               'tuned_speedup': 1.1725287709577346,
+                                               'tuned_unfused': 282280.4061301234,
+                                               'untuned': 131891.04347826086,
+                                               'untuned_unfused': 282280.4061301234},
+                                 'rocket': {'fusion_speedup': 2.5261790994014754,
+                                            'speedup': 2.5261790994014754,
+                                            'tuned': 111510.82125603859,
+                                            'tuned_speedup': 1.143666826381964,
+                                            'tuned_unfused': 281696.30601409846,
+                                            'untuned': 127531.2270531401,
+                                            'untuned_unfused': 281696.30601409846},
+                                 'shuttle': {'fusion_speedup': 2.5247726571701805,
+                                             'speedup': 2.5247726571701805,
+                                             'tuned': 111571.26570048308,
+                                             'tuned_speedup': 1.143273084874761,
+                                             'tuned_unfused': 281692.0809664489,
+                                             'untuned': 127556.4251207729,
+                                             'untuned_unfused': 281692.0809664489}},
+                      'sched': {'bucket': 'sched|u2|decode',
+                                'config': {'granularity': 'panel'},
+                                'graph_cycles': 25493485.07246102,
+                                'overlap': 'chained',
+                                'policy': 'decode-priority',
+                                'steps': 5,
+                                'units': 2}}}
 
 TOL_WKV_FP32 = 1e-4
 TOL_PATH = 1e-4
@@ -705,13 +786,14 @@ def plain_matmul(a, b, ep, ops):
 
 def attention_case(gen, b, h, hkv, sq, sk, d, dtype, transposed=False):
     """q (b, h, sq, d), k and v (b, hkv, sk, d); ``transposed``: each is a
-    (b, s, heads, d) tensor seen through ``transpose(1, 2)``."""
-    if transposed:
-        return tuple(_rand(gen, (b, s, n, d), dtype).transpose(1, 2)
-                     for s, n in ((sq, h), (sk, hkv), (sk, hkv)))
-    return (_rand(gen, (b, h, sq, d), dtype),
-            _rand(gen, (b, hkv, sk, d), dtype),
-            _rand(gen, (b, hkv, sk, d), dtype))
+    (b, s, heads, d) tensor seen through ``transpose(1, 2)``; ``"q"``: q
+    alone is (Whisper's cross-attention, whose K and V are cached)."""
+    def make(s, n, view):
+        if view:
+            return _rand(gen, (b, s, n, d), dtype).transpose(1, 2)
+        return _rand(gen, (b, n, s, d), dtype)
+    return (make(sq, h, bool(transposed)), make(sk, hkv, transposed is True),
+            make(sk, hkv, transposed is True))
 
 
 def run_attention(q, k, v, **kw):
@@ -783,41 +865,69 @@ def ties_rows(gen, m, k, dtype):
     return x.to(dtype)
 
 
-def served_k1_calls(arch, n_layers):
-    """Every distinct K1 call, as (k, n, glu, activation, softcap, bias,
-    out dtype), that one prefill and one decode step of ``arch`` at full
-    width, cut to ``n_layers`` layers, make in bf16."""
+def stub_inputs(cfg, b, gen):
+    """The stub frontends' inputs of a batch of ``b`` rows, seeded and
+    different by row: Whisper's audio frame embeddings, InternVL's
+    vision-prefix embeddings (none for the other models)."""
+    out = {}
+    if cfg.encdec is not None:
+        out["audio_embeds"] = torch.randn(
+            (b, cfg.encdec.n_audio_ctx, cfg.d_model), generator=gen,
+            device="cuda")
+    if cfg.vision_prefix:
+        out["vision_embeds"] = torch.randn(
+            (b, cfg.vision_prefix, cfg.d_model), generator=gen,
+            device="cuda")
+    return out
+
+
+def served_k1_calls(arch, n_layers, prompt=None):
+    """Every distinct K1 call that one prefill and one decode step of
+    ``arch`` at full width, cut to ``n_layers`` layers, make in bf16, as
+    (rows, k, n, glu, activation, softcap, bias, out dtype).  Without
+    ``prompt`` the step runs at batch 1 on 16 tokens and ``rows`` is
+    (4 x the longest serve prompt, the serve batch): the served row
+    counts of the decoder-only models.  With ``prompt`` it runs at the
+    serve batch on ``prompt`` tokens (the stub frontends' inputs
+    included), and ``rows`` is each call's own row count."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.models.base import family_module
     cfg = get_config(arch).with_(n_layers=n_layers)
     mod = family_module(cfg)
-    params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(8),
-                      "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    params = mod.init(cfg, gen, "cuda")
+    b, s = (1, 16) if prompt is None else (MAX_BATCH, prompt)
     calls = {}
     inner = mm_ops.fused_matmul_cuda      # the wrapper's 2-D launch
 
-    def recording(a, b, ep, ops):
-        calls[(a.shape[1], b.shape[1], ep.glu, ep.activation, ep.softcap,
-               ep.bias_type.name.lower(), ep.out_dtype)] = None
-        return inner(a, b, ep, ops)
+    def recording(a, b_, ep, ops):
+        rows = None if prompt is None else a.shape[0]
+        calls[(rows, a.shape[1], b_.shape[1], ep.glu, ep.activation,
+               ep.softcap, ep.bias_type.name.lower(), ep.out_dtype)] = None
+        return inner(a, b_, ep, ops)
 
     mm_ops.fused_matmul_cuda = recording
     try:
-        tokens = torch.randint(0, cfg.vocab_size, (1, 16), device="cuda")
-        cache = mod.init_cache(cfg, 1, 32, device="cuda")
-        logits, cache = mod.prefill(cfg, params, {"tokens": tokens}, cache)
-        mod.decode_step(cfg, params, logits.argmax(-1)[:, None], cache, 16)
+        tokens = torch.randint(0, cfg.vocab_size, (b, s), device="cuda")
+        cache = mod.init_cache(cfg, b, s + 16, device="cuda")
+        logits, cache = mod.prefill(
+            cfg, params, {"tokens": tokens, **stub_inputs(cfg, b, gen)},
+            cache)
+        mod.decode_step(cfg, params, logits.argmax(-1)[:, None], cache, s)
         torch.cuda.synchronize()
     finally:
         mm_ops.fused_matmul_cuda = inner
     del params, cache
     torch.cuda.empty_cache()
-    return list(calls)
+    s_max = max(padded_lengths(prompt_lengths()[0]))
+    return [((4 * s_max, MAX_BATCH) if rows is None else (rows,), *call)
+            for rows, *call in calls]
 
 
 def phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served):
     """``served``: arch -> its distinct K1 calls (``served_k1_calls``)."""
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels.attention.ops import flash_attention
     from repro_torch.kernels.matmul.ops import fused_matmul
     from repro_torch.kernels.moe.ops import grouped_matmul
@@ -878,8 +988,8 @@ def phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served):
     # every served model's K1 calls at its prefill and decode rows; the
     # logits (fp32 out) run only at the decode rows, as they are served
     for arch, calls in served.items():
-        for k, n, glu, act, softcap, bias, out_dt in calls:
-            for m in (4 * s_max, MAX_BATCH):
+        for rows, k, n, glu, act, softcap, bias, out_dt in calls:
+            for m in rows:
                 if out_dt == torch.float32 and m > MAX_ROWS_DECODE:
                     continue
                 check_mm(f"{arch} ({m},{k})@({k},{n}){' GLU' * glu} {act}"
@@ -940,6 +1050,40 @@ def phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served):
                    transposed=True, causal=True, window=window,
                    softcap=gemma_cfg.attn_softcap,
                    sm_scale=gemma_cfg.sm_scale)
+    # this slice's served attention: Whisper's non-causal encoder over
+    # its 1500 frames and its cross-attention (q a transposed view, the
+    # cached K/V contiguous) at prefill and at every decode step;
+    # internvl2-1b's prefill over the vision prefix and the text (GQA 14/2,
+    # group 7); gemma2-27b's local and global layers (GQA 32/16, softcap
+    # 50, query scale 144^-0.5)
+    w_cfg, iv_cfg, g27_cfg = (get_config(a) for a in (
+        WHISPER_ARCH, INTERNVL_ARCH, GEMMA27_ARCH))
+    wh, wd, ta = w_cfg.n_heads, w_cfg.head_dim, w_cfg.encdec.n_audio_ctx
+    check_attn(f"whisper encoder b=4 {wh}/{wh} s={ta} d={wd} non-causal "
+               "bf16 transposed views", TOL_FLASH_BF16, "tc",
+               (MAX_BATCH, wh, wh, ta, ta, wd), bf16, transposed=True,
+               causal=False)
+    for sq in (s_max, 1):
+        check_attn(f"whisper cross b=4 {wh}/{wh} Sq={sq} Sk={ta} d={wd} "
+                   "bf16, q a transposed view", TOL_FLASH_BF16, "tc",
+                   (MAX_BATCH, wh, wh, sq, ta, wd), bf16, transposed="q",
+                   causal=False)
+    s_iv = iv_cfg.vision_prefix + s_max
+    check_attn(f"internvl2-1b path b=4 {iv_cfg.n_heads}/{iv_cfg.n_kv_heads} "
+               f"s={s_iv} d={iv_cfg.head_dim} bf16 transposed views",
+               TOL_FLASH_BF16, "tc", (MAX_BATCH, iv_cfg.n_heads,
+                                      iv_cfg.n_kv_heads, s_iv, s_iv,
+                                      iv_cfg.head_dim), bf16,
+               transposed=True, causal=True)
+    for window in (g27_cfg.window, 0):
+        check_attn(f"gemma2-27b path b=4 {g27_cfg.n_heads}/"
+                   f"{g27_cfg.n_kv_heads} s={s_max} d={g27_cfg.head_dim} "
+                   f"softcap {g27_cfg.attn_softcap:g} window {window} "
+                   "bf16 transposed views", TOL_FLASH_BF16, "tc",
+                   (MAX_BATCH, g27_cfg.n_heads, g27_cfg.n_kv_heads, s_max,
+                    s_max, g27_cfg.head_dim), bf16, transposed=True,
+                   causal=True, window=window,
+                   softcap=g27_cfg.attn_softcap, sm_scale=g27_cfg.sm_scale)
     for sq in (1, 63, 65, 300):
         check_attn(f"tc Sq=Sk={sq} d=128 GQA 4/2", TOL_FLASH_BF16, "tc",
                    (2, 4, 2, sq, sq, 128), bf16, causal=True)
@@ -1256,7 +1400,10 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
     bf16 also routes each token to the kernel route's experts, since a
     bf16 rounding flips near-tied top-k choices and a flipped choice moves
     that token's output by far more than the tolerance (the torch route's
-    own choices are still counted: ``expert_choices_differing``)."""
+    own choices are still counted: ``expert_choices_differing``).
+    Whisper and InternVL take seeded stub-frontend inputs that differ by
+    row (``stub_inputs``); InternVL's 64 text tokens follow its 256
+    vision-prefix positions."""
     from repro_torch import backend
     from repro_torch.configs.registry import get_config
     from repro_torch.models import common
@@ -1268,7 +1415,9 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
     gen = torch.Generator(device="cuda").manual_seed(2)
     params = mod.init(cfg, gen, "cuda")
     rng = np.random.default_rng(3)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 64))).cuda()
+    s = cfg.vision_prefix + 64
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, s))).cuda()
+    batch = {"tokens": tokens, **stub_inputs(cfg, 4, gen)}
     picks = {}                  # route -> each router call's expert sets
     chosen = []                 # the kernel route's (gate, index) per call
     follow = cfg.moe is not None and dtype == torch.bfloat16
@@ -1289,15 +1438,14 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
         moe_lib.route = recording
         try:
             rcfg = rcfg.with_(backend=route)
-            cache = mod.init_cache(rcfg, 4, 64 + PARITY_DECODE + 1,
+            cache = mod.init_cache(rcfg, 4, s + PARITY_DECODE + 1,
                                    device="cuda")
-            logits, cache = mod.prefill(rcfg, rparams, {"tokens": tokens},
-                                        cache)
+            logits, cache = mod.prefill(rcfg, rparams, batch, cache)
             steps = [logits]
             for i in range(PARITY_DECODE):
                 tok = forced[i] if forced else steps[-1].argmax(-1)
                 logits, cache = mod.decode_step(rcfg, rparams, tok[:, None],
-                                                cache, 64 + i)
+                                                cache, s + i)
                 steps.append(logits)
             torch.cuda.synchronize()
             return steps
@@ -1392,7 +1540,11 @@ def phase_serve(arch, phase, counters, reckoned):
     """``counters``: kernel name -> wrapper whose ``launches`` the path
     must raise above 0; ``reckoned``: kernel name (K1, K2 and K4 where the
     path has them) -> its launches by tile, reckoned from the traffic,
-    which the path must match."""
+    which the path must match.  A model with a vision prefix takes each
+    prompt as that many placeholder tokens (id 0) before the text, which
+    the prefix's embeddings replace; ``ServingEngine.run`` adds zero
+    stub-frontend inputs.  Peak device memory is read twice: over the
+    weights' initialisation and over the run."""
     from repro_torch import backend
     from repro_torch.configs.registry import get_config
     from repro_torch.models.base import family_module
@@ -1404,17 +1556,21 @@ def phase_serve(arch, phase, counters, reckoned):
     require(cfg.backend == "kernel" and cfg.dtype == torch.bfloat16,
             f"{arch} does not default to the kernel route in bf16")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = family_module(cfg).init(cfg, gen, "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     n_params = sum(x.numel() for x in _leaves(params))
 
     lengths, rng = prompt_lengths()
     eng = ServingEngine(cfg, params, max_batch=MAX_BATCH,
                         cache_len=CACHE_LEN)
+    prefix = torch.zeros(cfg.vision_prefix, dtype=torch.int64)
     for n in lengths:
-        eng.submit(torch.from_numpy(rng.integers(0, cfg.vocab_size, n)))
+        eng.submit(torch.cat([prefix, torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, n))]))
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     for fn in counters.values():
@@ -1429,8 +1585,8 @@ def phase_serve(arch, phase, counters, reckoned):
     launches = {name: fn.launches for name, fn in counters.items()}
     by_tile = {f"{name}_by_tile": dict(counters[name].launches_by_tile)
                for name in reckoned}
-    batches = [{"padded_prompt": int(max(lengths[i * MAX_BATCH:
-                                                 (i + 1) * MAX_BATCH])),
+    batches = [{"padded_prompt": cfg.vision_prefix + int(
+                    max(lengths[i * MAX_BATCH:(i + 1) * MAX_BATCH])),
                 "prefill_ms": r.prefill_ms(),
                 "decode_step_ms": r.decode_step_ms()}
                for i, r in enumerate(eng.results)]
@@ -1444,9 +1600,10 @@ def phase_serve(arch, phase, counters, reckoned):
     emit({"phase": phase, "config": f"{arch} full width and depth "
           f"({cfg.n_layers} layers), bf16, seeded random weights",
           "params": n_params, "init_s": init_s,
-          "prompt_lengths": [int(x) for x in lengths],
+          "prompt_lengths": [cfg.vision_prefix + int(x) for x in lengths],
           "max_new_tokens": MAX_NEW, "batches": batches,
           "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+          "max_memory_allocated_init": init_peak,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": launches, **by_tile,
           **{f"{name}_by_tile_reckoned": n for name, n in reckoned.items()},
@@ -1844,14 +2001,14 @@ def run_launcher(argv):
     return buf.getvalue(), time.perf_counter() - t0
 
 
-def plan_engine(cfg, prompts):
+def plan_engine(cfg, prompts, gap=PLAN_ARRIVAL_GAP):
     """A planning-only ``ServingEngine(cfg, None)`` holding ``prompts``
-    (lengths), request i arriving at i x ``PLAN_ARRIVAL_GAP`` cycles."""
+    (lengths), request i arriving at i x ``gap`` cycles."""
     from repro_torch.serving.engine import ServingEngine
     eng = ServingEngine(cfg, None, max_batch=MAX_BATCH)
     for i, n in enumerate(prompts):
         eng.submit(torch.zeros(n, dtype=torch.int64),
-                   arrival_time=i * PLAN_ARRIVAL_GAP)
+                   arrival_time=i * gap)
     return eng
 
 
@@ -2027,6 +2184,104 @@ def phase_plan(cfg, launcher_reckoned):
             "fused_matmul_by_tile": total,
             "flash_attention": sum(k2_launch.values()),
             "flash_attention_by_tile": k2_launch}
+
+
+def phase_tune(cfg):
+    """The tuning package held to the reference on the card's machine:
+    the full-space autotune of each platform regenerates its shipped
+    cache byte for byte, and ``measure_decode_regime`` of each platform
+    equals the reference's (``REFERENCE["tune"]``, recorded by
+    ``scripts/record_smoke_constants.py``).  Then yi-6b at full width and
+    depth: the launcher's traffic (``PLAN_PROMPTS``, all arriving at 0)
+    planned with ``tuned=True`` on ``TUNE_UNITS`` units under
+    ``TUNE_POLICY`` and run with ``example_operands`` through
+    ``run_schedule(tuned=True)``, which builds its backend with
+    ``get_tuned("desim-cluster")``: the tuned lowering (the cache's
+    granularity), one K1 launch a matrix node, by tile as reckoned from
+    the graph; every GEMM equal to one ``cute_matmul`` bit for bit; its
+    cycles the reference's pricing of the same tuned schedule and its
+    span log valid.  Cycles are simulated cycles of the paper's CPU
+    matrix unit, not card time."""
+    from repro_torch import backend, tune
+    from repro_torch.core.fusion import cute_matmul
+    from repro_torch.core.hardware import PLATFORMS
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.serving.scheduler import backend_kwargs_for
+    from repro_torch.tune import autotune, regime
+    ref = REFERENCE["tune"]
+    t0 = time.perf_counter()
+    caches = {plat: tune.dump_cache(plat, autotune.autotune_platform(plat))
+              .encode() == tune.cache_path(plat).read_bytes()
+              for plat in sorted(PLATFORMS)}
+    autotune_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    regimes = {plat: regime.measure_decode_regime(plat)
+               for plat in sorted(PLATFORMS)}
+    regime_s = time.perf_counter() - t0
+
+    eng = plan_engine(cfg, PLAN_PROMPTS, gap=0.0)
+    sched = eng.plan(MAX_NEW, units=TUNE_UNITS, policy=TUNE_POLICY,
+                     tuned=True)
+    tuned = backend.tuned_config(sched=sched)
+    be = backend.get_tuned("desim-cluster", sched=sched,
+                           **backend_kwargs_for(sched, units=sched.units))
+    graph = be.partition(be.lower(sched)).graph
+    reckoned = _reckon_tiles(graph)
+    ops = sched.example_operands(0, "cuda")
+    torch.cuda.synchronize()
+    fused_matmul.launches = 0
+    fused_matmul.launches_by_tile = dict.fromkeys(reckoned, 0)
+    t0 = time.perf_counter()
+    r = eng.run_schedule(sched, "desim-cluster", operands=ops,
+                         workload=False, tuned=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_tile = dict(fused_matmul.launches_by_tile)
+    launched = fused_matmul.launches
+    exact = all(torch.equal(r.outputs[label],
+                            cute_matmul(a, b, backend="kernel"))
+                for label, (a, b) in ops.items())
+    bad_spans = r.detail["span_log"].validate()
+    got = {"bucket": tune.schedule_bucket(sched),
+           "config": None if tuned is None else tuned.to_dict(),
+           "policy": sched.policy, "overlap": sched.overlap,
+           "units": sched.units, "steps": len(sched.steps),
+           "graph_cycles": r.cycles}
+    emit({"phase": "tune", "caches_regenerated": caches,
+          "autotune_host_s": autotune_s,
+          "regime_equal_reference": {p_: regimes[p_] == ref["regime"][p_]
+                                     for p_ in regimes},
+          "regime": {p_: {k: m[k] for k in ("tuned", "untuned", "speedup",
+                                             "tuned_speedup",
+                                             "fusion_speedup")}
+                     for p_, m in regimes.items()},
+          "regime_host_s": regime_s,
+          "config": f"{ARCH} full width and depth ({cfg.n_layers} layers), "
+                    f"planning only; prompts {list(PLAN_PROMPTS)} arriving "
+                    f"at 0, {TUNE_UNITS} units, {TUNE_POLICY}, tuned",
+          "schedule": got, "schedule_equal_reference": got == ref["sched"],
+          "backend": {"granularity": be.granularity.value,
+                      "fused": be.fused, "units": be.units},
+          "matmul_nodes": graph.stats()["matmul"],
+          "fused_matmul_by_tile": by_tile,
+          "fused_matmul_by_tile_reckoned": reckoned,
+          "bit_exact_vs_cute_matmul": exact, "run_schedule_s": wall,
+          "span_violations": len(bad_spans),
+          "note": "cycles are simulated cycles of the paper's CPU matrix "
+                  "unit (2 GHz), not card time"})
+    require(all(caches.values()), f"tune: a regenerated cache differs from "
+            f"the shipped one: {caches}")
+    require(regimes == ref["regime"], "tune: measure_decode_regime differs "
+            f"from the reference's: {regimes} against {ref['regime']}")
+    require(got == ref["sched"], f"tune: the tuned schedule {got} differs "
+            f"from the reference's {ref['sched']}")
+    require(by_tile == reckoned and launched == sum(by_tile.values()),
+            f"tune: K1 ran {by_tile} by tile, reckoned {reckoned}")
+    require(exact, "tune: a GEMM differs from cute_matmul")
+    require(not bad_spans, f"tune: span violations {bad_spans}")
+    del r, ops
+    torch.cuda.empty_cache()
+    return {"fused_matmul": launched, "fused_matmul_by_tile": by_tile}
 
 
 def phase_online(cfg):
@@ -2369,6 +2624,7 @@ def bound(flops: float, nbytes: float, peak: float, bw: float):
 def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
     """``path_launches``: path -> {kernel name: launches in that path}."""
     import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
     from repro_torch.core.hardware import H100_SXM as chip
     from repro_torch.kernels.attention.attention import (
         flash_attention_simt, tile_for as attention_tile_for)
@@ -2394,28 +2650,30 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
                 out[t_] = out.get(t_, 0) + n
         return out
 
-    def k2_row(h, hkv, hd, window, tag):
-        """K2 at a prefill path's shape, bf16 (4, h, s_max, hd), on the
-        tile the rule names, beside its SIMT tile at the same shape, the
-        plain version and SDPA; each timed as 10 calls replayed from a
-        CUDA graph (``graph_ms``), as K1: a call's host time (two tensor
-        maps to encode) is of the order of its device time."""
-        q, kk, v = attention_case(gen, MAX_BATCH, h, hkv, s_max, s_max, hd,
-                                  torch.bfloat16)
+    def k2_row(h, hkv, hd, window, tag, sq=s_max, sk=s_max, causal=True,
+               transposed=False):
+        """K2 at a path's shape, bf16 (4, h, sq, hd) against (4, hkv, sk,
+        hd), on the tile the rule names, beside its SIMT tile at the same
+        shape, the plain version and SDPA; each timed as 10 calls
+        replayed from a CUDA graph (``graph_ms``), as K1: a call's host
+        time (two tensor maps to encode) is of the order of its device
+        time.  A causal row has sq == sk."""
+        q, kk, v = attention_case(gen, MAX_BATCH, h, hkv, sq, sk, hd,
+                                  torch.bfloat16, transposed=transposed)
         k_rep, v_rep = (x.repeat_interleave(h // hkv, dim=1) for x in (kk, v))
-        kw = dict(sm_scale=hd ** -0.5, causal=True, window=window,
+        kw = dict(sm_scale=hd ** -0.5, causal=causal, window=window,
                   softcap=0.0, q_start=0)
         t = graph_ms({
             "kernel": lambda: run_attention(q, kk, v, **kw),
             "simt": lambda: flash_attention_simt(q, kk, v, **kw),
             "plain": lambda: plain_attention(q, kk, v, **kw),
             "library": lambda: F.scaled_dot_product_attention(
-                q, k_rep, v_rep, is_causal=True, scale=hd ** -0.5)})
+                q, k_rep, v_rep, is_causal=causal, scale=hd ** -0.5)})
         ref = plain_attention(q, kk, v, **kw)
         _, diff = rel_err(run_attention(q, kk, v, **kw), ref)
         _, diff_simt = rel_err(flash_attention_simt(q, kk, v, **kw), ref)
         tile = attention_tile_for(q, kk, v)
-        pairs = s_max * (s_max + 1) // 2               # causal (q, k) pairs
+        pairs = sq * (sq + 1) // 2 if causal else sq * sk   # (q, k) pairs
         ms, by = bound(4.0 * MAX_BATCH * h * pairs * hd,
                        2.0 * (2 * q.numel() + kk.numel() + v.numel()),
                        chip.peak_bf16, chip.hbm_bw)
@@ -2433,8 +2691,9 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
             "bound_ms": ms, "bound_by": by, "library_ms": t["library"],
             "timing": "per call, median of 10 replays (in turns) of a CUDA "
                       "graph of 10 calls",
-            "shape": f"bf16 q ({MAX_BATCH},{h},{s_max},{hd}) kv "
-                     f"({MAX_BATCH},{hkv},{s_max},{hd}) causal{tag}",
+            "shape": f"bf16 q ({MAX_BATCH},{h},{sq},{hd}) kv "
+                     f"({MAX_BATCH},{hkv},{sk},{hd}) "
+                     f"{'causal' if causal else 'non-causal'}{tag}",
             "library_call": "F.scaled_dot_product_attention on KV heads "
                             "repeated to H beforehand"})
 
@@ -2589,6 +2848,16 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
     # window 2048, longer than the prompt).
     k2_row(g_cfg.n_heads, g_cfg.n_kv_heads, g_cfg.head_dim, g_cfg.window,
            f", window {g_cfg.window}")
+    # K2 at Whisper's shapes (head_dim 64): the encoder's non-causal
+    # attention over its 1500 frames (transposed views, as served) and
+    # the cross-attention of a decode step, one query row against the
+    # 1500 cached keys
+    w_cfg = get_config(WHISPER_ARCH)
+    wh, wd, ta = w_cfg.n_heads, w_cfg.head_dim, w_cfg.encdec.n_audio_ctx
+    k2_row(wh, wh, wd, 0, ", Whisper's encoder", sq=ta, sk=ta,
+           causal=False, transposed=True)
+    k2_row(wh, wh, wd, 0, ", Whisper's cross-attention at decode", sq=1,
+           sk=ta, causal=False)
 
     # K5 at RecurrentGemma's prefill shape, from a carried state (the
     # stateful pass), timed as K3: graph replays over 4 copies of the
@@ -2694,6 +2963,8 @@ def main() -> int:
     cfg, moe_cfg = get_config(ARCH), get_config(MOE_ARCH)
     gemma_cfg = get_config(GEMMA_ARCH)
     g_cfg, r_cfg = get_config(GRIFFIN_ARCH), get_config(RWKV_ARCH)
+    w_cfg, iv_cfg, g27_cfg = (get_config(a) for a in (
+        WHISPER_ARCH, INTERNVL_ARCH, GEMMA27_ARCH))
     s_max = max(padded_lengths(prompt_lengths()[0]))
     dense = {"fused_matmul": fused_matmul, "flash_attention": flash_attention}
     # K1's launches by tile in each serving path, reckoned from the traffic:
@@ -2719,7 +2990,19 @@ def main() -> int:
         "griffin-serve": reckon(7 * (g_cfg.n_layers - g_attn) + 6 * g_attn,
                                 passes=2),
         "rwkv-serve": reckon(10 * r_cfg.n_layers),
-        "gemma-serve": reckon(6 * gemma_cfg.n_layers)}
+        "gemma-serve": reckon(6 * gemma_cfg.n_layers),
+        "internvl-serve": reckon(6 * iv_cfg.n_layers),
+        "gemma27-serve": reckon(6 * g27_cfg.n_layers)}
+    # Whisper: a prefill runs the encoder (6 calls a layer, on 4 x 1500
+    # rows), each decoder layer's cross K and V on the encoder's output
+    # (2) and the decoder over the prompt (self q, k, v, o, cross q, o and
+    # the MLP's 2: 8 a layer), all on the tensor-core tile, then the
+    # logits; a decode step the decoder's 8 a layer and the logits:
+    # 2 x (24 + 8 + 32) = 128 tc, 30 x 33 + 2 = 992 decode
+    w_enc, w_dec = w_cfg.encdec.n_encoder_layers, w_cfg.n_layers
+    k1_tiles["whisper-serve"] = {
+        "tc": 2 * (6 * w_enc + 2 * w_dec + 8 * w_dec),
+        "decode": steps * (8 * w_dec + 1) + 2, "simt": 0}
     # K4: both expert GEMMs of every OLMoE layer, the prefills' (C = 144
     # and 64) on the tensor-core tile, the decode steps' (C = 8) on the
     # decode tile: 64 tc and 960 decode launches
@@ -2732,7 +3015,14 @@ def main() -> int:
         "serve": {"tc": 2 * cfg.n_layers, "simt": 0},
         "moe-serve": {"tc": 2 * moe_cfg.n_layers, "simt": 0},
         "griffin-serve": {"tc": 2 * 2 * g_attn, "simt": 0},
-        "gemma-serve": {"tc": 2 * gemma_cfg.n_layers, "simt": 0}}
+        "gemma-serve": {"tc": 2 * gemma_cfg.n_layers, "simt": 0},
+        "internvl-serve": {"tc": 2 * iv_cfg.n_layers, "simt": 0},
+        "gemma27-serve": {"tc": 2 * g27_cfg.n_layers, "simt": 0},
+        # Whisper: a prefill's encoder, decoder self- and cross-attention
+        # (4 + 4 + 4) and every decode step's cross-attention, one query
+        # row against 1500 keys (4): 2 x 12 + 30 x 4 = 144
+        "whisper-serve": {"tc": 2 * (w_enc + 2 * w_dec) + steps * w_dec,
+                          "simt": 0}}
     # K6: one call a time-mix layer and a prefill, bf16 at head size 64 on
     # the tensor-core tile: 32 x 2 = 64 (a decode step runs the oracle's
     # single step, no K6)
@@ -2743,7 +3033,13 @@ def main() -> int:
                   MOE_ARCH: served_k1_calls(MOE_ARCH, 1),
                   GRIFFIN_ARCH: served_k1_calls(GRIFFIN_ARCH, 3),
                   RWKV_ARCH: served_k1_calls(RWKV_ARCH, 1),
-                  GEMMA_ARCH: served_k1_calls(GEMMA_ARCH, 2)}
+                  GEMMA_ARCH: served_k1_calls(GEMMA_ARCH, 2),
+                  # at the served rows: Whisper whole, one internvl2-1b
+                  # layer, one gemma2-27b (local, global) pair
+                  WHISPER_ARCH: served_k1_calls(WHISPER_ARCH, w_dec, s_max),
+                  INTERNVL_ARCH: served_k1_calls(
+                      INTERNVL_ARCH, 1, iv_cfg.vision_prefix + s_max),
+                  GEMMA27_ARCH: served_k1_calls(GEMMA27_ARCH, 2, s_max)}
         phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served)
         phase_kernels_recurrent(g_cfg, r_cfg, s_max)
         phase_parity(ARCH, "parity")
@@ -2782,12 +3078,25 @@ def main() -> int:
             GEMMA_ARCH, "gemma-serve", dense,
             {"fused_matmul": k1_tiles["gemma-serve"],
              "flash_attention": k2_tiles["gemma-serve"]})
+        for arch, tag, layers in (
+                (WHISPER_ARCH, "whisper", w_dec),
+                (INTERNVL_ARCH, "internvl", INTERNVL_PARITY_LAYERS),
+                (GEMMA27_ARCH, "gemma27", GEMMA27_PARITY_LAYERS)):
+            phase_parity(arch, f"{tag}-parity", layers)
+            launches[f"{tag}-serve"] = phase_serve(
+                arch, f"{tag}-serve", dense,
+                {"fused_matmul": k1_tiles[f"{tag}-serve"],
+                 "flash_attention": k2_tiles[f"{tag}-serve"]})
+        # gemma2-27b's decode step reads 54.45 GB of weights: where its
+        # time goes against that bytes bound
+        phase_profile(GEMMA27_ARCH, "gemma27-profile", s_max)
         # the launcher's 6 requests make 2 batches (of 4 and 2, prompts
         # of 13 and 15 padded tokens, K1's tensor-core tile) and 2 x 15
         # decode steps, as the serve traffic does: the same reckoning
         launches["plan"] = phase_plan(
             cfg, {"fused_matmul": k1_tiles["serve"],
                   "flash_attention": k2_tiles["serve"]})
+        launches["tune"] = phase_tune(cfg)
         phase_online(cfg)
         launches["w8a8"] = phase_w8a8(cfg, s_max)
         kernels = phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, launches)

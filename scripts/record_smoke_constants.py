@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Record the reference's numbers that ``chip_smoke.py``'s ``plan`` and
-``online`` phases hold the port to.
+"""Record the reference's numbers that ``chip_smoke.py``'s ``plan``,
+``online`` and ``tune`` phases hold the port to.
 
     PYTHONPATH=src python scripts/record_smoke_constants.py
 
@@ -20,6 +20,12 @@ and the online phase's seeded arrivals — and prints one object:
 * ``online``: ``OnlineResult.summary()``, the paged KV cache's counters
   and trace digest and the span log's digest of the ``online`` phase's
   closed loop;
+* ``tune``: ``measure_decode_regime`` of every platform, and the
+  bucket, tuned config, policy, overlap, units, step count and priced
+  cycles of the launcher's prompts (``chip_smoke.PLAN_PROMPTS``, all
+  arriving at 0) planned with ``tuned=True`` on
+  ``chip_smoke.TUNE_UNITS`` units under ``chip_smoke.TUNE_POLICY`` and
+  priced by ``run_schedule(..., "desim-cluster", tuned=True)``;
 * ``launcher``: the ``[plan:…]`` / ``[online:…]`` lines and summary
   tables of the reference launcher at the smoke phases' arguments (its
   weights are not built: only the planning half runs), wall-clock
@@ -50,14 +56,18 @@ import chip_smoke as smoke                                  # noqa: E402
 PREFIX = "REFERENCE = "
 
 
-def plan_constants(cfg, prompts, cases) -> dict:
+def plan_engine(cfg, prompts, gap=smoke.PLAN_ARRIVAL_GAP):
     import jax.numpy as jnp
     from repro.serving.engine import ServingEngine
-    from repro.serving.scheduler import decode_latency_stats, price_steps
     eng = ServingEngine(cfg, None, max_batch=smoke.MAX_BATCH)
     for i, n in enumerate(prompts):
-        eng.submit(jnp.zeros(n, jnp.int32),
-                   arrival_time=i * smoke.PLAN_ARRIVAL_GAP)
+        eng.submit(jnp.zeros(n, jnp.int32), arrival_time=i * gap)
+    return eng
+
+
+def plan_constants(cfg, prompts, cases) -> dict:
+    from repro.serving.scheduler import decode_latency_stats, price_steps
+    eng = plan_engine(cfg, prompts)
     out = {}
     for backend_name, units, policy in cases:
         sched, res = eng.evaluate_schedule(
@@ -83,6 +93,25 @@ def online_constants(cfg) -> dict:
             "kv_digest": eng.kv_cache.trace_digest(),
             "span_digest": smoke.span_digest(res.span_log),
             "span_violations": res.span_log.validate()}
+
+
+def tune_constants(cfg) -> dict:
+    from repro import backend, tune
+    from repro.core.hardware import PLATFORMS
+    from repro.tune import regime
+    eng = plan_engine(cfg, smoke.PLAN_PROMPTS, gap=0.0)
+    sched = eng.plan(smoke.MAX_NEW, units=smoke.TUNE_UNITS,
+                     policy=smoke.TUNE_POLICY, tuned=True)
+    res = eng.run_schedule(sched, "desim-cluster", workload=False,
+                           tuned=True)
+    tuned = backend.tuned_config(sched=sched)
+    return {"regime": {p: regime.measure_decode_regime(p)
+                       for p in sorted(PLATFORMS)},
+            "sched": {"bucket": tune.schedule_bucket(sched),
+                      "config": None if tuned is None else tuned.to_dict(),
+                      "policy": sched.policy, "overlap": sched.overlap,
+                      "units": sched.units, "steps": len(sched.steps),
+                      "graph_cycles": res.cycles}}
 
 
 def launcher_lines(argv) -> "tuple[str, ...]":
@@ -113,6 +142,7 @@ def main() -> None:
         "plan_serve": plan_constants(cfg, smoke.serve_prompts(),
                                      smoke.PLAN_SERVE_CASES),
         "online": online_constants(cfg),
+        "tune": tune_constants(cfg),
         "launcher": {"plan": launcher_lines(smoke.PLAN_LAUNCH_ARGV),
                      "online": launcher_lines(smoke.ONLINE_LAUNCH_ARGV)}},
         width=79 - len(PREFIX))

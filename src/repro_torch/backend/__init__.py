@@ -27,9 +27,11 @@ granularity (``tile | panel | layer``), epilogue fusion and a cluster
 =========================  =================================================
 
 The registry also holds the model zoo's matmul route
-(``set_default_matmul_backend``; ``"kernel"`` by default).  The
-reference's ``sharded`` backend (``shard_map`` over a mesh) and its tuned
-dispatch are not ported yet.
+(``set_default_matmul_backend``; ``"kernel"`` by default) and the tuned
+capability dispatch (``get_tuned``, ``tuned_config``): explicit argument
+> the platform's tuning cache (``repro_torch.tune``) > untuned default.
+The reference's ``sharded`` backend (``shard_map`` over a mesh) is not
+ported yet.
 
 Typical use::
 
@@ -45,10 +47,14 @@ Typical use::
 from repro_torch.backend.base import (Backend, DispatchHandle, ExecResult,
                                       MatMulOperands, NO_MATMUL_OPERANDS)
 from repro_torch.backend.registry import (ALIASES, available,
-                                          default_matmul_backend, get,
+                                          default_matmul_backend,
+                                          dispatch_platform, get, get_tuned,
                                           matmul_backend_string, register,
                                           resolve,
-                                          set_default_matmul_backend)
+                                          set_default_matmul_backend,
+                                          set_dispatch_platform,
+                                          set_tuned_dispatch, tuned_config,
+                                          tuned_dispatch_enabled)
 
 # Importing the implementation modules registers them.
 from repro_torch.backend.eager import KernelBackend, TorchBackend
@@ -59,9 +65,10 @@ from repro_torch.backend.cluster_backend import ClusterDESimBackend
 __all__ = [
     "Backend", "DispatchHandle", "ExecResult", "MatMulOperands",
     "NO_MATMUL_OPERANDS",
-    "ALIASES", "available", "default_matmul_backend", "get",
-    "matmul_backend_string", "register", "resolve",
-    "set_default_matmul_backend",
+    "ALIASES", "available", "default_matmul_backend", "dispatch_platform",
+    "get", "get_tuned", "matmul_backend_string", "register", "resolve",
+    "set_default_matmul_backend", "set_dispatch_platform",
+    "set_tuned_dispatch", "tuned_config", "tuned_dispatch_enabled",
     "KernelBackend", "TorchBackend", "DESimBackend", "AnalyticalBackend",
     "ClusterDESimBackend",
 ]

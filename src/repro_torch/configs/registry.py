@@ -1,9 +1,7 @@
 """Architecture registry of the port.
 
 ``ARCH_MODULES`` lists the configurations the port supports: all of the
-reference's but ``whisper-tiny`` (its encoder-decoder family is not
-ported yet), which ``get_config`` refuses.
-The reference's shape grid and abstract ``input_specs`` serve its
+reference's.  The reference's shape grid and abstract ``input_specs`` serve its
 dry-run and roofline tools, which are not ported yet.
 """
 
@@ -25,6 +23,7 @@ ARCH_MODULES = {
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "recurrentgemma-2b": "repro_torch.configs.recurrentgemma_2b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
 }
 
 ALL_ARCHS = tuple(ARCH_MODULES)
@@ -32,8 +31,8 @@ ALL_ARCHS = tuple(ARCH_MODULES)
 
 def get_config(name: str, reduced: bool = False, **overrides) -> ArchConfig:
     if name not in ARCH_MODULES:
-        raise NotImplementedError(f"architecture {name!r} is not ported yet; "
-                                  f"ported: {list(ALL_ARCHS)}")
+        raise KeyError(f"unknown architecture {name!r}; known: "
+                       f"{list(ALL_ARCHS)}")
     mod = importlib.import_module(ARCH_MODULES[name])
     cfg = mod.reduced() if reduced else mod.CONFIG
     return cfg.with_(**overrides) if overrides else cfg

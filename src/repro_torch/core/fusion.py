@@ -175,12 +175,16 @@ def cute_matmul(a: torch.Tensor, b: torch.Tensor, *,
     """C = epilogue(A @ B).  A: (..., M, K), B: (K, N) or GLU (K, 2, N/2).
 
     ``backend`` is a route string (``"torch"`` or ``"kernel"``); ``None``
-    resolves the process-wide default from ``repro_torch.backend``
-    (``"kernel"`` unless ``set_default_matmul_backend`` changed it).
+    resolves the process-wide default from the ``repro_torch.backend``
+    registry with tuned-dispatch precedence: ``set_default_matmul_backend``
+    wins, else a route the current platform's tuning cache pins for this
+    shape class, else ``"kernel"``.
     """
     if backend is None:
         from repro_torch.backend import matmul_backend_string  # lazy: no cycle
-        backend = matmul_backend_string()
+        m = a.shape[-2] if a.ndim >= 2 else 1
+        backend = matmul_backend_string(
+            shape=(m, b.shape[-1], a.shape[-1]))
     if policy is None:
         policy = _infer_policy(a)
     ep = epilogue

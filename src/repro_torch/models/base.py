@@ -14,11 +14,11 @@ fields.  Every model family implements the same functional protocol:
 VLM / audio entries.  The port's ``init`` takes a ``torch.Generator`` and
 a device in place of the reference's PRNG key.
 
-The port implements the ``transformer`` family (dense and MoE,
-``MoeConfig``), ``griffin`` (RecurrentGemma, ``RnnConfig``) and ``rwkv6``
-(``RwkvConfig``).  The encoder-decoder sub-config is kept as a field so
-configurations read the same, and ``family_module`` rejects its family
-(``encdec``, Whisper) with ``NotImplementedError``.
+The port implements every family of the reference: ``transformer``
+(dense and MoE, ``MoeConfig``), ``griffin`` (RecurrentGemma,
+``RnnConfig``), ``rwkv6`` (``RwkvConfig``) and ``encdec`` (Whisper,
+``EncDecConfig``; ``batch["audio_embeds"]`` carries the stub frontend's
+frame embeddings).
 """
 
 from __future__ import annotations
@@ -190,9 +190,9 @@ def family_module(cfg: ArchConfig):
     """Resolve the functional module implementing ``cfg.family``."""
     # Import for side effects (registration); idempotent via sys.modules.
     from repro_torch.models import (recurrentgemma, rwkv6,  # noqa: F401
-                                    transformer)
+                                    transformer, whisper)
     if cfg.family not in _REGISTRY:
         raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet; ported: "
+            f"unknown model family {cfg.family!r}; known: "
             f"{sorted(_REGISTRY)}")
     return _REGISTRY[cfg.family]

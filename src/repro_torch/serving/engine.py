@@ -299,14 +299,6 @@ def _step_layer(cfg: ArchConfig, name: str, tokens: int,
                       repeat=repeat)
 
 
-def _refuse_tuned(tuned: bool) -> None:
-    if tuned:
-        raise NotImplementedError(
-            "tuned=True needs the reference's tuning package (tune/*: "
-            "the autotuner, its cache and the registry's tuned dispatch), "
-            "which is not ported yet (ROADMAP.md, queue 1)")
-
-
 class ServingEngine:
     """Continuous-batching façade with async prefill dispatch: queue
     requests, plan and price their drain, drain them in padded batches.
@@ -399,12 +391,13 @@ class ServingEngine:
         only — see :class:`BatchSchedule`); ignored by ``policy="auto"``
         which sweeps both.
 
-        ``tuned=True`` (the reference's per-platform tuning cache)
-        raises ``NotImplementedError``: the tuning package is not ported
-        yet, and an untuned plan is not passed off as a tuned one."""
+        ``tuned=True`` consults the per-platform tuning cache
+        (``repro_torch.backend.tuned_config``) for this schedule's shape
+        bucket and applies the cached ``overlap`` choice — explicit
+        ``overlap`` still loses to the tuned one only on this opt-in
+        path; the default stays exactly the untuned plan."""
         from repro_torch.serving import scheduler
         from repro_torch.sim.lower import OVERLAP_MODES
-        _refuse_tuned(tuned)
         if overlap not in OVERLAP_MODES:
             raise ValueError(f"unknown overlap mode {overlap!r}; one of "
                              f"{OVERLAP_MODES}")
@@ -427,8 +420,19 @@ class ServingEngine:
                 # meta-policies (auto-slo) sweep overlap themselves; the
                 # caller's default must not clobber their choice.
                 sched.overlap = overlap
+        if tuned:
+            self._apply_tuned_overlap(sched)
         self._record_plan(sched)
         return sched
+
+    @staticmethod
+    def _apply_tuned_overlap(sched) -> None:
+        """Fold the tuning cache's overlap choice for this schedule's
+        bucket into the plan (no-op when the bucket is untuned)."""
+        from repro_torch import backend
+        cfg = backend.tuned_config(sched=sched)
+        if cfg is not None and cfg.overlap:
+            sched.overlap = cfg.overlap
 
     def _record_plan(self, sched) -> None:
         """Planning counters (no-ops while the registry is disabled)."""
@@ -501,17 +505,26 @@ class ServingEngine:
         controls the :class:`~repro_torch.obs.SpanLog` join (the online loop
         assembles its own global log across epochs instead).
 
-        ``tuned=True`` (the reference's tuned backend dispatch) raises
-        ``NotImplementedError``, as in :meth:`plan`."""
+        ``tuned=True`` resolves the backend through
+        ``repro_torch.backend.get_tuned``: the platform's cached winner for
+        this schedule's bucket supplies granularity / fusion /
+        K-streaming / tile kwargs (plus the overlap lowering mode,
+        applied to the schedule), and any explicit ``backend_kwargs``
+        still win over the cache."""
         from repro_torch import backend
         from repro_torch.serving.scheduler import backend_kwargs_for
-        _refuse_tuned(tuned)
+        if tuned:
+            self._apply_tuned_overlap(sched)
         backend_kwargs = backend_kwargs_for(sched, units=sched.units,
                                             **backend_kwargs)
         # the schedule records the partition it was actually priced
         # under, so downstream latency timelines agree with the pricing.
         sched.strategy = backend_kwargs.get("strategy", sched.strategy)
-        eng = backend.get(backend_name, **backend_kwargs)
+        if tuned:
+            eng = backend.get_tuned(backend_name, sched=sched,
+                                    **backend_kwargs)
+        else:
+            eng = backend.get(backend_name, **backend_kwargs)
         if not eng.models_time:
             raise ValueError(
                 f"backend {backend_name!r} executes but does not model "
@@ -565,6 +578,10 @@ class ServingEngine:
                                                             0))
                                 for t in chunk])
             batch = {"tokens": toks}
+            if self.cfg.encdec is not None:
+                batch["audio_embeds"] = torch.zeros(
+                    (toks.shape[0], self.cfg.encdec.n_audio_ctx,
+                     self.cfg.d_model), device=self.device)
             if self.cfg.vision_prefix:
                 batch["vision_embeds"] = torch.zeros(
                     (toks.shape[0], self.cfg.vision_prefix,

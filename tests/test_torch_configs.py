@@ -46,10 +46,23 @@ def test_fields_equal_the_reference(arch, reduced):
 
 
 def test_registry_holds_every_reference_arch_but_whisper():
+    """Since the encoder-decoder family is ported, every reference arch,
+    whisper-tiny included: its fields, full and reduced, equal the
+    reference's (the encoder-decoder sub-config field by field)."""
     from repro.configs.registry import ALL_ARCHS as J_ARCHS
-    assert set(J_ARCHS) - set(ALL_ARCHS) == {"whisper-tiny"}
-    with pytest.raises(NotImplementedError, match="whisper-tiny"):
-        get_config("whisper-tiny")
+    assert set(J_ARCHS) == set(ALL_ARCHS)
+    for reduced in (False, True):
+        jcfg = j_get_config("whisper-tiny", reduced=reduced)
+        tcfg = get_config("whisper-tiny", reduced=reduced)
+        assert dataclasses.asdict(tcfg.encdec) == \
+            dataclasses.asdict(jcfg.encdec)
+        for f in dataclasses.fields(ArchConfig):
+            if f.name not in ("dtype", "kv_cache_dtype", "backend",
+                              "encdec"):
+                assert getattr(tcfg, f.name) == getattr(jcfg, f.name), \
+                    f.name
+    with pytest.raises(KeyError, match="whisper-base"):
+        get_config("whisper-base")
 
 
 def _perturbed(params, rng):

@@ -5,7 +5,8 @@ table equal, wall-clock seconds aside, and the metrics snapshot's
 deterministic parts equal.  The reference's weights and serving run are
 stubbed out (its plan and online lines need neither); the port's
 launcher serves its requests on the CPU after planning.  A planning-only
-``ServingEngine(cfg, None)`` cannot ``run``, and ``tuned=True`` raises.
+``ServingEngine(cfg, None)`` cannot ``run``; with ``tuned=True`` it plans
+and prices as the reference's does.
 """
 
 import contextlib
@@ -14,10 +15,12 @@ import json
 import re
 from unittest import mock
 
+import jax.numpy as jnp
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.configs.registry import get_config as j_get_config  # noqa: E402
 from repro.launch import serve as j_serve                 # noqa: E402
 from repro.obs import disable_metrics as j_disable        # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
@@ -161,14 +164,19 @@ def test_refusals(capsys):
 
 
 def test_tuned_and_planning_only_run_raise():
+    """``tuned=True`` plans and prices now (``tune/*`` is ported), equal
+    to the reference's; a planning-only engine still cannot ``run``."""
     te = ServingEngine(get_config("yi-6b", reduced=True), None,
                        max_batch=2)
+    je = JEngine(j_get_config("yi-6b", reduced=True), None, max_batch=2)
     for n in (5, 9, 3):
         te.submit(torch.zeros(n, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="tune"):
-        te.plan(4, tuned=True)
-    with pytest.raises(NotImplementedError, match="tune"):
-        te.evaluate_schedule("desim", max_new_tokens=4, tuned=True)
+        je.submit(jnp.zeros(n, jnp.int32))
+    assert repr(te.plan(4, units=2, tuned=True)) == \
+        repr(je.plan(4, units=2, tuned=True))
+    _, tres = te.evaluate_schedule("desim", max_new_tokens=4, tuned=True)
+    _, jres = je.evaluate_schedule("desim", max_new_tokens=4, tuned=True)
+    assert tres.cycles == jres.cycles
     with pytest.raises(RuntimeError, match="params=None"):
         te.run(max_new_tokens=2)
     assert te.device == torch.device("cpu")

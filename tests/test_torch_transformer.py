@@ -203,11 +203,15 @@ def test_generate_greedy_matches_forward_argmax():
 
 
 def test_unported_parts_raise():
+    """Every reference family is ported now: whisper-tiny's config and
+    the encoder-decoder family resolve, and only an unknown family
+    raises."""
     _, tcfg = _cfgs()
+    assert get_config("whisper-tiny").family == "encdec"
+    from repro_torch.models import whisper
+    assert family_module(tcfg.with_(family="encdec")) is whisper
     with pytest.raises(NotImplementedError):
-        get_config("whisper-tiny")
-    with pytest.raises(NotImplementedError):
-        family_module(tcfg.with_(family="encdec"))
+        family_module(tcfg.with_(family="conformer"))
     with pytest.raises(ValueError):
         cm.cache_update(torch.zeros(1, 1, 4, 2), torch.zeros(1, 1, 4, 2),
                         torch.ones(1, 1, 3, 2), torch.ones(1, 1, 3, 2), 2)
@@ -227,8 +231,11 @@ def test_launcher_serves_on_cpu_and_refuses_unported_modes(capsys):
     out = capsys.readouterr().out
     assert out.startswith("[plan:desim] policy=full-prefill: 2 steps")
     assert "served 2 requests, 4 tokens on cpu" in out
-    with pytest.raises(SystemExit):           # the encoder-decoder family
-        serve.main(["--arch", "whisper-tiny", "--reduced", "--device",
+    serve.main(["--arch", "whisper-tiny", "--reduced", "--device", "cpu",
+                "--requests", "2", "--max-new", "2"])   # encoder-decoder
+    assert "served 2 requests, 4 tokens on cpu" in capsys.readouterr().out
+    with pytest.raises(SystemExit):           # an unknown arch
+        serve.main(["--arch", "whisper-base", "--reduced", "--device",
                     "cpu"])
 
 
