@@ -26,7 +26,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 layers), ragged, masked, softcapped and on the transposed
                 views the models pass, each query row against its own
                 scale (``row_rel_err``), each case on the tile that
-                serves it (``launches_by_tile``);
+                serves it (``launches_by_tile``); K1's backward
+                (``FusedMatmulFn``) at the training GLU projection, dA and
+                dB row by row against autograd of the plain version;
 4. parity     — yi-6b at full width, 4 layers, fp32: prefill and 4 decode
                 steps through the kernels against the plain torch route;
                 parity-bf16 the same in bf16, which takes K1's
@@ -137,10 +139,24 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
 19. w8a8       — yi-6b's MLP at full width through ``quantize_mlp`` and
                 the W8A8 layers (row-quantiser kernel, int8 fused matmul)
                 against the plain route and the float MLP;
-20. the ``kernels`` line: per kernel, its launches in the paths above, its
+20. train-parity — yi-6b at full width, 2 layers, fp32: one
+                ``make_train_step`` and one ``value_and_grad`` through the
+                kernel route (K1 and its autograd Function) against the
+                torch route: loss within 1e-5 relative, every gradient
+                leaf within 1e-4 of its max, K1's launches as reckoned;
+21. train      — yi-6b at full width cut to 8 layers, bf16 with fp32
+                master weights, remat "full", through
+                ``launch/train.py::train``: 6 AdamW steps of 2
+                microbatches (2,048 rows a K1 call) with a checkpoint at
+                step 4, then a run restored from step 4; a finite
+                loss that falls, the resumed losses within 1e-3, K1's
+                launches by tile as reckoned, peak memory within 15% of
+                the reckoning, step ms and tokens/s;
+22. the ``kernels`` line: per kernel, its launches in the paths above, its
    time at the paths' largest shapes beside its plain version, a library
    call and its roofline bound; K1 at prefill (tensor-core tile), decode
-   and logits (decode tile), K4 at prefill (tensor-core tile), at decode
+   and logits (decode tile), its backward at the training GLU shape, K4
+   at prefill (tensor-core tile), at decode
    with every row full and with a seeded routing's rows (decode tile), K2
    at head_dim 128 and 256 and at Whisper's encoder and cross-attention
    decode shapes (head_dim 64), and K6 at RWKV-6's prefill shape
@@ -158,6 +174,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import re
@@ -590,6 +607,31 @@ TOL_PATH = 1e-4
 # lies at most 1.52e-2 from a torch route that makes it too.
 TOL_PATH_BF16 = 2e-2
 TOL_W8A8_ROUTES, TOL_W8A8_FLOAT = 1e-5, 0.05
+# training (phases train-parity and train): yi-6b at full width, 2 layers
+# in fp32 for the routes' parity, 8 in bf16 for the launcher's run (1.91 B
+# parameters: 26.7 GB of bf16 weights and fp32 master, mu and nu, 38.2 GB
+# with the gradients; the full 32 layers, 97 GB, fit no one card).  The
+# learning rate is 1e-3, not the launcher's default 3e-3: on an H100 at
+# this width, with the launcher's one warmup step, 3e-3 drove the loss
+# from 11.58 up to 13.67 at step 4 and 11.90 at step 6, and 3e-4 left it
+# flat (11.58-11.60), while 1e-3 took it to 11.46 by step 6.  The phase
+# runs 3e-3 too, on both matmul routes, to show that the rise is the
+# optimiser's and not the kernel route's.  One checkpoint (--ckpt-every
+# 4 of 6 steps): see ``phase_train``
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_BATCH = 2, (2, 256)
+TRAIN_LAYERS = 8
+TRAIN_ROWS = 2048                   # a microbatch's rows: 4 x 512 tokens
+TRAIN_ARGV = ["--global-batch", "8", "--seq-len", "512", "--microbatches",
+              "2", "--steps", "6", "--ckpt-every", "4", "--lr", "1e-3",
+              "--log-every", "1"]
+TOL_TRAIN_LOSS, TOL_TRAIN_GRAD = 1e-5, 1e-4
+TOL_RESUME = 1e-3
+# the kernel route's bf16 losses against the torch route's, step by step:
+# on an H100 they lay at most 3.2e-4 apart over 6 steps at lr 1e-3 (bf16
+# roundings in another order, and Adam's moves on near-zero gradients)
+TOL_TRAIN_ROUTES = 1e-3
+TRAIN_LR_WITNESS = 3e-3             # the launcher's default rate
+TOL_TRAIN_MEMORY = 0.15
 PROFILE_STEPS, UNTRACED_STEPS = 4, 16
 MAX_ROWS_DECODE = 8                 # K1's decode tile serves M <= 8
 # the tiled kernels' tiles, each by substrings of its kernel names in a
@@ -784,6 +826,22 @@ def plain_matmul(a, b, ep, ops):
     return fused_matmul_plain(a, b, ep, ops, acc)
 
 
+def matmul_backward_case(gen, m, k, n, dtype, act):
+    """K1's backward at a GLU projection: a (m, k) and the weight (k, 2,
+    n/2), both requiring grad, and the output's gradient g (m, n/2)."""
+    a, b, ep, _ = matmul_case(gen, m, k, n, dtype, glu=True, act=act)
+    g = _rand(gen, (m, n // 2), dtype)
+    return (a.requires_grad_(), b.reshape(k, 2, n // 2).requires_grad_(), g,
+            ep)
+
+
+def plain_matmul_backward(a, b, g, ep):
+    """(dA, dB) by autograd of K1's plain version."""
+    from repro_torch.kernels.matmul.ref import fused_matmul_ref
+    return torch.autograd.grad(fused_matmul_ref(a, b, epilogue=ep), (a, b),
+                               g)
+
+
 def attention_case(gen, b, h, hkv, sq, sk, d, dtype, transposed=False):
     """q (b, h, sq, d), k and v (b, hkv, sk, d); ``transposed``: each is a
     (b, s, heads, d) tensor seen through ``transpose(1, 2)``; ``"q"``: q
@@ -881,6 +939,26 @@ def stub_inputs(cfg, b, gen):
     return out
 
 
+@contextlib.contextmanager
+def recorded_k1_calls(key):
+    """Within the block, ``key(a, b, ep, ops)`` of every K1 launch (the
+    wrapper's 2-D call) goes into the dict yielded, once for each distinct
+    key, in order of first launch."""
+    from repro_torch.kernels.matmul import ops as mm_ops
+    calls = {}
+    inner = mm_ops.fused_matmul_cuda
+
+    def recording(a, b, ep, ops):
+        calls[key(a, b, ep, ops)] = None
+        return inner(a, b, ep, ops)
+
+    mm_ops.fused_matmul_cuda = recording
+    try:
+        yield calls
+    finally:
+        mm_ops.fused_matmul_cuda = inner
+
+
 def served_k1_calls(arch, n_layers, prompt=None):
     """Every distinct K1 call that one prefill and one decode step of
     ``arch`` at full width, cut to ``n_layers`` layers, make in bf16, as
@@ -891,24 +969,19 @@ def served_k1_calls(arch, n_layers, prompt=None):
     serve batch on ``prompt`` tokens (the stub frontends' inputs
     included), and ``rows`` is each call's own row count."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels.matmul import ops as mm_ops
     from repro_torch.models.base import family_module
     cfg = get_config(arch).with_(n_layers=n_layers)
     mod = family_module(cfg)
     gen = torch.Generator(device="cuda").manual_seed(8)
     params = mod.init(cfg, gen, "cuda")
     b, s = (1, 16) if prompt is None else (MAX_BATCH, prompt)
-    calls = {}
-    inner = mm_ops.fused_matmul_cuda      # the wrapper's 2-D launch
 
-    def recording(a, b_, ep, ops):
-        rows = None if prompt is None else a.shape[0]
-        calls[(rows, a.shape[1], b_.shape[1], ep.glu, ep.activation,
-               ep.softcap, ep.bias_type.name.lower(), ep.out_dtype)] = None
-        return inner(a, b_, ep, ops)
+    def key(a, b_, ep, ops):
+        return (None if prompt is None else a.shape[0], a.shape[1],
+                b_.shape[1], ep.glu, ep.activation, ep.softcap,
+                ep.bias_type.name.lower(), ep.out_dtype)
 
-    mm_ops.fused_matmul_cuda = recording
-    try:
+    with recorded_k1_calls(key) as calls:
         tokens = torch.randint(0, cfg.vocab_size, (b, s), device="cuda")
         cache = mod.init_cache(cfg, b, s + 16, device="cuda")
         logits, cache = mod.prefill(
@@ -916,8 +989,6 @@ def served_k1_calls(arch, n_layers, prompt=None):
             cache)
         mod.decode_step(cfg, params, logits.argmax(-1)[:, None], cache, s)
         torch.cuda.synchronize()
-    finally:
-        mm_ops.fused_matmul_cuda = inner
     del params, cache
     torch.cuda.empty_cache()
     s_max = max(padded_lengths(prompt_lengths()[0]))
@@ -925,9 +996,43 @@ def served_k1_calls(arch, n_layers, prompt=None):
             for rows, *call in calls]
 
 
-def phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served):
-    """``served``: arch -> its distinct K1 calls (``served_k1_calls``)."""
+def train_k1_calls():
+    """Every distinct K1 call of one bf16 train step of ``ARCH`` at full
+    width, cut to one layer, on one microbatch of ``phase_train``
+    (TRAIN_ROWS rows: TRAIN_ROWS / 512 sequences of 512 tokens): the
+    forward, remat's recompute, the GLU backward's accumulator and the
+    loss's fp32 logits, as (rows, k, n, glu, activation, softcap, bias,
+    residual, operand dtype, out dtype)."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.base import family_module
+    from repro_torch.training import train_step as ts
+    cfg = get_config(ARCH).with_(n_layers=1, backend="torch")
+    params = family_module(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(9), "cuda")
+    seq = 512
+    batch = next(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                        global_batch=TRAIN_ROWS // seq,
+                                        seq_len=seq), device="cuda"))
+
+    def key(a, b, ep, ops):
+        return (a.shape[0], a.shape[1], b.shape[1], ep.glu, ep.activation,
+                ep.softcap, ep.bias_type.name.lower(), ep.has_residual,
+                a.dtype, ep.out_dtype)
+
+    with recorded_k1_calls(key) as calls:
+        ts.value_and_grad(cfg, ts.TrainConfig(loss_chunk=seq), params, batch)
+        torch.cuda.synchronize()
+    del params, batch
+    torch.cuda.empty_cache()
+    return list(calls)
+
+
+def phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served, trained):
+    """``served``: arch -> its distinct K1 calls (``served_k1_calls``);
+    ``trained``: those of a train step (``train_k1_calls``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.fusion import EpilogueOperands
     from repro_torch.kernels.attention.ops import flash_attention
     from repro_torch.kernels.matmul.ops import fused_matmul
     from repro_torch.kernels.moe.ops import grouped_matmul
@@ -1000,6 +1105,45 @@ def phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served):
                          softcap=softcap,
                          bias=None if bias == "zero" else bias,
                          out_dtype=out_dt)
+
+    # every K1 call of a bf16 train step at its rows, all on the
+    # tensor-core tile: the projections, the GLU backward's fp32
+    # accumulator and the (2,048, d) x (d, vocab) fp32 logits
+    for rows, k, n, glu, act, softcap, bias, res, dt, out_dt in trained:
+        check_mm(f"train ({rows},{k})@({k},{n}){' GLU' * glu} {act}"
+                 f"{' softcap' * bool(softcap)}{' bias' * (bias != 'zero')}"
+                 f"{' residual' * res} {str(dt)[6:]} -> {str(out_dt)[6:]}",
+                 TOL_BF16, "tc", m=rows, k=k, n=n, dtype=dt, glu=glu,
+                 act=act, softcap=softcap,
+                 bias=None if bias == "zero" else bias, residual=res,
+                 out_dtype=out_dt)
+
+    # K1's backward (FusedMatmulFn) at the training GLU projection, 2,048
+    # rows: dA and dB against autograd of the plain version, row by row
+    # (``row_rel_err``); its one launch, the accumulator recompute, on the
+    # tensor-core tile
+    a, b, g, ep = matmul_backward_case(gen, TRAIN_ROWS, d, 2 * ff, bf16,
+                                       "silu")
+    out = run_matmul(a, b, ep, EpilogueOperands())
+    before = dict(fused_matmul.launches_by_tile)
+    grads = torch.autograd.grad(out, (a, b), g)
+    ran = [t for t, n in fused_matmul.launches_by_tile.items()
+           if n != before[t]]
+    refs = plain_matmul_backward(a, b, g, ep)
+    torch.cuda.synchronize()
+    errs = [row_rel_err(x.reshape(x.shape[0], -1), r.reshape(r.shape[0], -1))
+            for x, r in zip(grads, refs)]
+    results.append({
+        "kernel": "fused_matmul", "tile": ran,
+        "case": f"backward: bf16 ({TRAIN_ROWS},{d})@({d},2,{ff}) GLU silu, "
+                "dA and dB row by row",
+        "rel": max(e[0] for e in errs), "rel_dA_dB": [e[0] for e in errs],
+        "max_abs_err": max(e[1] for e in errs), "tol": TOL_BF16,
+        "ok": (ran == ["tc"] and max(e[0] for e in errs) <= TOL_BF16
+               and all(x.shape == r.shape and x.dtype == r.dtype
+                       and bool(torch.isfinite(x).all())
+                       for x, r in zip(grads, refs)))})
+    del a, b, g, out, grads, refs
 
     def check_attn(name, tol, tile, shape, dtype, zero_rows=None,
                    transposed=False, **kw):
@@ -1406,6 +1550,7 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
     vision-prefix positions."""
     from repro_torch import backend
     from repro_torch.configs.registry import get_config
+    from repro_torch.core import tree
     from repro_torch.models import common
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.base import family_module
@@ -1498,7 +1643,8 @@ def phase_parity(arch, phase, n_layers=PARITY_LAYERS, dtype=torch.float32,
         # how far each bf16 route lies from the same weights run in fp32
         ref = run("torch", cfg.with_(dtype=torch.float32,
                                      kv_cache_dtype=torch.float32),
-                  _to_fp32(params))
+                  tree.tree_map(lambda x: x.float() if x.is_floating_point()
+                                else x, params))
         line["rel_err_vs_fp32"] = {
             route: [rel_err(x.float(), r)[0] for x, r in zip(out, ref)]
             for route, out in (("kernel", kern), ("torch", plain))}
@@ -1547,6 +1693,7 @@ def phase_serve(arch, phase, counters, reckoned):
     weights' initialisation and over the run."""
     from repro_torch import backend
     from repro_torch.configs.registry import get_config
+    from repro_torch.core import tree
     from repro_torch.models.base import family_module
     from repro_torch.serving.engine import ServingEngine
 
@@ -1562,7 +1709,7 @@ def phase_serve(arch, phase, counters, reckoned):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
-    n_params = sum(x.numel() for x in _leaves(params))
+    n_params = sum(x.numel() for x in tree.leaves(params))
 
     lengths, rng = prompt_lengths()
     eng = ServingEngine(cfg, params, max_batch=MAX_BATCH,
@@ -2532,26 +2679,254 @@ def phase_w8a8(cfg, s_max):
     return launches
 
 
-def _to_fp32(tree):
-    """A copy of a parameter tree with its floating tensors in fp32."""
-    if isinstance(tree, dict):
-        return {k: _to_fp32(v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_to_fp32(v) for v in tree)
-    if torch.is_tensor(tree) and tree.is_floating_point():
-        return tree.float()
-    return tree
+# ---------------------------------------------------------------------------
+# Training: yi-6b at full width takes AdamW steps through K1 and its
+# autograd Function.
+# ---------------------------------------------------------------------------
+
+def _train_k1_calls(n_layers: int, chunks: int) -> int:
+    """K1's launches in one microbatch's forward and backward with
+    remat="full" (``tests/test_torch_training.py::
+    test_k1_calls_in_a_train_step`` counts the same on the CPU): per layer
+    6 projections, run again when remat recomputes the layer, and one
+    accumulator recompute in the GLU projection's backward (the other
+    epilogues are linear in the accumulator and launch nothing); the loss's
+    logits 2 a chunk (the forward and its per-chunk remat)."""
+    return n_layers * (6 + 6 + 1) + 2 * chunks
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+def phase_train_parity():
+    """yi-6b at full width, 2 layers, fp32 (TF32 off), one
+    ``make_train_step`` on a ``SyntheticLM`` batch (2 x 256) through each
+    matmul route: the kernel route (K1 and ``FusedMatmulFn``, SIMT tile in
+    fp32) against the torch route.  The step's loss within TOL_TRAIN_LOSS
+    relative; its gradients, read from the optimizer's first moment after
+    the step (from zero, (1 - beta1) x the clipped gradient, in fp32),
+    within TOL_TRAIN_GRAD of each leaf's max |g|; K1's launches by tile as
+    reckoned.  The updated parameters are not compared: Adam's first step
+    moves each by lr on its gradient's sign alone, so a gradient near 0
+    moves its parameter by 2 lr on a rounding.  Attention on the plain
+    chunked route, as the launcher trains it."""
+    from repro_torch import backend
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import tree
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.models.base import family_module
+    from repro_torch.optim import adamw
+    from repro_torch.training import train_step as ts
+    cfg = get_config(ARCH).with_(n_layers=TRAIN_PARITY_LAYERS,
+                                 dtype=torch.float32,
+                                 kv_cache_dtype=torch.float32,
+                                 backend="torch")
+    b, s = TRAIN_PARITY_BATCH
+    params = family_module(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+    batch = next(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                        global_batch=b, seq_len=s),
+                             device="cuda"))
+    tcfg = ts.TrainConfig(optimizer=adamw.AdamWConfig(
+        lr=3e-3, warmup_steps=1, total_steps=6), loss_chunk=min(512, s))
+    reckoned = {"tc": 0, "decode": 0,
+                "simt": _train_k1_calls(cfg.n_layers, 1)}
+    tiles = tuple(fused_matmul.launches_by_tile)
+    out = {}
+    for route in ("kernel", "torch"):
+        prev = backend.set_default_matmul_backend(route)
+        try:
+            p = tree.tree_map(torch.clone, params)
+            opt = adamw.init(tcfg.optimizer, p)
+            fused_matmul.launches_by_tile = dict.fromkeys(tiles, 0)
+            _, opt, metrics, _ = ts.make_train_step(cfg, tcfg)(p, opt, batch)
+            torch.cuda.synchronize()
+            out[route] = (float(metrics["loss"]), tree.leaves(opt["mu"]),
+                          dict(fused_matmul.launches_by_tile),
+                          float(metrics["grad_norm"]))
+            del p, opt
+        finally:
+            backend.set_default_matmul_backend(prev)
+    k, t = out["kernel"], out["torch"]
+    loss_rel = abs(k[0] - t[0]) / abs(t[0])
+    grad_rel = [rel_err(gk, gt)[0] for gk, gt in zip(k[1], t[1])]
+    finite = all(bool(torch.isfinite(g).all()) for g in k[1])
+    emit({"phase": "train-parity",
+          "config": f"{ARCH} width, {cfg.n_layers} layers, fp32, remat "
+                    f"{cfg.remat}, batch {b} x {s}, one step",
+          "loss": {"kernel": k[0], "torch": t[0], "rel": loss_rel},
+          "grad_norm": {"kernel": k[3], "torch": t[3]},
+          "grad_rel_max": max(grad_rel), "grad_rel_by_leaf": grad_rel,
+          "tol_loss": TOL_TRAIN_LOSS, "tol_grad": TOL_TRAIN_GRAD,
+          "fused_matmul_by_tile": k[2],
+          "fused_matmul_by_tile_reckoned": reckoned,
+          "fused_matmul_by_tile_torch_route": t[2], "finite": finite})
+    require(finite and loss_rel <= TOL_TRAIN_LOSS
+            and max(grad_rel) <= TOL_TRAIN_GRAD,
+            "train-parity: the kernel route's loss or gradients disagree "
+            "with the torch route's")
+    require(k[2] == reckoned and sum(t[2].values()) == 0,
+            f"train-parity: K1 ran {k[2]}, reckoned {reckoned}; the torch "
+            f"route {t[2]}")
+    by_tile = k[2]
+    del params, out, k, t
+    torch.cuda.empty_cache()
+    return {"fused_matmul": sum(by_tile.values()),
+            "fused_matmul_by_tile": by_tile}
+
+
+def _train_memory_reckoned(cfg, n_params: int, rows: int) -> dict:
+    """Bytes ``phase_train``'s first run holds at its peak: the state (bf16
+    params; fp32 master, mu and nu), the gradients (the fp32 accumulator
+    of the microbatches and one microbatch's bf16 gradients), and the
+    largest transient of the backward, in the GLU projection of a layer:
+    the fp32 accumulator and its gradient (2 x rows x 2 d_ff x 4), the
+    fp32 copy of wi and wi's fp32 gradient (2 x d x 2 d_ff x 4), and the
+    stacked bf16 gradient one layer's slice fills (L x d x 2 d_ff x 2);
+    plus the layer inputs remat keeps (L x rows x d x 2)."""
+    d, n2, L = cfg.d_model, 2 * cfg.d_ff, cfg.n_layers
+    out = {"state": n_params * (2 + 4 + 4 + 4),
+           "grads": n_params * (4 + 2),
+           "activations": (2 * rows * n2 * 4 + 2 * d * n2 * 4
+                           + L * d * n2 * 2 + L * rows * d * 2)}
+    out["total"] = sum(out.values())
+    return out
+
+
+def phase_train(card):
+    """yi-6b at full width (d 4096, 32/4 heads of 128, d_ff 11008, vocab
+    64000) cut to TRAIN_LAYERS layers, bf16 with fp32 master weights,
+    remat "full", driven through ``launch/train.py::train`` with
+    TRAIN_ARGV into a checkpoint directory under build/: 6 AdamW steps of
+    2 microbatches of 4 x 512 tokens (2,048 rows a K1 call), a checkpoint
+    at step 4.  Then a second run with the same arguments restores step 4
+    into fresh state and takes steps 5-6; its losses must match the first
+    run's within TOL_RESUME relative (the embedding's backward may
+    accumulate in another order).  One checkpoint, not one every 3 steps:
+    each holds 26.7 GB, and the script keeps its disk writes under 45 GiB
+    (three checkpoints write 80 GB).  The loss must be finite and lower at
+    step 6 than at step 1, K1's launches by tile as reckoned, the peak
+    memory within TOL_TRAIN_MEMORY of the reckoning.  The same 6 steps on
+    the torch matmul route (no checkpoint) must give the kernel route's
+    losses within TOL_TRAIN_ROUTES relative at every step.  Both routes
+    run again at TRAIN_LR_WITNESS, the launcher's default rate, as a
+    witness that there the loss is not lower at step 6 than at step 1 on
+    the route without K1 either (the optimiser's doing, not the
+    kernel's); after the loss's jump at step 4 the two routes part by
+    more than rounding (4e-2 on an H100), so they are reported, not held
+    to each other."""
+    import argparse
+    import shutil
+    from repro_torch import backend
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import tree
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training.train_step import TrainConfig, abstract_state
+    cfg = get_config(ARCH).with_(n_layers=TRAIN_LAYERS)
+    tiles = tuple(fused_matmul.launches_by_tile)
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    args = launch_train.parse_args(TRAIN_ARGV + ["--ckpt-dir", str(ckpt),
+                                                 "--device", "cuda"])
+    rows = args.global_batch // args.microbatches * args.seq_len
+    n_params = sum(x.numel() for x in
+                   tree.leaves(abstract_state(cfg, TrainConfig())[0]))
+    per_step = args.microbatches * _train_k1_calls(cfg.n_layers, 1)
+
+    def run(route, steps, **over):
+        """``steps`` launcher steps on matmul route ``route``, with
+        ``over`` in place of TRAIN_ARGV's arguments."""
+        run_args = argparse.Namespace(**{**vars(args), **over})
+        fused_matmul.launches = flash_attention.launches = 0
+        fused_matmul.launches_by_tile = dict.fromkeys(tiles, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prev = backend.set_default_matmul_backend(route)
+        try:
+            t0 = time.perf_counter()
+            res = launch_train.train(cfg, run_args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            backend.set_default_matmul_backend(prev)
+        info = {"route": route, "lr": run_args.lr, "start": res.start,
+                "losses": res.losses, "step_ms_device": res.step_ms_device,
+                "step_s_host": res.step_seconds, "wall_s": wall,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "fused_matmul_by_tile": dict(fused_matmul.launches_by_tile),
+                "fused_matmul_by_tile_reckoned": {
+                    "tc": steps * per_step if route == "kernel" else 0,
+                    "decode": 0, "simt": 0},
+                "flash_attention": flash_attention.launches}
+        del res
+        torch.cuda.empty_cache()
+        return info
+
+    def routes_rel(kern, plain):
+        return [abs(a - b) / abs(b)
+                for a, b in zip(kern["losses"], plain["losses"])]
+
+    try:
+        full = run("kernel", args.steps)
+        resumed = run("kernel", args.steps - args.ckpt_every)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch_route = run("torch", args.steps, ckpt_dir=None)
+    witness = {route: run(route, args.steps, ckpt_dir=None,
+                          lr=TRAIN_LR_WITNESS)
+               for route in ("kernel", "torch")}
+    losses = full["losses"]
+    step_ms = statistics.median(full["step_ms_device"][1:])
+    tokens = args.global_batch * args.seq_len
+    mem = _train_memory_reckoned(cfg, n_params, rows)
+    mem_rel = full["max_memory_allocated"] / mem["total"] - 1.0
+    resume_rel = [abs(a - b) / abs(b) for a, b in
+                  zip(resumed["losses"], losses[args.ckpt_every:])]
+    route_rel = routes_rel(full, torch_route)
+    witness_rel = routes_rel(witness["kernel"], witness["torch"])
+    runs = (full, resumed, torch_route, *witness.values())
+    finite = all(bool(np.isfinite(r["losses"]).all()) for r in runs)
+    emit({"phase": "train", "nvidia_smi": card,
+          "config": f"{ARCH} full width, {cfg.n_layers} of 32 layers, bf16 "
+                    f"with fp32 master, remat {cfg.remat}",
+          "argv": TRAIN_ARGV, "params": n_params, "rows_a_k1_call": rows,
+          "full": full, "resumed": resumed, "resume_rel": resume_rel,
+          "tol_resume": TOL_RESUME,
+          "torch_route": torch_route, "route_rel": route_rel,
+          "witness_lr": TRAIN_LR_WITNESS, "witness": witness,
+          "witness_route_rel": witness_rel, "tol_routes": TOL_TRAIN_ROUTES,
+          "step_ms_median_2_6": step_ms,
+          "tokens_per_s": tokens / (step_ms / 1e3),
+          "memory_reckoned": mem, "memory_rel": mem_rel,
+          "tol_memory": TOL_TRAIN_MEMORY})
+    require(finite and losses[-1] < losses[0],
+            f"train: losses {losses} not finite or not falling")
+    require(resumed["start"] == args.ckpt_every
+            and len(resumed["losses"]) == args.steps - args.ckpt_every
+            and max(resume_rel) <= TOL_RESUME,
+            f"train: the resumed run's losses {resumed['losses']} differ "
+            f"from the uninterrupted run's {losses[args.ckpt_every:]}")
+    require(max(route_rel) <= TOL_TRAIN_ROUTES,
+            f"train: the kernel route's losses differ from the torch "
+            f"route's by {route_rel}")
+    require(witness["torch"]["losses"][-1] >= witness["torch"]["losses"][0],
+            f"train: at lr {TRAIN_LR_WITNESS} the torch route's loss falls "
+            f"({witness['torch']['losses']}): the phase's lower rate needs "
+            f"another reason")
+    for r in runs:
+        require(r["fused_matmul_by_tile"] == r["fused_matmul_by_tile_reckoned"]
+                and r["flash_attention"] == 0,
+                f"train: K1 ran {r['fused_matmul_by_tile']} on the "
+                f"{r['route']} route, reckoned "
+                f"{r['fused_matmul_by_tile_reckoned']}; K2 "
+                f"{r['flash_attention']}")
+    require(abs(mem_rel) <= TOL_TRAIN_MEMORY,
+            f"train: peak {full['max_memory_allocated']} B against "
+            f"{mem['total']} B reckoned")
+    by_tile = {t: sum(r["fused_matmul_by_tile"][t] for r in runs)
+               for t in tiles}
+    return {"fused_matmul": sum(by_tile.values()),
+            "fused_matmul_by_tile": by_tile}
 
 
 # ---------------------------------------------------------------------------
@@ -2738,6 +3113,58 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
                      f"{' GLU-silu' if glu else ''} -> ({rows},{n_out})"
                      f"{' fp32' if out_dt == torch.float32 else ''}",
             "library_call": "torch.matmul (no epilogue)"})
+
+    # K1's backward at the training GLU projection (2,048 rows, bf16): the
+    # accumulator recomputed through K1 (tensor-core tile, fp32 out), the
+    # epilogue's vector-Jacobian product in plain ops, dA and dB as fp32
+    # ``torch.matmul`` (TF32 off); beside autograd of the plain version.
+    # Each timed as one backward between CUDA events (autograd does not
+    # capture into a CUDA graph here).  The function's inputs are bf16, so
+    # ``bound_ms`` counts the recompute and dA, dB at the bf16 peak;
+    # ``bound_fp32_ms`` counts dA and dB at the fp32 peak, as the Function
+    # forms them (fp32 operands, TF32 off, as the reference's autodiff of
+    # its fp32-accumulating matmul does); both against the bytes of a, b
+    # and g read and of dA and dB written, in bf16.
+    from repro_torch.core.fusion import EpilogueOperands
+    from repro_torch.kernels.matmul.ref import fused_matmul_ref
+    m, n_b = TRAIN_ROWS, 2 * cfg.d_ff
+    a, b, g, ep = matmul_backward_case(gen, m, k, n_b, torch.bfloat16,
+                                       "silu")
+    out = run_matmul(a, b, ep, EpilogueOperands())
+    ref_out = fused_matmul_ref(a, b, epilogue=ep)
+    t = time_ms({
+        "kernel": lambda: torch.autograd.grad(out, (a, b), g,
+                                              retain_graph=True),
+        "plain": lambda: torch.autograd.grad(ref_out, (a, b), g,
+                                             retain_graph=True)})
+    errs = [rel_err(x, r)[1] for x, r in zip(
+        torch.autograd.grad(out, (a, b), g, retain_graph=True),
+        plain_matmul_backward(a, b, g, ep))]
+    flop = 2.0 * m * n_b * k
+    t_ops = 3 * flop / chip.peak_bf16
+    t_ops32 = flop / chip.peak_bf16 + 2 * flop / chip.peak_fp32
+    t_bytes = 2.0 * (2 * m * k + 2 * k * n_b + m * n_b // 2) / chip.hbm_bw
+    kernels.append({
+        "name": "fused_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/matmul/ops.py (FusedMatmulFn; "
+                  "its K1 launch src/repro_torch/kernels/csrc/"
+                  "fused_matmul_sm90.cu)",
+        "replaces": "src/repro/kernels/matmul/matmul.py:39",
+        **counts("fused_matmul"),
+        "launches_by_tile": by_tile("fused_matmul"),
+        "tile": "tc", "max_abs_err": max(errs),
+        "ms": t["kernel"], "plain_ms": t["plain"],
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_fp32_ms": max(t_ops32, t_bytes) * 1e3,
+        "bound_fp32_by": "operations" if t_ops32 >= t_bytes else "bytes",
+        "library_ms": None,
+        "timing": "one backward between CUDA events, median of 10 in turns",
+        "shape": f"backward: bf16 ({m},{k})@({k},2,{n_b // 2}) GLU-silu: "
+                 f"dA ({m},{k}), dB ({k},2,{n_b // 2})",
+        "library_call": "none: no single PyTorch call computes the GLU "
+                        "epilogue's backward"})
+    del a, b, g, out, ref_out
 
     # K2 at yi-6b's prefill attention of the longest batch (head_dim 128,
     # GQA 32/4); RecurrentGemma's (head_dim 256) comes after K3.
@@ -3040,7 +3467,8 @@ def main() -> int:
                   INTERNVL_ARCH: served_k1_calls(
                       INTERNVL_ARCH, 1, iv_cfg.vision_prefix + s_max),
                   GEMMA27_ARCH: served_k1_calls(GEMMA27_ARCH, 2, s_max)}
-        phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served)
+        phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served,
+                      train_k1_calls())
         phase_kernels_recurrent(g_cfg, r_cfg, s_max)
         phase_parity(ARCH, "parity")
         phase_parity(MOE_ARCH, "moe-parity")
@@ -3099,6 +3527,8 @@ def main() -> int:
         launches["tune"] = phase_tune(cfg)
         phase_online(cfg)
         launches["w8a8"] = phase_w8a8(cfg, s_max)
+        launches["train-parity"] = phase_train_parity()
+        launches["train"] = phase_train(card)
         kernels = phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, launches)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

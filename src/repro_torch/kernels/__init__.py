@@ -11,4 +11,24 @@
   the per-token oracle that also serves as the decode step.
 
 ``build`` compiles ``csrc/*.cu`` with ``nvcc`` on first use.
+
+A CUDA launch writes into a tensor the wrapper allocated, so its result
+has no ``grad_fn``.  K1 runs under autograd through
+``matmul.ops.FusedMatmulFn``; the other wrappers have no backward yet and
+refuse a call that autograd would track (``refuse_autograd``), on every
+device, rather than return a result that silently drops the gradient.
 """
+
+import torch
+
+
+def refuse_autograd(kernel: str, roadmap_item: str, *tensors) -> None:
+    """Raise NotImplementedError if grad mode is on and a tensor of
+    ``tensors`` requires grad: ``kernel`` has no backward, and
+    ``roadmap_item`` is the ROADMAP item that will give it one."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} has no backward: its result would carry no gradient "
+            f"(ROADMAP {roadmap_item}); call it under torch.no_grad() or "
+            f"with inputs that do not require grad")

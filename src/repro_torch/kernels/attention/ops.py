@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.attention.attention import (TILES,
                                                      flash_attention_cuda,
                                                      flash_attention_plain)
@@ -36,12 +37,14 @@ def flash_attention(q, k, v, *, sm_scale: Optional[float] = None,
     CUDA tensors launch the kernel on the tile ``select_tile`` picks
     (and count the launch, where there was one, in
     ``flash_attention.launches`` and in ``flash_attention.launches_by_tile``)
-    or raise; CPU tensors run the plain version.
+    or raise; CPU tensors run the plain version.  It has no backward: a call
+    that autograd would track raises (``kernels.refuse_autograd``).
     """
     h, d = q.shape[1], q.shape[-1]
     hkv = k.shape[1]
     if h % hkv:
         raise ValueError(f"GQA needs H % Hkv == 0, got {h}, {hkv}")
+    refuse_autograd("flash_attention (K2)", "queue 1, item F", q, k, v)
     if sm_scale is None:
         sm_scale = 1.0 / d ** 0.5
     kw = dict(sm_scale=sm_scale, causal=causal, window=window,

@@ -1,10 +1,17 @@
-"""Wrapper of the fused matmul kernel (K1).
+"""Wrapper of the fused matmul kernel (K1), and its autograd Function.
 
 Flattens batch dims, lays a GLU weight ``(K, 2, N/2)`` out as ``(K, N)``
 (gate columns, then up columns), flattens the epilogue operands to
 match, and sends the 2-D problem to the CUDA kernel for CUDA tensors or
 to its plain version for CPU tensors.  The kernel masks ragged edges
 itself, so unlike the reference wrapper nothing is padded.
+
+Under autograd the call goes through ``FusedMatmulFn``: its forward is
+the same call, its backward recomputes the accumulator through K1 where
+the epilogue is not linear in it, takes the epilogue's vector-Jacobian
+product by autograd of the shared plain ``apply_epilogue``, and forms
+dA = d(acc) Bᵀ and dB = Aᵀ d(acc) with ``torch.matmul`` in fp32, as the
+reference's autodiff of its fp32-accumulating matmul does.
 """
 
 from __future__ import annotations
@@ -15,11 +22,83 @@ from typing import Optional
 import torch
 
 from repro_torch.core.fusion import (Epilogue, EpilogueOperands,
-                                     _infer_policy)
+                                     _infer_policy, apply_epilogue)
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.task import BiasType
 from repro_torch.kernels.matmul.matmul import (TILES, fused_matmul_cuda,
                                                fused_matmul_plain, tile_for)
+
+_ACC = Epilogue(out_dtype=torch.float32)   # the accumulator, as fp32
+
+
+def _run(a2: torch.Tensor, b2: torch.Tensor, ep: Epilogue,
+         ops: EpilogueOperands, accum_dtype: torch.dtype) -> torch.Tensor:
+    """The 2-D call: K1 on CUDA tensors (counted), else the plain version."""
+    if a2.is_cuda:
+        a2, b2 = a2.contiguous(), b2.contiguous()
+        out = fused_matmul_cuda(a2, b2, ep, ops)
+        fused_matmul.launches += 1
+        fused_matmul.launches_by_tile[tile_for(a2, b2, ep)] += 1
+        return out
+    return fused_matmul_plain(a2, b2, ep, ops, accum_dtype)
+
+
+def _linear_in_acc(ep: Epilogue) -> bool:
+    """The epilogue's Jacobian does not depend on the accumulator: bias,
+    residual and the cast only."""
+    return ep.activation == "none" and not ep.glu and not ep.softcap
+
+
+def _bind_device(t: torch.Tensor) -> None:
+    """Make ``t``'s card current in the calling thread.  Autograd runs a
+    backward, and the recompute of a checkpointed forward, on a thread of
+    its own; on an H100 the tensor-core tile's first launch from a thread
+    that has not set its device fails with CUDA error 1 (invalid value)."""
+    if t.is_cuda:
+        torch.cuda.set_device(t.device)
+
+
+class FusedMatmulFn(torch.autograd.Function):
+    """``epilogue(a @ b)`` on the 2-D problem, differentiable in ``a``,
+    ``b``, ``bias`` and ``residual``."""
+
+    @staticmethod
+    def forward(ctx, a, b, bias, residual, ep: Epilogue, accum_dtype):
+        _bind_device(a)
+        ctx.save_for_backward(a, b, bias, residual)
+        ctx.ep, ctx.accum_dtype = ep, accum_dtype
+        return _run(a, b, ep, EpilogueOperands(bias=bias, residual=residual),
+                    accum_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, bias, residual = ctx.saved_tensors
+        _bind_device(a)
+        ep = ctx.ep
+        m, n = a.shape[0], b.shape[1]
+        if _linear_in_acc(ep):
+            # any accumulator gives the same vector-Jacobian product
+            acc = g.new_zeros((), dtype=torch.float32).expand(m, n)
+        else:
+            acc = _run(a, b, _ACC, EpilogueOperands(), ctx.accum_dtype)
+        with torch.enable_grad():
+            # the epilogue's vector-Jacobian product in acc, bias, residual
+            leaves = [acc.detach().requires_grad_()] + [
+                None if t is None else t.detach().requires_grad_(need)
+                for t, need in ((bias, ctx.needs_input_grad[2]),
+                                (residual, ctx.needs_input_grad[3]))]
+            y = apply_epilogue(leaves[0], ep, EpilogueOperands(
+                bias=leaves[1], residual=leaves[2]))
+            needed = [t is not None and t.requires_grad for t in leaves]
+            got = iter(torch.autograd.grad(
+                y, [t for t, n in zip(leaves, needed) if n], g))
+            d_acc, d_bias, d_res = (next(got) if n else None for n in needed)
+        d_a = d_b = None
+        if ctx.needs_input_grad[0]:
+            d_a = torch.matmul(d_acc, b.float().T).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            d_b = torch.matmul(a.float().T, d_acc).to(b.dtype)
+        return d_a, d_b, d_bias, d_res, None, None
 
 
 def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
@@ -31,7 +110,10 @@ def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
     CUDA tensors launch the kernel on the tile ``select_tile`` picks (and
     count the launch in ``fused_matmul.launches`` and in
     ``fused_matmul.launches_by_tile``) or raise; CPU tensors run the
-    plain version.
+    plain version.  When grad mode is on and an input requires grad the
+    call goes through ``FusedMatmulFn``, on both devices; its backward's
+    K1 launches are counted too.  The int8 and dequant-scale paths have
+    no backward and raise there.
     """
     if policy is None:
         policy = _infer_policy(a)
@@ -54,13 +136,20 @@ def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
         scale_b=operands.scale_b,
         residual=(operands.residual.reshape(-1, operands.residual.shape[-1])
                   if operands.residual is not None else None))
-    if a2.is_cuda:
-        a2, b2 = a2.contiguous(), b2.contiguous()
-        out = fused_matmul_cuda(a2, b2, epilogue, ops)
-        fused_matmul.launches += 1
-        fused_matmul.launches_by_tile[tile_for(a2, b2, epilogue)] += 1
+    tracked = torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad
+        for t in (a2, b2, ops.bias, ops.scale_a, ops.scale_b, ops.residual))
+    if tracked:
+        if (epilogue.has_scale_a or epilogue.has_scale_b
+                or not a.is_floating_point()):
+            raise NotImplementedError(
+                "fused_matmul (K1) has no backward for int8 operands or "
+                "dequant scales (ROADMAP queue 1, item K); call it under "
+                "torch.no_grad()")
+        out = FusedMatmulFn.apply(a2, b2, ops.bias, ops.residual, epilogue,
+                                  policy.accum_dtype)
     else:
-        out = fused_matmul_plain(a2, b2, epilogue, ops, policy.accum_dtype)
+        out = _run(a2, b2, epilogue, ops, policy.accum_dtype)
     return out.reshape(*lead, m, out.shape[-1])
 
 

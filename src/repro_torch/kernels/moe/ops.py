@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.fusion import ACTIVATIONS, Epilogue
 from repro_torch.core.task import BiasType
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.matmul.matmul import TILES
 from repro_torch.kernels.moe.grouped_matmul import (grouped_matmul_cuda,
                                                     grouped_matmul_plain,
@@ -49,12 +50,15 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
     CUDA tensors launch the kernel on the tile K1's ``select_tile`` picks
     with M = C (and count the launch in ``grouped_matmul.launches`` and
     ``grouped_matmul.launches_by_tile``) or raise; CPU tensors run the
-    plain version, which needs none of the promises.
+    plain version, which needs none of the promises.  It has no
+    backward: a call that autograd would track raises
+    (``kernels.refuse_autograd``).
     """
     if (epilogue.has_scale_a or epilogue.has_scale_b
             or epilogue.has_residual or epilogue.bias_type != BiasType.ZERO):
         raise ValueError("the grouped matmul's epilogue takes no operands "
                          "(scales, bias, residual)")
+    refuse_autograd("grouped_matmul (K4)", "queue 1, item G", x, w)
     e, _, k = x.shape
     if w.dim() not in (3, 4) or tuple(w.shape[:2]) != (e, k):
         raise ValueError(f"w must be (E, K, N) or (E, K, 2, N/2) with "

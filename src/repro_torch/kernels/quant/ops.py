@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.quant.quant import (quantize_rowwise_cuda,
                                              quantize_rowwise_plain)
 
@@ -18,10 +19,12 @@ def quantize_rowwise(x: torch.Tensor):
 
     CUDA tensors launch the kernel (and count the launch in
     ``quantize_rowwise.launches``) or raise; CPU tensors run the plain
-    version.
+    version.  It has no backward: a call that autograd would track
+    raises (``kernels.refuse_autograd``).
     """
     if x.dim() != 2:
         raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
+    refuse_autograd("quantize_rowwise (K3)", "queue 1, item K", x)
     if x.is_cuda:
         out = quantize_rowwise_cuda(x)
         quantize_rowwise.launches += 1

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.rglru.rglru import rglru_scan_cuda, rglru_scan_plain
 
 
@@ -19,9 +20,13 @@ def rglru_scan(log_a: torch.Tensor, x: torch.Tensor, initial_state=None):
 
     CUDA tensors launch the kernel (and count the launch in
     ``rglru_scan.launches``) or raise; CPU tensors run the plain version.
+    It has no backward: a call that autograd would track raises
+    (``kernels.refuse_autograd``).
     """
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got {tuple(x.shape)}")
+    refuse_autograd("rglru_scan (K5)", "queue 1, item H", log_a, x,
+                    initial_state)
     if x.is_cuda:
         out = rglru_scan_cuda(log_a, x, initial_state)
         rglru_scan.launches += 1

@@ -9,6 +9,7 @@ does not.
 
 from __future__ import annotations
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.rwkv6.rwkv6 import (TILES, rwkv6_chunked,
                                              rwkv6_wkv_cuda)
 
@@ -20,10 +21,13 @@ def rwkv6_scan(r, k, v, lw, u, *, chunk: int = 32, initial_state=None):
     CUDA tensors launch the kernel on the tile ``select_tile`` picks
     (and count the launch, where there was one, in
     ``rwkv6_scan.launches`` and ``rwkv6_scan.launches_by_tile``) or
-    raise; CPU tensors run the plain version.
+    raise; CPU tensors run the plain version.  It has no backward: a call
+    that autograd would track raises (``kernels.refuse_autograd``).
     """
     if r.dim() != 4:
         raise ValueError(f"r must be (B, H, T, C), got {tuple(r.shape)}")
+    refuse_autograd("rwkv6_scan (K6)", "queue 1, item I", r, k, v, lw, u,
+                    initial_state)
     kw = dict(chunk=chunk, initial_state=initial_state)
     if r.is_cuda:
         o, state, tile = rwkv6_wkv_cuda(r, k, v, lw, u, **kw)

@@ -1,0 +1,185 @@
+"""Training launcher.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \\
+        --reduced --device cpu --steps 200 --global-batch 8 --seq-len 128 \\
+        --ckpt-dir /tmp/run1
+
+Production shape: config → state → fault-tolerant loop (async
+checkpoints, straggler watchdog, preemption handler, auto-resume with the
+data stream's state), the reference launcher's flags and loop.  Runs on
+the CUDA card; ``--device cpu`` runs the kernels' plain versions on the
+CPU instead, and without ``--device`` and without a card it stops with an
+error.
+
+Every projection runs on the zoo's matmul route (K1 through its
+autograd Function by default); attention trains on the plain chunked
+route (``cfg.backend = "torch"``, ``models/common.py::attention_chunked``),
+the counterpart of the reference's ``xla`` route, since K2 has no
+backward yet.  One device only: ``--mesh host`` with
+``--model-parallel 1``; the meshes wait for the distributed slice.
+
+``main(argv)`` parses the flags and builds the configuration;
+``train(cfg, args)`` runs the loop for any configuration (a full-width
+one cut in depth, say) and returns what it did.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.backend import default_matmul_backend
+from repro_torch.configs.registry import ALL_ARCHS, get_config
+from repro_torch.core.precision import disable_tf32
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.launch.serve import resolve_device
+from repro_torch.models.base import ArchConfig, family_module
+from repro_torch.optim import adamw
+from repro_torch.runtime.checkpoint import CheckpointManager
+from repro_torch.runtime.watchdog import PreemptionHandler, StepWatchdog
+from repro_torch.training.train_step import TrainConfig, make_train_step
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ALL_ARCHS, default="yi-6b")
+    ap.add_argument("--reduced", action="store_true",
+                    help="smoke-scale config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--mesh", choices=("host", "single", "multi"),
+                    default="host")
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda, required)")
+    return ap.parse_args(argv)
+
+
+@dataclasses.dataclass
+class TrainResult:
+    params: dict
+    opt_state: dict
+    start: int                   # the step the loop began at (resume)
+    losses: "list[float]"        # one per step run
+    step_seconds: "list[float]"  # host clock, each ending in a sync
+    step_ms_device: "list[float]"  # CUDA events on a card, else empty
+
+
+def _check_mesh(args) -> None:
+    if args.mesh != "host" or args.model_parallel != 1:
+        raise SystemExit(
+            f"--mesh {args.mesh} --model-parallel {args.model_parallel}: "
+            "the port trains on one device (--mesh host, --model-parallel "
+            "1); meshes wait for the distributed slice (ROADMAP queue 1, "
+            "item 7)")
+
+
+def train(cfg: ArchConfig, args) -> TrainResult:
+    """The training loop of ``cfg`` under ``args`` (``parse_args``'s)."""
+    _check_mesh(args)
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        disable_tf32()
+    # the reference trains attention on its xla route: the plain chunked
+    # route here; the projections stay on the zoo's matmul route
+    cfg = cfg.with_(backend="torch")
+    mod = family_module(cfg)
+    tcfg = TrainConfig(
+        optimizer=adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
+                                    warmup_steps=max(args.steps // 20, 1)),
+        microbatches=args.microbatches,
+        grad_compression=args.grad_compression,
+        loss_chunk=min(512, args.seq_len))
+    step_fn = make_train_step(cfg, tcfg)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  global_batch=args.global_batch,
+                                  seq_len=args.seq_len), device=device)
+    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    watchdog = StepWatchdog()
+    preempt = PreemptionHandler()
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{str(cfg.dtype)[6:]}, remat={cfg.remat}, on {device}; "
+          f"attention on the plain chunked route (backend=torch, as the "
+          f"reference trains on xla), projections on the "
+          f"{default_matmul_backend()!r} matmul route", flush=True)
+
+    params = mod.init(cfg, torch.Generator(device=device).manual_seed(0),
+                      device)
+    opt = adamw.init(tcfg.optimizer, params)
+    residual = None
+    start = 0
+    if mgr and mgr.latest_step() is not None:
+        restored, extra = mgr.restore(mgr.latest_step(),
+                                      {"params": params, "opt": opt},
+                                      device=device)
+        del params, opt
+        params, opt = restored["params"], restored["opt"]
+        data.load_state_dict(extra["data"])
+        start = extra["train_step"]
+        print(f"resumed from step {start}")
+
+    losses, seconds, device_ms = [], [], []
+    timed = device.type == "cuda"
+    try:
+        for step in range(start, args.steps):
+            t0 = time.perf_counter()
+            if timed:
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+            batch = next(data)
+            params, opt, metrics, residual = step_fn(params, opt, batch,
+                                                     residual)
+            if timed:
+                ev1.record()
+            loss = float(metrics["loss"])             # waits for the step
+            dt = time.perf_counter() - t0
+            losses.append(loss)
+            seconds.append(dt)
+            if timed:
+                device_ms.append(ev0.elapsed_time(ev1))
+            slow = watchdog.record_step(dt)
+            if step % args.log_every == 0 or slow:
+                tag = " STRAGGLER" if slow else ""
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"{dt * 1e3:.0f}ms{tag}", flush=True)
+            want_ckpt = mgr and ((step + 1) % args.ckpt_every == 0
+                                 or preempt.requested)
+            if want_ckpt:
+                mgr.save_async(step + 1, {"params": params, "opt": opt},
+                               extra={"data": data.state_dict(),
+                                      "train_step": step + 1})
+            if preempt.requested:
+                print("preemption requested: checkpointed, exiting")
+                break
+        if mgr:
+            mgr.wait()
+    finally:
+        watchdog.close()
+        preempt.restore()
+    print(f"done: {watchdog.steps} steps, "
+          f"{watchdog.straggler_events} straggler events")
+    return TrainResult(params, opt, start, losses, seconds, device_ms)
+
+
+def main(argv=None) -> TrainResult:
+    args = parse_args(argv)
+    cfg = get_config(args.arch, reduced=args.reduced)
+    if args.reduced:
+        cfg = cfg.with_(dtype=torch.float32, remat="none")
+    return train(cfg, args)
+
+
+if __name__ == "__main__":
+    main()

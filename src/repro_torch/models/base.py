@@ -106,9 +106,9 @@ class ArchConfig:
     # --- runtime -----------------------------------------------------------
     dtype: torch.dtype = torch.bfloat16
     backend: str = "kernel"                  # kernel | torch | dense
-    # (not ported: ``remat``, training-only; ``attn_pv_bf16``, a lever of
-    # the reference's XLA attention; ``moe_shard_map``, with the
-    # distributed slice)
+    remat: str = "full"                      # full | dots | none
+    # (not ported: ``attn_pv_bf16``, a lever of the reference's XLA
+    # attention; ``moe_shard_map``, with the distributed slice)
     kv_cache_dtype: torch.dtype = torch.bfloat16
     attn_chunk: int = 1024                   # chunked torch attention KV block
 

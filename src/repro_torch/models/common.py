@@ -20,6 +20,9 @@ import math
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.core import tree
 from repro_torch.core.fusion import linear
 from repro_torch.models.base import ArchConfig
 
@@ -44,36 +47,27 @@ def embed_init(gen: torch.Generator, shape, dtype, device=None):
 # Parameter trees: dicts of tensors, stacked on a leading layer axis.
 # ---------------------------------------------------------------------------
 
-def tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _tree_zip(fn, a, b):
-    if isinstance(a, dict):
-        for k in a:
-            _tree_zip(fn, a[k], b[k])
-    else:
-        fn(a, b)
-
-
 def stack_init(make, n: int):
     """``n`` trees from ``make()`` stacked on a leading axis, filled one at
     a time so that only one tree's temporaries exist besides the stack."""
     first = make()
-    stack = tree_map(lambda x: torch.empty((n, *x.shape), dtype=x.dtype,
-                                           device=x.device), first)
-    _tree_zip(lambda s, x: s[0].copy_(x), stack, first)
+    stack = tree.tree_map(lambda x: torch.empty((n, *x.shape), dtype=x.dtype,
+                                                device=x.device), first)
+    slabs = tree.leaves(stack)
+
+    def fill(i, one):
+        for s, x in zip(slabs, tree.leaves(one)):
+            s[i].copy_(x)
+    fill(0, first)
     del first
     for i in range(1, n):
-        _tree_zip(lambda s, x: s[i].copy_(x), stack, make())
+        fill(i, make())
     return stack
 
 
-def layer(tree, i: int):
+def layer(stacked, i: int):
     """Layer ``i`` of a stacked tree, as views."""
-    return tree_map(lambda x: x[i], tree)
+    return tree.tree_map(lambda x: x[i], stacked)
 
 
 # ---------------------------------------------------------------------------
@@ -320,3 +314,33 @@ def cache_update(k_cache, v_cache, k_new, v_new, pos: int):
     k_cache[:, :, pos:pos + s_new] = k_new.to(k_cache.dtype)
     v_cache[:, :, pos:pos + s_new] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Activation remat (training).
+# ---------------------------------------------------------------------------
+
+def remat(cfg: ArchConfig, fn, *args):
+    """``fn(*args)`` under ``cfg.remat``: the counterpart of the reference's
+    ``jax.checkpoint(body, policy=remat_policy(cfg))``.
+
+    ``"full"`` (the reference's ``nothing_saveable``) runs ``fn`` through
+    ``torch.utils.checkpoint`` without reentry: the forward keeps only
+    ``args``, and the backward runs ``fn`` again, kernel launches
+    included.  It applies only where autograd tracks the call, grad mode on
+    and a tensor of ``args`` (trees of tensors too) requiring grad;
+    elsewhere, as in serving, ``fn`` runs as it is.  ``"dots"`` (keep each
+    matmul's output, the reference's ``checkpoint_dots_with_no_batch_dims``)
+    is not ported (ROADMAP queue 1, item J).
+    """
+    if cfg.remat not in ("full", "dots", "none"):
+        raise ValueError(f"unknown remat {cfg.remat!r}; use 'full', 'dots' "
+                         "or 'none'")
+    tracked = torch.is_grad_enabled() and any(
+        torch.is_tensor(t) and t.requires_grad for t in tree.leaves(args))
+    if cfg.remat == "none" or not tracked:
+        return fn(*args)
+    if cfg.remat == "dots":
+        raise NotImplementedError("remat='dots' is not ported (ROADMAP "
+                                  "queue 1, item J); use 'full' or 'none'")
+    return checkpoint(fn, *args, use_reentrant=False)

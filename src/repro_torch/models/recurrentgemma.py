@@ -23,6 +23,7 @@ import sys
 
 import torch
 
+from repro_torch.core import tree
 from repro_torch.core.fusion import linear
 from repro_torch.models import common as cm
 from repro_torch.models.base import ArchConfig, register_family
@@ -279,7 +280,8 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
 
     def stacked(kind):
         one = _state_for(cfg, kind, batch_size, dtype, device)
-        return cm.tree_map(lambda x: x.new_zeros((n_triples, *x.shape)), one)
+        return tree.tree_map(lambda x: x.new_zeros((n_triples, *x.shape)),
+                             one)
 
     return {"triples": tuple(stacked(k) for k in pat),
             "tail": tuple(_state_for(cfg, k, batch_size, dtype, device)

@@ -11,8 +11,9 @@ configs in the tests.
 Layer parameters are stacked on a leading layer axis, as in the
 reference, and a Python loop walks the stack where the reference runs
 ``lax.scan``; gemma2's alternating pattern walks (local, global) *pairs*.
-Activation remat is training-only and not ported; the reference's
-``constrain`` sharding annotations are no-ops without a mesh and dropped.
+Activation remat wraps each pair (``common.remat``) where autograd tracks
+the forward; the reference's ``constrain`` sharding annotations are no-ops
+without a mesh and dropped.
 """
 
 from __future__ import annotations
@@ -123,18 +124,24 @@ def init(cfg: ArchConfig, gen: torch.Generator, device=None):
 def _run_blocks(cfg: ArchConfig, params, x, *, positions, caches=None,
                 cache_pos=None):
     """Walk the layer *groups* in order; each step applies the whole group
-    (so gemma2's (local, global) pairs stay interleaved).  KV caches are
+    (so gemma2's (local, global) pairs stay interleaved) under
+    ``cm.remat``, as the reference remats its scan body.  KV caches are
     updated in place and returned per group, as the reference's scan ys."""
     wins = _windows(cfg)
     n = cfg.n_layers // len(wins)
-    for j in range(n):
+
+    def group(x, lps, kvs):
         for i, window in enumerate(wins):
-            kv = None
-            if caches is not None:
-                kv = (caches[i][0][j], caches[i][1][j])
-            x = block_apply(cfg, cm.layer(params["layers"][i], j), x,
-                            positions=positions, window=window,
-                            kv_cache=kv, cache_pos=cache_pos)
+            x = block_apply(cfg, lps[i], x, positions=positions,
+                            window=window, kv_cache=kvs[i],
+                            cache_pos=cache_pos)
+        return x
+
+    for j in range(n):
+        lps = tuple(cm.layer(p, j) for p in params["layers"])
+        kvs = tuple((c[0][j], c[1][j]) if caches is not None else None
+                    for c in (caches or (None,) * len(wins)))
+        x = cm.remat(cfg, group, x, lps, kvs)
     return x, caches
 
 
@@ -153,12 +160,15 @@ def _embed_inputs(cfg: ArchConfig, params, batch):
     return x
 
 
-def forward(cfg: ArchConfig, params, batch):
-    """Full-sequence forward (evaluation)."""
+def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):
+    """Full-sequence forward (training / evaluation); ``return_hidden``
+    stops at the final norm, for the chunked loss."""
     x = _embed_inputs(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _run_blocks(cfg, params, x, positions=positions)
     x = _norm(cfg, x, params["ln_final"])
+    if return_hidden:
+        return x
     return cm.logits_out(cfg, params, x)
 
 
