@@ -28,7 +28,9 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 scale (``row_rel_err``), each case on the tile that
                 serves it (``launches_by_tile``); K1's backward
                 (``FusedMatmulFn``) at the training GLU projection, dA and
-                dB row by row against autograd of the plain version;
+                dB row by row against autograd of the plain version; K1's,
+                K4's, K2's and K6's tensor-core tiles once more each from a
+                fresh ``threading.Thread`` that never set its device;
 4. parity     — yi-6b at full width, 4 layers, fp32: prefill and 4 decode
                 steps through the kernels against the plain torch route;
                 parity-bf16 the same in bf16, which takes K1's
@@ -152,7 +154,36 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 loss that falls, the resumed losses within 1e-3, K1's
                 launches by tile as reckoned, peak memory within 15% of
                 the reckoning, step ms and tokens/s;
-22. the ``kernels`` line: per kernel, its launches in the paths above, its
+22. dist       — distributed execution: ``DIST_RANKS`` ranks spawned on
+                the card through ``launch.mesh.run_world`` (gloo where
+                they share one card, NCCL where each has its own; the
+                collectives gloo cannot take on CUDA tensors staged
+                through the host and named on each line).  First, in this
+                process, the references: OLMoE-1B-7B's serve traffic on
+                one rank, all experts at once, and in bf16 also under an
+                abstract (data 1, model 2) mesh (EP's two shards in turn,
+                their partial outputs summed as the all-reduce sums
+                them), and yi-6b's int8 serving step through
+                ``backend.get("kernel")`` (phase exec holds it bit for
+                bit against the torch route on these operands) and through ``get("sharded")`` as a loop of spans.
+                Then on each rank: dist-ep-fp32 and dist-ep (OLMoE-1B-7B
+                served expert-parallel on a (data 1, model 2) mesh, 4
+                layers fp32 with tokens identical and prefill logits
+                within 1e-5 of the one-rank run, then full depth bf16
+                bit for bit against the shards in turn on one rank
+                (against all experts at once, prefill logits, greedy
+                tokens and expert choices reported), each rank holding 32
+                of 64 experts, K1, K2 and K4 by tile as moe-serve's, peak
+                memory against its reckoning); dist-cmm (collective
+                matmul at yi-6b's logits shape in bf16, and int8 bit for
+                bit, against the torch route); dist-pipe (GPipe, 2 stages
+                x 4 tanh layers at width 4096 through K1, against the
+                same layers on the torch route; ``kernels`` holds that K1
+                call too); dist-sharded (the serving step through
+                ``get("sharded", units=2)``, bit for bit against the
+                kernel backend); dist-compress (``psum_compressed`` bit
+                for bit against one rank's sum);
+23. the ``kernels`` line: per kernel, its launches in the paths above, its
    time at the paths' largest shapes beside its plain version, a library
    call and its roofline bound; K1 at prefill (tensor-core tile), decode
    and logits (decode tile), its backward at the training GLU shape, K4
@@ -632,6 +663,17 @@ TOL_RESUME = 1e-3
 TOL_TRAIN_ROUTES = 1e-3
 TRAIN_LR_WITNESS = 3e-3             # the launcher's default rate
 TOL_TRAIN_MEMORY = 0.15
+# distributed execution (phase dist): ranks spawned on this machine's
+# cards; the world's join timeout; the fp32 EP case's depth, held to 1e-5
+# of max |logit| (sums in another order only); the pipeline's shape; a
+# rank's peak memory against its reckoning (weights it holds + KV cache)
+DIST_RANKS, DIST_TIMEOUT, DIST_SEED = 2, 300.0, 7
+DIST_DIR = ROOT / "build" / "dist"
+DIST_EP_FP32_LAYERS, TOL_DIST_EP_FP32 = 4, 1e-5
+PIPE_LAYERS, PIPE_WIDTH, PIPE_MICRO, PIPE_ROWS = 4, 4096, 6, 256
+TOL_DIST_MEMORY = 0.15
+DIST_COMPRESS_SHAPES = {"norm": (4096,), "wo": (1024, 4096),
+                        "wq": (4096, 4096)}
 PROFILE_STEPS, UNTRACED_STEPS = 4, 16
 MAX_ROWS_DECODE = 8                 # K1's decode tile serves M <= 8
 # the tiled kernels' tiles, each by substrings of its kernel names in a
@@ -690,6 +732,25 @@ def row_rel_err(out, ref):
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseFailed(msg)
+
+
+def in_fresh_thread(fn):
+    """``fn()`` on a new ``threading.Thread`` that never set its device;
+    its result, or what it raised, raised here."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:          # re-raised on the caller
+            box["err"] = e
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
 
 
 # ---------------------------------------------------------------------------
@@ -1088,6 +1149,10 @@ def phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served, trained):
     check_mm("tc ragged 70x1000x384 all-epilogue bf16", TOL_BF16, "tc", m=70,
              k=1000, n=384, dtype=bf16, act="gelu", bias="row",
              scale_a=True, scale_b=True, residual=True, softcap=30.0)
+    # dist-pipe's layer: linear(x, W, tanh) on each microbatch
+    check_mm(f"dist-pipe tanh {PIPE_ROWS}x{PIPE_WIDTH}x{PIPE_WIDTH} bf16",
+             TOL_BF16, "tc", m=PIPE_ROWS, k=PIPE_WIDTH, n=PIPE_WIDTH,
+             dtype=bf16, act="tanh")
     check_mm("bf16 K % 8 != 0: 70x100x128", TOL_BF16, "simt", m=70, k=100,
              n=128, dtype=bf16, act="silu")
     # every served model's K1 calls at its prefill and decode rows; the
@@ -1327,6 +1392,43 @@ def phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served, trained):
     check_q("zero row and .5 ties fp32 (6,4096)",
             ties_rows(gen, 6, d, torch.float32))
     check_q("zero row and .5 ties bf16 (6,4096)", ties_rows(gen, 6, d, bf16))
+
+    # each tensor-core tile launched from a thread that never set its
+    # device: every launcher binds its operands' card itself
+    from repro_torch.kernels.rwkv6.ops import rwkv6_scan
+
+    def check_thread(name, wrapper, run, ref, tol):
+        before = wrapper.launches_by_tile["tc"]
+        out = in_fresh_thread(run)
+        torch.cuda.synchronize()
+        rel, diff = row_rel_err(out, ref)
+        ok = (wrapper.launches_by_tile["tc"] == before + 1 and rel <= tol
+              and out.shape == ref.shape
+              and bool(torch.isfinite(out.double()).all()))
+        results.append({"kernel": name, "case": "tc tile from a fresh "
+                        "thread", "rel": rel, "max_abs_err": diff,
+                        "tol": tol, "ok": ok})
+
+    a, b, ep, ops = matmul_case(gen, 256, 512, 1024, bf16, glu=True,
+                                act="silu")
+    check_thread("fused_matmul", fused_matmul,
+                 lambda: run_matmul(a, b, ep, ops),
+                 plain_matmul(a, b, ep, ops), TOL_BF16)
+    x, w, ep = grouped_case(gen, 4, 144, 256, 512, bf16, glu=True,
+                            act="silu")
+    check_thread("grouped_matmul", grouped_matmul,
+                 lambda: run_grouped(x, w, ep), plain_grouped(x, w, ep),
+                 TOL_BF16)
+    q, k, v = attention_case(gen, 2, 4, 2, 128, 128, 128, bf16)
+    kw = dict(sm_scale=128 ** -0.5, causal=True, window=0, softcap=0.0,
+              q_start=0)
+    check_thread("flash_attention", flash_attention,
+                 lambda: run_attention(q, k, v, **kw),
+                 plain_attention(q, k, v, **kw), TOL_FLASH_BF16)
+    wkv = wkv_case(gen, 2, 4, 100, 64, bf16, s0=True)
+    check_thread("rwkv6_wkv", rwkv6_scan,
+                 lambda: run_wkv(*wkv, chunk=64)[0],
+                 plain_wkv(*wkv, chunk=64)[0], TOL_BF16)
     emit({"phase": "kernels", "cases": results})
     require(all(r["ok"] for r in results),
             "kernel mismatch: " + ", ".join(r["case"] for r in results
@@ -2930,6 +3032,486 @@ def phase_train(card):
 
 
 # ---------------------------------------------------------------------------
+# Distributed execution: ranks spawned on the card (one a card where the
+# machine has one for each), through launch.mesh.run_world.
+# ---------------------------------------------------------------------------
+
+def _counted(wrappers: dict):
+    """Set each wrapper's launch counts to 0; returns the function that
+    reads them: {name: launches, f"{name}_by_tile": {tile: launches}}."""
+    for fn in wrappers.values():
+        fn.launches = 0
+        fn.launches_by_tile = dict.fromkeys(fn.launches_by_tile, 0)
+
+    def read():
+        out = {}
+        for name, fn in wrappers.items():
+            out[name] = fn.launches
+            out[f"{name}_by_tile"] = dict(fn.launches_by_tile)
+        return out
+    return read
+
+
+def _moe_wrappers():
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.kernels.moe.ops import grouped_matmul
+    return {"fused_matmul": fused_matmul, "flash_attention": flash_attention,
+            "grouped_matmul": grouped_matmul}
+
+
+def _dist_ep_configs():
+    """(tag, config) of ``dist-ep``'s two cases: OLMoE-1B-7B at full
+    width, 4 layers in fp32, then full depth in bf16."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(MOE_ARCH)
+    return (("fp32", cfg.with_(n_layers=DIST_EP_FP32_LAYERS,
+                               dtype=torch.float32,
+                               kv_cache_dtype=torch.float32)),
+            ("bf16", cfg))
+
+
+def _serve_traffic(cfg, params):
+    """The serve traffic (``prompt_lengths``, batch 4, 16 new tokens,
+    greedy) through ``ServingEngine.run``: (tokens (8, 16), each batch's
+    prefill logits in fp32, the engine's per-batch results, every router
+    call's expert indices on the CPU)."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.base import family_module
+    from repro_torch.serving.engine import ServingEngine
+    mod = family_module(cfg)
+    inner, inner_route, logits, picks = mod.prefill, moe_lib.route, [], []
+
+    def recording(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        logits.append(out[0].float())
+        return out
+
+    def routing(rcfg, x2d, w_router):
+        gate, idx = inner_route(rcfg, x2d, w_router)
+        picks.append(idx.sort(dim=-1).values.cpu())
+        return gate, idx
+    lengths, rng = prompt_lengths()
+    eng = ServingEngine(cfg, params, max_batch=MAX_BATCH,
+                        cache_len=CACHE_LEN)
+    for n in lengths:
+        eng.submit(torch.from_numpy(rng.integers(0, cfg.vocab_size, n)))
+    mod.prefill, moe_lib.route = recording, routing
+    try:
+        outs = eng.run(max_new_tokens=MAX_NEW)
+        torch.cuda.synchronize()
+    finally:
+        mod.prefill, moe_lib.route = inner, inner_route
+    return torch.stack(outs), logits, eng.results, picks
+
+
+def _exec_step_graphs(s_max):
+    """yi-6b's int8 prefill and decode steps at full width, lowered by the
+    kernel backend as phase ``exec`` lowers them, with exec's operands
+    (its generator, drawn in its order): [(graph, {label: (a, b)})]."""
+    from repro_torch import backend
+    from repro_torch.configs.registry import get_config
+    from repro_torch.serving.engine import _step_layer
+    cfg = get_config(ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    kern = backend.get("kernel")
+    out = []
+    for step, tokens in (("prefill", MAX_BATCH * s_max),
+                         ("decode", MAX_BATCH)):
+        layer = _step_layer(cfg, step, tokens, cfg.n_layers)
+        ops = _operands(gen, {f"{step}/g{i}": (t.m, t.k, t.n)
+                              for i, t in enumerate(layer.gemms)},
+                        torch.int8)
+        out.append((kern.lower([layer]), ops))
+    return out
+
+
+def _compress_grads(rank: int) -> dict:
+    """``dist-compress``'s gradient tree of ``rank``, seeded by rank."""
+    gen = torch.Generator(device="cuda").manual_seed(DIST_SEED + 100 + rank)
+    return {name: torch.randn(shape, generator=gen, device="cuda")
+            for name, shape in DIST_COMPRESS_SHAPES.items()}
+
+
+def _events_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event time of ``fn()`` over ``reps`` calls after one
+    warm-up; a collective's host waits fall inside the window."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _dist_rank(world, out_dir: str, s_max: int, reckoned: dict) -> None:
+    """One rank of phase ``dist``, spawned by ``run_world``.  Prints one
+    line a check (its rank, the world, the backend, the collectives staged
+    through the host, launches by tile, errors against their limits, ms
+    from CUDA events), raises on a failed check (which fails the world),
+    and writes its launch counts to ``out_dir/rank{r}.json``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import tree
+    from repro_torch.core.fusion import linear
+    from repro_torch.core.precision import disable_tf32
+    from repro_torch.distributed import collectives, logical, sharding
+    from repro_torch.distributed.collective_matmul import (
+        allgather_matmul_reference, collective_matmul)
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.base import family_module
+    from repro_torch.optim.compression import compress_tree, psum_compressed
+    disable_tf32()
+    out_dir, r, n = Path(out_dir), world.rank, world.size
+    one = torch.load(out_dir / "one_rank.pt")
+    head = {"rank": r, "world": n, "backend": world.backend,
+            "backend_reason": world.reason, "device": str(world.device)}
+    k1 = {"fused_matmul": fused_matmul}
+    launches = {}
+
+    def staged():
+        """The collectives staged through the host since the last call."""
+        out = dict(collectives.STAGED)
+        collectives.STAGED.clear()
+        return out
+
+    def line(phase, counts, staged_ops, **kw):
+        emit({"phase": phase, **head, "staged_through_host": staged_ops,
+              **(counts or {}), **kw})
+        if counts is not None:
+            launches[phase] = counts
+
+    # dist-ep: OLMoE served expert-parallel on a (data 1, model n) mesh
+    mesh = make_mesh((1, n), ("data", "model"))
+    for tag, cfg in _dist_ep_configs():
+        gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+        torch.cuda.reset_peak_memory_stats()
+        whole = family_module(cfg).init(cfg, gen, "cuda")
+        specs = sharding.param_shardings(whole, mesh,
+                                         sharding.EXPERT_PARALLEL_RULES)
+        params = sharding.local_shards(sharding.apply_shardings(whole,
+                                                                specs))
+        n_whole = sum(x.numel() for x in tree.leaves(whole))
+        del whole
+        torch.cuda.synchronize()
+        init_peak = torch.cuda.max_memory_allocated()
+        held = sum(x.numel() * x.element_size() for x in tree.leaves(params))
+        experts_held = params["layers"][0]["moe"]["experts_wi"].shape[1]
+        cache = family_module(cfg).init_cache(cfg, MAX_BATCH, CACHE_LEN,
+                                              device="meta")
+        cache_bytes = sum(x.numel() * x.element_size()
+                          for x in tree.leaves(cache))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        read = _counted(_moe_wrappers())
+        # fp32: all experts at once; bf16: the shards in turn (the
+        # ranks' arithmetic), with all experts at once reported
+        ref = one[f"ep-{tag}"]
+        target = one.get(f"ep-{tag}-shards", ref)
+        staged()
+        with logical.use_rules(mesh):
+            tokens, logits, results, picks = _serve_traffic(cfg, params)
+        counts, staged_ops = read(), staged()
+        peak = torch.cuda.max_memory_allocated()
+
+        def against(r):
+            return dict(
+                prefill_logits_rel_err=[rel_err(x.cpu(), y)[0] for x, y in
+                                        zip(logits, r["logits"])],
+                prefill_logits_bit_identical=all(
+                    torch.equal(x.cpu(), y)
+                    for x, y in zip(logits, r["logits"])),
+                greedy_tokens_agree=float(
+                    (tokens.cpu() == r["tokens"]).float().mean()),
+                expert_choices_differing=sum(
+                    int((a != b).any(-1).sum())
+                    for a, b in zip(picks, r["picks"])))
+        vs = against(target)
+        errs, agree = vs["prefill_logits_rel_err"], vs["greedy_tokens_agree"]
+        tol = TOL_DIST_EP_FP32 if tag == "fp32" else TOL_PATH_BF16
+        same_counts = all(counts[k] == ref["counts"][k] for k in counts)
+        reckoning = {"weights_held": held, "kv_cache": cache_bytes,
+                     "total": held + cache_bytes}
+        line("dist-ep" if tag == "bf16" else "dist-ep-fp32", counts,
+             staged_ops,
+             config=f"{MOE_ARCH} full width, {cfg.n_layers} layers, "
+                    f"{str(cfg.dtype)[6:]}, {experts_held} of "
+                    f"{cfg.moe.n_experts} experts a rank",
+             params_whole=n_whole,
+             held_against=("one rank, all experts at once" if target is ref
+                           else f"one rank, the {n} shards in turn"),
+             **vs, tol=tol,
+             expert_choices=sum(int(i.shape[0]) for i in picks),
+             vs_all_experts_at_once=(None if target is ref else against(ref)),
+             prefill_ms=[x.prefill_ms() for x in results],
+             decode_step_ms=[x.decode_step_ms() for x in results],
+             one_rank_prefill_ms=ref["prefill_ms"],
+             one_rank_decode_step_ms=ref["decode_step_ms"],
+             max_memory_allocated_init=init_peak,
+             max_memory_allocated=peak, memory_reckoned=reckoning,
+             launches_equal_one_rank=same_counts)
+        require(experts_held * n == cfg.moe.n_experts,
+                f"dist-ep {tag}: a rank holds {experts_held} experts")
+        require(all(e <= tol for e in errs) and all(
+            bool(torch.isfinite(x).all()) for x in logits),
+            f"dist-ep {tag}: prefill logits {errs} against {tol}")
+        require(agree == 1.0,
+                f"dist-ep {tag}: greedy tokens differ from one rank's")
+        require(tag == "fp32" or vs["prefill_logits_bit_identical"],
+                f"dist-ep {tag}: prefill logits differ from the shards' in "
+                "turn on one rank")
+        require(same_counts, f"dist-ep {tag}: launches {counts}, one rank "
+                f"{ref['counts']}")
+        for name, by_tile in reckoned.items() if tag == "bf16" else ():
+            require(counts[f"{name}_by_tile"] == by_tile,
+                    f"dist-ep: {name} ran {counts[f'{name}_by_tile']} by "
+                    f"tile, reckoned {by_tile}")
+        require(peak <= reckoning["total"] * (1 + TOL_DIST_MEMORY),
+                f"dist-ep {tag}: peak {peak} B against "
+                f"{reckoning['total']} B reckoned")
+        del params, results, logits, picks
+        torch.cuda.empty_cache()
+
+    # dist-cmm: collective matmul at yi-6b's logits shape, then int8
+    cm_mesh = make_mesh((n,), ("model",))
+    idx = cm_mesh.index("model")
+    gen = torch.Generator(device="cuda").manual_seed(DIST_SEED + 1)
+    yi = get_config(ARCH)
+    rows, d, vocab = MAX_BATCH * s_max, yi.d_model, yi.padded_vocab
+    cases = {}
+    for tag, (k_, n_, dt) in (("bf16", (d, vocab, torch.bfloat16)),
+                              ("int8", (d, d, torch.int8))):
+        x = _rand(gen, (rows, k_), dt)
+        w = _rand(gen, (k_, n_), dt)
+        if dt.is_floating_point:
+            w = (w.float() / k_ ** 0.5).to(dt)
+        read = _counted(k1)
+        staged()
+        y = collective_matmul(x, w, cm_mesh).to_local()
+        torch.cuda.synchronize()
+        counts, staged_ops = read(), staged()
+        cols = n_ // n
+        ref = allgather_matmul_reference(x, w[:, idx * cols:(idx + 1) * cols])
+        rel, diff = rel_err(y, ref)
+        cases[tag] = dict(
+            shape=f"{str(dt)[6:]} ({rows},{k_})@({k_},{n_}): rows of x "
+                  f"and columns of w over {n} ranks",
+            rel_err=rel, max_abs_err=diff, exact=bool(torch.equal(y, ref)),
+            tol=0.0 if tag == "int8" else TOL_BF16, counts=counts,
+            staged_through_host=staged_ops,
+            ms=_events_ms(lambda: collective_matmul(x, w, cm_mesh)))
+        require(tuple(y.shape) == (rows, cols) and rel <= cases[tag]["tol"]
+                and (tag != "int8" or cases[tag]["exact"]),
+                f"dist-cmm {tag}: {rel} against {cases[tag]['tol']}")
+        require(counts["fused_matmul"] == n,
+                f"dist-cmm {tag}: {counts['fused_matmul']} K1 launches, "
+                f"expected {n}")
+        del x, w, y, ref
+    launches["dist-cmm"] = {
+        "fused_matmul": sum(c["counts"]["fused_matmul"]
+                            for c in cases.values()),
+        "fused_matmul_by_tile": {t: sum(c["counts"]["fused_matmul_by_tile"]
+                                        [t] for c in cases.values())
+                                 for t in fused_matmul.launches_by_tile}}
+    emit({"phase": "dist-cmm", **head, "cases": cases})
+
+    # dist-pipe: GPipe over n stages of PIPE_LAYERS tanh layers, K1 each
+    pp_mesh = make_mesh((n,), ("pp",))
+    width = PIPE_WIDTH
+    ws = (_rand(gen, (n * PIPE_LAYERS, width, width), torch.float32)
+          / width ** 0.5).to(torch.bfloat16)
+    xs = _rand(gen, (PIPE_MICRO, PIPE_ROWS, width), torch.bfloat16)
+
+    def block_fn(stage_params, x, backend=None):
+        for w_ in stage_params:
+            x = linear(x, w_, activation="tanh", backend=backend)
+        return x
+    read = _counted(k1)
+    staged()
+    out = pipeline_apply(block_fn, ws, xs, pp_mesh)
+    torch.cuda.synchronize()
+    counts, staged_ops = read(), staged()
+    # the plain version: the same layers in turn on the torch route
+    seq = torch.stack([block_fn(ws, xs[i], "torch")
+                       for i in range(PIPE_MICRO)])
+    rel, diff = rel_err(out, seq)
+    steps = PIPE_MICRO + n - 1
+    line("dist-pipe", counts, staged_ops,
+         shape=f"{n} stages x {PIPE_LAYERS} layers of linear(x, W, tanh), "
+               f"bf16 W ({width},{width}), {PIPE_MICRO} microbatches of "
+               f"{PIPE_ROWS} rows",
+         rel_err_vs_plain_sequential=rel, max_abs_err=diff, tol=TOL_BF16,
+         ms=_events_ms(lambda: pipeline_apply(block_fn, ws, xs, pp_mesh)))
+    require(rel <= TOL_BF16, f"dist-pipe: {rel} against {TOL_BF16}")
+    require(counts["fused_matmul"] == steps * PIPE_LAYERS,
+            f"dist-pipe: {counts['fused_matmul']} K1 launches, expected "
+            f"{steps * PIPE_LAYERS}")
+    del ws, xs, out, seq
+
+    # dist-sharded: yi-6b's int8 serving step through backend "sharded"
+    from repro_torch import backend
+    graphs = _exec_step_graphs(s_max)
+    ref = torch.load(out_dir / "sharded_ref.pt")
+    sh = backend.get("sharded", units=n, strategy="output-tile")
+    read = _counted(k1)
+    staged()
+    t0 = time.perf_counter()
+    outs = {}
+    for graph, ops in graphs:
+        outs.update(sh.run_graph(graph, ops).outputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, staged_ops = read(), staged()
+    exact = (set(outs) == set(ref) and all(
+        torch.equal(outs[k].cpu(), ref[k]) for k in ref))
+    line("dist-sharded", counts, staged_ops,
+         graphs=f"{ARCH} int8 prefill ({MAX_BATCH} x {s_max} tokens) and "
+                f"decode ({MAX_BATCH} tokens) steps, output-tile over the "
+                "ranks", bit_exact_vs_kernel_backend=exact,
+         run_graph_s=wall, ms=_events_ms(lambda: [
+             sh.run_graph(graph, ops) for graph, ops in graphs], reps=3))
+    require(exact, "dist-sharded: outputs differ from the kernel backend's")
+    require(counts["fused_matmul"] == len(ref),
+            f"dist-sharded: {counts['fused_matmul']} K1 launches, one a "
+            f"GEMM expected ({len(ref)})")
+    del graphs, ref, outs
+
+    # dist-compress: int8 payloads all-reduced, against one rank's sum
+    residual = {k: torch.zeros(s, device="cuda")
+                for k, s in DIST_COMPRESS_SHAPES.items()}
+    staged()
+    avg, new_res = psum_compressed(_compress_grads(r), residual)
+    torch.cuda.synchronize()
+    staged_ops = staged()
+    packed = [compress_tree(_compress_grads(i), residual) for i in range(n)]
+    _, scale, res = packed[r]
+    expect = {k: sum(q[k].to(torch.int32) for q, _, _ in packed).to(
+        torch.float32) * scale[k] / n for k in DIST_COMPRESS_SHAPES}
+    exact = all(torch.equal(avg[k], expect[k])
+                and torch.equal(new_res[k], res[k])
+                for k in DIST_COMPRESS_SHAPES)
+    grads = _compress_grads(r)
+    line("dist-compress", None, staged_ops,
+         shapes={k: list(s) for k, s in DIST_COMPRESS_SHAPES.items()},
+         bit_exact_vs_one_rank=exact,
+         ms=_events_ms(lambda: psum_compressed(grads, residual)))
+    require(exact, "dist-compress: the sum differs from one rank's")
+    (out_dir / f"rank{r}.json").write_text(json.dumps(
+        {"world": head, "launches": launches}))
+
+
+def phase_dist(s_max, reckoned):
+    """Distributed execution on the card, ``DIST_RANKS`` ranks spawned
+    through ``launch.mesh.run_world`` (gloo when they share the card, NCCL
+    when each has one).  First, in this process, the references: the
+    serve traffic through OLMoE-1B-7B on one rank (4 layers fp32, then
+    full depth bf16; launches by tile as ``reckoned``; bf16 once more
+    under an abstract (data 1, model 2) mesh, the shards in turn), and
+    yi-6b's int8
+    serving step through ``backend.get("kernel")`` and through
+    ``backend.get("sharded")`` with its spans as a loop (bit for bit).
+    Then the ranks (``_dist_rank``): dist-ep, dist-cmm, dist-pipe,
+    dist-sharded and dist-compress.  A rank that fails, or a world that
+    outlives ``DIST_TIMEOUT``, fails the phase (the other ranks are
+    ended).  Writes no checkpoint."""
+    import shutil
+
+    from repro_torch import backend
+    from repro_torch.distributed import logical
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.launch.mesh import abstract_mesh, run_world
+    from repro_torch.models.base import family_module
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    one, launches = {}, {}
+    for tag, cfg in _dist_ep_configs():
+        gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
+        params = family_module(cfg).init(cfg, gen, "cuda")
+        read = _counted(_moe_wrappers())
+        tokens, logits, results, picks = _serve_traffic(cfg, params)
+        counts = read()
+        one[f"ep-{tag}"] = {
+            "tokens": tokens.cpu(), "logits": [x.cpu() for x in logits],
+            "picks": picks,
+            "prefill_ms": [x.prefill_ms() for x in results],
+            "decode_step_ms": [x.decode_step_ms() for x in results],
+            "counts": counts}
+        if tag == "bf16":
+            for name, by_tile in reckoned.items():
+                require(counts[f"{name}_by_tile"] == by_tile,
+                        f"dist one rank: {name} ran "
+                        f"{counts[f'{name}_by_tile']} by tile, reckoned "
+                        f"{by_tile}")
+            with logical.use_rules(abstract_mesh((1, DIST_RANKS),
+                                                 ("data", "model"))):
+                tokens, logits, _, picks = _serve_traffic(cfg, params)
+            # each shard routes the same tokens: one routing a layer
+            one["ep-bf16-shards"] = {
+                "tokens": tokens.cpu(), "logits": [x.cpu() for x in logits],
+                "picks": picks[::DIST_RANKS]}
+        del params, results, logits, picks
+        torch.cuda.empty_cache()
+    graphs = _exec_step_graphs(s_max)
+    kern = backend.get("kernel")
+    sh = backend.get("sharded", units=DIST_RANKS, strategy="output-tile")
+    ref, loop = {}, {}
+    for graph, ops in graphs:
+        ref.update(kern.run_graph(graph, ops).outputs)
+    read = _counted({"fused_matmul": fused_matmul})
+    t0 = time.perf_counter()
+    for graph, ops in graphs:
+        loop.update(sh.run_graph(graph, ops).outputs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read()
+    exact = set(loop) == set(ref) and all(torch.equal(loop[k], ref[k])
+                                          for k in ref)
+    emit({"phase": "dist-sharded", "rank": None, "world": 1,
+          "spans": f"a loop in one process over {DIST_RANKS} units",
+          **counts, "bit_exact_vs_kernel_backend": exact,
+          "run_graph_s": wall})
+    require(exact, "dist-sharded (one process): outputs differ from the "
+            "kernel backend's")
+    require(counts["fused_matmul"] == DIST_RANKS * len(ref),
+            f"dist-sharded (one process): {counts['fused_matmul']} K1 "
+            f"launches, expected {DIST_RANKS * len(ref)}")
+    launches["dist-sharded/one-process"] = counts
+    torch.save(one, DIST_DIR / "one_rank.pt")
+    torch.save({k: v.cpu() for k, v in ref.items()},
+               DIST_DIR / "sharded_ref.pt")
+    del graphs, ref, loop, one
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    try:
+        run_world(_dist_rank, DIST_RANKS, (str(DIST_DIR), s_max, reckoned),
+                  rendezvous=str(DIST_DIR / "rendezvous"),
+                  timeout=DIST_TIMEOUT)
+    except Exception as e:                   # a rank failed or hung
+        raise PhaseFailed(f"dist: {type(e).__name__}: {e}") from None
+    world_s = time.perf_counter() - t0
+    ranks = [json.loads((DIST_DIR / f"rank{i}.json").read_text())
+             for i in range(DIST_RANKS)]
+    for i, got in enumerate(ranks):
+        for path, counts in got["launches"].items():
+            launches[f"{path}/rank{i}"] = counts
+    emit({"phase": "dist", "ranks": DIST_RANKS,
+          "backend": ranks[0]["world"]["backend"],
+          "backend_reason": ranks[0]["world"]["backend_reason"],
+          "devices": [got["world"]["device"] for got in ranks],
+          "world_wall_s": world_s,
+          "wall_s": time.perf_counter() - t_phase, "launches": launches})
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Times at the paths' largest shapes.
 # ---------------------------------------------------------------------------
 
@@ -3529,6 +4111,12 @@ def main() -> int:
         launches["w8a8"] = phase_w8a8(cfg, s_max)
         launches["train-parity"] = phase_train_parity()
         launches["train"] = phase_train(card)
+        # OLMoE served expert-parallel: each rank runs moe-serve's calls,
+        # K4 over its half of the experts
+        launches.update(phase_dist(s_max, {
+            "fused_matmul": k1_tiles["moe-serve"],
+            "grouped_matmul": k4_tiles,
+            "flash_attention": k2_tiles["moe-serve"]}))
         kernels = phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, launches)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -4,7 +4,7 @@ One :class:`~repro_torch.backend.base.Backend` protocol —
 ``dispatch(task, operands) -> handle``, ``check(handle)``,
 ``wait(handle)``, ``run_graph(TaskGraph)`` — with first-class
 granularity (``tile | panel | layer``), epilogue fusion and a cluster
-``units`` dimension, and five registered implementations:
+``units`` dimension, and six registered implementations:
 
 =========================  =================================================
 ``get("kernel")``          the hand-written CUDA fused matmul (K1), one
@@ -24,14 +24,16 @@ granularity (``tile | panel | layer``), epilogue fusion and a cluster
                            the graph) — contended per-unit timelines, and
                            given operands the partitioned graph executed
                            on the default route
+``get("sharded")``         the same partitioned graph executed for real:
+                           K1 a unit's span, on rank u of a world of
+                           ``units`` ranks (an all-gather assembles the
+                           output) or as a loop in one process
 =========================  =================================================
 
 The registry also holds the model zoo's matmul route
 (``set_default_matmul_backend``; ``"kernel"`` by default) and the tuned
 capability dispatch (``get_tuned``, ``tuned_config``): explicit argument
 > the platform's tuning cache (``repro_torch.tune``) > untuned default.
-The reference's ``sharded`` backend (``shard_map`` over a mesh) is not
-ported yet.
 
 Typical use::
 
@@ -61,6 +63,7 @@ from repro_torch.backend.eager import KernelBackend, TorchBackend
 from repro_torch.backend.desim_backend import DESimBackend
 from repro_torch.backend.analytical_backend import AnalyticalBackend
 from repro_torch.backend.cluster_backend import ClusterDESimBackend
+from repro_torch.backend.sharded_backend import ShardedBackend
 
 __all__ = [
     "Backend", "DispatchHandle", "ExecResult", "MatMulOperands",
@@ -70,5 +73,5 @@ __all__ = [
     "set_default_matmul_backend", "set_dispatch_platform",
     "set_tuned_dispatch", "tuned_config", "tuned_dispatch_enabled",
     "KernelBackend", "TorchBackend", "DESimBackend", "AnalyticalBackend",
-    "ClusterDESimBackend",
+    "ClusterDESimBackend", "ShardedBackend",
 ]

@@ -129,8 +129,9 @@ class Backend(abc.ABC):
         if units != 1 and not self.supports_units:
             raise ValueError(
                 f"backend {self.name!r} models a single matrix unit; for "
-                f"units={units} use 'desim-cluster' (timelines) or "
-                "'analytical' (the contention-aware closed form)")
+                f"units={units} use 'desim-cluster' (timelines), "
+                "'analytical' (the contention-aware closed form) or "
+                "'sharded' (execution)")
         self.unit = unit
         self.platform = platform
         self.vector = vector

@@ -1,0 +1,243 @@
+"""Parameter / batch / cache sharding rules (divisibility-aware), their
+placement as DTensors, and the cluster-partitioned GEMM.
+
+Maps every parameter leaf to logical axes by its name, then through the
+active ``logical`` rules to a ``NamedSharding`` (a spec on a mesh).
+Megatron-style TP falls out of the name map: QKV and MLP-in shard their
+*output* column (column parallel), attention-out and MLP-out shard their
+*input* row (row parallel).  Trees are walked in JAX's order over the
+port's paths (``core.tree``), so leaf i here is leaf i of the reference.
+
+``apply_shardings`` places each leaf with ``distribute_tensor``: every
+rank holds the whole leaf (seeded weights, a restored checkpoint) and
+keeps its own shard, with no communication.  An expert-parallel served
+model shards its experts only (``EXPERT_PARALLEL_RULES``); every other
+leaf stays whole on each rank.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import tree
+from repro_torch.distributed import logical
+from repro_torch.distributed.logical import NamedSharding
+from repro_torch.launch.mesh import Mesh
+
+#: leaf name -> logical axes (matched on the last path component).
+_NAME_RULES: "dict[str, tuple]" = {
+    "embedding": ("vocab", "embed"),
+    "lm_head": ("embed", "vocab"),
+    "wq": ("embed", "heads"),        # column parallel
+    "wk": ("embed", "kv_heads"),
+    "wv": ("embed", "kv_heads"),
+    "wo": ("heads", "embed"),        # row parallel
+    "wi": ("embed", "mlp"),          # column parallel (GLU keeps 2x cols)
+    "w_router": ("embed", None),     # replicated router
+    "experts_wi": ("experts", "embed", "mlp_expert"),
+    "experts_wo": ("experts", "mlp_expert", "embed"),
+    # Griffin recurrent block.
+    "w_rnn_in": ("embed", "mlp"),
+    "w_gate_in": ("embed", "mlp"),
+    "w_rnn_out": ("mlp", "embed"),
+    # RWKV time-mix projections.
+    "w_r": ("embed", "heads"),
+    "w_k": ("embed", "heads"),
+    "w_v": ("embed", "heads"),
+    "w_g": ("embed", "heads"),
+    "w_o": ("heads", "embed"),
+    "w_cm_k": ("embed", "mlp"),
+    "w_cm_v": ("mlp", "embed"),
+    "w_cm_r": ("embed", "mlp"),
+}
+# mlp wo: name collision with attention wo is fine — both are row parallel
+# with the sharded dim first.
+
+#: rules that shard the experts over ``model`` and keep every other leaf
+#: whole: the placement of an expert-parallel served model, whose dense
+#: layers run whole on each rank (``models/moe.py::moe_apply``)
+EXPERT_PARALLEL_RULES = {"embed": None, "heads": None, "kv_heads": None,
+                         "mlp": None, "vocab": None}
+
+
+def _leaf_logical_axes(path, leaf) -> "tuple | None":
+    name = next((p for p in reversed(path) if isinstance(p, str)), None)
+    if name in _NAME_RULES:
+        axes = _NAME_RULES[name]
+        if len(axes) == leaf.ndim:
+            return axes
+        # Stacked-over-layers leaves get a leading (replicated) layer dim.
+        if len(axes) == leaf.ndim - 1:
+            return (None,) + axes
+        if len(axes) == leaf.ndim - 2:
+            return (None, None) + axes
+    return None
+
+
+def param_shardings(params, mesh: Optional[Mesh],
+                    rules: Optional[dict] = None):
+    """NamedSharding tree for a param tree (meta tensors serve)."""
+    if mesh is None:
+        return tree.tree_map(lambda _: None, params)
+    with logical.use_rules(mesh, rules):
+        def one(path, leaf):
+            axes = _leaf_logical_axes(path, leaf)
+            if axes is None:
+                return NamedSharding(mesh, ())      # replicate
+            s = logical.sharding_for(leaf.shape, axes)
+            return s if s is not None else NamedSharding(mesh, ())
+        return tree.unflatten(params, [one(path, leaf) for path, leaf
+                                       in tree.flatten_with_path(params)])
+
+
+def batch_shardings(batch, mesh: Optional[Mesh],
+                    rules: Optional[dict] = None):
+    """Shard the leading (batch) dim of every input leaf over (pod,
+    data)."""
+    if mesh is None:
+        return tree.tree_map(lambda _: None, batch)
+    with logical.use_rules(mesh, rules):
+        def one(leaf):
+            axes = ("batch",) + (None,) * (leaf.ndim - 1)
+            s = logical.sharding_for(leaf.shape, axes)
+            return s if s is not None else NamedSharding(mesh, ())
+        return tree.tree_map(one, batch)
+
+
+def cache_shardings(cache, mesh: Optional[Mesh], cfg,
+                    rules: Optional[dict] = None):
+    """KV caches: batch over (pod, data); the model axis takes the KV-head
+    dim when it divides, else the cache *sequence* dim (sequence-parallel
+    decode attention — e.g. deepseek-67b's 8 KV heads on a 16-way model
+    axis)."""
+    if mesh is None:
+        return tree.tree_map(lambda _: None, cache)
+    model = mesh.shape.get("model", 1)
+    with logical.use_rules(mesh, rules):
+        def one(leaf):
+            if leaf.ndim == 5:
+                # (L, B, Hkv, S, D) KV cache or (L, B, H, C, C) rwkv state.
+                heads, seq = leaf.shape[2], leaf.shape[3]
+                if heads % model == 0:
+                    axes = (None, "batch", "kv_heads", None, None)
+                elif seq % model == 0:
+                    axes = (None, "batch", None, "heads", None)
+                else:
+                    axes = (None, "batch", None, None, None)
+            elif leaf.ndim >= 2:
+                axes = (None, "batch") + (None,) * (leaf.ndim - 2)
+            else:
+                axes = (None,) * leaf.ndim
+            s = logical.sharding_for(leaf.shape, axes)
+            return s if s is not None else NamedSharding(mesh, ())
+        return tree.tree_map(one, cache)
+
+
+def apply_shardings(t, shardings):
+    """Each leaf placed by its NamedSharding as a DTensor (a leaf whose
+    sharding is None stays as it is).  Every rank passes the whole leaf
+    and keeps its own shard: ``distribute_tensor`` with
+    ``src_data_rank=None`` communicates nothing."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def one(x, s):
+        if s is None:
+            return x
+        return distribute_tensor(x, s.mesh.device_mesh, s.placements,
+                                 src_data_rank=None)
+    return _map_pair(one, t, shardings)
+
+
+def _map_pair(fn, t, other):
+    """``fn(leaf, s)`` over the leaves of ``t`` and what ``other`` holds
+    at each leaf's place; ``other`` may hold None in place of a subtree,
+    as a sharding tree does (``jax.tree.map`` with ``t`` as the prefix)."""
+    if t is None:
+        return None
+    if isinstance(t, dict):
+        return {k: _map_pair(fn, v, None if other is None else other[k])
+                for k, v in t.items()}
+    if isinstance(t, (tuple, list)):
+        return type(t)(_map_pair(fn, v, None if other is None else other[i])
+                       for i, v in enumerate(t))
+    return fn(t, other)
+
+
+def local_shards(t):
+    """Each DTensor leaf as this rank's shard, a plain tensor that owns
+    its memory (a shard that views a larger tensor is copied, so that the
+    whole leaf can be freed); other leaves as they are."""
+    from torch.distributed.tensor import DTensor
+
+    def one(x):
+        if not isinstance(x, DTensor):
+            return x
+        x = x.to_local()
+        whole = x.untyped_storage().nbytes()
+        return x.clone() if whole > x.numel() * x.element_size() else x
+    return tree.tree_map(one, t)
+
+
+# ---------------------------------------------------------------------------
+# Cluster-partitioned GEMM: the execution mirror of sim.partition.
+# ---------------------------------------------------------------------------
+
+def shard_map_gemm(a, b, n_units: int, dim: str = "m",
+                   accum_dtype=None, bounds=None) -> torch.Tensor:
+    """Accumulator-precision GEMM sharded over ``n_units``, each span
+    one K1 call (``cute_matmul``'s accumulator route).
+
+    ``dim="m"`` shards A's rows (row-panel partition: each unit owns full
+    output rows), ``dim="n"`` shards B's columns (output-tile partition).
+    ``bounds`` is the per-unit ``(lo, hi)`` extent list of a
+    ``sim.partition.Partition`` (``None`` entries for idle units), so
+    execution reproduces the unit-to-data mapping the DES timed; omitted,
+    an even split is assumed.  When the spans are the even split and the
+    world has ``n_units`` ranks, rank u computes span u and an
+    ``all_gather`` assembles the result on every rank; otherwise the
+    spans run as a loop in this process (the reference's rule, where a
+    host with too few devices loops).  Integer dots are bit-exact either
+    way.  ``accum_dtype`` defaults to int32 for int8 inputs and fp32
+    otherwise.  Returns the full (M, N) accumulator.
+    """
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    if dim not in ("m", "n"):
+        raise ValueError(f"dim must be 'm' or 'n', got {dim!r}")
+    if accum_dtype is None:
+        accum_dtype = (torch.int32 if a.dtype in (torch.int8, torch.uint8)
+                       else torch.float32)
+
+    def dot(a_s, b_s):
+        from repro_torch.core.fusion import Epilogue, cute_matmul
+        return cute_matmul(a_s, b_s, epilogue=Epilogue(out_dtype=accum_dtype),
+                           backend="kernel")
+
+    size = a.shape[0] if dim == "m" else b.shape[1]
+    even = [(size * u // n_units, size * (u + 1) // n_units)
+            for u in range(n_units)]
+    if bounds is None:
+        bounds = even
+    if (n_units == 1 or list(bounds) != even or size % n_units != 0
+            or not dist.is_initialized()
+            or dist.get_world_size() != n_units):
+        return _sliced_gemm(a, b, bounds, dim, dot)
+    lo, hi = even[dist.get_rank()]
+    part = dot(a[lo:hi], b) if dim == "m" else dot(a, b[:, lo:hi])
+    return collectives.all_gather(part, dim=0 if dim == "m" else 1)
+
+
+def _sliced_gemm(a, b, bounds, dim, dot):
+    parts = []
+    for span in bounds:
+        if span is None:
+            continue
+        lo, hi = span
+        if hi <= lo:
+            continue
+        parts.append(dot(a[lo:hi], b) if dim == "m"
+                     else dot(a, b[:, lo:hi]))
+    return torch.cat(parts, dim=0 if dim == "m" else 1)

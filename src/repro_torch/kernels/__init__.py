@@ -17,6 +17,10 @@ has no ``grad_fn``.  K1 runs under autograd through
 ``matmul.ops.FusedMatmulFn``; the other wrappers have no backward yet and
 refuse a call that autograd would track (``refuse_autograd``), on every
 device, rather than return a result that silently drops the gradient.
+
+Every CUDA launcher makes its operands' card current in the calling
+thread first (``bind_device``): a launch may come from any host thread
+(autograd's backward thread, a rank's worker, a test's thread).
 """
 
 import torch
@@ -32,3 +36,13 @@ def refuse_autograd(kernel: str, roadmap_item: str, *tensors) -> None:
             f"{kernel} has no backward: its result would carry no gradient "
             f"(ROADMAP {roadmap_item}); call it under torch.no_grad() or "
             f"with inputs that do not require grad")
+
+
+def bind_device(t: torch.Tensor) -> None:
+    """Make ``t``'s card current in the calling thread.  On an H100 the
+    tensor-core tiles' first launch from a thread that has not set its
+    device (a ``threading.Thread``, autograd's backward thread) fails
+    with CUDA error 1 (invalid value); ``torch.cuda.set_device`` makes the
+    card's context current in the thread."""
+    if t.is_cuda:
+        torch.cuda.set_device(t.device)

@@ -29,6 +29,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import bind_device
 from repro_torch.kernels.attention.ref import attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -112,6 +113,7 @@ def flash_attention_cuda(q, k, v, *, sm_scale: float, causal: bool,
     head dim, on the tile ``tile_for`` names: (output, that tile), or
     (output, None) where there is nothing to launch (an empty output, or
     no key, which gives 0)."""
+    bind_device(q)
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):

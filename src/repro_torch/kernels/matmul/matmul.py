@@ -31,6 +31,7 @@ from repro_torch.core.fusion import (ACTIVATION_IDS, Epilogue,
                                      EpilogueOperands, apply_epilogue,
                                      plain_matmul)
 from repro_torch.core.task import BiasType
+from repro_torch.kernels import bind_device
 
 _IN_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
              torch.int8: 3}
@@ -153,6 +154,7 @@ def fused_matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue,
                       ops: EpilogueOperands) -> torch.Tensor:
     """Launch the CUDA kernel on contiguous CUDA tensors, on the tile
     ``tile_for`` names."""
+    bind_device(a)
     if b.device != a.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
     if not (a.is_contiguous() and b.is_contiguous()):

@@ -49,22 +49,12 @@ def _linear_in_acc(ep: Epilogue) -> bool:
     return ep.activation == "none" and not ep.glu and not ep.softcap
 
 
-def _bind_device(t: torch.Tensor) -> None:
-    """Make ``t``'s card current in the calling thread.  Autograd runs a
-    backward, and the recompute of a checkpointed forward, on a thread of
-    its own; on an H100 the tensor-core tile's first launch from a thread
-    that has not set its device fails with CUDA error 1 (invalid value)."""
-    if t.is_cuda:
-        torch.cuda.set_device(t.device)
-
-
 class FusedMatmulFn(torch.autograd.Function):
     """``epilogue(a @ b)`` on the 2-D problem, differentiable in ``a``,
     ``b``, ``bias`` and ``residual``."""
 
     @staticmethod
     def forward(ctx, a, b, bias, residual, ep: Epilogue, accum_dtype):
-        _bind_device(a)
         ctx.save_for_backward(a, b, bias, residual)
         ctx.ep, ctx.accum_dtype = ep, accum_dtype
         return _run(a, b, ep, EpilogueOperands(bias=bias, residual=residual),
@@ -73,7 +63,6 @@ class FusedMatmulFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, b, bias, residual = ctx.saved_tensors
-        _bind_device(a)
         ep = ctx.ep
         m, n = a.shape[0], b.shape[1]
         if _linear_in_acc(ep):

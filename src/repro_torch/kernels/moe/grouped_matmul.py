@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.fusion import ACTIVATION_IDS, Epilogue
+from repro_torch.kernels import bind_device
 from repro_torch.kernels.matmul import matmul as mm
 from repro_torch.kernels.moe.ref import grouped_matmul_ref
 
@@ -98,6 +99,7 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, ep: Epilogue,
     """Launch the CUDA kernel on contiguous CUDA tensors, on the tile
     ``tile_for`` names.  ``rows``, ``max_rows``, ``max_experts``: as in
     ``ops.grouped_matmul``, checked there."""
+    bind_device(x)
     if w.device != x.device:
         raise ValueError(f"operands on {x.device} and {w.device}")
     if not (x.is_contiguous() and w.is_contiguous()):

@@ -13,6 +13,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import bind_device
 from repro_torch.kernels.quant.ref import quantize_rowwise_ref
 
 _IN_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -39,6 +40,7 @@ def quantize_rowwise_plain(x: torch.Tensor):
 
 def quantize_rowwise_cuda(x: torch.Tensor):
     """Launch the CUDA kernel on a CUDA tensor ``x`` (M, K)."""
+    bind_device(x)
     if x.dtype not in _IN_CODES:
         raise NotImplementedError(
             f"the CUDA row quantiser takes float32, float16 or bfloat16, "

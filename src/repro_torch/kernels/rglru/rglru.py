@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import bind_device
 from repro_torch.kernels.rglru.ref import rglru_ref
 
 _fn = None
@@ -41,6 +42,7 @@ def rglru_scan_plain(log_a, x, initial_state=None):
 
 def rglru_scan_cuda(log_a, x, initial_state=None):
     """Launch the CUDA kernel on CUDA tensors."""
+    bind_device(x)
     if log_a.device != x.device:
         raise ValueError(f"log_a and x on {log_a.device} and {x.device}")
     if log_a.dtype != torch.float32 or x.dtype != torch.float32:

@@ -33,6 +33,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import bind_device
+
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 CHUNKS = (32, 64)             # chunk lengths the kernel takes
 MAX_HEAD = 64                 # largest head size C the kernel takes
@@ -233,6 +235,7 @@ def rwkv6_wkv_cuda(r, k, v, lw, u, *, chunk: int, initial_state=None):
     """Launch the CUDA kernel on CUDA tensors, on the tile ``tile_for``
     names: (o, final state, that tile), or (o, final state, None) where
     there is nothing to launch (no batch or no head)."""
+    bind_device(r)
     if r.dtype not in _DTYPE_CODES or not (r.dtype == k.dtype == v.dtype):
         raise NotImplementedError(
             f"the CUDA WKV takes float32, float16 or bfloat16 r, k, v of "

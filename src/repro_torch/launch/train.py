@@ -16,7 +16,9 @@ autograd Function by default); attention trains on the plain chunked
 route (``cfg.backend = "torch"``, ``models/common.py::attention_chunked``),
 the counterpart of the reference's ``xla`` route, since K2 has no
 backward yet.  One device only: ``--mesh host`` with
-``--model-parallel 1``; the meshes wait for the distributed slice.
+``--model-parallel 1``.  ``launch.mesh`` and ``distributed/`` serve a
+mesh, but training on one (the dense leaves placed tensor-parallel or
+FSDP, through K1) is ROADMAP queue 1, item 7b.
 
 ``main(argv)`` parses the flags and builds the configuration;
 ``train(cfg, args)`` runs the loop for any configuration (a full-width
@@ -80,8 +82,7 @@ def _check_mesh(args) -> None:
         raise SystemExit(
             f"--mesh {args.mesh} --model-parallel {args.model_parallel}: "
             "the port trains on one device (--mesh host, --model-parallel "
-            "1); meshes wait for the distributed slice (ROADMAP queue 1, "
-            "item 7)")
+            "1); training on a mesh is ROADMAP queue 1, item 7b")
 
 
 def train(cfg: ArchConfig, args) -> TrainResult:

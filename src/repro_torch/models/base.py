@@ -108,9 +108,13 @@ class ArchConfig:
     backend: str = "kernel"                  # kernel | torch | dense
     remat: str = "full"                      # full | dots | none
     # (not ported: ``attn_pv_bf16``, a lever of the reference's XLA
-    # attention; ``moe_shard_map``, with the distributed slice)
+    # attention)
     kv_cache_dtype: torch.dtype = torch.bfloat16
     attn_chunk: int = 1024                   # chunked torch attention KV block
+    # EP over a mesh's model axis (``models.moe``); False, the reference's
+    # GSPMD expert parallelism, raises under a model axis > 1 (not ported,
+    # ROADMAP item 7b)
+    moe_shard_map: bool = True
 
     @property
     def padded_vocab(self) -> int:

@@ -7,10 +7,19 @@ weights.  ``moe_apply_local`` takes a window of experts
 (``e_start``, ``wi_local.shape[0]``), as in the reference, so that the
 partial outputs of disjoint windows sum to the whole.
 
-Only the reference's single-device branch is ported: its expert-parallel
-``shard_map`` branch (experts sharded over the mesh's ``model`` axis, one
-``psum`` of the partial outputs) waits for the distributed slice.  Without
-a mesh the reference takes the same single-device branch.
+Distribution (EP): under a mesh with a ``model`` axis (``moe_apply``'s
+argument, else ``distributed.logical.active_mesh()``), activations are
+replicated across ``model`` and the experts are sharded across it.  Each
+rank of the mesh routes its data slice of the tokens to the experts it
+holds, runs the grouped GEMMs (K4) on them and forms its partial output;
+one all-reduce over ``model`` sums the partials (the reference's
+``psum``, in the activation dtype), and an all-gather over the data axes
+puts the batch back together.  The reference writes this as
+``shard_map``; here each rank is a process and the collectives go
+through ``distributed.collectives``.  Under a mesh without ranks
+(``launch.mesh.abstract_mesh``) one process runs every shard in turn over
+the whole expert leaves and adds the partials in shard order.  Without a
+mesh the same function runs with ``e_start=0`` and all experts local.
 """
 
 from __future__ import annotations
@@ -161,16 +170,105 @@ def moe_capacity(cfg: ArchConfig, tokens_local: int) -> int:
     return max(8, cap + (-cap) % 8)
 
 
-def moe_apply(cfg: ArchConfig, p, x):
-    """x: (B, S, d) -> (B, S, d): all experts on this device."""
+def moe_apply(cfg: ArchConfig, p, x, mesh=None):
+    """x: (B, S, d) -> (B, S, d).  Expert-parallel over the ``model``
+    axis when a mesh with one is given or active and the experts divide
+    over it (``_moe_expert_parallel``); all experts here otherwise."""
     b, s, d = x.shape
-    capacity = moe_capacity(cfg, b * s)
-    y = moe_apply_local(cfg, x.reshape(-1, d), p["w_router"],
-                        p["experts_wi"], p["experts_wo"], 0,
-                        capacity).reshape(b, s, d)
+    m = cfg.moe
+    if mesh is None:
+        from repro_torch.distributed import logical
+        mesh = logical.active_mesh()
+    model = mesh.shape.get("model", 1) if mesh is not None else 1
+    if not cfg.moe_shard_map and model > 1:
+        raise NotImplementedError(
+            "moe_shard_map=False under a mesh with a model axis is the "
+            "reference's GSPMD expert parallelism, which is not ported "
+            "(ROADMAP item 7b)")
+    if (cfg.moe_shard_map and mesh is not None and "model" in mesh.shape
+            and m.n_experts % model == 0):
+        y = _moe_expert_parallel(cfg, p, x, mesh)
+    else:
+        capacity = moe_capacity(cfg, b * s)
+        y = moe_apply_local(cfg, x.reshape(-1, d), p["w_router"],
+                            _experts(p["experts_wi"], m.n_experts),
+                            _experts(p["experts_wo"], m.n_experts), 0,
+                            capacity).reshape(b, s, d)
     if cfg.moe.dense_parallel:
         # Arctic: dense residual MLP in parallel with the MoE branch.
         h = linear(x, p["dense_wi"], activation=cfg.mlp_activation,
                    glu=cfg.mlp_glu)
         y = y + linear(h, p["dense_wo"])
     return y
+
+
+def _experts(w: torch.Tensor, n: int) -> torch.Tensor:
+    """An expert leaf that must hold ``n`` experts."""
+    if w.shape[0] != n:
+        raise ValueError(f"an expert leaf of {w.shape[0]} experts where "
+                         f"{n} are expected (a rank's shard runs under its "
+                         "mesh, whole leaves without one or under an "
+                         "abstract mesh)")
+    return w
+
+
+def _moe_expert_parallel(cfg: ArchConfig, p, x, mesh):
+    """The reference's ``shard_map`` branch: on this rank of ``mesh``, its
+    data slice of ``x`` and its ``e_local`` experts (``p``'s expert
+    leaves are its shard, placed by ``distributed.sharding``) from
+    ``shard * e_local``, capacity from the slice's tokens, its partial
+    output all-reduced over ``model``, then all-gathered over the data
+    axes.
+
+    On an abstract mesh (sizes, no ranks) this process runs every data
+    slice and every shard in turn over the whole expert leaves, adding
+    the partials in shard order in the activation dtype.  With two shards
+    that is the two-rank all-reduce bit for bit (one rounding of the
+    exact sum of two partials), so a run on one device holds the ranks'
+    arithmetic; against ``moe_apply_local`` over all experts, which adds
+    each token's contributions in one sum, the output differs by the
+    rounding of the partials."""
+    b, s, d = x.shape
+    m = cfg.moe
+    n_shards = mesh.shape["model"]
+    e_local = m.n_experts // n_shards
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    n_data = 1
+    for a in data_axes:
+        n_data *= mesh.shape[a]
+    b_local = b // n_data
+    capacity = moe_capacity(cfg, b_local * s)
+
+    def partial(x_l, shard, wi, wo):
+        return moe_apply_local(cfg, x_l.reshape(-1, d), p["w_router"], wi,
+                               wo, shard * e_local, capacity
+                               ).reshape(x_l.shape)
+
+    if mesh.device_mesh is None:
+        wi = _experts(p["experts_wi"], m.n_experts)
+        wo = _experts(p["experts_wo"], m.n_experts)
+        outs = []
+        for i in range(n_data):                        # pod major
+            x_l = x[i * b_local:(i + 1) * b_local]
+            y = None
+            for shard in range(n_shards):
+                window = slice(shard * e_local, (shard + 1) * e_local)
+                part = partial(x_l, shard, wi[window], wo[window])
+                y = part if y is None else y + part
+            outs.append(y)
+        return torch.cat(outs)
+
+    from repro_torch.distributed import collectives
+    shard = mesh.index("model")
+    data_idx = 0
+    for a in data_axes:                                # pod major
+        data_idx = data_idx * mesh.shape[a] + mesh.index(a)
+    out = partial(x[data_idx * b_local:(data_idx + 1) * b_local], shard,
+                  _experts(p["experts_wi"], e_local),
+                  _experts(p["experts_wo"], e_local))
+    if n_shards > 1:
+        collectives.all_reduce(out, mesh.group("model"))
+    for a in reversed(data_axes):          # data within pod, then pod
+        if mesh.shape[a] > 1:
+            out = collectives.all_gather(out, mesh.group(a))
+    return out

@@ -6,9 +6,9 @@ buffer and added back next step (error feedback — 1-bit-Adam lineage).
 Collective volume drops 4× (fp32) / 2× (bf16); convergence is preserved
 by the residual.
 
-This wraps the *gradient tree*, not the collective itself.  The
-reference's ``psum_compressed`` (the int8 payloads all-reduced across a
-mesh axis) needs the distributed slice (ROADMAP queue 1, item 7).
+This wraps the *gradient tree*: ``compressed_gradients`` quantizes and
+dequantizes around an all-reduce made elsewhere, and ``psum_compressed``
+all-reduces the int8 payloads themselves over a process group.
 ``torch.round`` rounds half to even, as ``jnp.round`` does.
 """
 
@@ -54,3 +54,21 @@ def compressed_gradients(grads, residual):
     """Quantize→dequantize with error feedback."""
     q, s, new_res = compress_tree(grads, residual)
     return decompress_tree(q, s), new_res
+
+
+def psum_compressed(grads, residual, group=None):
+    """All-reduce the int8 payloads over ``group`` (the world by
+    default): each leaf's payload summed as int32, then scaled by this
+    rank's scale and divided by the group's size, as the reference's
+    ``psum_compressed`` does under ``shard_map``.  Returns (averaged
+    gradients, new residual)."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    q, s, new_res = compress_tree(grads, residual)
+    summed = tree.tree_map(
+        lambda qq: collectives.all_reduce(qq.to(torch.int32), group), q)
+    n = dist.get_world_size(group)
+    avg = tree.tree_map(lambda acc, ss: acc.to(torch.float32) * ss / n,
+                        summed, s)
+    return avg, new_res

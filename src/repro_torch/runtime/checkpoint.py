@@ -23,8 +23,10 @@ Guarantees:
     loop overlaps I/O with compute (checkpoint stall ≈ device→host copy).
   * **keep-N** — old steps garbage-collected after a successful save.
 
-``restore`` takes a device where the reference takes shardings: restoring
-onto a mesh needs the distributed slice (ROADMAP queue 1, item 7).
+``restore`` loads each leaf whole, onto a device, and places it on a mesh
+when given shardings (``distributed.sharding.apply_shardings``): a
+checkpoint is mesh-agnostic, so it restores onto any mesh (elastic
+restore).
 """
 
 from __future__ import annotations
@@ -142,9 +144,13 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any, device=None):
+    def restore(self, step: int, like: Any, device=None,
+                shardings: Any = None):
         """Restore into the structure of ``like``, each leaf on ``device``
-        (the CPU by default); returns (tree, extra)."""
+        (the CPU by default); with ``shardings`` (a tree of
+        ``distributed.logical.NamedSharding``, None where a leaf stays
+        whole), each leaf becomes a DTensor on its mesh.  Returns (tree,
+        extra)."""
         d = os.path.join(self.root, f"step_{step:08d}")
         with open(os.path.join(d, "index.json")) as f:
             index = json.load(f)
@@ -155,4 +161,8 @@ class CheckpointManager:
                 f"checkpoint has {len(entries)} leaves, expected {n_like}")
         leaves = [_load_leaf(os.path.join(d, e["file"]), e["dtype"], device)
                   for e in entries]
-        return tree.unflatten(like, leaves), index["extra"]
+        restored = tree.unflatten(like, leaves)
+        if shardings is not None:
+            from repro_torch.distributed.sharding import apply_shardings
+            restored = apply_shardings(restored, shardings)
+        return restored, index["extra"]

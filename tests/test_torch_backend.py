@@ -72,7 +72,8 @@ def _run_both(name_j, name_t, gran, task_kw, a, b, j_ep=None, t_ep=None,
 class TestRegistry:
     def test_available(self):
         assert backend.available() == ("analytical", "desim",
-                                       "desim-cluster", "kernel", "torch")
+                                       "desim-cluster", "kernel", "sharded",
+                                       "torch")
 
     @pytest.mark.parametrize("alias,canon", [("jax", "torch"),
                                              ("xla", "torch"),

@@ -589,3 +589,68 @@ def test_rwkv6_wkv_tc_tile_carries_the_state(card):
     both = torch.cat([o1, o2], dim=2)
     assert _rel(both, o) <= 3e-2 and _row_rel(both, o) <= 3e-2
     assert _rel(s2, s) <= 1e-4
+
+
+def _in_fresh_thread(fn):
+    """``fn()`` on a new ``threading.Thread`` that never set its device;
+    returns its result or raises what it raised."""
+    import threading
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:          # re-raised on the caller
+            box["err"] = e
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+@pytest.mark.parametrize("kernel", ["fused_matmul", "grouped_matmul",
+                                    "flash_attention", "rwkv6_wkv"])
+def test_tc_tile_launches_from_a_fresh_thread(card, kernel):
+    """Each tensor-core tile (K1, K4, K2, K6) launched from a thread that
+    never called ``torch.cuda.set_device``: the launcher binds the card
+    itself (``kernels.bind_device``), so the launch succeeds on the tc
+    tile and agrees with the plain version."""
+    if kernel == "fused_matmul":
+        a, b, ep, ops = _mm_case(card, 256, 512, 1024, torch.bfloat16, None,
+                                 dict(glu=True, activation="silu"))
+        wrapper = mm_ops.fused_matmul
+        run = lambda: wrapper(a, b, epilogue=ep, operands=ops)   # noqa: E731
+        ref = fused_matmul_plain(a, b, ep, ops, torch.float32)
+        tol, rel = 3e-2, _rel
+    elif kernel == "grouped_matmul":
+        x, x_ref, w, ep, _ = _gm_case(card, 4, 144, 256, 512, torch.bfloat16,
+                                      dict(glu=True, activation="silu"))
+        wrapper = gm_ops.grouped_matmul
+        run = lambda: wrapper(x, w, epilogue=ep)                 # noqa: E731
+        ref = grouped_matmul_plain(x_ref, w, ep, torch.float32)
+        tol, rel = 3e-2, _rel
+    elif kernel == "flash_attention":
+        q, k, v = _attn_inputs(card, 2, 4, 2, 128, 128, 128, torch.bfloat16,
+                               False)
+        wrapper = attn_ops.flash_attention
+        run = lambda: wrapper(q, k, v, causal=True)              # noqa: E731
+        ref = flash_attention_plain(q, k, v, sm_scale=128 ** -0.5,
+                                    causal=True, window=0, softcap=0.0,
+                                    q_start=0)
+        tol, rel = 2e-2, _row_rel
+    else:
+        r, k, v, lw, u, s0 = _wkv_inputs(card, 2, 4, 100, torch.bfloat16,
+                                         True, None, False)
+        wrapper = wkv_ops.rwkv6_scan
+        run = lambda: wrapper(r, k, v, lw, u, chunk=64,          # noqa: E731
+                              initial_state=s0)[0]
+        ref = rwkv6_chunked(r, k, v, lw, u, chunk=64, initial_state=s0)[0]
+        tol, rel = 3e-2, _row_rel
+    before = wrapper.launches_by_tile["tc"]
+    out = _in_fresh_thread(run)
+    torch.cuda.synchronize()
+    assert wrapper.launches_by_tile["tc"] == before + 1
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    assert rel(out, ref) <= tol

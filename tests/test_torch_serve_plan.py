@@ -24,12 +24,15 @@ from repro.configs.registry import get_config as j_get_config  # noqa: E402
 from repro.launch import serve as j_serve                 # noqa: E402
 from repro.obs import disable_metrics as j_disable        # noqa: E402
 from repro.serving.engine import ServingEngine as JEngine  # noqa: E402
+from repro.serving.scheduler import (  # noqa: E402
+    clear_price_cache as j_clear_price_cache)
 from repro_torch.configs.registry import get_config      # noqa: E402
 from repro_torch.launch import serve                      # noqa: E402
 from repro_torch.obs import disable_metrics               # noqa: E402
 from repro_torch.serving.arrivals import (PoissonArrivals,  # noqa: E402
                                           write_trace)
 from repro_torch.serving.engine import ServingEngine     # noqa: E402
+from repro_torch.serving.scheduler import clear_price_cache  # noqa: E402
 
 
 class _NoWeights:
@@ -61,6 +64,11 @@ def _port(argv, capsys):
 
 @pytest.fixture(autouse=True)
 def _metrics_off():
+    # both packages price steps through a process-wide memo whose hits
+    # skip ``run_workload`` (and its counters): start each test cold, so
+    # that an earlier test of either package does not warm one side only
+    j_clear_price_cache()
+    clear_price_cache()
     yield
     disable_metrics()
     j_disable()
