@@ -183,7 +183,18 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 ``get("sharded", units=2)``, bit for bit against the
                 kernel backend); dist-compress (``psum_compressed`` bit
                 for bit against one rank's sum);
-23. the ``kernels`` line: per kernel, its launches in the paths above, its
+23. dryrun     — the one-card dry run (``launch/dryrun.py``,
+                ``core/hlo_cost.py``) held to the card: full-size yi-6b
+                and OLMoE-1B-7B, one prefill and one decode step of the
+                serve traffic's first batch, counted on meta, then on the
+                card: launches by kernel, FLOPs and bytes equal; each
+                step's roofline (H100 data-sheet peaks) beside its
+                CUDA-event ms, the meta trace's ``temp_bytes`` beside
+                the card's peak over the arguments; then (dryrun-eq2)
+                the Hopper Eq. 2 tile beside K1's compiled tile.  Phase
+                ``kernels`` counts one call each of K3, K5 and K6 on the
+                card and on meta the same way;
+24. the ``kernels`` line: per kernel, its launches in the paths above, its
    time at the paths' largest shapes beside its plain version, a library
    call and its roofline bound; K1 at prefill (tensor-core tile), decode
    and logits (decode tile), its backward at the training GLU shape, K4
@@ -1429,11 +1440,56 @@ def phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served, trained):
     check_thread("rwkv6_wkv", rwkv6_scan,
                  lambda: run_wkv(*wkv, chunk=64)[0],
                  plain_wkv(*wkv, chunk=64)[0], TOL_BF16)
+
+    # K3, K5 and K6, one call each at its path's shape, counted on the
+    # card and on meta copies of its inputs (the dry run)
+    g_rnn = get_config(GRIFFIN_ARCH).rnn.d_rnn
+    for name, run, args in (
+            ("quantize_rowwise", run_quant,
+             (_rand(gen, (MAX_BATCH * s_max, d), torch.float32),)),
+            ("rglru_scan", run_lru,
+             lru_case(gen, MAX_BATCH, s_max, g_rnn, h0=True)),
+            ("rwkv6_wkv", lambda *a: run_wkv(*a, chunk=64),
+             wkv_case(gen, MAX_BATCH, 64, s_max, 64, bf16, s0=True,
+                      transposed=True))):
+        results.append(counted_case(name, run, args))
     emit({"phase": "kernels", "cases": results})
     require(all(r["ok"] for r in results),
             "kernel mismatch: " + ", ".join(r["case"] for r in results
                                            if not r["ok"]))
     return results
+
+
+def counted_case(name, run, args):
+    """``run(*args)``, one call of kernel ``name``'s wrapper, under the
+    cost counter on the card and on meta copies of ``args``: the same
+    launch, FLOPs and bytes on both sides (``core.hlo_cost``), the aten
+    ops around the launch included."""
+    from repro_torch.core import hlo_cost
+    costs = {}
+    for device in ("cuda", "meta"):
+        xs = [a.to(device) if torch.is_tensor(a) else a for a in args]
+        with torch.no_grad(), hlo_cost.counting() as counter:
+            run(*xs)
+        costs[device] = counter.cost
+    card, meta = costs["cuda"], costs["meta"]
+    same, ops_differ = compare_counts(card, meta)
+    return {"kernel": name, "case": "counted on the card and on meta",
+            "card": card.kernels, "meta": meta.kernels,
+            "bytes": [card.bytes, meta.bytes], "ops_differ": ops_differ,
+            "ok": same and card.kernels.get(name, {}).get("calls") == 1}
+
+
+def compare_counts(card, meta):
+    """(same, ops_differ) of two counts (``core.hlo_cost.HloCost``) of
+    one run: ``same`` when launches by kernel, FLOPs and bytes are
+    equal; ``ops_differ`` the aten ops whose rows are not, each as
+    [card, meta]."""
+    same = (card.kernels == meta.kernels and card.flops == meta.flops
+            and card.bytes == meta.bytes)
+    return same, {k: [card.ops.get(k), meta.ops.get(k)]
+                  for k in set(card.ops) | set(meta.ops)
+                  if card.ops.get(k) != meta.ops.get(k)}
 
 
 def lru_case(gen, b, t, c, *, h0=False):
@@ -3515,6 +3571,142 @@ def phase_dist(s_max, reckoned):
 # Times at the paths' largest shapes.
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# The dry run held to the card: the cost counter on meta and on the card.
+# ---------------------------------------------------------------------------
+
+def _dryrun_steps(cfg, device, gen=None):
+    """The first batch of the serve traffic (4 prompts, padded to the
+    longest, 221 tokens; a ``CACHE_LEN``-slot cache) as one prefill and
+    one decode step of ``cfg`` on ``device``: ([(mode, fn, args)], the
+    prefill's tokens), the weights seeded from ``gen`` (None on meta)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.base import family_module
+    mod = family_module(cfg)
+    lengths, rng = prompt_lengths()
+    s = int(max(lengths[:MAX_BATCH]))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        MAX_BATCH, s))).to(device=device, dtype=torch.int32)
+    params = mod.init(cfg, gen, device)
+    cache = mod.init_cache(cfg, MAX_BATCH, CACHE_LEN, device=device)
+    return [("prefill", dryrun.step_fn(cfg, "prefill"),
+             (params, {"tokens": tokens}, cache)),
+            ("decode", dryrun.step_fn(cfg, "decode"),
+             (params, tokens[:, -1:], cache, s))], MAX_BATCH * s
+
+
+def phase_dryrun(smi_line):
+    """The one-card dry run (``launch/dryrun.py``) held to the card: yi-6b
+    (32 layers) and OLMoE-1B-7B (16 layers, 64 experts) at full size,
+    bf16, on the serve traffic's first batch: one prefill and one decode
+    step, each counted first on meta, then on the card
+    (``core.hlo_cost``).  Launches by kernel, FLOPs and bytes must be
+    equal, and the card's counted launches those of the wrappers.  Then
+    each step's roofline (H100 data-sheet peaks) beside the median
+    CUDA-event time of 5 uncounted runs on the card, and the meta trace's
+    ``temp_bytes`` beside the card's peak allocation over its arguments
+    and over all it held before the step (reported, not held).  Last, the Hopper Eq. 2 tile beside K1's."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import constraint
+    from repro_torch.core.hardware import H100_SXM
+    from repro_torch.core.precision import DataType
+    from repro_torch.core.roofline import Roofline
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.matmul import matmul as mm
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.kernels.moe.ops import grouped_matmul
+    from repro_torch.launch import dryrun
+
+    wrappers = {"fused_matmul": fused_matmul,
+                "flash_attention": flash_attention,
+                "grouped_matmul": grouped_matmul}
+    launches = dict.fromkeys(wrappers, 0)
+    for name, w in wrappers.items():
+        launches[f"{name}_by_tile"] = dict.fromkeys(w.launches_by_tile, 0)
+    steps_out = []
+    for arch in (ARCH, MOE_ARCH):
+        cfg = get_config(arch)
+        meta_steps, n_tokens = _dryrun_steps(cfg, "meta")
+        metas = [dryrun.count_step(fn, args, False)
+                 for _, fn, args in meta_steps]
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        card_steps, _ = _dryrun_steps(cfg, "cuda", gen)
+        n_active = cfg.param_count(active_only=cfg.moe is not None)
+        for (mode, fn, args), (meta, _, meta_s) in zip(card_steps, metas):
+            arg_bytes = dryrun.tree_bytes(args)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            live = torch.cuda.memory_allocated()
+            for w in wrappers.values():
+                w.launches = 0
+                w.launches_by_tile = dict.fromkeys(w.launches_by_tile, 0)
+            card, out, card_s = dryrun.count_step(fn, args, False)
+            torch.cuda.synchronize()
+            ran = {k: w.launches for k, w in wrappers.items() if w.launches}
+            peak = torch.cuda.max_memory_allocated()
+            for k, w in wrappers.items():
+                launches[k] += w.launches
+                for t, n in w.launches_by_tile.items():
+                    launches[f"{k}_by_tile"][t] += n
+            finite = bool(torch.isfinite(out[0]).all())
+            ms = _events_ms(lambda: fn(*args))
+            tokens = n_tokens if mode == "prefill" else MAX_BATCH
+            roof = Roofline(card.flops, card.bytes, card.collective_bytes, 1,
+                            2.0 * n_active * tokens)
+            same, ops_differ = compare_counts(card, meta)
+            line = {
+                "phase": "dryrun", "arch": arch, "step": mode,
+                "config": f"{arch} full width and depth ({cfg.n_layers} "
+                          f"layers), bf16, seeded random weights",
+                "card": smi_line,
+                "kernels_card": card.kernels, "kernels_meta": meta.kernels,
+                "flops": [card.flops, meta.flops],
+                "bytes": [card.bytes, meta.bytes],
+                "launches": ran, "ops_differ": ops_differ,
+                "roofline": {k: roof.as_dict()[k] for k in (
+                    "compute_s", "memory_s", "dominant",
+                    "useful_flops_ratio")},
+                "bound_ms": roof.bound_s * 1e3, "event_ms": ms,
+                "share_of_bound": roof.bound_s * 1e3 / ms,
+                "temp_bytes_meta": meta.temp_bytes,
+                "card_peak_over_args": peak - arg_bytes,
+                "card_peak_over_live": peak - live,
+                "trace_s": {"meta": meta_s, "card": card_s},
+                "logits_finite": finite, "same": same}
+            emit(line)
+            steps_out.append(line)
+            require(same, f"dryrun {arch} {mode}: the card counted "
+                    f"{card.kernels} ({card.flops} FLOPs, {card.bytes} B), "
+                    f"meta {meta.kernels} ({meta.flops}, {meta.bytes})")
+            require({k: v["calls"] for k, v in card.kernels.items()} == ran,
+                    f"dryrun {arch} {mode}: counted {card.kernels}, "
+                    f"launched {ran}")
+            require(finite, f"dryrun {arch} {mode}: non-finite logits")
+        del card_steps, args, out
+        torch.cuda.empty_cache()
+    require(all(launches[k] for k in wrappers),
+            f"dryrun: a kernel of the path never launched: {launches}")
+    tiles = {}
+    for tag, dt, step in (("bf16", DataType.BF16, constraint.WGMMA_M),
+                          ("bf16_step128", DataType.BF16, 128),
+                          ("int8", DataType.INT8, constraint.WGMMA_M)):
+        t = constraint.solve_tiles(dt, step=step)
+        tiles[tag] = {"bm": t.bm, "bn": t.bn, "bk": t.bk,
+                      "smem_bytes": t.smem_bytes,
+                      "compute_bound": t.compute_bound,
+                      "ideal_utilization": t.ideal_utilization}
+    emit({"phase": "dryrun-eq2", "solve_tiles": tiles,
+          "k1_tc_tile": {"bm": mm.TC_BM, "bn": mm.TC_BN, "bk": mm.TC_BK,
+                         "stages": mm.TC_STAGES},
+          "ridge_flop_per_byte": constraint.arithmetic_intensity_needed(),
+          "l2_bytes_reported": torch.cuda.get_device_properties(0)
+          .L2_cache_size,
+          "l2_bytes_table": H100_SXM.l2_bytes,
+          "sms_reported": torch.cuda.get_device_properties(0)
+          .multi_processor_count})
+    return launches
+
+
 def time_ms(fns: dict, reps: int = 10, warmup: int = 2,
             flush=None) -> dict:
     """Median CUDA-event time of each callable, called in turns
@@ -4117,6 +4309,7 @@ def main() -> int:
             "fused_matmul": k1_tiles["moe-serve"],
             "grouped_matmul": k4_tiles,
             "flash_attention": k2_tiles["moe-serve"]}))
+        launches["dryrun"] = phase_dryrun(card)
         kernels = phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, launches)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -5,10 +5,9 @@
 scratchpad bounded by ``(M_scp, N_scp, K_scp)``, and the bandwidth the
 surrounding SoC can feed it.  ``throughput()`` is Eq. 1 verbatim.
 
-Presets cover the paper's case study (Table 2, Intel-AMX-comparable)
-and the 2 TOPS unit of the four integration platforms.  The Eq. 2
-scaling sweep (``scaled_config``) needs the constraint solver, which the
-port has not carried over yet.
+Presets cover the paper's case study (Table 2, Intel-AMX-comparable),
+the scaling sweep of Table 4 (2×2 … 16×16 PE arrays, 256/512-bit reduce,
+8–64 GB/s), and the 0.5–32 TOPS envelope claimed in §1.
 """
 
 from __future__ import annotations
@@ -81,3 +80,32 @@ assert abs(CASE_STUDY.throughput(DataType.INT8) - 4.096 * TERA) < 1e9
 PLATFORM_2TOPS = MatrixUnitConfig(k_pe_bits=256, m_scp=64, n_scp=64,
                                   bandwidth=48 * GIGA)
 assert abs(PLATFORM_2TOPS.throughput(DataType.INT8) - 2.048 * TERA) < 1e9
+
+
+def scaled_config(m_pe: int, n_pe: int, k_pe_bits: int,
+                  bandwidth: float) -> MatrixUnitConfig:
+    """Build a Table-4 style configuration; scratchpad sized by Eq. 2.
+
+    Import is deferred to avoid a cycle: constraint.py needs the config
+    class defined above.
+    """
+    from repro_torch.core.constraint import solve_scratchpad
+
+    base = MatrixUnitConfig(m_pe=m_pe, n_pe=n_pe, k_pe_bits=k_pe_bits,
+                            bandwidth=bandwidth)
+    m_scp, n_scp = solve_scratchpad(base, DataType.INT8)
+    return base.with_(m_scp=m_scp, n_scp=n_scp)
+
+
+#: §1 claims a 0.5–32 TOPS envelope; Table 4 gives the PE sweep.
+def scaling_sweep() -> "list[MatrixUnitConfig]":
+    sweep = []
+    for (m, n), kbits, bw in [
+        ((2, 2), 256, 8 * GIGA),     # 0.512 TOPS embedded
+        ((4, 4), 256, 16 * GIGA),    # 2.048 TOPS
+        ((4, 4), 512, 48 * GIGA),    # 4.096 TOPS (case study class)
+        ((8, 8), 512, 64 * GIGA),    # 16.4 TOPS
+        ((16, 16), 512, 64 * GIGA),  # 65.5 TOPS upper stress point
+    ]:
+        sweep.append(scaled_config(m, n, kbits, bw))
+    return sweep

@@ -138,6 +138,8 @@ class GpuChip:
     hbm_bytes: float          # capacity
     smem_per_block: int       # largest dynamic shared memory a block can use
     sms: int
+    nvlink_bw: float          # bytes/s, aggregate of all links, both ways
+    l2_bytes: float           # capacity
 
 
 # NVIDIA H100 SXM data sheet, dense rates at the full 700 W power limit.
@@ -152,6 +154,12 @@ H100_SXM = GpuChip(
     hbm_bytes=80 * GIGA,
     smem_per_block=232448,
     sms=132,
+    # 18 NVLink 4 links, 900 GB/s summed over links and both directions
+    # (450 GB/s each way).  The roofline divides a card's collective bytes
+    # by this aggregate undivided, as the reference divides by its chip's
+    # ``ici_bw_total`` (every link's rate summed).
+    nvlink_bw=900 * GIGA,
+    l2_bytes=50 * MEBI,
 )
 
 TARGET_CHIP = H100_SXM

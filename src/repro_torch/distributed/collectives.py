@@ -10,6 +10,15 @@ aborts the process: this module stages those through host copies, and
 counts each staged op in ``STAGED``, so that a caller can say which of
 its collectives crossed the host.  Nothing falls back silently: a
 collective that fails raises.  ``group=None`` is the whole world.
+
+Each records its result's bytes by kind in an active cost counter
+(``core.hlo_cost``), as the reference's ``hlo_cost`` sums each
+collective's result shape.  The kinds are the reference's HLO names:
+``all-reduce``, ``all-gather`` and ``collective-permute`` (``exchange``,
+the point-to-point pass that ``jax.lax.ppermute`` makes), and
+``broadcast``, which has no HLO op of its own: where the port
+broadcasts (the pipeline's closing step), the reference all-reduces a
+masked array of the same shape, so its bytes stand for ``all-reduce``.
 """
 
 from __future__ import annotations
@@ -18,6 +27,9 @@ from typing import Callable
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core import hlo_cost
+from repro_torch.core.hlo_cost import tensor_bytes
 
 #: op name -> collectives staged through the host since the last reset
 STAGED: "dict[str, int]" = {}
@@ -39,6 +51,7 @@ def _global(group, rank: int) -> int:
 def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place; returns ``t``."""
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    hlo_cost.collective("all-reduce", tensor_bytes(t))
     return t
 
 
@@ -49,12 +62,14 @@ def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     parts = [torch.empty_like(t)
              for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
+    hlo_cost.collective("all-gather", tensor_bytes(t) * len(parts))
     return torch.cat(parts, dim=dim)
 
 
 def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """``t`` of the group's rank ``src`` on every rank, in place."""
     dist.broadcast(t, src=_global(group, src), group=group)
+    hlo_cost.collective("broadcast", tensor_bytes(t))
     return t
 
 
@@ -69,6 +84,7 @@ def exchange(send: torch.Tensor, recv: torch.Tensor, dst: int, src: int,
     works = dist.batch_isend_irecv([
         dist.P2POp(dist.isend, s, _global(group, dst), group),
         dist.P2POp(dist.irecv, r, _global(group, src), group)])
+    hlo_cost.collective("collective-permute", tensor_bytes(recv))
 
     def wait() -> None:
         for w in works:

@@ -21,18 +21,27 @@ device, rather than return a result that silently drops the gradient.
 Every CUDA launcher makes its operands' card current in the calling
 thread first (``bind_device``): a launch may come from any host thread
 (autograd's backward thread, a rank's worker, a test's thread).
+
+On ``meta`` tensors (a dry run, ``core.hlo_cost``) each wrapper takes the
+card's path, allocations, copies and tile choice included, up to the
+launch, which it skips (``launcher``, ``stream``): the result is an
+empty tensor of the card's shape and dtype.  The plain version does not
+run there.  Each wrapper records its launch's cost in an active counter
+(``hlo_cost.count``) on every device.
 """
 
 import torch
 
+from repro_torch import NotPorted
+
 
 def refuse_autograd(kernel: str, roadmap_item: str, *tensors) -> None:
-    """Raise NotImplementedError if grad mode is on and a tensor of
+    """Raise ``NotPorted`` if grad mode is on and a tensor of
     ``tensors`` requires grad: ``kernel`` has no backward, and
     ``roadmap_item`` is the ROADMAP item that will give it one."""
     if torch.is_grad_enabled() and any(
             torch.is_tensor(t) and t.requires_grad for t in tensors):
-        raise NotImplementedError(
+        raise NotPorted(
             f"{kernel} has no backward: its result would carry no gradient "
             f"(ROADMAP {roadmap_item}); call it under torch.no_grad() or "
             f"with inputs that do not require grad")
@@ -46,3 +55,21 @@ def bind_device(t: torch.Tensor) -> None:
     card's context current in the thread."""
     if t.is_cuda:
         torch.cuda.set_device(t.device)
+
+
+def _no_launch(*args) -> int:
+    return 0
+
+
+def launcher(get, t: torch.Tensor):
+    """The C entry point ``get()`` returns (built on first use), to launch
+    on ``t``'s card; on a ``meta`` tensor, one that launches nothing and
+    reports success."""
+    return _no_launch if t.is_meta else get()
+
+
+def stream(t: torch.Tensor):
+    """The handle of the current CUDA stream of ``t``'s card; None for a
+    ``meta`` tensor."""
+    return (None if t.is_meta
+            else torch.cuda.current_stream(t.device).cuda_stream)

@@ -29,7 +29,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import bind_device
+from repro_torch.core.hlo_cost import tensor_bytes
+from repro_torch.kernels import bind_device, launcher, stream
 from repro_torch.kernels.attention.ref import attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -100,6 +101,21 @@ def tile_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
          if n > 1])
 
 
+def launch_cost(q, k, v, chunk: int = 0) -> "tuple[float, int]":
+    """(FLOPs, bytes) of one call.  FLOPs: the two dots of the
+    reference's ``xla`` route (``attention_xla_chunked``) for the same
+    call, 4·B·H·Sq·Sk'·D, with Sk' the keys padded to whole KV blocks of
+    ``chunk`` (or Sk if shorter), since that route computes every block,
+    masked or not; the model passes its ``attn_chunk``, and ``chunk`` 0
+    counts the keys unpadded.  Bytes: q, k, v and the output."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    chunk = min(chunk, sk) or sk
+    padded = -(-sk // chunk) * chunk if chunk else 0
+    return (4.0 * b * h * sq * padded * d,
+            2 * tensor_bytes(q) + tensor_bytes(k) + tensor_bytes(v))
+
+
 def flash_attention_plain(q, k, v, *, sm_scale: float, causal: bool,
                           window: int, softcap: float, q_start: int):
     """Dense masked softmax in fp32: the kernel's function, unblocked."""
@@ -110,7 +126,8 @@ def flash_attention_plain(q, k, v, *, sm_scale: float, causal: bool,
 def flash_attention_cuda(q, k, v, *, sm_scale: float, causal: bool,
                          window: int, softcap: float, q_start: int):
     """Launch the CUDA kernel on CUDA tensors with unit stride along the
-    head dim, on the tile ``tile_for`` names: (output, that tile), or
+    head dim (on ``meta`` tensors, all but the launch), on the tile
+    ``tile_for`` names: (output, that tile), or
     (output, None) where there is nothing to launch (an empty output, or
     no key, which gives 0)."""
     bind_device(q)
@@ -141,11 +158,11 @@ def flash_attention_tc(q, k, v, *, sm_scale: float, causal: bool,
     o = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     strides = [s if n > 1 else d for x in (q, k, v, o)
                for n, s in zip(x.shape[:3], x.stride()[:3])]
-    err = _tc_launcher()(
+    err = launcher(_tc_launcher, q)(
         _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), b, h, hkv, sq, sk, (ctypes.c_longlong * 12)(*strides),
         float(sm_scale), int(causal), int(window), float(softcap),
-        int(q_start), torch.cuda.current_stream(q.device).cuda_stream)
+        int(q_start), stream(q))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed (tc "
                            f"tile): CUDA error {err}")
@@ -169,12 +186,12 @@ def flash_attention_simt(q, k, v, *, sm_scale: float, causal: bool,
     elems = 16 // q.element_size()
     vec = all(x.data_ptr() % 16 == 0 for x in tensors) and all(
         s % elems == 0 for s in strides)
-    err = _launcher()(
+    err = launcher(_launcher, q)(
         _DTYPE_CODES[q.dtype], dk, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         o.data_ptr(), b, h, hkv, sq, sk, (ctypes.c_longlong * 12)(*strides),
         float(sm_scale), int(causal), int(window), float(softcap),
         int(q_start), int(vec),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        stream(q))
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed (simt "
                            f"tile): CUDA error {err}")

@@ -13,10 +13,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import hlo_cost
 from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.attention.attention import (TILES,
                                                      flash_attention_cuda,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     launch_cost)
 
 
 def _pad_axis(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
@@ -31,14 +33,20 @@ def _pad_axis(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
 
 def flash_attention(q, k, v, *, sm_scale: Optional[float] = None,
                     causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, q_start: int = 0):
+                    softcap: float = 0.0, q_start: int = 0,
+                    cost_chunk: int = 0):
     """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, H, Sq, D).
 
     CUDA tensors launch the kernel on the tile ``select_tile`` picks
     (and count the launch, where there was one, in
     ``flash_attention.launches`` and in ``flash_attention.launches_by_tile``)
-    or raise; CPU tensors run the plain version.  It has no backward: a call
-    that autograd would track raises (``kernels.refuse_autograd``).
+    or raise; ``meta`` tensors take the same path but for the launch;
+    CPU tensors run the plain version.  A cost counter
+    (``core.hlo_cost``) counts each as one launch (``launch_cost``, its
+    keys padded to whole blocks of ``cost_chunk`` as the reference's
+    ``xla`` route pads them to the model's ``attn_chunk``).  It
+    has no backward: a call that autograd would track raises
+    (``kernels.refuse_autograd``).
     """
     h, d = q.shape[1], q.shape[-1]
     hkv = k.shape[1]
@@ -49,15 +57,20 @@ def flash_attention(q, k, v, *, sm_scale: Optional[float] = None,
         sm_scale = 1.0 / d ** 0.5
     kw = dict(sm_scale=sm_scale, causal=causal, window=window,
               softcap=softcap, q_start=q_start)
-    if q.is_cuda:
+    if q.is_cuda or q.is_meta:
         q, k, v = (x if x.stride(-1) == 1 else x.contiguous()
                    for x in (q, k, v))
         out, tile = flash_attention_cuda(q, k, v, **kw)
         if tile is not None:
-            flash_attention.launches += 1
-            flash_attention.launches_by_tile[tile] += 1
+            if q.is_cuda:
+                flash_attention.launches += 1
+                flash_attention.launches_by_tile[tile] += 1
+            hlo_cost.count("flash_attention", launch_cost, q, k, v,
+                           cost_chunk)
         return out
-    return flash_attention_plain(q, k, v, **kw)
+    with hlo_cost.counted("flash_attention", launch_cost, q, k, v,
+                          cost_chunk):
+        return flash_attention_plain(q, k, v, **kw)
 
 
 flash_attention.launches = 0

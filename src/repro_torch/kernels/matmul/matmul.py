@@ -30,8 +30,9 @@ import torch
 from repro_torch.core.fusion import (ACTIVATION_IDS, Epilogue,
                                      EpilogueOperands, apply_epilogue,
                                      plain_matmul)
+from repro_torch.core.hlo_cost import tensor_bytes
 from repro_torch.core.task import BiasType
-from repro_torch.kernels import bind_device
+from repro_torch.kernels import bind_device, launcher, stream
 
 _IN_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
              torch.int8: 3}
@@ -47,6 +48,14 @@ DECODE_BLOCKS = 264      # blocks that fill the card: two on each of 132 SMs
 DECODE_MIN_ROWS = 128    # fewest K rows a split of the decode tile takes
 DECODE_ROUND = 64        # a split's K rows are a multiple of the rows one
                          # round of the block's 8 warps loads
+# The tensor-core tile as ``csrc/tc_tile.cuh`` compiles it for K1: a block
+# of TC_WG = 2 warpgroups owns BM = 64 * TC_WG rows and TC_BN columns,
+# and walks K in TC_BK-deep stages, TC_STAGES of them in its ring.
+TC_WG = 2
+TC_BM = 64 * TC_WG
+TC_BN = 128
+TC_BK = 64
+TC_STAGES = 4
 
 _fn = None               # the SIMT tile (fused_matmul.cu)
 _decode_fn = None        # the decode tile (fused_matmul.cu)
@@ -132,6 +141,22 @@ def decode_split(n_out: int, k: int,
     return -(-k // k_split), k_split
 
 
+def launch_cost(a: torch.Tensor, b: torch.Tensor,
+                ep: Epilogue) -> "tuple[float, int]":
+    """(FLOPs, bytes) of one call on the 2-D problem.  FLOPs: 2·M·N·K
+    with N the full width under GLU, the dot of the reference's ``xla``
+    route.  Bytes: a, b, the epilogue's operands as the launch takes them
+    (fp32) and the output."""
+    m, k = a.shape
+    n = b.shape[1]
+    n_out = n // 2 if ep.glu else n
+    f32 = {BiasType.ROW: n, BiasType.FULL: m * n}.get(ep.bias_type, 0)
+    f32 += (m if ep.has_scale_a else 0) + (n if ep.has_scale_b else 0)
+    f32 += m * n_out if ep.has_residual else 0
+    return (2.0 * m * n * k, tensor_bytes(a) + tensor_bytes(b) + 4 * f32
+            + m * n_out * ep.out_dtype.itemsize)
+
+
 def fused_matmul_plain(a: torch.Tensor, b: torch.Tensor, ep: Epilogue,
                        ops: EpilogueOperands,
                        accum_dtype: torch.dtype) -> torch.Tensor:
@@ -153,7 +178,7 @@ def _f32(x, shape, device):
 def fused_matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue,
                       ops: EpilogueOperands) -> torch.Tensor:
     """Launch the CUDA kernel on contiguous CUDA tensors, on the tile
-    ``tile_for`` names."""
+    ``tile_for`` names (on ``meta`` tensors, all but the launch)."""
     bind_device(a)
     if b.device != a.device:
         raise ValueError(f"operands on {a.device} and {b.device}")
@@ -193,11 +218,10 @@ def fused_matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue,
     scale_b = ptr(ops.scale_b, (n,)) if ep.has_scale_b else None
     residual = ptr(ops.residual, (m, n_out)) if ep.has_residual else None
     vec_b = _aligned(b, n, vec) and (not ep.glu or n_out % vec == 0)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
     tile = tile_for(a, b, ep)
     epi = (_BIAS_CODES[ep.bias_type], bias, scale_a, scale_b, residual,
            float(ep.softcap), ACTIVATION_IDS[ep.activation], int(ep.trivial),
-           _OUT_CODES[ep.out_dtype], stream)
+           _OUT_CODES[ep.out_dtype], stream(a))
     head = (_IN_CODES[a.dtype], a.data_ptr(), b.data_ptr(), out.data_ptr(),
             m, n, k, int(ep.glu))
     if tile == "decode":
@@ -208,13 +232,14 @@ def fused_matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue,
                              dtype=torch.int32 if a.dtype == torch.int8
                              else torch.float32)
             keep.append(ws)
-        err = _decode_launcher()(*head, int(vec_b), splits, k_split,
-                                 ws.data_ptr() if ws is not None else None,
-                                 *epi)
+        err = launcher(_decode_launcher, a)(
+            *head, int(vec_b), splits, k_split,
+            ws.data_ptr() if ws is not None else None, *epi)
     elif tile == "tc":
-        err = _tc_launcher()(*head, *epi)
+        err = launcher(_tc_launcher, a)(*head, *epi)
     else:
-        err = _launcher()(*head, int(_aligned(a, k, vec)), int(vec_b), *epi)
+        err = launcher(_launcher, a)(*head, int(_aligned(a, k, vec)),
+                                     int(vec_b), *epi)
     if err != 0:
         raise RuntimeError(f"fused_matmul kernel launch failed ({tile} "
                            f"tile): CUDA error {err}")

@@ -21,26 +21,51 @@ from typing import Optional
 
 import torch
 
+from repro_torch import NotPorted
+from repro_torch.core import constraint, hlo_cost
 from repro_torch.core.fusion import (Epilogue, EpilogueOperands,
                                      _infer_policy, apply_epilogue)
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.task import BiasType
 from repro_torch.kernels.matmul.matmul import (TILES, fused_matmul_cuda,
-                                               fused_matmul_plain, tile_for)
+                                               fused_matmul_plain,
+                                               launch_cost, tile_for)
 
 _ACC = Epilogue(out_dtype=torch.float32)   # the accumulator, as fp32
+_K_UNIT = 16             # wgmma's K step for 16-bit inputs
+
+
+def _round_up(x, m):
+    return x + (-x) % m
+
+
+def default_tiles(m: int, n: int, k: int, policy: PrecisionPolicy):
+    """Eq.2-solved tile (Hopper's ``constraint.solve_tiles``), clamped to
+    the problem rounded up to wgmma's units (64 rows, 8 columns, a K step
+    of 16).  It is the model's answer, set beside K1's compiled tile
+    (``matmul.TC_BM`` ...); K1's dispatch does not read it."""
+    tc = constraint.solve_tiles(policy.data_type)
+    bm = min(tc.bm, _round_up(m, constraint.WGMMA_M))
+    bn = min(tc.bn, _round_up(n, constraint.WGMMA_N))
+    bk = min(tc.bk, _round_up(k, _K_UNIT))
+    return bm, bn, bk
 
 
 def _run(a2: torch.Tensor, b2: torch.Tensor, ep: Epilogue,
          ops: EpilogueOperands, accum_dtype: torch.dtype) -> torch.Tensor:
-    """The 2-D call: K1 on CUDA tensors (counted), else the plain version."""
-    if a2.is_cuda:
+    """The 2-D call: K1 on CUDA tensors (counted), its dry run on meta
+    tensors, else the plain version; each is one launch to a cost
+    counter."""
+    if a2.is_cuda or a2.is_meta:
         a2, b2 = a2.contiguous(), b2.contiguous()
         out = fused_matmul_cuda(a2, b2, ep, ops)
-        fused_matmul.launches += 1
-        fused_matmul.launches_by_tile[tile_for(a2, b2, ep)] += 1
+        if a2.is_cuda:
+            fused_matmul.launches += 1
+            fused_matmul.launches_by_tile[tile_for(a2, b2, ep)] += 1
+        hlo_cost.count("fused_matmul", launch_cost, a2, b2, ep)
         return out
-    return fused_matmul_plain(a2, b2, ep, ops, accum_dtype)
+    with hlo_cost.counted("fused_matmul", launch_cost, a2, b2, ep):
+        return fused_matmul_plain(a2, b2, ep, ops, accum_dtype)
 
 
 def _linear_in_acc(ep: Epilogue) -> bool:
@@ -98,11 +123,13 @@ def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
 
     CUDA tensors launch the kernel on the tile ``select_tile`` picks (and
     count the launch in ``fused_matmul.launches`` and in
-    ``fused_matmul.launches_by_tile``) or raise; CPU tensors run the
-    plain version.  When grad mode is on and an input requires grad the
-    call goes through ``FusedMatmulFn``, on both devices; its backward's
-    K1 launches are counted too.  The int8 and dequant-scale paths have
-    no backward and raise there.
+    ``fused_matmul.launches_by_tile``) or raise; ``meta`` tensors take
+    the same path but for the launch (a dry run); CPU tensors run the
+    plain version.  A cost counter (``core.hlo_cost``) counts each as one
+    launch (``matmul.launch_cost``).  When grad mode is on and an input
+    requires grad the call goes through ``FusedMatmulFn``, on both
+    devices; its backward's K1 launches are counted too.  The int8 and
+    dequant-scale paths have no backward and raise there.
     """
     if policy is None:
         policy = _infer_policy(a)
@@ -131,7 +158,7 @@ def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
     if tracked:
         if (epilogue.has_scale_a or epilogue.has_scale_b
                 or not a.is_floating_point()):
-            raise NotImplementedError(
+            raise NotPorted(
                 "fused_matmul (K1) has no backward for int8 operands or "
                 "dequant scales (ROADMAP queue 1, item K); call it under "
                 "torch.no_grad()")

@@ -33,7 +33,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.fusion import ACTIVATION_IDS, Epilogue
-from repro_torch.kernels import bind_device
+from repro_torch.core.hlo_cost import tensor_bytes
+from repro_torch.kernels import bind_device, launcher, stream
 from repro_torch.kernels.matmul import matmul as mm
 from repro_torch.kernels.moe.ref import grouped_matmul_ref
 
@@ -85,6 +86,20 @@ def tile_for(x: torch.Tensor, w: torch.Tensor, ep: Epilogue) -> str:
                           x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
 
 
+def launch_cost(x: torch.Tensor, w: torch.Tensor, ep: Epilogue,
+                rows: Optional[torch.Tensor]) -> "tuple[float, int]":
+    """(FLOPs, bytes) of one call.  FLOPs: 2·E·C·K·N over every expert
+    and row, N the full width under GLU: the einsum of the reference's
+    ``xla`` route.  Bytes: x, w, ``rows`` and the output."""
+    e, c, k = x.shape
+    n = w.shape[2]
+    n_out = n // 2 if ep.glu else n
+    return (2.0 * e * c * k * n,
+            tensor_bytes(x) + tensor_bytes(w)
+            + (tensor_bytes(rows) if rows is not None else 0)
+            + e * c * n_out * ep.out_dtype.itemsize)
+
+
 def grouped_matmul_plain(x: torch.Tensor, w: torch.Tensor, ep: Epilogue,
                          accum_dtype: torch.dtype) -> torch.Tensor:
     """``epilogue(x[e] @ w[e])``: a batched product in ``accum_dtype``,
@@ -97,7 +112,8 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, ep: Epilogue,
                         max_rows: Optional[int] = None,
                         max_experts: Optional[int] = None) -> torch.Tensor:
     """Launch the CUDA kernel on contiguous CUDA tensors, on the tile
-    ``tile_for`` names.  ``rows``, ``max_rows``, ``max_experts``: as in
+    ``tile_for`` names (on ``meta`` tensors, all but the launch).
+    ``rows``, ``max_rows``, ``max_experts``: as in
     ``ops.grouped_matmul``, checked there."""
     bind_device(x)
     if w.device != x.device:
@@ -127,7 +143,7 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, ep: Epilogue,
     tail = (rows.data_ptr() if rows is not None else None, float(ep.softcap),
             ACTIVATION_IDS[ep.activation], int(ep.trivial),
             mm._OUT_CODES[ep.out_dtype],
-            torch.cuda.current_stream(x.device).cuda_stream)
+            stream(x))
     ws = None
     if tile == "decode":
         mr = c if max_rows is None else min(c, max_rows)
@@ -137,14 +153,14 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, ep: Epilogue,
             ws = torch.empty((splits, e, c, n), device=x.device,
                              dtype=torch.int32 if x.dtype == torch.int8
                              else torch.float32)
-        err = _decode_launcher()(*head, int(vec_b), mr, splits, k_split,
-                                 ws.data_ptr() if ws is not None else None,
-                                 *tail)
+        err = launcher(_decode_launcher, x)(
+            *head, int(vec_b), mr, splits, k_split,
+            ws.data_ptr() if ws is not None else None, *tail)
     elif tile == "tc":
-        err = _tc_launcher()(*head, *tail)
+        err = launcher(_tc_launcher, x)(*head, *tail)
     else:
-        err = _launcher()(*head, int(mm._aligned(x, k, vec)), int(vec_b),
-                          *tail)
+        err = launcher(_launcher, x)(*head, int(mm._aligned(x, k, vec)),
+                                     int(vec_b), *tail)
     if err != 0:
         raise RuntimeError(f"grouped_matmul kernel launch failed ({tile} "
                            f"tile): CUDA error {err}")

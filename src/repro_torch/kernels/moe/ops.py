@@ -15,13 +15,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import hlo_cost
 from repro_torch.core.fusion import ACTIVATIONS, Epilogue
 from repro_torch.core.task import BiasType
 from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.matmul.matmul import TILES
 from repro_torch.kernels.moe.grouped_matmul import (grouped_matmul_cuda,
                                                     grouped_matmul_plain,
-                                                    tile_for)
+                                                    launch_cost, tile_for)
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
@@ -49,9 +50,11 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
 
     CUDA tensors launch the kernel on the tile K1's ``select_tile`` picks
     with M = C (and count the launch in ``grouped_matmul.launches`` and
-    ``grouped_matmul.launches_by_tile``) or raise; CPU tensors run the
-    plain version, which needs none of the promises.  It has no
-    backward: a call that autograd would track raises
+    ``grouped_matmul.launches_by_tile``) or raise; ``meta`` tensors take
+    the same path but for the launch; CPU tensors run the plain version,
+    which needs none of the promises.  A cost counter
+    (``core.hlo_cost``) counts each as one launch (``launch_cost``).  It
+    has no backward: a call that autograd would track raises
     (``kernels.refuse_autograd``).
     """
     if (epilogue.has_scale_a or epilogue.has_scale_b
@@ -74,17 +77,21 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
     if epilogue.out_dtype is None:
         epilogue = dataclasses.replace(
             epilogue, out_dtype=torch.int32 if int8 else x.dtype)
-    if x.is_cuda:
+    if x.is_cuda or x.is_meta:
         x, w = x.contiguous(), w.contiguous()
         out = grouped_matmul_cuda(
             x, w, epilogue,
             rows.contiguous() if rows is not None else None, max_rows,
             max_experts)
-        grouped_matmul.launches += 1
-        grouped_matmul.launches_by_tile[tile_for(x, w, epilogue)] += 1
+        if x.is_cuda:
+            grouped_matmul.launches += 1
+            grouped_matmul.launches_by_tile[tile_for(x, w, epilogue)] += 1
+        hlo_cost.count("grouped_matmul", launch_cost, x, w, epilogue, rows)
         return out
-    return grouped_matmul_plain(x, w, epilogue,
-                                torch.int32 if int8 else torch.float32)
+    with hlo_cost.counted("grouped_matmul", launch_cost, x, w, epilogue,
+                          rows):
+        return grouped_matmul_plain(x, w, epilogue,
+                                    torch.int32 if int8 else torch.float32)
 
 
 grouped_matmul.launches = 0

@@ -13,7 +13,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import bind_device
+from repro_torch.core.hlo_cost import tensor_bytes
+from repro_torch.kernels import bind_device, launcher, stream
 from repro_torch.kernels.quant.ref import quantize_rowwise_ref
 
 _IN_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
@@ -33,13 +34,21 @@ def _launcher():
     return _fn
 
 
+def launch_cost(x: torch.Tensor) -> "tuple[float, int]":
+    """(FLOPs, bytes) of one call: no dot (0 FLOPs, as the reference's
+    ``xla`` route has none); x, the int8 rows and the fp32 scales."""
+    m, k = x.shape
+    return 0.0, tensor_bytes(x) + m * k + 4 * m
+
+
 def quantize_rowwise_plain(x: torch.Tensor):
     """(q int8 (M, K), scale fp32 (M,)) with plain tensor ops."""
     return quantize_rowwise_ref(x)
 
 
 def quantize_rowwise_cuda(x: torch.Tensor):
-    """Launch the CUDA kernel on a CUDA tensor ``x`` (M, K)."""
+    """Launch the CUDA kernel on a CUDA tensor ``x`` (M, K) (on a ``meta``
+    tensor, all but the launch)."""
     bind_device(x)
     if x.dtype not in _IN_CODES:
         raise NotImplementedError(
@@ -51,9 +60,9 @@ def quantize_rowwise_cuda(x: torch.Tensor):
     if m == 0:
         return q, scale
     x = x.contiguous()
-    err = _launcher()(_IN_CODES[x.dtype], x.data_ptr(), q.data_ptr(),
-                      scale.data_ptr(), m, k,
-                      torch.cuda.current_stream(x.device).cuda_stream)
+    err = launcher(_launcher, x)(_IN_CODES[x.dtype], x.data_ptr(),
+                                 q.data_ptr(), scale.data_ptr(), m, k,
+                                 stream(x))
     if err != 0:
         raise RuntimeError(f"quantize_rowwise kernel launch failed: CUDA "
                            f"error {err}")

@@ -17,7 +17,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import bind_device
+from repro_torch.core.hlo_cost import tensor_bytes
+from repro_torch.kernels import bind_device, launcher, stream
 from repro_torch.kernels.rglru.ref import rglru_ref
 
 _fn = None
@@ -35,13 +36,22 @@ def _launcher():
     return _fn
 
 
+def launch_cost(log_a, x, initial_state=None) -> "tuple[float, int]":
+    """(FLOPs, bytes) of one call: no dot (0 FLOPs, as the reference's
+    ``xla`` route has none); log_a, x and h0 in, h and h_T out, fp32."""
+    b, t, c = x.shape
+    h0 = 4 * b * c if initial_state is not None else 0
+    return 0.0, 4 * (3 * b * t * c + b * c) + h0
+
+
 def rglru_scan_plain(log_a, x, initial_state=None):
     """The recurrence step by step in fp32 tensor ops."""
     return rglru_ref(log_a.float(), x.float(), initial_state)
 
 
 def rglru_scan_cuda(log_a, x, initial_state=None):
-    """Launch the CUDA kernel on CUDA tensors."""
+    """Launch the CUDA kernel on CUDA tensors (on ``meta`` tensors, all
+    but the launch)."""
     bind_device(x)
     if log_a.device != x.device:
         raise ValueError(f"log_a and x on {log_a.device} and {x.device}")
@@ -66,10 +76,10 @@ def rglru_scan_cuda(log_a, x, initial_state=None):
               if h0 is None else h0.clone())
     if h.numel() == 0:
         return h, h_last
-    err = _launcher()(log_a.data_ptr(), x.data_ptr(),
+    err = launcher(_launcher, x)(log_a.data_ptr(), x.data_ptr(),
                       None if h0 is None else h0.data_ptr(), h.data_ptr(),
                       h_last.data_ptr(), b, t, c,
-                      torch.cuda.current_stream(x.device).cuda_stream)
+                      stream(x))
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
                            f"{err}")

@@ -33,7 +33,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import bind_device
+from repro_torch.core.hlo_cost import tensor_bytes
+from repro_torch.kernels import bind_device, launcher, stream
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 CHUNKS = (32, 64)             # chunk lengths the kernel takes
@@ -231,10 +232,27 @@ def rwkv6_chunked_tc(r, k, v, lw, u, *, chunk: int = 64,
     return o.to(r.dtype), state
 
 
+def launch_cost(r, k, v, lw, u, chunk: int,
+                initial_state=None) -> "tuple[float, int]":
+    """(FLOPs, bytes) of one call.  FLOPs: the three dots a chunk of the
+    reference's ``xla`` route (``rwkv6_chunked_jnp``) makes at this
+    chunk L, over T padded to whole chunks: 2·B·H·T'·C·(2C + L).  Bytes:
+    r, k, v, lw and u as the launch takes them (lw, u in fp32), the
+    initial state, o and the final state."""
+    b, h, t, c = r.shape
+    padded = -(-t // chunk) * chunk
+    state = 4 * b * h * c * c
+    return (2.0 * b * h * padded * c * (2 * c + chunk),
+            tensor_bytes(r) * 2 + tensor_bytes(k) + tensor_bytes(v)
+            + 4 * lw.numel() + 4 * u.numel() + state
+            + (state if initial_state is not None else 0))
+
+
 def rwkv6_wkv_cuda(r, k, v, lw, u, *, chunk: int, initial_state=None):
-    """Launch the CUDA kernel on CUDA tensors, on the tile ``tile_for``
-    names: (o, final state, that tile), or (o, final state, None) where
-    there is nothing to launch (no batch or no head)."""
+    """Launch the CUDA kernel on CUDA tensors (on ``meta`` tensors, all
+    but the launch), on the tile ``tile_for`` names: (o, final state,
+    that tile), or (o, final state, None) where there is nothing to
+    launch (no batch or no head)."""
     bind_device(r)
     if r.dtype not in _DTYPE_CODES or not (r.dtype == k.dtype == v.dtype):
         raise NotImplementedError(
@@ -276,12 +294,12 @@ def rwkv6_wkv_tc(r, k, v, lw, u, s0, s_out, *, chunk: int):
     o = torch.empty((b, t, h, c), dtype=r.dtype,
                     device=r.device).transpose(1, 2)
     strides = [s for x in (r, k, v, lw, o) for s in x.stride()[:3]]
-    _check(_tc_launcher()(
+    _check(launcher(_tc_launcher, r)(
         _DTYPE_CODES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
         lw.data_ptr(), u.data_ptr(), None if s0 is None else s0.data_ptr(),
         o.data_ptr(), s_out.data_ptr(), b, h, t, chunk,
         (ctypes.c_longlong * 15)(*strides),
-        torch.cuda.current_stream(r.device).cuda_stream), "tc")
+        stream(r)), "tc")
     return o
 
 
@@ -291,9 +309,9 @@ def rwkv6_wkv_simt(r, k, v, lw, u, s0, s_out, *, chunk: int):
     b, h, t, c = r.shape
     r, k, v, lw = (x.contiguous() for x in (r, k, v, lw))
     o = torch.empty((b, h, t, c), dtype=r.dtype, device=r.device)
-    _check(_launcher()(
+    _check(launcher(_launcher, r)(
         _DTYPE_CODES[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
         lw.data_ptr(), u.data_ptr(), None if s0 is None else s0.data_ptr(),
         o.data_ptr(), s_out.data_ptr(), b, h, t, c, chunk,
-        torch.cuda.current_stream(r.device).cuda_stream), "simt")
+        stream(r)), "simt")
     return o

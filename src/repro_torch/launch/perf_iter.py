@@ -1,0 +1,203 @@
+"""§Perf hillclimb driver on one card: hypothesis → change → re-count.
+
+The reference's experiment list (``repro.launch.perf_iter``), each a
+(cell, overrides, rules, tcfg-delta) tuple with its hypothesis, run
+through the port's dry run (``launch/dryrun.py``) on mesh ``h100``:
+results land in tagged result dirs next to the baselines and are
+summarised as before/after on the dominant term.  The hypotheses are the
+reference's, written for its pods; on one card the collective term is 0.
+
+Experiments the port cannot run are recorded with ``"status":
+"not_ported"`` and the reason: ``attn_pv_bf16`` (not ported,
+``models/base.py``), ``rules=`` (they place leaves on a model axis
+larger than 1: ROADMAP item 7b) and ``remat="dots"`` (item J, refused by
+the dry run itself).
+
+    PYTHONPATH=src python -m repro_torch.launch.perf_iter [--only NAME]
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+
+import torch
+
+from repro_torch.launch import dryrun
+from repro_torch.training.train_step import TrainConfig
+
+MESH = "h100"
+
+
+def _tc(microbatches=None, **kw):
+    base = TrainConfig(**kw)
+    if microbatches is not None:
+        base = dataclasses.replace(base, microbatches=microbatches)
+    return base
+
+
+EXPERIMENTS = [
+    # ---- deepseek-67b x train_4k (paper-representative dense train) -----
+    dict(name="ds_pv_bf16", arch="deepseek-67b", shape="train_4k",
+         overrides={"attn_pv_bf16": True},
+         hypothesis="memory term is dominated by fp32 attention transients"
+                    " (P and PV blocks); bf16 P*V halves them -> memory"
+                    " bytes down ~15-25%"),
+    dict(name="ds_remat_dots", arch="deepseek-67b", shape="train_4k",
+         overrides={"remat": "dots"},
+         hypothesis="full remat recomputes every forward dot in backward;"
+                    " saving dot outputs cuts HLO FLOPs ~25% (MODEL/HLO"
+                    " 0.73 -> ~0.95) at higher activation residency"),
+    dict(name="ds_mb8", arch="deepseek-67b", shape="train_4k",
+         tcfg=_tc(microbatches=8),
+         hypothesis="FSDP re-gathers every weight once per microbatch;"
+                    " halving microbatches halves gather traffic ->"
+                    " collective ~-50%, temp ~+2x carry"),
+    dict(name="ds_combo", arch="deepseek-67b", shape="train_4k",
+         overrides={"attn_pv_bf16": True, "remat": "dots"},
+         tcfg=_tc(microbatches=8),
+         hypothesis="combined: compute -25%, memory -25%, collective -50%"),
+
+    # ---- gemma2-2b x train_4k (worst improvable roofline fraction) ------
+    dict(name="g2_onehot_ce", arch="gemma2-2b", shape="train_4k",
+         tcfg=_tc(ce_onehot_pick=True),
+         hypothesis="take_along_axis over the vocab-sharded 256k logits"
+                    " forces an unsharded materialisation; one-hot"
+                    " contraction keeps logits sharded -> memory down"),
+    dict(name="g2_pv_bf16", arch="gemma2-2b", shape="train_4k",
+         overrides={"attn_pv_bf16": True},
+         hypothesis="as ds_pv_bf16 (8 heads unshardable on model=16 =>"
+                    " attention transients are 16x replicated: bigger win)"),
+    dict(name="g2_remat_dots", arch="gemma2-2b", shape="train_4k",
+         overrides={"remat": "dots"},
+         hypothesis="MODEL/HLO 0.58 -> ~0.8; compute term -25%"),
+    dict(name="g2_combo", arch="gemma2-2b", shape="train_4k",
+         overrides={"attn_pv_bf16": True, "remat": "dots"},
+         tcfg=_tc(ce_onehot_pick=True),
+         hypothesis="combined memory-term reduction > 35%"),
+
+    # ---- round 2 (informed by round-1 refutations) -----------------------
+    dict(name="ds_chunk2048", arch="deepseek-67b", shape="train_4k",
+         overrides={"attn_chunk": 2048},
+         hypothesis="halving the number of attention chunk-scan steps"
+                    " halves the per-step carry copies and scan overhead"
+                    " buffers -> memory term down ~5-10%"),
+    dict(name="ds_gradcomp", arch="deepseek-67b", shape="train_4k",
+         tcfg=_tc(grad_compression=True),
+         hypothesis="int8 error-feedback gradient compression cuts the"
+                    " fp32 grad reduce-scatter bytes 4x -> collective"
+                    " term down ~30-50%"),
+    dict(name="g2_seq_parallel", arch="gemma2-2b", shape="train_4k",
+         rules={"seq": "model"},
+         hypothesis="Megatron-style sequence parallelism: shard the"
+                    " residual stream's seq dim over the idle model axis"
+                    " between attention/MLP -> elementwise+norm traffic"
+                    " /16 -> memory term down"),
+
+    # ---- arctic-480b x decode_32k (most collective-bound) ---------------
+    dict(name="ar_gspmd_ep", arch="arctic-480b", shape="decode_32k",
+         overrides={"moe_shard_map": False},
+         rules={"experts": "data", "mlp_expert": "model", "embed": None},
+         hypothesis="collective term = FSDP re-gather of ~3.7 GB/chip of"
+                    " expert weights per decoded token; owning experts"
+                    " fully on (data x model) shards removes the gather"
+                    " -> collective down >10x"),
+    dict(name="ar_kv_fp8", arch="arctic-480b", shape="decode_32k",
+         overrides={"kv_cache_dtype": "fp8"},
+         hypothesis="32k KV cache reads halve with fp8 storage ->"
+                    " memory term down ~2x on the cache component"),
+    dict(name="ar_combo", arch="arctic-480b", shape="decode_32k",
+         overrides={"moe_shard_map": False, "kv_cache_dtype": "fp8"},
+         rules={"experts": "data", "mlp_expert": "model", "embed": None},
+         hypothesis="both: step bound moves to dense-weight reads"),
+]
+
+
+def _resolve_overrides(ov):
+    if not ov:
+        return {}
+    out = dict(ov)
+    if out.get("kv_cache_dtype") == "fp8":
+        out["kv_cache_dtype"] = torch.float8_e4m3fn
+    return out
+
+
+def not_ported(exp) -> "str | None":
+    """Why the port cannot run ``exp`` before it tries, or None."""
+    if "attn_pv_bf16" in (exp.get("overrides") or {}):
+        return ("attn_pv_bf16 is not ported (models/base.py): a lever of "
+                "the reference's XLA attention")
+    if exp.get("rules"):
+        return ("rules= place leaves on a model axis larger than 1: "
+                "tensor-parallel and FSDP placement are not ported "
+                "(ROADMAP item 7b)")
+    return None
+
+
+def run_experiment(exp, force=False, out_dir=dryrun.RESULTS_DIR):
+    reason = not_ported(exp)
+    if reason is not None:
+        print(f"\n=== {exp['name']}: not ported: {reason}")
+        return {"name": exp["name"], "status": "not_ported",
+                "reason": reason}
+    base = dryrun.run_cell(exp["arch"], exp["shape"], MESH, out_dir=out_dir)
+    res = dryrun.run_cell(
+        exp["arch"], exp["shape"], MESH, force=force,
+        overrides=_resolve_overrides(exp.get("overrides")),
+        tcfg=exp.get("tcfg"), tag="_" + exp["name"], out_dir=out_dir)
+    for r in (base, res):
+        if r["status"] != "ok":
+            print(f"\n=== {exp['name']}: not ported: {r['reason']}")
+            return {"name": exp["name"], "status": "not_ported",
+                    "reason": r["reason"]}
+    b, a = base["roofline"], res["roofline"]
+
+    def fmt(r, m):
+        return (f"compute={r['compute_s']:.3g}s memory={r['memory_s']:.3g}s "
+                f"collective={r['collective_s']:.3g}s "
+                f"dom={r['dominant']} frac={r['roofline_fraction']:.3f} "
+                f"useful={r['useful_flops_ratio']:.2f} "
+                f"temp={m['temp_bytes'] / 2**30:.1f}GiB")
+
+    bound_b = max(b["compute_s"], b["memory_s"], b["collective_s"])
+    bound_a = max(a["compute_s"], a["memory_s"], a["collective_s"])
+    print(f"\n=== {exp['name']} ({exp['arch']} x {exp['shape']}) ===")
+    print("hypothesis:", exp["hypothesis"])
+    print("before:", fmt(b, base["memory"]))
+    print("after: ", fmt(a, res["memory"]))
+    print(f"bound: {bound_b:.3g}s -> {bound_a:.3g}s "
+          f"({bound_b / max(bound_a, 1e-12):.2f}x) | frac "
+          f"{b['roofline_fraction']:.3f} -> {a['roofline_fraction']:.3f}")
+    return {"name": exp["name"], "status": "ok", "before": b, "after": a,
+            "speedup": bound_b / max(bound_a, 1e-12)}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=None)
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--out", default=dryrun.RESULTS_DIR,
+                    help="results directory of the dry run")
+    args = ap.parse_args(argv)
+    results = []
+    for exp in EXPERIMENTS:
+        if args.only and exp["name"] != args.only:
+            continue
+        results.append(run_experiment(exp, force=args.force,
+                                      out_dir=args.out))
+    os.makedirs(args.out, exist_ok=True)
+    out = os.path.join(args.out, "perf_iterations.json")
+    existing = []
+    if os.path.exists(out) and args.only:
+        with open(out) as f:
+            existing = [r for r in json.load(f)
+                        if r["name"] not in {x["name"] for x in results}]
+    with open(out, "w") as f:
+        json.dump(existing + results, f, indent=1)
+    print(f"\nwrote {len(results)} results")
+
+
+if __name__ == "__main__":
+    main()

@@ -22,6 +22,7 @@ import torch
 
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import NotPorted
 from repro_torch.core import tree
 from repro_torch.core.fusion import linear
 from repro_torch.models.base import ArchConfig
@@ -189,7 +190,7 @@ def attention(cfg: ArchConfig, q, k, v, *, causal=True, window=0,
         from repro_torch.kernels.attention.ops import flash_attention
         return flash_attention(q, k, v, sm_scale=sm_scale, causal=causal,
                                window=window, softcap=softcap,
-                               q_start=q_start)
+                               q_start=q_start, cost_chunk=cfg.attn_chunk)
     if cfg.backend == "dense":
         from repro_torch.kernels.attention.ref import attention_ref
         return attention_ref(q, k, v, sm_scale=sm_scale, causal=causal,
@@ -341,6 +342,6 @@ def remat(cfg: ArchConfig, fn, *args):
     if cfg.remat == "none" or not tracked:
         return fn(*args)
     if cfg.remat == "dots":
-        raise NotImplementedError("remat='dots' is not ported (ROADMAP "
+        raise NotPorted("remat='dots' is not ported (ROADMAP "
                                   "queue 1, item J); use 'full' or 'none'")
     return checkpoint(fn, *args, use_reentrant=False)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import NotPorted
 from repro_torch.core.fusion import ACTIVATIONS, Epilogue, linear
 from repro_torch.models import common as cm
 from repro_torch.models.base import ArchConfig
@@ -125,7 +126,11 @@ def moe_apply_local(cfg: ArchConfig, x2d, w_router, wi_local, wo_local,
     # Stable, as jnp.argsort: the order decides which tokens overflow.
     order = torch.argsort(local_e, stable=True)
     sorted_e = local_e[order]
-    counts = torch.bincount(local_e, minlength=e_local + 1)
+    # bincount's output size depends on the data: it has no meta kernel,
+    # and on the card it reads the maximum back to the host
+    counts = torch.zeros(e_local + 1, dtype=torch.int64,
+                         device=x2d.device).scatter_add_(
+        0, local_e, torch.ones_like(local_e))
     starts = torch.cumsum(counts, 0) - counts
     rank = torch.arange(t * k, device=x2d.device) - starts[sorted_e]
     keep = (sorted_e < e_local) & (rank < capacity)
@@ -181,7 +186,7 @@ def moe_apply(cfg: ArchConfig, p, x, mesh=None):
         mesh = logical.active_mesh()
     model = mesh.shape.get("model", 1) if mesh is not None else 1
     if not cfg.moe_shard_map and model > 1:
-        raise NotImplementedError(
+        raise NotPorted(
             "moe_shard_map=False under a mesh with a model axis is the "
             "reference's GSPMD expert parallelism, which is not ported "
             "(ROADMAP item 7b)")

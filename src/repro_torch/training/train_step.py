@@ -20,6 +20,7 @@ import functools
 
 import torch
 
+from repro_torch import NotPorted
 from repro_torch.core import tree
 from repro_torch.models.base import ArchConfig, family_module
 from repro_torch.optim import adamw, compression
@@ -72,7 +73,7 @@ def _split_microbatch(batch, n: int, i: int):
 
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig()):
     if cfg.family != "transformer" or cfg.moe is not None:
-        raise NotImplementedError(
+        raise NotPorted(
             f"training {cfg.name} ({cfg.family}"
             f"{', MoE' if cfg.moe is not None else ''}) is not ported: it "
             "needs a backward for K4, K5 or K6, or Whisper's loss (ROADMAP "

@@ -51,3 +51,25 @@ def test_every_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip()) >= 20
+
+
+FRONT_DOORS = ("repro_torch.core.constraint", "repro_torch.core.area",
+               "repro_torch.core.roofline", "repro_torch.core.hlo_cost",
+               "repro_torch.launch.dryrun", "repro_torch.launch.perf_iter")
+
+
+@pytest.mark.parametrize("module", FRONT_DOORS)
+def test_front_door_imports_alone_with_jax_blocked(module):
+    """Each front-door module imports first and alone, with jax and the
+    reference blocked, and pulls neither in."""
+    prog = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"import {module}\n"
+        "assert not any(k.split('.')[0] in ('jax', 'jaxlib', 'repro') and\n"
+        "               sys.modules[k] is not None for k in sys.modules)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", prog], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
