@@ -26,8 +26,8 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 layers), ragged, masked, softcapped and on the transposed
                 views the models pass, each query row against its own
                 scale (``row_rel_err``), each case on the tile that
-                serves it (``launches_by_tile``); K1's backward
-                (``FusedMatmulFn``) at the training GLU projection, dA and
+                serves it (``launches_by_tile``); K1's backward (its
+                autograd op's) at the training GLU projection, dA and
                 dB row by row against autograd of the plain version; K1's,
                 K4's, K2's and K6's tensor-core tiles once more each from a
                 fresh ``threading.Thread`` that never set its device;
@@ -217,6 +217,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import re
@@ -674,6 +675,36 @@ TOL_RESUME = 1e-3
 TOL_TRAIN_ROUTES = 1e-3
 TRAIN_LR_WITNESS = 3e-3             # the launcher's default rate
 TOL_TRAIN_MEMORY = 0.15
+# training every family: train-parity at full width in fp32 at the
+# smallest depth that holds every block kind (None: Whisper's full 4 + 4
+# layers), one step a matmul route; phase train's runs through the
+# launcher (Whisper through make_train_step: the launcher's stream has no
+# audio frames) at full width in bf16, TRAIN_FAMILY_STEPS steps a route,
+# at the largest depth whose reckoned peak stays well inside the card's
+# 80 GB (about 20 B a parameter: bf16 weights, fp32 master, mu, nu and
+# accumulator, one microbatch's bf16 gradients): OLMoE 4 of 16 layers
+# (1.89 B parameters), RecurrentGemma all 26 (2.89 B, of which the tied
+# 256,000 x 2,560 embedding 0.66 B), RWKV-6 8 of 32 (2.29 B)
+TRAIN_PARITY_FAMILIES = ((MOE_ARCH, 2), (GRIFFIN_ARCH, 3), (RWKV_ARCH, 2),
+                         (WHISPER_ARCH, None))
+TRAIN_FAMILY_LAYERS = {MOE_ARCH: 4, GRIFFIN_ARCH: None, RWKV_ARCH: 8,
+                       WHISPER_ARCH: None}
+TRAIN_FAMILY_STEPS = 4
+# learning rates other than TRAIN_ARGV's 1e-3: on an H100, RWKV-6 at 8
+# layers and 1e-3 rose on both matmul routes at the second update, from
+# 11.62 to 11.88 and 11.87 (Adam's first updates move each weight by about
+# lr, a tenth of the scale of RWKV-6's LoRA factors, normals x 0.01);
+# at 1e-4 it fell at every step, 11.64 to 11.39
+TRAIN_FAMILY_LR = {RWKV_ARCH: 1e-4}
+# a leaf whose gradient lies further than TOL_TRAIN_GRAD from the torch
+# route's is held instead against the step with exact products (the torch
+# route with every product of ``linear`` taken in fp64, forward and
+# backward, and rounded once: ``exact_products``): the kernel route no
+# further from it than TOL_TRAIN_GRAD, or than the torch route is.  fp32
+# rounding alone moves a step's gradients by the torch route's distance
+# from it; where the step amplifies rounding (RWKV-6's, whose gradients
+# two fp32 routes give up to 4.2e-4 of a leaf's max apart on an H100),
+# that distance is the scale, with no limit of its own
 # distributed execution (phase dist): ranks spawned on this machine's
 # cards; the world's join timeout; the fp32 EP case's depth, held to 1e-5
 # of max |logit| (sums in another order only); the pipeline's shape; a
@@ -1068,35 +1099,57 @@ def served_k1_calls(arch, n_layers, prompt=None):
             for rows, *call in calls]
 
 
-def train_k1_calls():
-    """Every distinct K1 call of one bf16 train step of ``ARCH`` at full
-    width, cut to one layer, on one microbatch of ``phase_train``
-    (TRAIN_ROWS rows: TRAIN_ROWS / 512 sequences of 512 tokens): the
-    forward, remat's recompute, the GLU backward's accumulator and the
-    loss's fp32 logits, as (rows, k, n, glu, activation, softcap, bias,
-    residual, operand dtype, out dtype)."""
-    from repro_torch.configs.registry import get_config
+def train_batch(cfg, b, s, device, seed=0, step=0):
+    """A ``SyntheticLM`` batch of ``b`` x ``s`` tokens (the launcher's
+    stream, its ``step``-th batch), with seeded ``audio_embeds`` (the stub
+    frontend's frames, unit normals) for an encoder-decoder model."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, global_batch=b,
+                                  seq_len=s), device=device)
+    data.state.step = step
+    batch = next(data)
+    if cfg.encdec is not None:
+        gen = torch.Generator(device=device).manual_seed(seed * 1000 + step)
+        batch["audio_embeds"] = torch.randn(
+            (b, cfg.encdec.n_audio_ctx, cfg.d_model), generator=gen,
+            device=device)
+    return batch
+
+
+def train_k1_calls():
+    """Every distinct K1 call of one bf16 train step of each trained
+    family at full width, cut to one layer group (yi-6b and OLMoE one
+    layer, RecurrentGemma one (rec, rec, attn) triple, RWKV-6 one layer,
+    Whisper one encoder and one decoder layer), on one microbatch of
+    ``phase_train`` (TRAIN_ROWS rows: TRAIN_ROWS / 512 sequences of 512
+    tokens): the forward, remat's recompute, the backward's accumulator
+    recomputes and the loss's fp32 logits, as (rows, k, n, glu,
+    activation, softcap, bias, residual, operand dtype, out dtype)."""
+    from repro_torch.configs.registry import get_config
     from repro_torch.models.base import family_module
     from repro_torch.training import train_step as ts
-    cfg = get_config(ARCH).with_(n_layers=1, backend="torch")
-    params = family_module(cfg).init(
-        cfg, torch.Generator(device="cuda").manual_seed(9), "cuda")
     seq = 512
-    batch = next(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                        global_batch=TRAIN_ROWS // seq,
-                                        seq_len=seq), device="cuda"))
 
     def key(a, b, ep, ops):
         return (a.shape[0], a.shape[1], b.shape[1], ep.glu, ep.activation,
                 ep.softcap, ep.bias_type.name.lower(), ep.has_residual,
                 a.dtype, ep.out_dtype)
 
+    cut = {ARCH: dict(n_layers=1), MOE_ARCH: dict(n_layers=1),
+           GRIFFIN_ARCH: dict(n_layers=3), RWKV_ARCH: dict(n_layers=1)}
+    cut[WHISPER_ARCH] = dict(n_layers=1, encdec=dataclasses.replace(
+        get_config(WHISPER_ARCH).encdec, n_encoder_layers=1))
     with recorded_k1_calls(key) as calls:
-        ts.value_and_grad(cfg, ts.TrainConfig(loss_chunk=seq), params, batch)
-        torch.cuda.synchronize()
-    del params, batch
-    torch.cuda.empty_cache()
+        for arch, over in cut.items():
+            cfg = get_config(arch).with_(backend="torch", **over)
+            params = family_module(cfg).init(
+                cfg, torch.Generator(device="cuda").manual_seed(9), "cuda")
+            batch = train_batch(cfg, TRAIN_ROWS // seq, seq, "cuda")
+            ts.value_and_grad(cfg, ts.TrainConfig(loss_chunk=seq), params,
+                              batch)
+            torch.cuda.synchronize()
+            del params, batch
+            torch.cuda.empty_cache()
     return list(calls)
 
 
@@ -1194,7 +1247,7 @@ def phase_kernels(cfg, moe_cfg, gemma_cfg, s_max, served, trained):
                  bias=None if bias == "zero" else bias, residual=res,
                  out_dtype=out_dt)
 
-    # K1's backward (FusedMatmulFn) at the training GLU projection, 2,048
+    # K1's backward (its autograd op's) at the training GLU projection, 2,048
     # rows: dA and dB against autograd of the plain version, row by row
     # (``row_rel_err``); its one launch, the accumulator recompute, on the
     # tensor-core tile
@@ -2842,110 +2895,285 @@ def phase_w8a8(cfg, s_max):
 # autograd Function.
 # ---------------------------------------------------------------------------
 
-def _train_k1_calls(n_layers: int, chunks: int) -> int:
-    """K1's launches in one microbatch's forward and backward with
-    remat="full" (``tests/test_torch_training.py::
-    test_k1_calls_in_a_train_step`` counts the same on the CPU): per layer
-    6 projections, run again when remat recomputes the layer, and one
-    accumulator recompute in the GLU projection's backward (the other
-    epilogues are linear in the accumulator and launch nothing); the loss's
-    logits 2 a chunk (the forward and its per-chunk remat)."""
-    return n_layers * (6 + 6 + 1) + 2 * chunks
+def _train_k1_calls(cfg, chunks: int) -> int:
+    """K1's launches in one microbatch's forward and backward of ``cfg``
+    (``tests/test_torch_training.py::
+    test_chip_smoke_reckons_k1_calls_of_every_family`` counts the same on
+    the CPU, family by family): each projection once in the forward, once
+    more where remat "full" reruns its layer group ("dots" keeps K1's
+    outputs; Griffin's tail blocks run outside remat), and one
+    accumulator recompute in the backward of each projection whose
+    epilogue is not linear in the accumulator (an activation, GLU or not,
+    or a softcap; a bias is linear); the loss's logits 2 a chunk (the
+    forward and its per-chunk remat), 3 with a final softcap.  MoE's
+    experts and router, RWKV-6's LoRA second factors and the recurrences
+    run as plain ops on the torch route."""
+    rerun = 2 if cfg.remat == "full" else 1
+
+    def group(fwd, nonlinear, remat=True):
+        return fwd * (rerun if remat else 1) + nonlinear
+
+    if cfg.family == "rwkv6":
+        # time mix: mix_w1, r, k, v, g (silu), decay_w1, o; channel mix:
+        # k (relu2), v, r
+        per = cfg.n_layers * group(10, 2)
+    elif cfg.family == "griffin":
+        # rec: gate in (gelu_tanh), rnn in, input and recurrence gates
+        # (row bias), out; attn: q, k, v, o; each with its MLP
+        blocks = {"rec": (5 + 2, 1 + 1), "attn": (4 + 2, 1)}
+        pat = cfg.rnn.block_pattern
+        n_groups = cfg.n_layers // len(pat)
+        tail = pat[:cfg.n_layers - n_groups * len(pat)]
+        per = (n_groups * group(sum(blocks[k][0] for k in pat),
+                                sum(blocks[k][1] for k in pat))
+               + sum(group(*blocks[k], remat=False) for k in tail))
+    elif cfg.family == "encdec":
+        # encoder: q, k, v, o, MLP; decoder: self q, k, v, o, cross q, k,
+        # v (from the encoder's output), o, MLP
+        per = (cfg.encdec.n_encoder_layers * group(4 + 2, 1)
+               + cfg.n_layers * group(4 + 4 + 2, 1))
+    elif cfg.moe is None or cfg.moe.dense_parallel:
+        # attention q, k, v, o; the MLP's wi (an activation) and wo, or
+        # Arctic's dense branch beside its experts
+        per = cfg.n_layers * group(4 + 2, 1)
+    else:
+        per = cfg.n_layers * group(4, 0)      # attention only
+    return per + (3 if cfg.final_softcap else 2) * chunks
+
+
+def _cut(arch, n_layers, **over):
+    """``arch``'s full configuration, cut to ``n_layers`` (None: whole)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch).with_(**over)
+    return cfg if n_layers is None else cfg.with_(n_layers=n_layers)
+
+
+def _grad_rel(mu, ref):
+    """{leaf path: max |g - r| / max |r|} of two first moments."""
+    from repro_torch.core import tree
+    return {tree.path_str(path): rel_err(g, r)[0]
+            for (path, g), r in zip(tree.flatten_with_path(mu),
+                                    tree.leaves(ref))}
+
+
+@contextlib.contextmanager
+def exact_products():
+    """The torch matmul route with every product of ``linear`` taken in
+    fp64 and rounded once to its accumulator's dtype (autograd
+    differentiates the fp64 product, so the backward's are exact too).
+    Yields a one-item list counting the products so taken."""
+    from repro_torch.core import fusion
+    plain, taken = fusion.plain_matmul, [0]
+
+    def exact(a, b, accum_dtype):
+        taken[0] += 1
+        return torch.matmul(a.double(), b.double()).to(accum_dtype)
+    fusion.plain_matmul = exact
+    try:
+        yield taken
+    finally:
+        fusion.plain_matmul = plain
 
 
 def phase_train_parity():
-    """yi-6b at full width, 2 layers, fp32 (TF32 off), one
-    ``make_train_step`` on a ``SyntheticLM`` batch (2 x 256) through each
-    matmul route: the kernel route (K1 and ``FusedMatmulFn``, SIMT tile in
-    fp32) against the torch route.  The step's loss within TOL_TRAIN_LOSS
-    relative; its gradients, read from the optimizer's first moment after
-    the step (from zero, (1 - beta1) x the clipped gradient, in fp32),
-    within TOL_TRAIN_GRAD of each leaf's max |g|; K1's launches by tile as
-    reckoned.  The updated parameters are not compared: Adam's first step
-    moves each by lr on its gradient's sign alone, so a gradient near 0
-    moves its parameter by 2 lr on a rounding.  Attention on the plain
-    chunked route, as the launcher trains it."""
+    """At full width in fp32 (TF32 off), one ``make_train_step`` on a
+    ``SyntheticLM`` batch (2 x 256; Whisper's with seeded audio frames)
+    through each matmul route: the kernel route (K1 and its autograd op,
+    SIMT tile in fp32) against the torch route, for
+    yi-6b (2 layers) and each other trained family at the smallest depth
+    that holds every block kind (TRAIN_PARITY_FAMILIES).  The step's loss
+    within TOL_TRAIN_LOSS relative; its gradients, read from the
+    optimizer's first moment after the step (from zero, (1 - beta1) x the
+    clipped gradient, in fp32), within TOL_TRAIN_GRAD of each leaf's max
+    |g|, or, leaf by leaf, no further from a third step's, the torch
+    route with exact products (``exact_products``), than TOL_TRAIN_GRAD
+    or than the torch route lies from it; K1's launches by tile as
+    reckoned (``_train_k1_calls``).  The updated parameters are
+    not compared: Adam's first step moves each by lr on its gradient's
+    sign alone, so a gradient near 0 moves its parameter by 2 lr on a
+    rounding.  Attention, experts and recurrences on the plain torch
+    route, as the launcher trains them.  Then yi-6b at remat "dots" on
+    the kernel route: its gradients equal remat "none"'s bit for bit, K1
+    7 launches a layer and microbatch (6 forward, the GLU backward's
+    accumulator; the recompute launches none, its outputs kept) and 2 a
+    loss chunk."""
     from repro_torch import backend
-    from repro_torch.configs.registry import get_config
     from repro_torch.core import tree
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels.matmul.ops import fused_matmul
     from repro_torch.models.base import family_module
     from repro_torch.optim import adamw
     from repro_torch.training import train_step as ts
-    cfg = get_config(ARCH).with_(n_layers=TRAIN_PARITY_LAYERS,
-                                 dtype=torch.float32,
-                                 kv_cache_dtype=torch.float32,
-                                 backend="torch")
     b, s = TRAIN_PARITY_BATCH
-    params = family_module(cfg).init(
-        cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
-    batch = next(SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                        global_batch=b, seq_len=s),
-                             device="cuda"))
     tcfg = ts.TrainConfig(optimizer=adamw.AdamWConfig(
         lr=3e-3, warmup_steps=1, total_steps=6), loss_chunk=min(512, s))
-    reckoned = {"tc": 0, "decode": 0,
-                "simt": _train_k1_calls(cfg.n_layers, 1)}
     tiles = tuple(fused_matmul.launches_by_tile)
-    out = {}
-    for route in ("kernel", "torch"):
-        prev = backend.set_default_matmul_backend(route)
-        try:
-            p = tree.tree_map(torch.clone, params)
-            opt = adamw.init(tcfg.optimizer, p)
-            fused_matmul.launches_by_tile = dict.fromkeys(tiles, 0)
-            _, opt, metrics, _ = ts.make_train_step(cfg, tcfg)(p, opt, batch)
-            torch.cuda.synchronize()
-            out[route] = (float(metrics["loss"]), tree.leaves(opt["mu"]),
-                          dict(fused_matmul.launches_by_tile),
-                          float(metrics["grad_norm"]))
-            del p, opt
-        finally:
-            backend.set_default_matmul_backend(prev)
-    k, t = out["kernel"], out["torch"]
-    loss_rel = abs(k[0] - t[0]) / abs(t[0])
-    grad_rel = [rel_err(gk, gt)[0] for gk, gt in zip(k[1], t[1])]
-    finite = all(bool(torch.isfinite(g).all()) for g in k[1])
-    emit({"phase": "train-parity",
-          "config": f"{ARCH} width, {cfg.n_layers} layers, fp32, remat "
-                    f"{cfg.remat}, batch {b} x {s}, one step",
-          "loss": {"kernel": k[0], "torch": t[0], "rel": loss_rel},
-          "grad_norm": {"kernel": k[3], "torch": t[3]},
-          "grad_rel_max": max(grad_rel), "grad_rel_by_leaf": grad_rel,
-          "tol_loss": TOL_TRAIN_LOSS, "tol_grad": TOL_TRAIN_GRAD,
-          "fused_matmul_by_tile": k[2],
+    by_tile = dict.fromkeys(tiles, 0)
+
+    def count(ran):
+        for t, n in ran.items():
+            by_tile[t] += n
+
+    cases = ((ARCH, TRAIN_PARITY_LAYERS),) + TRAIN_PARITY_FAMILIES
+    for arch, layers in cases:
+        cfg = _cut(arch, layers, dtype=torch.float32,
+                   kv_cache_dtype=torch.float32, backend="torch")
+        params = family_module(cfg).init(
+            cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+        batch = train_batch(cfg, b, s, "cuda", seed=5)
+        reckoned = {"tc": 0, "decode": 0,
+                    "simt": _train_k1_calls(cfg, -(-s // tcfg.loss_chunk))}
+        out = {}
+        for route in ("kernel", "torch", "exact"):
+            prev = backend.set_default_matmul_backend(
+                "kernel" if route == "kernel" else "torch")
+            try:
+                with (exact_products() if route == "exact"
+                      else contextlib.nullcontext([None])) as taken:
+                    p = tree.tree_map(torch.clone, params)
+                    opt = adamw.init(tcfg.optimizer, p)
+                    fused_matmul.launches_by_tile = dict.fromkeys(tiles, 0)
+                    _, opt, metrics, _ = ts.make_train_step(cfg, tcfg)(
+                        p, opt, batch)
+                    torch.cuda.synchronize()
+                out[route] = (float(metrics["loss"]), opt["mu"],
+                              dict(fused_matmul.launches_by_tile),
+                              float(metrics["grad_norm"]), taken[0])
+                del p
+            finally:
+                backend.set_default_matmul_backend(prev)
+        k, t, x = out["kernel"], out["torch"], out["exact"]
+        loss_rel = abs(k[0] - t[0]) / abs(t[0])
+        grad_rel = _grad_rel(k[1], t[1])
+        # the leaves past TOL_TRAIN_GRAD: (kernel to torch, kernel to
+        # exact, torch to exact)
+        k_x, t_x = _grad_rel(k[1], x[1]), _grad_rel(t[1], x[1])
+        past = {leaf: (rel, k_x[leaf], t_x[leaf])
+                for leaf, rel in grad_rel.items() if rel > TOL_TRAIN_GRAD}
+        grads_ok = all(kx <= max(TOL_TRAIN_GRAD, tx)
+                       for _, kx, tx in past.values())
+        finite = all(bool(torch.isfinite(g).all())
+                     for g in tree.leaves(k[1]))
+        emit({"phase": "train-parity", "arch": arch,
+              "config": f"{arch} full width, {cfg.n_layers} layers"
+                        + (f" ({cfg.encdec.n_encoder_layers} encoder)"
+                           if cfg.encdec else "")
+                        + f", fp32, remat {cfg.remat}, batch {b} x {s}, "
+                          "one step",
+              "loss": {"kernel": k[0], "torch": t[0], "rel": loss_rel},
+              "grad_norm": {"kernel": k[3], "torch": t[3]},
+              "grad_rel_max": max(grad_rel.values()),
+              "grad_rel_by_leaf": grad_rel,
+              "grad_rel_to_exact_max": {"kernel": max(k_x.values()),
+                                        "torch": max(t_x.values())},
+              "past_tol_grad": past, "exact_products": x[4],
+              "loss_exact": x[0],
+              "tol_loss": TOL_TRAIN_LOSS, "tol_grad": TOL_TRAIN_GRAD,
+              "fused_matmul_by_tile": k[2],
+              "fused_matmul_by_tile_reckoned": reckoned,
+              "fused_matmul_by_tile_torch_route": t[2], "finite": finite})
+        require(finite and loss_rel <= TOL_TRAIN_LOSS and grads_ok
+                and x[4] > 0,
+                f"train-parity {arch}: the kernel route's loss or gradients "
+                "disagree with the torch route's and the exact step's")
+        require(k[2] == reckoned and sum(t[2].values()) == 0
+                and sum(x[2].values()) == 0,
+                f"train-parity {arch}: K1 ran {k[2]}, reckoned {reckoned}; "
+                f"the torch route {t[2]}")
+        count(k[2])
+        del params, out, k, t, x
+        torch.cuda.empty_cache()
+
+    # remat "dots" against "none", yi-6b on the kernel route
+    grads = {}
+    for remat in ("none", "dots"):
+        cfg = _cut(ARCH, TRAIN_PARITY_LAYERS, dtype=torch.float32,
+                   kv_cache_dtype=torch.float32, backend="torch",
+                   remat=remat)
+        params = family_module(cfg).init(
+            cfg, torch.Generator(device="cuda").manual_seed(5), "cuda")
+        batch = train_batch(cfg, b, s, "cuda", seed=5)
+        fused_matmul.launches_by_tile = dict.fromkeys(tiles, 0)
+        loss, _, g = ts.value_and_grad(cfg, tcfg, params, batch)
+        torch.cuda.synchronize()
+        grads[remat] = (loss, tree.leaves(g),
+                        dict(fused_matmul.launches_by_tile))
+        del params, g
+    reckoned = {"tc": 0, "decode": 0,
+                "simt": _train_k1_calls(cfg, -(-s // tcfg.loss_chunk))}
+    (l0, g0, ran0), (l1, g1, ran) = grads["none"], grads["dots"]
+    count(ran0)
+    same = bool(torch.equal(l0, l1)) and all(
+        torch.equal(x, y) for x, y in zip(g0, g1))
+    emit({"phase": "train-parity", "arch": ARCH,
+          "config": f"{ARCH} full width, {cfg.n_layers} layers, fp32, remat "
+                    f"dots against none, batch {b} x {s}, the kernel route",
+          "loss": {"dots": float(l1), "none": float(l0)},
+          "bit_for_bit": same, "fused_matmul_by_tile": ran,
           "fused_matmul_by_tile_reckoned": reckoned,
-          "fused_matmul_by_tile_torch_route": t[2], "finite": finite})
-    require(finite and loss_rel <= TOL_TRAIN_LOSS
-            and max(grad_rel) <= TOL_TRAIN_GRAD,
-            "train-parity: the kernel route's loss or gradients disagree "
-            "with the torch route's")
-    require(k[2] == reckoned and sum(t[2].values()) == 0,
-            f"train-parity: K1 ran {k[2]}, reckoned {reckoned}; the torch "
-            f"route {t[2]}")
-    by_tile = k[2]
-    del params, out, k, t
+          "k1_a_layer": (ran["simt"] - 2 * -(-s // tcfg.loss_chunk))
+          / cfg.n_layers})
+    require(same, "train-parity: remat 'dots' changed the gradients of "
+            "remat 'none'")
+    require(ran == reckoned, f"train-parity dots: K1 ran {ran}, reckoned "
+            f"{reckoned}")
+    count(ran)
+    del grads, g0, g1
     torch.cuda.empty_cache()
     return {"fused_matmul": sum(by_tile.values()),
             "fused_matmul_by_tile": by_tile}
 
 
-def _train_memory_reckoned(cfg, n_params: int, rows: int) -> dict:
-    """Bytes ``phase_train``'s first run holds at its peak: the state (bf16
-    params; fp32 master, mu and nu), the gradients (the fp32 accumulator
-    of the microbatches and one microbatch's bf16 gradients), and the
-    largest transient of the backward, in the GLU projection of a layer:
-    the fp32 accumulator and its gradient (2 x rows x 2 d_ff x 4), the
-    fp32 copy of wi and wi's fp32 gradient (2 x d x 2 d_ff x 4), and the
-    stacked bf16 gradient one layer's slice fills (L x d x 2 d_ff x 2);
-    plus the layer inputs remat keeps (L x rows x d x 2)."""
-    d, n2, L = cfg.d_model, 2 * cfg.d_ff, cfg.n_layers
-    out = {"state": n_params * (2 + 4 + 4 + 4),
-           "grads": n_params * (4 + 2),
-           "activations": (2 * rows * n2 * 4 + 2 * d * n2 * 4
-                           + L * d * n2 * 2 + L * rows * d * 2)}
-    out["total"] = sum(out.values())
+def _train_memory_reckoned(cfg, n_params: int, rows: int, seq: int) -> dict:
+    """Bytes a train step of ``cfg`` (bf16, remat "full", microbatches of
+    ``rows`` rows, sequences of ``seq``; one loss chunk) holds at its
+    peak, the larger of two moments:
+
+    * ``loss``, the backward of the loss chunk, before any gradient of
+      the microbatch exists: the state (bf16 params; fp32 master, mu and
+      nu) and the fp32 accumulator of the microbatches, 18 B a
+      parameter, and five fp32 (rows, vocab) blocks live at once (the
+      logits recomputed, logsumexp's and the gather's gradients and
+      their sum, K1's output; one more with a softcap, for the
+      accumulator K1 recomputes) beside an fp32 (d, vocab) copy of the
+      output weight (the meta trace's composition at that moment, with
+      storages tracked by ``core.hlo_cost``);
+    * ``layer``, the backward of the first layer group, every other
+      gradient of the microbatch in place (bf16, 2 B a parameter; 20 in
+      all), and the group's largest transient: for the dense MLP the fp32
+      accumulator and its gradient (2 x rows x 2 d_ff x 4), the fp32
+      copy of wi and its fp32 gradient (2 x d x 2 d_ff x 4), the stacked
+      bf16 gradient one layer's slice fills (L x d x 2 d_ff x 2) and the
+      group inputs remat keeps (L x rows x d x 2); for MoE the stacked
+      bf16 gradient of the experts' wi and the fp32 copies of one layer's
+      expert weights the plain einsums hold (E x d x 3 d_ff_expert x 4);
+      for RWKV-6 the chunked WKV's two saved fp32 (b, h, chunk, chunk,
+      head) blocks a chunk, rows x d x 64 x 4 each over the sequence, and
+      the stacked bf16 gradient of the channel mix's key weight.
+
+    The loss moment's blocks were read off the meta trace of these steps
+    (``core.hlo_cost``, storages tracked), after a first form that
+    counted yi-6b's blocks for every family: the reckoning is calibrated
+    on that trace, not predicted, and TOL_TRAIN_MEMORY holds the card's
+    peak to it."""
+    d, L, V = cfg.d_model, cfg.n_layers, cfg.padded_vocab
+    state = n_params * (2 + 4 + 4 + 4)
+    blocks = 5 + (1 if cfg.final_softcap else 0)
+    loss = state + n_params * 4 + blocks * rows * V * 4 + d * V * 4
+    if cfg.moe is not None:
+        m = cfg.moe
+        glu = 2 if cfg.mlp_glu else 1
+        transient = (L * m.n_experts * d * glu * m.d_ff_expert * 2
+                     + m.n_experts * d * (glu + 1) * m.d_ff_expert * 4)
+    elif cfg.family == "rwkv6":
+        transient = (2 * rows * d * 64 * 4
+                     + L * d * cfg.d_ff * 2)
+    else:
+        n2 = 2 * cfg.d_ff
+        transient = (2 * rows * n2 * 4 + 2 * d * n2 * 4 + L * d * n2 * 2
+                     + L * rows * d * 2)
+    layer = state + n_params * (4 + 2) + transient
+    out = {"state": state, "loss_moment": loss, "layer_moment": layer,
+           "total": max(loss, layer)}
     return out
 
 
@@ -2989,7 +3217,7 @@ def phase_train(card):
     rows = args.global_batch // args.microbatches * args.seq_len
     n_params = sum(x.numel() for x in
                    tree.leaves(abstract_state(cfg, TrainConfig())[0]))
-    per_step = args.microbatches * _train_k1_calls(cfg.n_layers, 1)
+    per_step = args.microbatches * _train_k1_calls(cfg, 1)
 
     def run(route, steps, **over):
         """``steps`` launcher steps on matmul route ``route``, with
@@ -3036,7 +3264,7 @@ def phase_train(card):
     losses = full["losses"]
     step_ms = statistics.median(full["step_ms_device"][1:])
     tokens = args.global_batch * args.seq_len
-    mem = _train_memory_reckoned(cfg, n_params, rows)
+    mem = _train_memory_reckoned(cfg, n_params, rows, args.seq_len)
     mem_rel = full["max_memory_allocated"] / mem["total"] - 1.0
     resume_rel = [abs(a - b) / abs(b) for a, b in
                   zip(resumed["losses"], losses[args.ckpt_every:])]
@@ -3083,8 +3311,156 @@ def phase_train(card):
             f"{mem['total']} B reckoned")
     by_tile = {t: sum(r["fused_matmul_by_tile"][t] for r in runs)
                for t in tiles}
+    for t, n in _train_families(card, args).items():
+        by_tile[t] += n
     return {"fused_matmul": sum(by_tile.values()),
             "fused_matmul_by_tile": by_tile}
+
+
+def _train_direct(cfg, args):
+    """The launcher's loop without its stream, for an encoder-decoder
+    model: ``args.steps`` steps of ``make_train_step`` under the
+    launcher's TrainConfig on ``train_batch``'s batches (the stream's,
+    with seeded audio frames), CUDA events around each step.  Returns
+    the launcher's ``TrainResult``."""
+    from repro_torch.core.precision import disable_tf32
+    from repro_torch.launch.train import TrainResult
+    from repro_torch.models.base import family_module
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    disable_tf32()
+    cfg = cfg.with_(backend="torch")
+    tcfg = TrainConfig(
+        optimizer=adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
+                                    warmup_steps=max(args.steps // 20, 1)),
+        microbatches=args.microbatches, loss_chunk=min(512, args.seq_len))
+    step_fn = make_train_step(cfg, tcfg)
+    params = family_module(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    opt = adamw.init(tcfg.optimizer, params)
+    losses, seconds, device_ms = [], [], []
+    for step in range(args.steps):
+        t0 = time.perf_counter()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        batch = train_batch(cfg, args.global_batch, args.seq_len, "cuda",
+                            step=step)
+        params, opt, metrics, _ = step_fn(params, opt, batch)
+        ev1.record()
+        losses.append(float(metrics["loss"]))
+        seconds.append(time.perf_counter() - t0)
+        device_ms.append(ev0.elapsed_time(ev1))
+        print(f"step {step:5d} loss {losses[-1]:.4f} "
+              f"{seconds[-1] * 1e3:.0f}ms", flush=True)
+    return TrainResult(params, opt, 0, losses, seconds, device_ms)
+
+
+def _train_families(card, args):
+    """OLMoE-1B-7B, RecurrentGemma-2B and RWKV-6-7B at full width, each
+    at its TRAIN_FAMILY_LAYERS depth, bf16 with fp32 master weights,
+    remat "full", through ``launch/train.py::train`` with TRAIN_ARGV's
+    batch (2 microbatches of 4 x 512 tokens) for TRAIN_FAMILY_STEPS
+    steps, no checkpoint; Whisper-tiny at full size through
+    ``make_train_step`` (``_train_direct``), since the launcher's stream
+    has no audio frames.  Each on the kernel matmul route, then on the
+    torch route: the losses finite and lower at the last step than at the
+    first, the routes' losses within TOL_TRAIN_ROUTES relative at every
+    step, K1's launches by tile as reckoned (``_train_k1_calls``: all on
+    the tensor-core tile; none on the torch route) and K2 none, the
+    kernel route's peak memory within TOL_TRAIN_MEMORY of its reckoning.
+    Returns K1's launches by tile."""
+    import argparse
+    from repro_torch import backend
+    from repro_torch.core import tree
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training.train_step import TrainConfig, abstract_state
+    tiles = tuple(fused_matmul.launches_by_tile)
+    by_tile = dict.fromkeys(tiles, 0)
+    rows = args.global_batch // args.microbatches * args.seq_len
+    tokens = args.global_batch * args.seq_len
+    for arch, layers in TRAIN_FAMILY_LAYERS.items():
+        fam_args = argparse.Namespace(**{
+            **vars(args), "ckpt_dir": None, "steps": TRAIN_FAMILY_STEPS,
+            "lr": TRAIN_FAMILY_LR.get(arch, args.lr)})
+        cfg = _cut(arch, layers)
+        n_params = sum(x.numel() for x in
+                       tree.leaves(abstract_state(cfg, TrainConfig())[0]))
+        per_step = args.microbatches * _train_k1_calls(cfg, 1)
+        runs = {}
+        for route in ("kernel", "torch"):
+            fused_matmul.launches = flash_attention.launches = 0
+            fused_matmul.launches_by_tile = dict.fromkeys(tiles, 0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            prev = backend.set_default_matmul_backend(route)
+            try:
+                t0 = time.perf_counter()
+                res = (_train_direct(cfg, fam_args) if cfg.encdec
+                       else launch_train.train(cfg, fam_args))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                backend.set_default_matmul_backend(prev)
+            runs[route] = {
+                "route": route, "losses": res.losses,
+                "step_ms_device": res.step_ms_device,
+                "step_s_host": res.step_seconds, "wall_s": wall,
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "fused_matmul_by_tile": dict(fused_matmul.launches_by_tile),
+                "fused_matmul_by_tile_reckoned": {
+                    "tc": (TRAIN_FAMILY_STEPS * per_step
+                           if route == "kernel" else 0),
+                    "decode": 0, "simt": 0},
+                "flash_attention": flash_attention.launches}
+            del res
+            torch.cuda.empty_cache()
+        kern, plain = runs["kernel"], runs["torch"]
+        losses = kern["losses"]
+        step_ms = statistics.median(kern["step_ms_device"][1:])
+        mem = _train_memory_reckoned(cfg, n_params, rows, args.seq_len)
+        mem_rel = kern["max_memory_allocated"] / mem["total"] - 1.0
+        route_rel = [abs(a - b) / abs(b)
+                     for a, b in zip(kern["losses"], plain["losses"])]
+        finite = all(bool(np.isfinite(r["losses"]).all())
+                     for r in runs.values())
+        emit({"phase": "train", "arch": arch, "nvidia_smi": card,
+              "config": f"{arch} full width, {cfg.n_layers} layers"
+                        + (f" + {cfg.encdec.n_encoder_layers} encoder"
+                           if cfg.encdec else "")
+                        + ", bf16 with fp32 master, remat "
+                        f"{cfg.remat}", "params": n_params,
+              "batch": f"{args.global_batch} x {args.seq_len}, "
+                       f"{args.microbatches} microbatches",
+              "lr": fam_args.lr,
+              "rows_a_k1_call": rows, "kernel_route": kern,
+              "torch_route": plain, "route_rel": route_rel,
+              "tol_routes": TOL_TRAIN_ROUTES,
+              "step_ms_median_2_4": step_ms,
+              "tokens_per_s": tokens / (step_ms / 1e3),
+              "memory_reckoned": mem, "memory_rel": mem_rel,
+              "tol_memory": TOL_TRAIN_MEMORY})
+        require(finite and losses[-1] < losses[0],
+                f"train {arch}: losses {losses} not finite or not falling")
+        require(max(route_rel) <= TOL_TRAIN_ROUTES,
+                f"train {arch}: the kernel route's losses differ from the "
+                f"torch route's by {route_rel}")
+        for r in runs.values():
+            require(r["fused_matmul_by_tile"]
+                    == r["fused_matmul_by_tile_reckoned"]
+                    and r["flash_attention"] == 0,
+                    f"train {arch}: K1 ran {r['fused_matmul_by_tile']} on "
+                    f"the {r['route']} route, reckoned "
+                    f"{r['fused_matmul_by_tile_reckoned']}; K2 "
+                    f"{r['flash_attention']}")
+        require(abs(mem_rel) <= TOL_TRAIN_MEMORY,
+                f"train {arch}: peak {kern['max_memory_allocated']} B "
+                f"against {mem['total']} B reckoned")
+        for t, n in kern["fused_matmul_by_tile"].items():
+            by_tile[t] += n
+    return by_tile
 
 
 # ---------------------------------------------------------------------------
@@ -3595,6 +3971,79 @@ def _dryrun_steps(cfg, device, gen=None):
              (params, tokens[:, -1:], cache, s))], MAX_BATCH * s
 
 
+def _dryrun_train(smi_line, wrappers, launches):
+    """One train step of OLMoE-1B-7B at phase ``train``'s depth and batch
+    (TRAIN_FAMILY_LAYERS, TRAIN_ARGV: 8 x 512 tokens in 2 microbatches),
+    bf16, remat "full", on the plain torch route with K1 for the
+    projections, as the launcher trains it: counted on meta
+    (``training.train_step.abstract_state`` and a meta batch), then on
+    the card (seeded weights, the stream's first batch).  Launches by
+    kernel, FLOPs and bytes must be equal (a backward through the
+    routing's top-k, sort-dispatch, capacity drop and combine), the
+    card's counted launches those of the wrappers, the loss finite.  The
+    meta trace's ``temp_bytes`` is reported beside the card's peak over
+    what it held before the step, not held."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import parse_args
+    from repro_torch.models.base import family_module
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import TrainConfig, abstract_state
+    args = parse_args(TRAIN_ARGV)
+    cfg = _cut(MOE_ARCH, TRAIN_FAMILY_LAYERS[MOE_ARCH], backend="torch")
+    tcfg = TrainConfig(
+        optimizer=adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
+                                    warmup_steps=max(args.steps // 20, 1)),
+        microbatches=args.microbatches, loss_chunk=min(512, args.seq_len))
+    fn = dryrun.step_fn(cfg, "train", tcfg)
+    shape = (args.global_batch, args.seq_len)
+    meta_batch = {k: torch.empty(shape, dtype=torch.int32, device="meta")
+                  for k in ("tokens", "labels")}
+    meta, _, meta_s = dryrun.count_step(
+        fn, (*abstract_state(cfg, tcfg), meta_batch), True)
+    params = family_module(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    args_card = (params, adamw.init(tcfg.optimizer, params),
+                 train_batch(cfg, *shape, "cuda"))
+    for w in wrappers.values():
+        w.launches = 0
+        w.launches_by_tile = dict.fromkeys(w.launches_by_tile, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    card, out, card_s = dryrun.count_step(fn, args_card, True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - live
+    ran = {k: w.launches for k, w in wrappers.items() if w.launches}
+    for k, w in wrappers.items():
+        launches[k] += w.launches
+        for t, n in w.launches_by_tile.items():
+            launches[f"{k}_by_tile"][t] += n
+    same, ops_differ = compare_counts(card, meta)
+    finite = bool(torch.isfinite(out[2]["loss"]))
+    emit({"phase": "dryrun", "arch": MOE_ARCH, "step": "train",
+          "config": f"{MOE_ARCH} full width, {cfg.n_layers} of 16 layers, "
+                    f"bf16, remat {cfg.remat}, batch {shape[0]} x "
+                    f"{shape[1]} in {tcfg.microbatches} microbatches, "
+                    "seeded random weights",
+          "card": smi_line, "kernels_card": card.kernels,
+          "kernels_meta": meta.kernels, "flops": [card.flops, meta.flops],
+          "bytes": [card.bytes, meta.bytes], "launches": ran,
+          "ops_differ": ops_differ, "temp_bytes_meta": meta.temp_bytes,
+          "card_peak_over_live": peak,
+          "trace_s": {"meta": meta_s, "card": card_s},
+          "loss_finite": finite, "same": same})
+    require(same, f"dryrun {MOE_ARCH} train: the card counted "
+            f"{card.kernels} ({card.flops} FLOPs, {card.bytes} B), meta "
+            f"{meta.kernels} ({meta.flops}, {meta.bytes})")
+    require({k: v["calls"] for k, v in card.kernels.items()
+             if k in wrappers} == ran,
+            f"dryrun {MOE_ARCH} train: counted {card.kernels}, launched "
+            f"{ran}")
+    require(finite, f"dryrun {MOE_ARCH} train: non-finite loss")
+    del params, args_card, out
+    torch.cuda.empty_cache()
+
+
 def phase_dryrun(smi_line):
     """The one-card dry run (``launch/dryrun.py``) held to the card: yi-6b
     (32 layers) and OLMoE-1B-7B (16 layers, 64 experts) at full size,
@@ -3684,6 +4133,7 @@ def phase_dryrun(smi_line):
             require(finite, f"dryrun {arch} {mode}: non-finite logits")
         del card_steps, args, out
         torch.cuda.empty_cache()
+    _dryrun_train(smi_line, wrappers, launches)
     require(all(launches[k] for k in wrappers),
             f"dryrun: a kernel of the path never launched: {launches}")
     tiles = {}
@@ -3920,7 +4370,8 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
     t_bytes = 2.0 * (2 * m * k + 2 * k * n_b + m * n_b // 2) / chip.hbm_bw
     kernels.append({
         "name": "fused_matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/matmul/ops.py (FusedMatmulFn; "
+        "source": "src/repro_torch/kernels/matmul/ops.py (the op "
+                  "repro_torch::fused_matmul and its _backward; "
                   "its K1 launch src/repro_torch/kernels/csrc/"
                   "fused_matmul_sm90.cu)",
         "replaces": "src/repro/kernels/matmul/matmul.py:39",

@@ -4,8 +4,10 @@ reference's ``hlo_cost`` (which walks compiled HLO text).
 Torch has no HLO.  ``counting()`` runs a step under a
 ``TorchDispatchMode`` that sees every aten op the dispatcher runs, on any
 device, ``meta`` included (a dry run: shapes, no memory, no kernel).  The
-kernels K1–K6 are ctypes launches the dispatcher never sees: each
-wrapper records its own launch while a counter is active (``count``),
+kernels K1–K6 are ctypes launches the dispatcher never sees (K1 under
+autograd runs inside the op ``repro_torch::fused_matmul``, which the
+counter sees but counts only as a result to hold): each wrapper records
+its own launch while a counter is active (``count``),
 and on CPU tensors records its plain version as that launch, its aten
 ops uncounted (``counted``), so that one call costs the same on every
 device.  With no counter active a wrapper's hook is one global check.
@@ -22,15 +24,19 @@ The conventions follow the reference's, so that the two read alike:
   count 0; a gather (``index``, ``embedding``) counts twice its result
   and an indexed write (``index_put_``) twice its values, as the
   reference counts its slices and dynamic-update-slices.  A kernel
-  launch counts its operands plus its results: one pass over HBM.
+  launch counts its operands plus its results: one pass over HBM.  K1's
+  op (under autograd) counts as its launch alone: the copies its body
+  makes (a transposed operand made contiguous, an epilogue operand made
+  fp32), counted as aten ops on the untracked path, are not seen.
 * **collective bytes**: result-shape bytes by kind, recorded by
   ``distributed/collectives.py`` (the dispatch mode leaves c10d ops to
   it).
 * **unparsed_loops** is always 0: Python loops run; nothing is parsed.
 * **temp_bytes** (no HLO counterpart; the dry run's ``memory``): the
   high-water mark of live storages that the step created (intermediates
-  and results, not its arguments), each freed when its tensor dies
-  (``weakref.finalize``; a view keeps its base's storage alive).
+  and results, not its arguments), each freed when its storage dies
+  (``weakref.finalize`` on the storage: a view, and a tensor autograd
+  saves for the backward, keep it alive).
 """
 
 from __future__ import annotations
@@ -56,6 +62,8 @@ _GATHER = frozenset({_aten.index, _aten.index_select, _aten.embedding,
 _INDEXED_WRITE = frozenset({_aten.index_put_, _aten.index_put,
                             _aten._index_put_impl_})
 _COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional")
+#: the port's own ops, whose bodies record their kernel launches
+_KERNEL_NAMESPACE = "repro_torch"
 
 
 @dataclasses.dataclass
@@ -111,14 +119,17 @@ class CostCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if self.quiet or func.namespace in _COLLECTIVE_NAMESPACES:
             return out
+        ins = [t for t in tree_leaves((args, kwargs))
+               if isinstance(t, torch.Tensor)]
+        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        if func.namespace == _KERNEL_NAMESPACE:
+            self._track(ins, outs)
+            return out
         packet = func.overloadpacket
         flops = 0.0
         if packet in flop_registry:
             flops = float(flop_registry[packet](*args, **kwargs,
                                                 out_val=out))
-        ins = [t for t in tree_leaves((args, kwargs))
-               if isinstance(t, torch.Tensor)]
-        outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
         if func.is_view or packet in _FREE:
             nbytes = 0
         elif packet in _GATHER:
@@ -139,7 +150,7 @@ class CostCounter(TorchDispatchMode):
 
     def _track(self, ins, outs) -> None:
         """Add each result on a storage no operand holds to the live
-        bytes until its tensor dies."""
+        bytes until that storage dies."""
         held = {t.untyped_storage()._cdata for t in ins}
         for t in outs:
             st = t.untyped_storage()
@@ -149,7 +160,10 @@ class CostCounter(TorchDispatchMode):
             n = st.nbytes()
             self._live += n
             self.cost.temp_bytes = max(self.cost.temp_bytes, self._live)
-            weakref.finalize(t, self._free, n)
+            # the storage, not the tensor: autograd saves an op's output
+            # as a new tensor on the same storage, so the result's tensor
+            # can die while its storage lives on until the backward
+            weakref.finalize(st, self._free, n)
 
     def _free(self, n: int) -> None:
         self._live -= n

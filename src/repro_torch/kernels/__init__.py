@@ -13,10 +13,10 @@
 ``build`` compiles ``csrc/*.cu`` with ``nvcc`` on first use.
 
 A CUDA launch writes into a tensor the wrapper allocated, so its result
-has no ``grad_fn``.  K1 runs under autograd through
-``matmul.ops.FusedMatmulFn``; the other wrappers have no backward yet and
-refuse a call that autograd would track (``refuse_autograd``), on every
-device, rather than return a result that silently drops the gradient.
+has no ``grad_fn``.  K1 runs under autograd through the op
+``matmul.ops.FUSED_MATMUL_OP``; the other wrappers have no backward yet
+and refuse a call that autograd would track (``refuse_autograd``), on
+every device, rather than return a result that silently drops the gradient.
 
 Every CUDA launcher makes its operands' card current in the calling
 thread first (``bind_device``): a launch may come from any host thread

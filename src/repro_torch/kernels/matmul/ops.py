@@ -1,4 +1,4 @@
-"""Wrapper of the fused matmul kernel (K1), and its autograd Function.
+"""Wrapper of the fused matmul kernel (K1), and its autograd op.
 
 Flattens batch dims, lays a GLU weight ``(K, 2, N/2)`` out as ``(K, N)``
 (gate columns, then up columns), flattens the epilogue operands to
@@ -6,8 +6,9 @@ match, and sends the 2-D problem to the CUDA kernel for CUDA tensors or
 to its plain version for CPU tensors.  The kernel masks ragged edges
 itself, so unlike the reference wrapper nothing is padded.
 
-Under autograd the call goes through ``FusedMatmulFn``: its forward is
-the same call, its backward recomputes the accumulator through K1 where
+Under autograd the call goes through the op ``repro_torch::fused_matmul``
+(``FUSED_MATMUL_OP``): its forward is the same call, its backward
+recomputes the accumulator through K1 where
 the epilogue is not linear in it, takes the epilogue's vector-Jacobian
 product by autograd of the shared plain ``apply_epilogue``, and forms
 dA = d(acc) Bᵀ and dB = Aᵀ d(acc) with ``torch.matmul`` in fp32, as the
@@ -74,45 +75,73 @@ def _linear_in_acc(ep: Epilogue) -> bool:
     return ep.activation == "none" and not ep.glu and not ep.softcap
 
 
-class FusedMatmulFn(torch.autograd.Function):
-    """``epilogue(a @ b)`` on the 2-D problem, differentiable in ``a``,
-    ``b``, ``bias`` and ``residual``."""
+def _epilogue(bias_type, activation, softcap, glu, has_residual, out_dtype):
+    """The ``Epilogue`` that ``fused_matmul`` passes to the op field by
+    field (an op's schema takes no dataclass; the tracked path has no
+    dequant scales)."""
+    return Epilogue(bias_type=BiasType(bias_type), activation=activation,
+                    softcap=softcap, glu=glu, has_residual=has_residual,
+                    out_dtype=out_dtype)
 
-    @staticmethod
-    def forward(ctx, a, b, bias, residual, ep: Epilogue, accum_dtype):
-        ctx.save_for_backward(a, b, bias, residual)
-        ctx.ep, ctx.accum_dtype = ep, accum_dtype
-        return _run(a, b, ep, EpilogueOperands(bias=bias, residual=residual),
-                    accum_dtype)
 
-    @staticmethod
-    def backward(ctx, g):
-        a, b, bias, residual = ctx.saved_tensors
-        ep = ctx.ep
-        m, n = a.shape[0], b.shape[1]
-        if _linear_in_acc(ep):
-            # any accumulator gives the same vector-Jacobian product
-            acc = g.new_zeros((), dtype=torch.float32).expand(m, n)
-        else:
-            acc = _run(a, b, _ACC, EpilogueOperands(), ctx.accum_dtype)
-        with torch.enable_grad():
-            # the epilogue's vector-Jacobian product in acc, bias, residual
-            leaves = [acc.detach().requires_grad_()] + [
-                None if t is None else t.detach().requires_grad_(need)
-                for t, need in ((bias, ctx.needs_input_grad[2]),
-                                (residual, ctx.needs_input_grad[3]))]
-            y = apply_epilogue(leaves[0], ep, EpilogueOperands(
-                bias=leaves[1], residual=leaves[2]))
-            needed = [t is not None and t.requires_grad for t in leaves]
-            got = iter(torch.autograd.grad(
-                y, [t for t, n in zip(leaves, needed) if n], g))
-            d_acc, d_bias, d_res = (next(got) if n else None for n in needed)
-        d_a = d_b = None
-        if ctx.needs_input_grad[0]:
-            d_a = torch.matmul(d_acc, b.float().T).to(a.dtype)
-        if ctx.needs_input_grad[1]:
-            d_b = torch.matmul(a.float().T, d_acc).to(b.dtype)
-        return d_a, d_b, d_bias, d_res, None, None
+def _k1(a, b, bias, residual, bias_type, activation, softcap, glu,
+        has_residual, out_dtype, accum_dtype):
+    """The body of ``repro_torch::fused_matmul``: ``_run``."""
+    return _run(a, b, _epilogue(bias_type, activation, softcap, glu,
+                                has_residual, out_dtype),
+                EpilogueOperands(bias=bias, residual=residual), accum_dtype)
+
+
+def _setup(ctx, inputs, output):
+    a, b, bias, residual, *fields, accum_dtype = inputs
+    ctx.save_for_backward(a, b, bias, residual)
+    ctx.ep = _epilogue(*fields)
+    ctx.accum_dtype = accum_dtype
+
+
+def _backward(ctx, g):
+    a, b, bias, residual = ctx.saved_tensors
+    ep = ctx.ep
+    m, n = a.shape[0], b.shape[1]
+    if _linear_in_acc(ep):
+        # any accumulator gives the same vector-Jacobian product
+        acc = g.new_zeros((), dtype=torch.float32).expand(m, n)
+    else:
+        acc = _run(a, b, _ACC, EpilogueOperands(), ctx.accum_dtype)
+    with torch.enable_grad():
+        # the epilogue's vector-Jacobian product in acc, bias, residual
+        leaves = [acc.detach().requires_grad_()] + [
+            None if t is None else t.detach().requires_grad_(need)
+            for t, need in ((bias, ctx.needs_input_grad[2]),
+                            (residual, ctx.needs_input_grad[3]))]
+        y = apply_epilogue(leaves[0], ep, EpilogueOperands(
+            bias=leaves[1], residual=leaves[2]))
+        needed = [t is not None and t.requires_grad for t in leaves]
+        got = iter(torch.autograd.grad(
+            y, [t for t, n in zip(leaves, needed) if n], g))
+        d_acc, d_bias, d_res = (next(got) if n else None for n in needed)
+    d_a = d_b = None
+    if ctx.needs_input_grad[0]:
+        d_a = torch.matmul(d_acc, b.float().T).to(a.dtype)
+    if ctx.needs_input_grad[1]:
+        d_b = torch.matmul(a.float().T, d_acc).to(b.dtype)
+    return (d_a, d_b, d_bias, d_res) + (None,) * 7
+
+
+# K1's forward as an op the dispatcher sees, the path of every call that
+# autograd tracks: a selective checkpoint can keep its output
+# (``models.common.remat``, "dots"), and its backward is ``_backward``.
+# Meta tensors take the same body (the dry run).
+_k1_op = torch.library.custom_op(
+    "repro_torch::fused_matmul", _k1, mutates_args=(),
+    schema="(Tensor a, Tensor b, Tensor? bias, Tensor? residual, "
+           "str bias_type, str activation, float softcap, bool glu, "
+           "bool has_residual, ScalarType out_dtype, "
+           "ScalarType accum_dtype) -> Tensor")
+_k1_op.register_fake(_k1)
+_k1_op.register_autograd(_backward, setup_context=_setup)
+#: the op's overload, for a checkpoint policy
+FUSED_MATMUL_OP = torch.ops.repro_torch.fused_matmul.default
 
 
 def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
@@ -127,7 +156,7 @@ def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
     the same path but for the launch (a dry run); CPU tensors run the
     plain version.  A cost counter (``core.hlo_cost``) counts each as one
     launch (``matmul.launch_cost``).  When grad mode is on and an input
-    requires grad the call goes through ``FusedMatmulFn``, on both
+    requires grad the call goes through ``FUSED_MATMUL_OP``, on both
     devices; its backward's K1 launches are counted too.  The int8 and
     dequant-scale paths have no backward and raise there.
     """
@@ -162,8 +191,10 @@ def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
                 "fused_matmul (K1) has no backward for int8 operands or "
                 "dequant scales (ROADMAP queue 1, item K); call it under "
                 "torch.no_grad()")
-        out = FusedMatmulFn.apply(a2, b2, ops.bias, ops.residual, epilogue,
-                                  policy.accum_dtype)
+        out = FUSED_MATMUL_OP(
+            a2, b2, ops.bias, ops.residual, epilogue.bias_type.value,
+            epilogue.activation, float(epilogue.softcap), epilogue.glu,
+            epilogue.has_residual, epilogue.out_dtype, policy.accum_dtype)
     else:
         out = _run(a2, b2, epilogue, ops, policy.accum_dtype)
     return out.reshape(*lead, m, out.shape[-1])

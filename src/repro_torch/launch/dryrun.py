@@ -16,11 +16,11 @@ The one mesh is ``h100``: one card.  Where the reference lowers and
 compiles (``lower_s``, ``compile_s``, XLA's ``cost_analysis``, the HLO's
 size), this records the host seconds of building the cell (``build_s``)
 and of running it under the counter (``trace_s``), the counter's own
-totals (``cost_analysis``) and its table by kernel (``kernels``).  A cell
-the port cannot run (training MoE, recurrent or encoder-decoder models;
-``remat="dots"``), which raises ``repro_torch.NotPorted``, is written with
-``"status": "not_ported"`` and the refusal's text; any other error fails
-the cell.
+totals (``cost_analysis``) and its table by kernel (``kernels``).  Every
+cell of the one-card grid runs, training cells of every family included.
+A cell the port cannot run, which raises ``repro_torch.NotPorted`` (an
+override that needs a mesh, say), is written with ``"status":
+"not_ported"`` and the refusal's text; any other error fails the cell.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch yi-6b --shape decode_32k
@@ -99,10 +99,10 @@ def step_fn(cfg, mode: str, tcfg: TrainConfig = None):
 def build_cell(cfg, shape_name: str, tcfg: TrainConfig = None):
     """(fn, abstract args, cfg it runs) for one cell, on ``meta``.
 
-    Training runs attention on the plain chunked route, as
-    ``launch/train.py`` does (K2 has no backward); serving on the
-    kernels.  A decode step writes the cache's last slot and attends to
-    all of it.
+    Training runs on the plain ``torch`` route (attention, experts,
+    recurrences), as ``launch/train.py`` does (K2, K4, K5 and K6 have no
+    backward), the projections through K1; serving on the kernels.  A
+    decode step writes the cache's last slot and attends to all of it.
     """
     spec = SHAPES[shape_name]
     mod = family_module(cfg)

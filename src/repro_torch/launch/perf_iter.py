@@ -8,10 +8,8 @@ summarised as before/after on the dominant term.  The hypotheses are the
 reference's, written for its pods; on one card the collective term is 0.
 
 Experiments the port cannot run are recorded with ``"status":
-"not_ported"`` and the reason: ``attn_pv_bf16`` (not ported,
-``models/base.py``), ``rules=`` (they place leaves on a model axis
-larger than 1: ROADMAP item 7b) and ``remat="dots"`` (item J, refused by
-the dry run itself).
+"not_ported"`` and the reason: those with ``rules=``, which place leaves
+on a model axis larger than 1 (ROADMAP item 7b).
 
     PYTHONPATH=src python -m repro_torch.launch.perf_iter [--only NAME]
 """
@@ -126,9 +124,6 @@ def _resolve_overrides(ov):
 
 def not_ported(exp) -> "str | None":
     """Why the port cannot run ``exp`` before it tries, or None."""
-    if "attn_pv_bf16" in (exp.get("overrides") or {}):
-        return ("attn_pv_bf16 is not ported (models/base.py): a lever of "
-                "the reference's XLA attention")
     if exp.get("rules"):
         return ("rules= place leaves on a model axis larger than 1: "
                 "tensor-parallel and FSDP placement are not ported "

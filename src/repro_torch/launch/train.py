@@ -11,11 +11,17 @@ the CUDA card; ``--device cpu`` runs the kernels' plain versions on the
 CPU instead, and without ``--device`` and without a card it stops with an
 error.
 
-Every projection runs on the zoo's matmul route (K1 through its
-autograd Function by default); attention trains on the plain chunked
-route (``cfg.backend = "torch"``, ``models/common.py::attention_chunked``),
-the counterpart of the reference's ``xla`` route, since K2 has no
-backward yet.  One device only: ``--mesh host`` with
+Every family trains.  Every projection runs on the zoo's matmul route
+(K1 through its autograd Function by default); the rest trains on the
+plain ``torch`` route (``cfg.backend = "torch"``: chunked attention,
+MoE's expert einsums, the RG-LRU and the WKV in tensor ops), the
+counterpart of the reference's ``xla`` route, since K2, K4, K5 and K6
+have no backward.  The stream (``data/pipeline.py::SyntheticLM``) holds
+tokens and labels only, as the reference's does: an encoder-decoder
+model (Whisper), whose batch needs ``audio_embeds``, is refused up front
+(the reference's launcher fails on it mid-step); it trains through
+``training.train_step.make_train_step`` on a batch that carries them.
+One device only: ``--mesh host`` with
 ``--model-parallel 1``.  ``launch.mesh`` and ``distributed/`` serve a
 mesh, but training on one (the dense leaves placed tensor-parallel or
 FSDP, through K1) is ROADMAP queue 1, item 7b.
@@ -85,14 +91,27 @@ def _check_mesh(args) -> None:
             "1); training on a mesh is ROADMAP queue 1, item 7b")
 
 
+def _check_stream(cfg: ArchConfig) -> None:
+    if cfg.encdec is not None:
+        raise ValueError(
+            f"{cfg.name}: the launcher's stream holds tokens and labels "
+            "only, and an encoder-decoder step needs audio_embeds (the "
+            "reference's launcher cannot train it either: ROADMAP queue 3, "
+            "reference caveats); train it through "
+            "training.train_step.make_train_step on a batch that carries "
+            "them")
+
+
 def train(cfg: ArchConfig, args) -> TrainResult:
     """The training loop of ``cfg`` under ``args`` (``parse_args``'s)."""
     _check_mesh(args)
+    _check_stream(cfg)
     device = resolve_device(args.device)
     if device.type == "cuda":
         disable_tf32()
-    # the reference trains attention on its xla route: the plain chunked
-    # route here; the projections stay on the zoo's matmul route
+    # the reference trains on its xla route: the plain torch route here
+    # (attention, experts, recurrences); the projections stay on the zoo's
+    # matmul route
     cfg = cfg.with_(backend="torch")
     mod = family_module(cfg)
     tcfg = TrainConfig(
@@ -110,7 +129,7 @@ def train(cfg: ArchConfig, args) -> TrainResult:
     preempt = PreemptionHandler()
     print(f"[train] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
           f"{str(cfg.dtype)[6:]}, remat={cfg.remat}, on {device}; "
-          f"attention on the plain chunked route (backend=torch, as the "
+          f"{cfg.family} on the plain route (backend=torch, as the "
           f"reference trains on xla), projections on the "
           f"{default_matmul_backend()!r} matmul route", flush=True)
 

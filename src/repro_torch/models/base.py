@@ -107,11 +107,10 @@ class ArchConfig:
     dtype: torch.dtype = torch.bfloat16
     backend: str = "kernel"                  # kernel | torch | dense
     remat: str = "full"                      # full | dots | none
-    # (not ported: ``attn_pv_bf16``, a lever of the reference's XLA
-    # attention)
     kv_cache_dtype: torch.dtype = torch.bfloat16
     attn_chunk: int = 1024                   # KV block of the chunked torch
                                              # attention and of K2's cost
+    attn_pv_bf16: bool = False               # P·V in bf16 (perf lever)
     # EP over a mesh's model axis (``models.moe``); False, the reference's
     # GSPMD expert parallelism, raises under a model axis > 1 (not ported,
     # ROADMAP item 7b)

@@ -7,7 +7,8 @@ Attention offers three implementations (``cfg.backend``):
 * ``kernel`` — the hand-written CUDA flash kernel (``kernels/attention``);
   its plain version on CPU tensors.  The reference's ``pallas``.
 * ``torch``  — chunked online-softmax in plain tensor ops, a Python loop
-  over KV blocks.  The reference's ``xla``.
+  over KV blocks (``cfg.attn_pv_bf16`` rounds P·V's operands to bf16).
+  The reference's ``xla``.
 * ``dense``  — the reference oracle, for tiny smoke tests only.
 
 The reference's ``distributed.logical.constrain`` sharding annotations
@@ -20,11 +21,12 @@ import math
 
 import torch
 
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
-from repro_torch import NotPorted
 from repro_torch.core import tree
 from repro_torch.core.fusion import linear
+from repro_torch.kernels.matmul import ops as mm_ops
 from repro_torch.models.base import ArchConfig
 
 
@@ -142,6 +144,12 @@ def attention_chunked(q, k, v, *, sm_scale, causal=True, window=0,
     ``pv_bf16``, as in the reference, rounds the probability block and V
     to bf16 for the P·V product (fp32 accumulation): the rounding K2's
     tensor-core tile makes in bf16.
+
+    Where autograd tracks the call, each chunk step runs under a
+    non-reentrant ``checkpoint``, as the reference remats its scan body:
+    the forward keeps only a step's inputs (the running max, sum and
+    accumulator, and views of K and V), and the backward recomputes one
+    chunk's score and probability blocks at a time.
     """
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -154,9 +162,9 @@ def attention_chunked(q, k, v, *, sm_scale, causal=True, window=0,
     m = torch.full((b, hkv, rows, 1), -1e30, device=q.device)
     l = torch.zeros((b, hkv, rows, 1), device=q.device)
     acc = torch.zeros((b, hkv, rows, d), device=q.device)
-    for start in range(0, sk, chunk):
-        kj = k[:, :, start:start + chunk].float()
-        vj = v[:, :, start:start + chunk].float()
+
+    def step(start, qf, kj, vj, m, l, acc):
+        kj, vj = kj.float(), vj.float()
         s = torch.einsum("bnqd,bnkd->bnqk", qf, kj)
         if softcap:
             s = torch.tanh(s / softcap) * softcap
@@ -175,7 +183,17 @@ def attention_chunked(q, k, v, *, sm_scale, causal=True, window=0,
         if pv_bf16:     # bf16 products are exact in fp32
             p, vj = (x.to(torch.bfloat16).float() for x in (p, vj))
         acc = alpha * acc + torch.einsum("bnqk,bnkd->bnqd", p, vj)
-        m = m_new
+        return m_new, l, acc
+
+    tracked = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    for start in range(0, sk, chunk):
+        args = (start, qf, k[:, :, start:start + chunk],
+                v[:, :, start:start + chunk], m, l, acc)
+        if tracked:
+            m, l, acc = checkpoint(step, *args, use_reentrant=False)
+        else:
+            m, l, acc = step(*args)
     l = torch.where(l == 0.0, 1.0, l)
     out = (acc / l).reshape(b, h, sq, d)
     return out.to(q.dtype)
@@ -200,7 +218,8 @@ def attention(cfg: ArchConfig, q, k, v, *, causal=True, window=0,
                          "'kernel', 'torch' or 'dense'")
     return attention_chunked(q, k, v, sm_scale=sm_scale, causal=causal,
                              window=window, softcap=softcap,
-                             q_start=q_start, chunk=cfg.attn_chunk)
+                             q_start=q_start, chunk=cfg.attn_chunk,
+                             pv_bf16=cfg.attn_pv_bf16)
 
 
 # ---------------------------------------------------------------------------
@@ -321,6 +340,25 @@ def cache_update(k_cache, v_cache, k_new, v_new, pos: int):
 # Activation remat (training).
 # ---------------------------------------------------------------------------
 
+#: the products ``remat="dots"`` keeps: K1's op, and aten's 2-D matrix
+#: products, the dots with no batch dimension of the reference's
+#: ``checkpoint_dots_with_no_batch_dims`` (the torch matmul route's
+#: ``linear``, the MoE router, RWKV-6's LoRA second factors); batched
+#: products (attention, the plain expert einsum, the WKV) are recomputed
+_DOTS = (mm_ops.FUSED_MATMUL_OP, torch.ops.aten.mm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def remat(cfg: ArchConfig, fn, *args):
     """``fn(*args)`` under ``cfg.remat``: the counterpart of the reference's
     ``jax.checkpoint(body, policy=remat_policy(cfg))``.
@@ -328,11 +366,14 @@ def remat(cfg: ArchConfig, fn, *args):
     ``"full"`` (the reference's ``nothing_saveable``) runs ``fn`` through
     ``torch.utils.checkpoint`` without reentry: the forward keeps only
     ``args``, and the backward runs ``fn`` again, kernel launches
-    included.  It applies only where autograd tracks the call, grad mode on
-    and a tensor of ``args`` (trees of tensors too) requiring grad;
-    elsewhere, as in serving, ``fn`` runs as it is.  ``"dots"`` (keep each
-    matmul's output, the reference's ``checkpoint_dots_with_no_batch_dims``)
-    is not ported (ROADMAP queue 1, item J).
+    included.  ``"dots"`` (the reference's
+    ``checkpoint_dots_with_no_batch_dims``) is the same checkpoint with
+    a selective policy: it keeps every matrix product's output (``_DOTS``:
+    K1's op and aten's 2-D products), so the recompute launches no K1
+    forward, and recomputes the rest (norms, activations, RoPE, batched
+    products).  Either applies only where autograd tracks the call, grad
+    mode on and a tensor of ``args`` (trees of tensors too) requiring grad; elsewhere,
+    as in serving, ``fn`` runs as it is.
     """
     if cfg.remat not in ("full", "dots", "none"):
         raise ValueError(f"unknown remat {cfg.remat!r}; use 'full', 'dots' "
@@ -341,7 +382,7 @@ def remat(cfg: ArchConfig, fn, *args):
         torch.is_tensor(t) and t.requires_grad for t in tree.leaves(args))
     if cfg.remat == "none" or not tracked:
         return fn(*args)
-    if cfg.remat == "dots":
-        raise NotPorted("remat='dots' is not ported (ROADMAP "
-                                  "queue 1, item J); use 'full' or 'none'")
-    return checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=_dots_contexts)

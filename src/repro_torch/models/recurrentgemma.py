@@ -7,11 +7,13 @@ short causal conv1d → RG-LRU), merge by product, output projection.
 Local attention is MQA (1 KV head) with window 2048 and RoPE.
 
 26 layers = 8 × (rec, rec, attn) + 2 trailing recurrent blocks: a Python
-loop walks the 8 triples (the reference's ``lax.scan``), then the tail.
+loop walks the 8 triples (the reference's ``lax.scan``), each under
+``cm.remat`` where autograd tracks it, then the tail.
 
 Routes (``cfg.backend``): ``kernel`` runs the RG-LRU through the CUDA
 scan (``kernels/rglru``) and prefill attention through the flash kernel;
-``torch`` and ``dense`` run ``rglru_ref``.  A decode step (T = 1) takes
+``torch`` and ``dense`` run ``rglru_ref``, which autograd differentiates
+(training).  A decode step (T = 1) takes
 the plain one-token step on every route.  The serving state is updated
 in place: the RNN carry and conv tail are copied into the cache, and the
 window's keys and values are written into its ring.
@@ -236,27 +238,39 @@ def _store(state, new):
 
 def _apply_stack(cfg: ArchConfig, params, x, positions, states=None,
                  cache_pos=None):
+    """Each (rec, rec, attn) triple under ``cm.remat``, as the reference
+    remats its scan body, then the tail blocks without it."""
     pat, n_triples, rem = _pattern(cfg)
-    blocks = [(kind, cm.layer(params["triples"][i], j),
-               None if states is None else cm.layer(states["triples"][i], j))
-              for j in range(n_triples) for i, kind in enumerate(pat)]
-    blocks += [(kind, params["tail"][i],
-                None if states is None else states["tail"][i])
-               for i, kind in enumerate(rem)]
-    for kind, lp, st in blocks:
-        x, new = block_apply(cfg, lp, x, kind=kind, positions=positions,
-                             state=st, cache_pos=cache_pos)
-        if st is not None:
-            _store(st, new)
+
+    def run(x, blocks):
+        for kind, lp, st in blocks:
+            x, new = block_apply(cfg, lp, x, kind=kind, positions=positions,
+                                 state=st, cache_pos=cache_pos)
+            if st is not None:
+                _store(st, new)
+        return x
+
+    for j in range(n_triples):
+        triple = [(kind, cm.layer(params["triples"][i], j),
+                   None if states is None
+                   else cm.layer(states["triples"][i], j))
+                  for i, kind in enumerate(pat)]
+        x = cm.remat(cfg, run, x, triple)
+    x = run(x, [(kind, params["tail"][i],
+                 None if states is None else states["tail"][i])
+                for i, kind in enumerate(rem)])
     return x, states
 
 
-def forward(cfg: ArchConfig, params, batch):
-    """Full-sequence forward (evaluation)."""
+def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):
+    """Full-sequence forward (training / evaluation); ``return_hidden``
+    stops at the final norm, for the chunked loss."""
     x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _apply_stack(cfg, params, x, positions)
     x = cm.rmsnorm(x, params["ln_final"], cfg.rms_eps, unit_offset=True)
+    if return_hidden:
+        return x
     return cm.logits_out(cfg, params, x)
 
 

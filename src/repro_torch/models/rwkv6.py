@@ -14,7 +14,8 @@ second factors are plain products, as in the reference.  The WKV routes
 ``forward``, the reference's ``pallas``; chunk 64 with the carried state
 at prefill), ``torch`` the same chunked arithmetic in tensor ops
 (``rwkv6_chunked``, the reference's ``xla`` and its prefill path), and
-``dense`` the per-token oracle in ``forward``.  A decode step (T = 1)
+``dense`` the per-token oracle in ``forward``; autograd differentiates
+the ``torch`` and ``dense`` routes (training).  A decode step (T = 1)
 takes the oracle's single step on every route.  Layers are stacked on a
 leading axis and walked by a Python loop; the serving state is updated
 in place.
@@ -22,6 +23,7 @@ in place.
 
 from __future__ import annotations
 
+import functools
 import sys
 
 import torch
@@ -188,13 +190,18 @@ def block_apply(cfg: ArchConfig, p, x):
     return x + channel_mix(cfg, p, h)[0]
 
 
-def forward(cfg: ArchConfig, params, batch):
-    """Full-sequence forward (evaluation)."""
+def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):
+    """Full-sequence forward (training / evaluation), each layer under
+    ``cm.remat`` as the reference remats its scan body; ``return_hidden``
+    stops at the final norm, for the chunked loss."""
     x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
     x = cm.layernorm(x, params["ln_in"], params["ln_in_b"])
     for j in range(cfg.n_layers):
-        x = block_apply(cfg, cm.layer(params["layers"], j), x)
+        x = cm.remat(cfg, functools.partial(block_apply, cfg),
+                     cm.layer(params["layers"], j), x)
     x = cm.layernorm(x, params["ln_final"], params["ln_final_b"])
+    if return_hidden:
+        return x
     return cm.logits_out(cfg, params, x)
 
 

@@ -14,10 +14,11 @@ against ``n_audio_ctx`` keys.
 
 Layer parameters are stacked on a leading layer axis (``enc_layers``,
 ``dec_layers``), as in the reference, and a Python loop walks the stack
-where the reference runs ``lax.scan`` / ``vmap``.  Activation remat is
-training-only and not ported.  The decoder's cross-attention
-projections call ``linear`` without a route, as the reference does, so
-they resolve it through the tuned dispatch by shape.
+where the reference runs ``lax.scan`` / ``vmap``; each encoder and
+decoder layer runs under ``cm.remat`` (where autograd tracks it, as in
+training), as the reference remats each scan body.  The decoder's
+cross-attention projections call ``linear`` without a route, as the
+reference does, so they resolve it through the tuned dispatch by shape.
 """
 
 from __future__ import annotations
@@ -77,14 +78,17 @@ def encode(cfg: ArchConfig, params, audio_embeds):
     """audio_embeds: (B, Ta, d) — the stub conv output."""
     x = audio_embeds.to(cfg.dtype)
     x = x + params["pos_enc"][None, : x.shape[1]]
-    for j in range(cfg.encdec.n_encoder_layers):
-        lp = cm.layer(params["enc_layers"], j)
+
+    def body(x, lp):
         h = cm.layernorm(x, lp["ln"], lp["ln_b"])
         q, k, v = cm.qkv_project(cfg, lp["attn"], h, None)
         ctx = cm.attention(cfg, q, k, v, causal=False)
         x = x + cm.attn_out(cfg, lp["attn"], ctx)
         h = cm.layernorm(x, lp["ln_mlp"], lp["ln_mlp_b"])
-        x = x + cm.mlp_apply(cfg, lp["mlp"], h)
+        return x + cm.mlp_apply(cfg, lp["mlp"], h)
+
+    for j in range(cfg.encdec.n_encoder_layers):
+        x = cm.remat(cfg, body, x, cm.layer(params["enc_layers"], j))
     return cm.layernorm(x, params["ln_enc_final"], params["ln_enc_final_b"])
 
 
@@ -133,14 +137,18 @@ def _decode_stack(cfg: ArchConfig, params, x, enc_out=None, caches=None,
                   cache_pos=None):
     """Walk the decoder layers; with ``caches`` each layer reads its
     cached cross K/V and writes its self-attention K/V in place."""
+    def body(x, lp, enc_out, cross_kv, self_kv):
+        return _dec_block(cfg, lp, x, enc_out=enc_out, cross_kv=cross_kv,
+                          self_kv=self_kv, cache_pos=cache_pos)
+
     for j in range(cfg.n_layers):
         lp = cm.layer(params["dec_layers"], j)
         if caches is None:
-            x = _dec_block(cfg, lp, x, enc_out=enc_out)
+            x = cm.remat(cfg, body, x, lp, enc_out, None, None)
         else:
             (ks, vs), (kc, vc) = caches["self"], caches["cross"]
-            x = _dec_block(cfg, lp, x, cross_kv=(kc[j], vc[j]),
-                           self_kv=(ks[j], vs[j]), cache_pos=cache_pos)
+            x = cm.remat(cfg, body, x, lp, None, (kc[j], vc[j]),
+                         (ks[j], vs[j]))
     return x, caches
 
 

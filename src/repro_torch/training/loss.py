@@ -13,7 +13,7 @@ function (PaLM-style).
 The logits are fp32 from fp32 accumulation, as the reference's
 ``preferred_element_type=jnp.float32`` makes them: the logits call goes
 through ``linear`` with an fp32 output on the zoo's matmul route (K1
-through ``FusedMatmulFn``, its softcap fused in the epilogue, or the
+through its autograd op, its softcap fused in the epilogue, or the
 plain route on fp32-cast operands).
 """
 

@@ -8,9 +8,13 @@ the activation working set is 1/N of the global batch.  As the
 reference's jitted step donates its buffers, the step writes the new
 parameters and optimizer state into the tensors it is given.
 
-The port trains the dense transformer family (yi-6b, gemma2, internvl2,
-deepseek).  MoE, Griffin and RWKV-6 need a backward for K4, K5 or K6
-first, Whisper its encoder-decoder loss (ROADMAP queue 1, items G-I, L).
+Every family trains, as in the reference, on the ``torch`` and ``dense``
+routes (``cfg.backend``): the reference never differentiates its Pallas
+kernels, and on the ``torch`` route MoE's experts, the RG-LRU and the WKV
+run as plain ops that autograd differentiates, while every projection
+stays on the zoo's matmul route (K1 through its autograd op).  On the
+``kernel`` route K2, K4, K5 and K6 refuse autograd (``NotPorted``).
+Whisper's batch carries ``audio_embeds`` beside the tokens.
 """
 
 from __future__ import annotations
@@ -20,7 +24,6 @@ import functools
 
 import torch
 
-from repro_torch import NotPorted
 from repro_torch.core import tree
 from repro_torch.models.base import ArchConfig, family_module
 from repro_torch.optim import adamw, compression
@@ -72,12 +75,6 @@ def _split_microbatch(batch, n: int, i: int):
 
 
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig()):
-    if cfg.family != "transformer" or cfg.moe is not None:
-        raise NotPorted(
-            f"training {cfg.name} ({cfg.family}"
-            f"{', MoE' if cfg.moe is not None else ''}) is not ported: it "
-            "needs a backward for K4, K5 or K6, or Whisper's loss (ROADMAP "
-            "queue 1, items G-I, L)")
     grad_fn = functools.partial(value_and_grad, cfg, tcfg)
 
     def train_step(params, opt_state, batch, residual=None):

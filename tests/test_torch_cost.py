@@ -243,6 +243,25 @@ def test_transposed_b_copy_counts_on_meta():
                           + 2 * 4 * 64 * 96)
 
 
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_k1_op_counts_its_launch_and_holds_its_result(device):
+    """Under autograd K1 runs inside its op: the counter records the
+    launch its body records, as on the untracked path, nothing for the
+    op itself, and holds the op's result in the live bytes."""
+    a = torch.ones(32, 64, device=device)
+    b = torch.ones(64, 48, device=device, requires_grad=True)
+    with hlo_cost.counting() as untracked, torch.no_grad():
+        fused_matmul(a, b)
+    with hlo_cost.counting() as tracked:
+        out = fused_matmul(a, b)
+        held = tracked._live
+    assert out.grad_fn is not None
+    assert tracked.cost.kernels == untracked.cost.kernels
+    assert tracked.cost.bytes == untracked.cost.bytes
+    assert not any(op.startswith("repro_torch") for op in tracked.cost.ops)
+    assert held >= 4 * 32 * 48
+
+
 def test_no_counter_no_cost():
     """Without a counter the wrappers record nothing, and counters do
     not nest."""
@@ -480,3 +499,27 @@ def test_collective_bytes_in_a_gloo_world(tmp_path):
         assert got["total"] == ref["total"]
         assert not any(op.startswith(("c10d", "_c10d")) for op in got["ops"])
         assert got["recv"] == [float((r - 1) % 2)] * 16
+
+
+@pytest.mark.parametrize("device", ["meta", "cpu"])
+def test_temp_bytes_follow_the_storages_autograd_saves(device):
+    """``temp_bytes`` follows storages, not tensors: ``exp`` saves its
+    result for the backward as another tensor on the same storage, so
+    after the caller drops the result it stays live until the backward
+    has used it.  Two chained exps of 4 MiB each and a product on top
+    peak at 12 MiB; the live bytes fall to the product's once the
+    backward ran."""
+    from repro_torch.core import hlo_cost
+    mib = 1 << 20
+    x = torch.ones(mib // 4, device=device, requires_grad=True)
+    with hlo_cost.counting() as counter:
+        y = x.exp()
+        z = y.exp()
+        del y
+        w = z * 2.0
+        del z
+        held = counter._live
+        w.sum().backward()
+        del w
+    assert held == 3 * mib and counter.cost.temp_bytes >= 3 * mib
+    assert counter._live < held

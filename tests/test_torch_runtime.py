@@ -241,3 +241,18 @@ class TestLauncher:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(SystemExit, match="no CUDA device"):
             launch_train.main(self.ARGV[:1] + self.ARGV[3:])
+
+    @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "arctic-480b",
+                                      "recurrentgemma-2b", "rwkv6-7b"])
+    def test_every_family_trains(self, arch):
+        """The launcher trains the MoE, Griffin and RWKV-6 families on the
+        plain torch route, K1 on the projections: 3 finite losses."""
+        res = launch_train.main(["--arch", arch] + self.ARGV[:4] + ["3"]
+                                + self.ARGV[5:])
+        assert len(res.losses) == 3 and all(np.isfinite(res.losses))
+
+    def test_whisper_is_refused_up_front(self):
+        """The stream has no audio frames (nor has the reference's): the
+        launcher stops before a step with the reason, not a KeyError."""
+        with pytest.raises(ValueError, match="audio_embeds"):
+            launch_train.main(["--arch", "whisper-tiny"] + self.ARGV)
