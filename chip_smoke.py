@@ -716,6 +716,37 @@ PIPE_LAYERS, PIPE_WIDTH, PIPE_MICRO, PIPE_ROWS = 4, 4096, 6, 256
 TOL_DIST_MEMORY = 0.15
 DIST_COMPRESS_SHAPES = {"norm": (4096,), "wo": (1024, 4096),
                         "wq": (4096, 4096)}
+# training and serving on a mesh (phase dist-mesh): DIST_MESH_RANKS ranks
+# (gloo sharing the one card, or NCCL with a card a rank); yi-6b's prefill
+# and decode steps on (data 1, model 2) at DIST_TP_FP32_LAYERS in fp32
+# (TOL_PATH) and at full depth in bf16 (TOL_TP_BF16); one fp32 AdamW
+# step at DIST_TRAIN_FP32_LAYERS on (data 2, model 2) against one rank's
+# (TOL_TRAIN_LOSS, TOL_TRAIN_GRAD), a batch of DIST_TRAIN_FP32_BATCH; the
+# launcher on (data 2, model 2) at DIST_TRAIN_LAYERS in bf16 with
+# DIST_TRAIN_ARGV, no checkpoint, its losses against one rank's run of
+# the same flags (TOL_TRAIN_ROUTES), each rank's peak against its
+# reckoning (TOL_TRAIN_MEMORY)
+DIST_MESH_RANKS, DIST_MESH_TIMEOUT = 4, 600.0
+DIST_TP_FP32_LAYERS, DIST_TP_DECODE = 4, 4
+# dist-tp in bf16 at full depth is held to one rank's bf16 logits by
+# bf16 rounding's own reach at that depth: at each of the 5 logits, the
+# 2-norm of the TP logits' distance from one rank's is at most
+# TOL_TP_BF16 times that of one rank's bf16 logits from its fp32 ones on
+# the same tokens.  A row projection's fp32 sum of partials rounds as
+# one rank's K1 does, in another order, which flips some roundings; a
+# second rounding, or a wrong head, adds error of its own.  On an H100
+# (scripts/tp_bf16_yardstick.py, seeds 7-9, 15 logits each) the ratio
+# read 0.624-0.686 for the path as it is, 0.783-0.883 with the partials
+# rounded to bf16 before the sum, and about 32 with one rank's two KV
+# heads swapped; by max-norm the first two lie 2.7e-2-3.2e-2 and
+# 3.3e-2-3.8e-2 of max |logit| from one rank, too close to hold apart
+TOL_TP_BF16 = 0.73
+DIST_TRAIN_FP32_LAYERS, DIST_TRAIN_FP32_BATCH = 2, (4, 256)
+DIST_TRAIN_LAYERS = 4
+DIST_TRAIN_ARGV = ["--global-batch", "8", "--seq-len", "512",
+                   "--microbatches", "2", "--steps", "4", "--lr", "1e-3",
+                   "--log-every", "1", "--mesh", "host", "--model-parallel",
+                   "2"]
 PROFILE_STEPS, UNTRACED_STEPS = 4, 16
 MAX_ROWS_DECODE = 8                 # K1's decode tile serves M <= 8
 # the tiled kernels' tiles, each by substrings of its kernel names in a
@@ -745,10 +776,21 @@ class PhaseFailed(Exception):
 _T0 = time.perf_counter()
 
 
+#: a file the spawned ranks lock around each line they print, so that
+#: two ranks' lines (longer than a pipe writes at once) do not interleave
+_EMIT_LOCK: "Path | None" = None
+
+
 def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "elapsed_s": time.perf_counter() - _T0}
-    print(json.dumps(obj), flush=True)
+    if _EMIT_LOCK is None:
+        print(json.dumps(obj), flush=True)
+        return
+    import fcntl
+    with open(_EMIT_LOCK, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        print(json.dumps(obj), flush=True)
 
 
 def rel_err(out, ref):
@@ -757,6 +799,11 @@ def rel_err(out, ref):
     diff = (o - r).abs().max().item() if o.numel() else 0.0
     scale = r.abs().max().item() if r.numel() else 0.0
     return diff / (scale + 1e-30), diff
+
+
+def l2_dist(out, ref) -> float:
+    """||out - ref||_2 in float64."""
+    return float((out.double() - ref.double()).norm())
 
 
 def row_rel_err(out, ref):
@@ -3598,8 +3645,10 @@ def _dist_rank(world, out_dir: str, s_max: int, reckoned: dict) -> None:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.base import family_module
     from repro_torch.optim.compression import compress_tree, psum_compressed
+    global _EMIT_LOCK
     disable_tf32()
     out_dir, r, n = Path(out_dir), world.rank, world.size
+    _EMIT_LOCK = out_dir / "emit.lock"
     one = torch.load(out_dir / "one_rank.pt")
     head = {"rank": r, "world": n, "backend": world.backend,
             "backend_reason": world.reason, "device": str(world.device)}
@@ -3624,10 +3673,8 @@ def _dist_rank(world, out_dir: str, s_max: int, reckoned: dict) -> None:
         gen = torch.Generator(device="cuda").manual_seed(DIST_SEED)
         torch.cuda.reset_peak_memory_stats()
         whole = family_module(cfg).init(cfg, gen, "cuda")
-        specs = sharding.param_shardings(whole, mesh,
-                                         sharding.EXPERT_PARALLEL_RULES)
-        params = sharding.local_shards(sharding.apply_shardings(whole,
-                                                                specs))
+        params = sharding.shard_params(whole, mesh,
+                                       sharding.EXPERT_PARALLEL_RULES)
         n_whole = sum(x.numel() for x in tree.leaves(whole))
         del whole
         torch.cuda.synchronize()
@@ -3646,7 +3693,7 @@ def _dist_rank(world, out_dir: str, s_max: int, reckoned: dict) -> None:
         ref = one[f"ep-{tag}"]
         target = one.get(f"ep-{tag}-shards", ref)
         staged()
-        with logical.use_rules(mesh):
+        with logical.use_rules(mesh, sharding.EXPERT_PARALLEL_RULES):
             tokens, logits, results, picks = _serve_traffic(cfg, params)
         counts, staged_ops = read(), staged()
         peak = torch.cuda.max_memory_allocated()
@@ -3938,6 +3985,463 @@ def phase_dist(s_max, reckoned):
           "backend_reason": ranks[0]["world"]["backend_reason"],
           "devices": [got["world"]["device"] for got in ranks],
           "world_wall_s": world_s,
+          "wall_s": time.perf_counter() - t_phase, "launches": launches})
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Training and serving on a mesh: tensor parallelism, FSDP, data parallelism.
+# ---------------------------------------------------------------------------
+
+def _mesh_tp_configs():
+    """(tag, config) of ``dist-tp``'s two cases: yi-6b at full width,
+    DIST_TP_FP32_LAYERS in fp32, then full depth in bf16."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(ARCH)
+    return (("fp32", cfg.with_(n_layers=DIST_TP_FP32_LAYERS,
+                               dtype=torch.float32,
+                               kv_cache_dtype=torch.float32)),
+            ("bf16", cfg))
+
+
+def _mesh_train_fp32():
+    """(config, TrainConfig) of ``dist-train-fp32``: yi-6b at full width,
+    DIST_TRAIN_FP32_LAYERS, fp32, remat "full", the plain torch route with
+    K1 for the projections, one AdamW step."""
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import TrainConfig
+    cfg = _cut(ARCH, DIST_TRAIN_FP32_LAYERS, dtype=torch.float32,
+               backend="torch")
+    return cfg, TrainConfig(
+        optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+        loss_chunk=DIST_TRAIN_FP32_BATCH[1])
+
+
+def _mesh_serve(cfg, params, cache, follow=None):
+    """The serve traffic's first batch (4 prompts padded to 221 tokens)
+    through ``serving.engine.make_prefill`` and DIST_TP_DECODE steps of
+    ``make_decode``, CUDA events around each: {logits (fp32, on the CPU,
+    one a step), greedy (the argmax of each, (4, steps + 1)), prefill_ms,
+    decode_ms}.  The decode steps feed ``follow``'s tokens where given
+    (the one-rank run's), else the run's own greedy ones."""
+    from repro_torch.serving.engine import make_decode, make_prefill
+    lengths, rng = prompt_lengths()
+    s = int(max(lengths[:MAX_BATCH]))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        MAX_BATCH, s))).to(device="cuda", dtype=torch.int32)
+    prefill, decode = make_prefill(cfg), make_decode(cfg)
+
+    def timed(fn, *args):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+    (logits, cache), prefill_ms = timed(prefill, params, {"tokens": tokens},
+                                        cache)
+    out, decode_ms = [logits.float().cpu()], []
+    for i in range(DIST_TP_DECODE):
+        nxt = (follow[:, i] if follow is not None
+               else out[-1].argmax(-1)).to("cuda", torch.int32)
+        (logits, cache), ms = timed(decode, params, nxt[:, None], cache,
+                                    s + i)
+        out.append(logits.float().cpu())
+        decode_ms.append(ms)
+    return {"logits": out,
+            "greedy": torch.stack([x.argmax(-1) for x in out], 1),
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms}
+
+
+def _mesh_train_collectives(cfg, sizes: dict, rows: int, seq: int,
+                            microbatches: int, grad_bytes: int) -> dict:
+    """Collective bytes by kind of one train step of a dense model with an
+    untied output weight and pre-norms only (yi-6b) on one rank of a
+    mesh of ``sizes``, under the default rules, remat "full", ``rows``
+    rows a microbatch on the rank, one loss chunk of ``seq`` a row, the
+    replicated leaves' gradients of ``grad_bytes`` a value (4 where
+    microbatches accumulate in fp32).  Where the q heads do not divide the
+    model axis, q is gathered over it (every head on every rank); where
+    the rank's KV heads are not those its q heads read, the KV weights
+    are.  ``tests/test_torch_tensor_parallel.py`` holds it to the meta
+    count.  A microbatch:
+
+    * all-gather: a layer's weights over data, whole in d (wq, wk, wv,
+      wo, wi and the MLP's wo, each with its model shard), and over model
+      q (rows x seq x q_dim) and the KV weights where gathered, in the
+      forward and again in remat's recompute; the embedding and the
+      output weight once;
+    * reduce-scatter: each of those once in the backward, to its shard;
+    * all-reduce: an activation (rows x seq x d, fp32: the partial
+      products' sum) at each of a layer's two region exits in the
+      forward, the attention's in the recompute (which stops at the last
+      tensor the backward needs, before the MLP's exit); one in the
+      model's dtype at each of its two entries in the backward, the
+      embedding's sum and the loss's entry in the backward; the loss
+      chunk's row max, sum of exponentials and label logit (fp32) in the
+      forward and in its recompute; the token count over the batch axes.
+
+    A step: each norm scale's gradient over the data axes, and over the
+    pod axis every leaf's; the loss (and with one microbatch its nll and
+    z) over the batch axes; the clipping norm over every axis."""
+    from repro_torch.core import tree
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import rank_view
+    from repro_torch.models.base import family_module
+    d, q, kv, ff, v, n = (cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff,
+                          cfg.padded_vocab, cfg.n_layers)
+    e = torch.finfo(cfg.dtype).bits // 8
+    m, data = sizes.get("model", 1), sizes.get("data", 1)
+    batch_axes = [a for a in ("pod", "data") if sizes.get(a, 1) > 1]
+    act = rows * seq * d * e
+    group = cfg.n_heads // cfg.n_kv_heads
+    gather_q = m > 1 and cfg.n_heads % m != 0
+    hq = cfg.n_heads if gather_q else cfg.n_heads // m
+    own_kv = (cfg.n_kv_heads % m == 0 and hq % group == 0
+              and hq // group == cfg.n_kv_heads // m)
+    fsdp = (d * q + 2 * d * kv + q * d + d * 2 * ff + ff * d) // m * e
+    fsdp = fsdp if data > 1 else 0
+    model = ((rows * seq * q if gather_q else 0)
+             + (2 * d * kv if m > 1 and not own_kv else 0)) * e
+    vocab = v // m * d * e if data > 1 else 0
+    gather = n * 2 * (fsdp + model) + 2 * vocab
+    scatter = n * (fsdp // data + model // m) + 2 * vocab // data
+    reduce = 4 * len(batch_axes)
+    if m > 1:
+        reduce += (n * (3 * act // e * 4 + 2 * act) + 2 * act
+                   + 2 * 3 * rows * seq * 4)
+    out = {"all-gather": microbatches * gather,
+           "reduce-scatter": microbatches * scatter,
+           "all-reduce": microbatches * reduce}
+    if sizes.get("data", 1) > 1:
+        out["all-reduce"] += (2 * n * d + d) * grad_bytes
+    if sizes.get("pod", 1) > 1:
+        mesh = rank_view(tuple(sizes.values()), tuple(sizes))
+        local = sharding.shard_params(
+            family_module(cfg).init(cfg, None, "meta"), mesh)
+        out["all-reduce"] += sum(x.numel() for x in tree.leaves(local)) * (
+            grad_bytes if microbatches > 1 else e)
+    metrics = 1 if microbatches > 1 else 3
+    out["all-reduce"] += (4 * metrics * len(batch_axes)
+                          + 4 * sum(1 for s_ in sizes.values() if s_ > 1))
+    out = {k: float(x) for k, x in out.items() if x}
+    out["total"] = sum(out.values())
+    return out
+
+
+def _dist_mesh_rank(world, out_dir: str) -> None:
+    """One rank of phase ``dist-mesh``, spawned by ``run_world``: prints
+    the lines dist-tp-fp32, dist-tp (ranks 0 and 1 of a (data 1, model 2)
+    mesh), dist-train-fp32, dist-train and dist-dryrun (every rank of
+    (data 2, model 2)), raises on a failed check (which fails the world),
+    and writes its launch counts to ``out_dir/mesh_rank{r}.json``."""
+    from repro_torch.core import hlo_cost, tree
+    from repro_torch.core.precision import disable_tf32
+    from repro_torch.distributed import collectives, logical, sharding
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh, rank_view
+    from repro_torch.models.base import family_module
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import (abstract_state,
+                                                 make_train_step)
+    global _EMIT_LOCK
+    disable_tf32()
+    out_dir, r = Path(out_dir), world.rank
+    _EMIT_LOCK = out_dir / "emit.lock"
+    one = torch.load(out_dir / "mesh_one.pt")
+    head = {"rank": r, "world": world.size, "backend": world.backend,
+            "backend_reason": world.reason, "device": str(world.device)}
+    dense = {"fused_matmul": fused_matmul, "flash_attention": flash_attention}
+    launches = {}
+
+    def staged():
+        out = dict(collectives.STAGED)
+        collectives.STAGED.clear()
+        return out
+
+    # dist-tp-fp32, dist-tp: yi-6b's serving steps on (data 1, model 2)
+    tp_mesh = make_mesh((1, 2), ("data", "model"))
+    for tag, cfg in _mesh_tp_configs() if tp_mesh.has_rank else ():
+        mod = family_module(cfg)
+        whole = mod.init(cfg, torch.Generator(device="cuda").manual_seed(
+            DIST_SEED), "cuda")
+        params = sharding.shard_params(whole, tp_mesh)
+        del whole
+        cache = tree.tree_map(
+            lambda x: torch.zeros(x.shape, dtype=x.dtype, device="cuda"),
+            sharding.shard_cache(mod.init_cache(cfg, MAX_BATCH, CACHE_LEN,
+                                                device="meta"),
+                                 tp_mesh, cfg))
+        torch.cuda.empty_cache()
+        ref = one[f"tp-{tag}"]
+        read = _counted(dense)
+        staged()
+        with logical.use_rules(tp_mesh):
+            got = _mesh_serve(cfg, params, cache, follow=ref["greedy"][:, :-1])
+        counts, staged_ops = read(), staged()
+        errs = [rel_err(a, b)[0] for a, b in zip(got["logits"],
+                                                 ref["logits"])]
+        agree = float((got["greedy"] == ref["greedy"]).float().mean())
+        yardstick = {}
+        if tag == "bf16":
+            # bf16 at full depth: against bf16 rounding's own reach
+            # (TOL_TP_BF16), with the distances from fp32 beside it
+            fp32 = ref["fp32_logits"]
+            ratio = [l2_dist(a, b) / l2_dist(b, c) for a, b, c in
+                     zip(got["logits"], ref["logits"], fp32)]
+            yardstick = {
+                "l2_vs_one_rank_over_one_rank_bf16_vs_fp32": ratio,
+                "tol_ratio": TOL_TP_BF16,
+                "tp_vs_fp32": [rel_err(a, c)[0]
+                               for a, c in zip(got["logits"], fp32)],
+                "one_rank_bf16_vs_fp32": [rel_err(b, c)[0] for b, c in
+                                          zip(ref["logits"], fp32)]}
+        phase = "dist-tp-fp32" if tag == "fp32" else "dist-tp"
+        emit({"phase": phase, **head, "staged_through_host": staged_ops,
+              **counts,
+              "config": f"{ARCH} full width, {cfg.n_layers} layers, "
+                        f"{str(cfg.dtype)[6:]}, (data 1, model 2): "
+                        f"{cfg.n_heads // 2} q and {cfg.n_kv_heads // 2} KV "
+                        "heads a rank",
+              "kv_heads_held": cache[0][0].shape[2],
+              "logits_rel_err": errs,
+              "tol": TOL_PATH if tag == "fp32" else None, **yardstick,
+              "greedy_tokens_agree": agree,
+              "prefill_ms": got["prefill_ms"], "decode_ms": got["decode_ms"],
+              "one_rank_prefill_ms": ref["prefill_ms"],
+              "one_rank_decode_ms": ref["decode_ms"]})
+        require(all(bool(torch.isfinite(x).all()) for x in got["logits"]),
+                f"{phase}: logits not finite")
+        require(tag != "fp32" or all(e_ <= TOL_PATH for e_ in errs),
+                f"{phase}: logits {errs} against {TOL_PATH}")
+        require(tag != "bf16" or all(
+            x <= TOL_TP_BF16 for x in yardstick[
+                "l2_vs_one_rank_over_one_rank_bf16_vs_fp32"]),
+                f"{phase}: {yardstick} against {TOL_TP_BF16}")
+        require(tag != "fp32" or agree == 1.0,
+                f"{phase}: greedy tokens differ from one rank's")
+        require(counts["fused_matmul"] and counts["flash_attention"],
+                f"{phase}: launches {counts}")
+        launches[phase] = counts
+        del params, cache, got
+        torch.cuda.empty_cache()
+
+    # dist-train-fp32: one AdamW step on (data 2, model 2)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    cfg, tcfg = _mesh_train_fp32()
+    whole = family_module(cfg).init(cfg, torch.Generator(
+        device="cuda").manual_seed(DIST_SEED), "cuda")
+    params = sharding.shard_params(whole, mesh)
+    del whole
+    torch.cuda.empty_cache()
+    opt = adamw.init(tcfg.optimizer, params)
+    batch = train_batch(cfg, *DIST_TRAIN_FP32_BATCH, "cuda")
+    read = _counted(dense)
+    with logical.use_rules(mesh):
+        _, opt, metrics, _ = make_train_step(cfg, tcfg)(
+            params, opt, sharding.local_batch(batch, mesh))
+    counts = read()
+    ref = one["train-fp32"]
+    ref_mu = sharding.shard_params(
+        torch.load(out_dir / "mesh_train_mu.pt", mmap=True), mesh)
+    worst = torch.stack([(a - b.cuda()).abs().max().float() for a, b in
+                         zip(tree.leaves(opt["mu"]), tree.leaves(ref_mu))])
+    collectives.all_reduce(worst, op="max")
+    grad_rel = (worst.cpu() / torch.tensor(ref["mu_max"])).tolist()
+    loss = float(metrics["loss"])
+    loss_rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    emit({"phase": "dist-train-fp32", **head, **counts,
+          "config": f"{ARCH} full width, {cfg.n_layers} layers, fp32, "
+                    f"(data 2, model 2), batch {DIST_TRAIN_FP32_BATCH}",
+          "loss": loss, "one_rank_loss": ref["loss"], "loss_rel": loss_rel,
+          "tol_loss": TOL_TRAIN_LOSS, "mu_rel_max": max(grad_rel),
+          "mu_rel_by_leaf": grad_rel, "tol_grad": TOL_TRAIN_GRAD})
+    require(loss_rel <= TOL_TRAIN_LOSS,
+            f"dist-train-fp32: loss {loss} against one rank's {ref['loss']}")
+    require(max(grad_rel) <= TOL_TRAIN_GRAD,
+            f"dist-train-fp32: first moment {max(grad_rel)} of a leaf's max")
+    launches["dist-train-fp32"] = counts
+    del params, opt, ref_mu, metrics
+    torch.cuda.empty_cache()
+
+    # dist-train: the launcher on (data 2, model 2)
+    args = launch_train.parse_args(DIST_TRAIN_ARGV + ["--device", "cuda"])
+    cfg = _cut(ARCH, DIST_TRAIN_LAYERS)
+    tcfg = launch_train.train_config(args)
+    rows = args.global_batch // args.microbatches // mesh.shape["data"]
+    read = _counted(dense)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    staged()
+    res = launch_train.train(cfg, args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts, staged_ops = read(), staged()
+
+    # dist-dryrun: one more step counted on the card, and on meta at this
+    # rank's coordinate
+    cfg = cfg.with_(backend="torch")
+    step = make_train_step(cfg, tcfg)
+    batch = sharding.local_batch(train_batch(
+        cfg, args.global_batch, args.seq_len, "cuda", step=args.steps),
+        mesh, args.microbatches)
+    with logical.use_rules(mesh):
+        card, _, card_s = dryrun.count_step(step, (res.params, res.opt_state,
+                                                   batch), True)
+    view = rank_view(tuple(mesh.shape.values()), mesh.axis_names,
+                     mesh.coordinate)
+    with logical.use_rules(view):
+        meta_params = sharding.shard_params(abstract_state(cfg, tcfg)[0],
+                                            view)
+        meta_args = (meta_params, adamw.init(tcfg.optimizer, meta_params),
+                     {k: torch.empty(x.shape, dtype=x.dtype, device="meta")
+                      for k, x in batch.items()})
+        meta, _, meta_s = dryrun.count_step(step, meta_args, True)
+    same, ops_differ = compare_counts(card, meta)
+    same_coll = card.per_collective == meta.per_collective
+    sizes = dict(mesh.shape)
+    reckoned = _mesh_train_collectives(cfg, sizes, rows, args.seq_len,
+                                       args.microbatches, 4)
+    counted = {**{k: float(x) for k, x in card.per_collective.items()},
+               "total": card.collective_bytes}
+    mem = {"arguments": dryrun.tree_bytes(meta_args),
+           "temp_meta": meta.temp_bytes}
+    mem["total"] = mem["arguments"] + mem["temp_meta"]
+    k1_reckoned = {"tc": args.steps * args.microbatches
+                   * _train_k1_calls(cfg, 1), "decode": 0, "simt": 0}
+    one_losses = one["train"]["losses"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(res.losses, one_losses)]
+    step_ms = statistics.median(res.step_ms_device[1:])
+    emit({"phase": "dist-train", **head, "staged_through_host": staged_ops,
+          **counts,
+          "config": f"{ARCH} full width, {cfg.n_layers} of 32 layers, bf16 "
+                    f"with fp32 master, remat {cfg.remat}, (data 2, model "
+                    "2): FSDP over data, tensor parallel over model",
+          "argv": DIST_TRAIN_ARGV, "losses": res.losses,
+          "one_rank_losses": one_losses, "loss_rel": loss_rel,
+          "tol_routes": TOL_TRAIN_ROUTES,
+          "step_ms_device": res.step_ms_device,
+          "step_ms_median_2_4": step_ms,
+          "one_rank_step_ms": one["train"]["step_ms"],
+          "tokens_per_s_a_rank": args.global_batch * args.seq_len
+          / mesh.size / (step_ms / 1e3),
+          "max_memory_allocated": peak, "memory_reckoned": mem,
+          "memory_rel": peak / mem["total"] - 1.0,
+          "tol_memory": TOL_TRAIN_MEMORY,
+          "fused_matmul_by_tile_reckoned": k1_reckoned,
+          "collective_bytes_a_step": counted,
+          "collective_bytes_reckoned": reckoned})
+    emit({"phase": "dist-dryrun", **head,
+          "config": f"dist-train's step at {mesh.coordinate} of "
+                    f"{mesh.shape}, on the card and on meta (a rank view)",
+          "flops": [card.flops, meta.flops], "bytes": [card.bytes, meta.bytes],
+          "collective_bytes": [card.per_collective, meta.per_collective],
+          "kernels_card": card.kernels, "kernels_meta": meta.kernels,
+          "ops_differ": ops_differ, "temp_bytes_meta": meta.temp_bytes,
+          "trace_s": {"card": card_s, "meta": meta_s},
+          "same": same and same_coll})
+    require(all(np.isfinite(res.losses)) and max(loss_rel)
+            <= TOL_TRAIN_ROUTES,
+            f"dist-train: losses {res.losses} against one rank's "
+            f"{one_losses}")
+    require(counts["fused_matmul_by_tile"] == k1_reckoned
+            and counts["flash_attention"] == 0,
+            f"dist-train: K1 ran {counts['fused_matmul_by_tile']}, reckoned "
+            f"{k1_reckoned}")
+    require(abs(peak / mem["total"] - 1.0) <= TOL_TRAIN_MEMORY,
+            f"dist-train: peak {peak} B against {mem['total']} B reckoned")
+    require(counted == reckoned, f"dist-train: collective bytes {counted}, "
+            f"reckoned {reckoned}")
+    require(same and same_coll,
+            f"dist-dryrun: the card counted {card.flops} FLOPs, {card.bytes} "
+            f"B, {card.per_collective}; meta {meta.flops}, {meta.bytes}, "
+            f"{meta.per_collective}")
+    launches["dist-train"] = counts
+    (out_dir / f"mesh_rank{r}.json").write_text(json.dumps(
+        {"world": head, "launches": launches}))
+
+
+def phase_dist_mesh():
+    """Training and serving on a mesh, DIST_MESH_RANKS ranks spawned
+    through ``launch.mesh.run_world`` (gloo when they share the card, NCCL
+    when each has one).  First, in this process, what the ranks are held
+    to, on one rank: yi-6b's serving steps (``_mesh_serve``, fp32 at
+    DIST_TP_FP32_LAYERS and bf16 at full depth), one fp32 AdamW step
+    (``_mesh_train_fp32``; its first moment saved for the ranks to read)
+    and the launcher's run of DIST_TRAIN_ARGV at DIST_TRAIN_LAYERS
+    (without a world it is one process).  Then the ranks
+    (``_dist_mesh_rank``).  A rank that fails, or a world that outlives
+    DIST_MESH_TIMEOUT, fails the phase.  Writes no checkpoint."""
+    import shutil
+
+    from repro_torch.core import tree
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models.base import family_module
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import make_train_step
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    one = {}
+    for tag, cfg in _mesh_tp_configs() + (
+            ("fp32-full", _mesh_tp_configs()[1][1].with_(
+                dtype=torch.float32, kv_cache_dtype=torch.float32)),):
+        mod = family_module(cfg)
+        params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(
+            DIST_SEED), "cuda")
+        cache = mod.init_cache(cfg, MAX_BATCH, CACHE_LEN, device="cuda")
+        # the fp32 run at full depth decodes the bf16 run's tokens: the
+        # bf16 yardstick (``_dist_mesh_rank``)
+        follow = (one["tp-bf16"]["greedy"][:, :-1] if tag == "fp32-full"
+                  else None)
+        one[f"tp-{tag}"] = _mesh_serve(cfg, params, cache, follow)
+        del params, cache
+        torch.cuda.empty_cache()
+    one["tp-bf16"]["fp32_logits"] = one.pop("tp-fp32-full")["logits"]
+    cfg, tcfg = _mesh_train_fp32()
+    params = family_module(cfg).init(cfg, torch.Generator(
+        device="cuda").manual_seed(DIST_SEED), "cuda")
+    _, opt, metrics, _ = make_train_step(cfg, tcfg)(
+        params, adamw.init(tcfg.optimizer, params),
+        train_batch(cfg, *DIST_TRAIN_FP32_BATCH, "cuda"))
+    mu = tree.tree_map(lambda x: x.cpu(), opt["mu"])
+    one["train-fp32"] = {"loss": float(metrics["loss"]), "mu_max": [
+        float(x.abs().max()) for x in tree.leaves(mu)]}
+    torch.save(mu, DIST_DIR / "mesh_train_mu.pt")
+    del params, opt, metrics, mu
+    torch.cuda.empty_cache()
+    args = launch_train.parse_args(DIST_TRAIN_ARGV + ["--device", "cuda"])
+    res = launch_train.train(_cut(ARCH, DIST_TRAIN_LAYERS), args)
+    one["train"] = {"losses": res.losses, "step_ms": res.step_ms_device}
+    del res
+    torch.cuda.empty_cache()
+    torch.save(one, DIST_DIR / "mesh_one.pt")
+    one_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    try:
+        run_world(_dist_mesh_rank, DIST_MESH_RANKS, (str(DIST_DIR),),
+                  rendezvous=str(DIST_DIR / "rendezvous"),
+                  timeout=DIST_MESH_TIMEOUT)
+    except Exception as e:                   # a rank failed or hung
+        raise PhaseFailed(f"dist-mesh: {type(e).__name__}: {e}") from None
+    world_s = time.perf_counter() - t0
+    launches = {}
+    ranks = [json.loads((DIST_DIR / f"mesh_rank{i}.json").read_text())
+             for i in range(DIST_MESH_RANKS)]
+    for i, got in enumerate(ranks):
+        for path, counts in got["launches"].items():
+            launches[f"{path}/rank{i}"] = counts
+    emit({"phase": "dist-mesh", "ranks": DIST_MESH_RANKS,
+          "backend": ranks[0]["world"]["backend"],
+          "backend_reason": ranks[0]["world"]["backend_reason"],
+          "devices": [got["world"]["device"] for got in ranks],
+          "one_rank_s": one_s, "world_wall_s": world_s,
           "wall_s": time.perf_counter() - t_phase, "launches": launches})
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     return launches
@@ -4760,6 +5264,9 @@ def main() -> int:
             "fused_matmul": k1_tiles["moe-serve"],
             "grouped_matmul": k4_tiles,
             "flash_attention": k2_tiles["moe-serve"]}))
+        # yi-6b served tensor-parallel and trained with FSDP and tensor
+        # parallelism on DIST_MESH_RANKS ranks
+        launches.update(phase_dist_mesh())
         launches["dryrun"] = phase_dryrun(card)
         kernels = phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, launches)
     except PhaseFailed as e:

@@ -30,7 +30,8 @@ The conventions follow the reference's, so that the two read alike:
   fp32), counted as aten ops on the untracked path, are not seen.
 * **collective bytes**: result-shape bytes by kind, recorded by
   ``distributed/collectives.py`` (the dispatch mode leaves c10d ops to
-  it).
+  it, and a collective's own copies and concatenations are not counted
+  as aten ops, so that a step counts alike on ``meta``, gloo and NCCL).
 * **unparsed_loops** is always 0: Python loops run; nothing is parsed.
 * **temp_bytes** (no HLO counterpart; the dry run's ``memory``): the
   high-water mark of live storages that the step created (intermediates
@@ -219,7 +220,26 @@ def counted(name: str, cost_fn, *args):
         counter.quiet -= 1
 
 
-def collective(kind: str, nbytes: float) -> None:
-    """Record a collective of ``kind`` whose result holds ``nbytes``."""
+def collective(kind: str, nbytes: float, result=None) -> None:
+    """Record a collective of ``kind`` whose result holds ``nbytes``; its
+    ``result`` tensor, where given, counts in ``temp_bytes`` while its
+    storage lives."""
     if ACTIVE is not None:
         ACTIVE.collective(kind, nbytes)
+        if result is not None:
+            ACTIVE._track([], [result])
+
+
+@contextlib.contextmanager
+def quiet():
+    """Count none of the aten ops run inside (a collective's own copies,
+    which differ between backends and devices)."""
+    counter = ACTIVE
+    if counter is None:
+        yield
+        return
+    counter.quiet += 1
+    try:
+        yield
+    finally:
+        counter.quiet -= 1

@@ -11,7 +11,8 @@ spec is the tuple of its entries (``==`` to ``tuple(P)`` of the
 reference for the same shape, axes and mesh), and a ``NamedSharding``
 pairs it with its mesh and gives the DTensor placements.  Eager torch has
 no sharding hint: ``constrain`` leaves a plain tensor as it is and
-redistributes a DTensor.
+redistributes a DTensor.  Under a mesh this process is a rank of, the
+models run on the rank's shards instead (``tensor_parallel``).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ DEFAULT_RULES: "dict[str, AxisSpec]" = {
     "audio_ctx": None,
 }
 
-_ACTIVE: "list[tuple[Mesh, dict]]" = []
+_ACTIVE: "list[list]" = []        # [mesh, merged rules, placement]
 
 
 @contextlib.contextmanager
@@ -55,7 +56,8 @@ def use_rules(mesh: Optional[Mesh], rules: Optional[dict] = None):
     if rules:
         merged.update(rules)
     merged = {k: v for k, v in merged.items() if v is not None}
-    _ACTIVE.append((mesh, merged))
+    # the third slot caches this entry's ``tensor_parallel.Placement``
+    _ACTIVE.append([mesh, merged, None])
     try:
         yield
     finally:
@@ -79,7 +81,7 @@ def spec_for(shape, logical_axes) -> Optional[tuple]:
     (None = inactive)."""
     if not _ACTIVE:
         return None
-    mesh, rules = _ACTIVE[-1]
+    mesh, rules, _ = _ACTIVE[-1]
     used: set = set()
     parts = []
     for dim, lax_name in zip(shape, logical_axes):
@@ -135,7 +137,7 @@ def constrain(x: torch.Tensor, logical_axes) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    mesh, _ = _ACTIVE[-1]
+    mesh = _ACTIVE[-1][0]
     return x.redistribute(mesh.device_mesh,
                           NamedSharding(mesh, spec).placements)
 

@@ -13,6 +13,18 @@ rank holds the whole leaf (seeded weights, a restored checkpoint) and
 keeps its own shard, with no communication.  An expert-parallel served
 model shards its experts only (``EXPERT_PARALLEL_RULES``); every other
 leaf stays whole on each rank.
+
+``shard_params`` keeps each rank's shard as a plain tensor, the form the
+models run on under a mesh (``tensor_parallel``), and ``gather_params``
+is its inverse, a tree back in the reference's layout (checkpoints,
+tests).  They differ from the DTensor placement in one leaf: the GLU
+input projection ``wi`` (d, 2·d_ff) holds the gate in its first half and
+the up projection in its second, and K1 reads it as (d, 2, d_ff/...).  A
+contiguous column shard would give rank 0 only gates, so a rank's shard
+of ``wi`` is ``wi.view(d, 2, d_ff)[:, :, r·d_ff/m:(r+1)·d_ff/m]``: the
+same size as the reference's shard, its gate and up columns paired.
+``local_batch`` gives a rank its rows of each microbatch and
+``shard_cache`` its KV cache shard.
 """
 
 from __future__ import annotations
@@ -21,6 +33,9 @@ from typing import Optional
 
 import torch
 
+import math
+
+from repro_torch import NotPorted
 from repro_torch.core import tree
 from repro_torch.distributed import logical
 from repro_torch.distributed.logical import NamedSharding
@@ -62,18 +77,28 @@ EXPERT_PARALLEL_RULES = {"embed": None, "heads": None, "kv_heads": None,
                          "mlp": None, "vocab": None}
 
 
-def _leaf_logical_axes(path, leaf) -> "tuple | None":
-    name = next((p for p in reversed(path) if isinstance(p, str)), None)
+def _leaf_name(path) -> "str | None":
+    return next((p for p in reversed(path) if isinstance(p, str)), None)
+
+
+def leaf_axes(name: "str | None", ndim: int) -> "tuple | None":
+    """The logical axes of a leaf called ``name`` with ``ndim`` dims (a
+    stacked leaf's leading layer dims replicated), None if the name map
+    has none."""
     if name in _NAME_RULES:
         axes = _NAME_RULES[name]
-        if len(axes) == leaf.ndim:
+        if len(axes) == ndim:
             return axes
         # Stacked-over-layers leaves get a leading (replicated) layer dim.
-        if len(axes) == leaf.ndim - 1:
+        if len(axes) == ndim - 1:
             return (None,) + axes
-        if len(axes) == leaf.ndim - 2:
+        if len(axes) == ndim - 2:
             return (None, None) + axes
     return None
+
+
+def _leaf_logical_axes(path, leaf) -> "tuple | None":
+    return leaf_axes(_leaf_name(path), leaf.ndim)
 
 
 def param_shardings(params, mesh: Optional[Mesh],
@@ -135,6 +160,171 @@ def cache_shardings(cache, mesh: Optional[Mesh], cfg,
         return tree.tree_map(one, cache)
 
 
+# ---------------------------------------------------------------------------
+# Each rank's shards as plain tensors, and their inverse.
+# ---------------------------------------------------------------------------
+
+def axis_names(entry) -> "tuple[str, ...]":
+    """The mesh axes of one spec entry (None, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_of(name: "str | None", shape) -> tuple:
+    """A leaf's spec under the active rules, from its global shape: the
+    reference's ``param_shardings`` entry (all None where it replicates)."""
+    axes = leaf_axes(name, len(shape))
+    spec = logical.spec_for(tuple(shape), axes) if axes else None
+    return spec if spec is not None else (None,) * len(shape)
+
+
+def local_shape(mesh: Mesh, shape, spec) -> "tuple[int, ...]":
+    return tuple(n // math.prod(mesh.shape[a] for a in axis_names(e))
+                 for n, e in zip(shape, spec))
+
+
+def _block(mesh: Mesh, names) -> int:
+    """This rank's index over ``names`` together, major first."""
+    idx = 0
+    for a in names:
+        idx = idx * mesh.shape[a] + mesh.index(a)
+    return idx
+
+
+def shard_leaf(x: torch.Tensor, spec, mesh: Mesh, glu: bool = False):
+    """This rank's shard of the whole leaf ``x`` under ``spec`` (a view);
+    ``glu``: the last dim is (gate | up), split pairwise."""
+    for d, entry in enumerate(spec):
+        names = axis_names(entry)
+        if not names:
+            continue
+        n = math.prod(mesh.shape[a] for a in names)
+        i = _block(mesh, names)
+        if glu and d == x.ndim - 1:
+            pairs = x.unflatten(d, (2, x.shape[d] // 2))
+            if pairs.shape[d + 1] % n:
+                raise NotPorted(
+                    f"a GLU projection of {x.shape[d] // 2} columns a half "
+                    f"does not split over {n} ranks a half (ROADMAP item 7c)")
+            size = pairs.shape[d + 1] // n
+            x = pairs.narrow(d + 1, i * size, size).flatten(d, d + 1)
+        else:
+            size = x.shape[d] // n
+            x = x.narrow(d, i * size, size)
+    return x
+
+
+def gather_leaf(x: torch.Tensor, spec, mesh: Mesh, glu: bool = False):
+    """The whole leaf from each rank's ``x`` (``shard_leaf``'s inverse):
+    all-gathers over every axis the spec names, no autograd."""
+    from repro_torch.distributed import collectives
+    for d, entry in enumerate(spec):
+        names = tuple(a for a in axis_names(entry) if mesh.shape[a] > 1)
+        if not names:
+            continue
+        if glu and d == x.ndim - 1:
+            x = x.unflatten(d, (2, x.shape[d] // 2))
+            for a in reversed(names):              # minor axis first
+                x = collectives.all_gather(x, mesh.group(a), d + 1)
+            x = x.flatten(d, d + 1)
+        else:
+            for a in reversed(names):
+                x = collectives.all_gather(x, mesh.group(a), d)
+    return x
+
+
+def _own(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a tensor that owns its memory (a view of a larger leaf is
+    copied, so that the whole leaf can be freed)."""
+    if x.is_meta:
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
+    if (x.is_contiguous() and x.untyped_storage().nbytes()
+            == x.numel() * x.element_size()):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def param_specs(params):
+    """Each leaf's spec under the active rules: a list in tree order."""
+    return [spec_of(_leaf_name(path), leaf.shape)
+            for path, leaf in tree.flatten_with_path(params)]
+
+
+def shard_params(params, mesh: Mesh, rules: Optional[dict] = None):
+    """Each leaf of a whole tree (params, or an optimizer state that
+    mirrors them) as this rank's shard under ``rules``, a plain tensor
+    that owns its memory (a leaf kept whole is returned as it is); the
+    ``wi`` leaves are GLU projections (``shard_leaf``).  On ``meta``
+    leaves, the shards' shapes."""
+    with logical.use_rules(mesh, rules):
+        out = [_own(shard_leaf(leaf, spec_of(_leaf_name(path), leaf.shape),
+                               mesh, _leaf_name(path) == "wi"))
+               for path, leaf in tree.flatten_with_path(params)]
+    return tree.unflatten(params, out)
+
+
+def gather_params(local, like, mesh: Mesh, rules: Optional[dict] = None,
+                  leaf_fn=None):
+    """The whole tree in the reference's layout from each rank's shards
+    ``local`` (``shard_params``'s inverse); ``like`` has the whole
+    shapes (``meta`` serves).  Every rank of the mesh calls it.
+    ``leaf_fn(i, whole)`` is applied to each whole leaf as it is
+    gathered, one leaf at a time (a checkpoint copies it to the host);
+    its results are returned instead of the leaves."""
+    with logical.use_rules(mesh, rules):
+        out = []
+        for i, ((path, x), big) in enumerate(zip(
+                tree.flatten_with_path(local), tree.leaves(like))):
+            whole = gather_leaf(x, spec_of(_leaf_name(path), big.shape),
+                                mesh, _leaf_name(path) == "wi")
+            out.append(whole if leaf_fn is None else leaf_fn(i, whole))
+    return tree.unflatten(local, out)
+
+
+def shard_cache(cache, mesh: Mesh, cfg, rules: Optional[dict] = None):
+    """This rank's shard of each cache leaf (``cache_shardings``).  The
+    sequence-sharded form the reference takes when the KV heads do not
+    divide ``model`` (its sequence-parallel decode attention) is not
+    ported: ``NotPorted``, ROADMAP item 7c."""
+    shardings = cache_shardings(cache, mesh, cfg, rules)
+    out = []
+    for leaf, s in zip(tree.leaves(cache), tree.leaves(shardings)):
+        if leaf.ndim == 5 and axis_names(s.spec[3]):
+            raise NotPorted(
+                f"{cfg.name}: {leaf.shape[2]} KV heads do not divide the "
+                f"model axis of {mesh.shape.get('model', 1)}, and the "
+                "reference shards the cache's sequence instead "
+                "(sequence-parallel decode attention): ROADMAP item 7c")
+        out.append(_own(shard_leaf(leaf, s.spec, mesh)))
+    return tree.unflatten(cache, out)
+
+
+def local_batch(batch, mesh: Mesh, microbatches: int = 1,
+                rules: Optional[dict] = None):
+    """This rank's rows of a whole batch: of each of the ``microbatches``
+    slices of the leading dim, the rows ``batch_shardings`` gives the
+    rank, in order; the train step then slices the local batch into the
+    same ``microbatches`` (``train_step._split_microbatch``).  A leaf the
+    rules keep whole stays whole."""
+    shardings = batch_shardings(batch, mesh, rules)
+
+    def one(x, s):
+        names = axis_names(s.spec[0]) if s.spec else ()
+        if not names:
+            return x
+        n = math.prod(mesh.shape[a] for a in names)
+        if x.shape[0] % (microbatches * n):
+            raise ValueError(f"a batch of {x.shape[0]} rows does not split "
+                             f"into {microbatches} microbatches over {n} "
+                             "ranks")
+        mb = x.shape[0] // microbatches
+        i = _block(mesh, names)
+        rows = x.unflatten(0, (microbatches, n, mb // n))[:, i]
+        return _own(rows.flatten(0, 1))
+    return _map_pair(one, batch, shardings)
+
+
 def apply_shardings(t, shardings):
     """Each leaf placed by its NamedSharding as a DTensor (a leaf whose
     sharding is None stays as it is).  Every rank passes the whole leaf
@@ -167,17 +357,10 @@ def _map_pair(fn, t, other):
 
 def local_shards(t):
     """Each DTensor leaf as this rank's shard, a plain tensor that owns
-    its memory (a shard that views a larger tensor is copied, so that the
-    whole leaf can be freed); other leaves as they are."""
+    its memory (``_own``); other leaves as they are."""
     from torch.distributed.tensor import DTensor
-
-    def one(x):
-        if not isinstance(x, DTensor):
-            return x
-        x = x.to_local()
-        whole = x.untyped_storage().nbytes()
-        return x.clone() if whole > x.numel() * x.element_size() else x
-    return tree.tree_map(one, t)
+    return tree.tree_map(lambda x: _own(x.to_local())
+                         if isinstance(x, DTensor) else x, t)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,221 @@
+"""A rank's share of a model under a mesh: Megatron tensor parallelism
+over ``model``, FSDP over the data axes, data parallelism over the batch.
+
+The reference places every leaf by the logical rules
+(``sharding.param_shardings``) and lets GSPMD move the data.  Here each
+process is one rank (of a world, or a ``launch.mesh.rank_view`` on
+``meta``) and holds its shards (``sharding.shard_params``); the models
+ask ``current()`` for the placement of the active rules and do the
+moving themselves:
+
+* ``param`` gathers a leaf's FSDP shards over the data axes inside the
+  layer that uses it (``collectives.gather_from_group``, whose backward
+  reduce-scatters the gradient), so one layer at a time is whole, as
+  ZeRO-3 works; under ``remat`` the recompute gathers again.  It returns
+  the leaf with its ``model`` dim still sharded, and that dim.
+* A column-parallel projection runs on the rank's columns behind
+  ``enter`` (identity forward, gradient all-reduced over ``model``); a
+  row-parallel one on its rows, then ``exit`` (all-reduce forward).
+  Under sequence parallelism (the rules map ``seq`` to ``model``) the
+  residual stream between blocks holds the rank's share of the sequence:
+  ``enter`` all-gathers it and ``exit`` reduce-scatters.  A model's
+  forward decides that once, for the pass (``begin_pass``), and every
+  helper reads it (``seq_sharded``).
+* ``whole_in_region`` marks a leaf replicated over ``model`` that the
+  ranks use differently inside such a region (a bias sliced to the
+  rank's columns, the QK-norm scales, the MoE router, norm scales on the
+  sequence shard): its gradient is a partial sum there, all-reduced.
+* A leaf the rules replicate runs whole (an expert-parallel served model
+  is placed and run under ``sharding.EXPERT_PARALLEL_RULES``, which
+  replicate its dense leaves).  Every leaf must be the rank's shard under
+  the active rules: ``param`` raises on any other shape.
+* ``sum_over_batch`` adds a value over the batch axes (the loss's token
+  count, a replicated leaf's gradient); ``global_norm`` counts each leaf
+  once however many ranks hold it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch import NotPorted
+from repro_torch.distributed import collectives, logical, sharding
+
+
+class Placement:
+    """The placement of one rank under the active rules."""
+
+    def __init__(self, mesh, rules: dict):
+        self.mesh, self.rules = mesh, rules
+        self.model = mesh.shape.get("model", 1)
+        self.rank = mesh.index("model") if self.model > 1 else 0
+        self.batch_axes = tuple(
+            a for a in sharding.axis_names(rules.get("batch"))
+            if a in mesh.shape)
+        self._seq_rule = "model" in sharding.axis_names(rules.get("seq"))
+        self.seq = False
+
+    def group(self, axis: str):
+        return self.mesh.group(axis)
+
+    # -- leaves ------------------------------------------------------------
+    def param(self, w: torch.Tensor, name: str, shape):
+        """(``w`` gathered over every axis but ``model``, the dim its
+        ``model`` shard lies along or None).  ``shape`` is the whole
+        leaf's, and ``w`` must be the rank's shard of it under the rules
+        (the whole leaf where they replicate it)."""
+        shape = tuple(shape)
+        spec = sharding.spec_of(name, shape)
+        want = sharding.local_shape(self.mesh, shape, spec)
+        if tuple(w.shape) != want:
+            raise ValueError(f"{name}: a leaf of {tuple(w.shape)} where "
+                             f"the rank's shard of {shape} under the rules "
+                             f"is {want}")
+        model_dim = None
+        for d, entry in enumerate(spec):
+            names = sharding.axis_names(entry)
+            if "model" in names:
+                if len(names) > 1:
+                    raise NotPorted(f"{name}: dim {d} over {names}: a dim "
+                                    "split over model and another axis "
+                                    "(ROADMAP item 7c)")
+                model_dim = d if self.model > 1 else None
+                continue
+            for a in reversed(names):                  # minor axis first
+                if self.mesh.shape[a] > 1:
+                    w = collectives.gather_from_group(w, self.group(a), d)
+        return w, model_dim
+
+    # -- regions over ``model`` ---------------------------------------------
+    def begin(self, seq_len: int) -> None:
+        """Start a pass over ``seq_len`` tokens: whether the residual
+        stream between blocks holds the rank's share of the sequence
+        (Megatron-SP: the rules map ``seq`` to ``model``, whose ranks
+        divide it).  That holds until the next pass begins: through the
+        loss, the backward and remat's recompute."""
+        self.seq = (self._seq_rule and self.model > 1
+                    and seq_len % self.model == 0)
+
+    def whole_sequence(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` of the residual stream, whole along the sequence (the
+        rank's shares gathered when the pass shards it); the stream is
+        whole from here on (a prefill's last position)."""
+        if not self.seq:
+            return x
+        self.seq = False
+        return self.gather_model(x, 1)
+
+    def enter(self, x: torch.Tensor):
+        if self.model == 1:
+            return x
+        if self.seq:
+            return collectives.gather_from_group(x, self.group("model"), 1)
+        return collectives.copy_to_group(x, self.group("model"))
+
+    def exit(self, y: torch.Tensor):
+        if self.model == 1:
+            return y
+        if self.seq:
+            return collectives.scatter_to_group(y, self.group("model"), 1)
+        return collectives.reduce_from_group(y, self.group("model"))
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over ``model`` (a sum whose terms lie on the
+        ranks, whatever the stream holds); the gradient passed on."""
+        if self.model == 1:
+            return t
+        return collectives.reduce_from_group(t, self.group("model"))
+
+    def whole_in_region(self, t):
+        if t is None or self.model == 1:
+            return t
+        return collectives.copy_to_group(t, self.group("model"))
+
+    def gather_model(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` along ``dim`` over ``model``; the gradient
+        reduce-scattered."""
+        if self.model == 1:
+            return t
+        return collectives.gather_from_group(t, self.group("model"), dim)
+
+    def reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``t`` over ``model``, no gradient."""
+        t = t.detach().clone()
+        if self.model > 1:
+            collectives.all_reduce(t, self.group("model"), op="max")
+        return t
+
+    # -- the batch and the optimizer ----------------------------------------
+    def sum_over_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the batch axes, in place, no gradient."""
+        for a in self.batch_axes:
+            if self.mesh.shape[a] > 1:
+                collectives.all_reduce(t, self.group(a))
+        return t
+
+    def reduce_gradients(self, grads, specs) -> None:
+        """All-reduce, over each batch axis a leaf's spec does not name,
+        its gradient (the data-parallel sum; an FSDP leaf's was
+        reduce-scattered over its data axes in the backward)."""
+        for g, spec in zip(grads, specs):
+            named = {a for e in spec for a in sharding.axis_names(e)}
+            for a in self.batch_axes:
+                if self.mesh.shape[a] > 1 and a not in named:
+                    collectives.all_reduce(g, self.group(a))
+
+    def global_norm(self, grads, specs) -> torch.Tensor:
+        """The norm of the whole gradient from the local shards: each
+        leaf's squares summed where this rank is the first of the ranks
+        that hold the same shard, then all-reduced over the mesh."""
+        coord = dict(zip(self.mesh.axis_names, self.mesh.coordinate))
+        total = torch.zeros((), dtype=torch.float32,
+                            device=grads[0].device if grads else None)
+        for g, spec in zip(grads, specs):
+            named = {a for e in spec for a in sharding.axis_names(e)}
+            if all(coord[a] == 0 for a in coord if a not in named):
+                total = total + torch.sum(torch.square(g.to(torch.float32)))
+        for a in self.mesh.axis_names:
+            if self.mesh.shape[a] > 1:
+                collectives.all_reduce(total, self.group(a))
+        return torch.sqrt(total)
+
+
+def current() -> Optional[Placement]:
+    """The placement of the active rules when this process is a rank of
+    their mesh; None without rules, or on an abstract mesh (whose leaves
+    are whole)."""
+    if not logical._ACTIVE:
+        return None
+    entry = logical._ACTIVE[-1]
+    mesh, rules, placed = entry
+    if placed is None:
+        if not mesh.has_rank:
+            return None
+        placed = entry[2] = Placement(mesh, rules)
+    return placed
+
+
+def begin_pass(seq_len: int) -> Optional[Placement]:
+    """The placement of the active rules (``current``), its pass over
+    ``seq_len`` tokens begun (``Placement.begin``)."""
+    pl = current()
+    if pl is not None:
+        pl.begin(seq_len)
+    return pl
+
+
+def seq_sharded() -> bool:
+    """Whether the current pass holds the rank's share of the sequence."""
+    pl = current()
+    return pl is not None and pl.seq
+
+
+def refuse_mesh(family: str) -> None:
+    """Stop a family that does not run on a mesh, under any axis larger
+    than 1."""
+    mesh = logical.active_mesh()
+    if mesh is not None and any(n > 1 for n in mesh.shape.values()):
+        raise NotPorted(f"the {family} family on a mesh ({mesh!r}) is not "
+                        "ported: ROADMAP item 7c")

@@ -12,25 +12,42 @@ nothing launched), and writes the reference's record
 ``roofline``) into ``<out>/<mesh>/<arch>__<shape>.json``, by default
 under ``benchmarks/results/dryrun_torch/``.
 
-The one mesh is ``h100``: one card.  Where the reference lowers and
-compiles (``lower_s``, ``compile_s``, XLA's ``cost_analysis``, the HLO's
-size), this records the host seconds of building the cell (``build_s``)
-and of running it under the counter (``trace_s``), the counter's own
-totals (``cost_analysis``) and its table by kernel (``kernels``).  Every
-cell of the one-card grid runs, training cells of every family included.
-A cell the port cannot run, which raises ``repro_torch.NotPorted`` (an
-override that needs a mesh, say), is written with ``"status":
-"not_ported"`` and the refusal's text; any other error fails the cell.
+The meshes are ``h100``, one card, and the reference's pods: ``single``
+(16 × 16 = 256 chips over data and model) and ``multi`` (2 × 16 × 16 =
+512 over pod, data and model).  On a pod mesh the cell is rank 0's
+program: its parameters, optimizer state, batch rows and cache are its
+shards under the default rules (``distributed.sharding``), built on
+``meta`` and run under a ``launch.mesh.rank_view`` at rank 0's
+coordinate, each collective recorded by kind and bytes, none run
+(``distributed.collectives``).  The record carries the reference's
+per-chip fields: ``chips``, the roofline's ``model_flops_per_chip`` (the
+model's FLOPs over the chips), the argument bytes of the rank's shards
+and its collective bytes by kind.  The roofline's collective term
+divides by the card's NVLink rate (``core.hardware``); a pod's axes that
+cross nodes run over the network, so on a real pod that term is a lower
+bound.  Where the reference lowers and compiles (``lower_s``,
+``compile_s``, XLA's ``cost_analysis``, the HLO's size), this records the
+host seconds of building the cell (``build_s``) and of running it under
+the counter (``trace_s``), the counter's own totals (``cost_analysis``)
+and its table by kernel (``kernels``).  A cell the port cannot run, which
+raises ``repro_torch.NotPorted`` (a family not ported to a mesh, a cache
+the reference shards along its sequence: ROADMAP item 7c), is written
+with ``"status": "not_ported"`` and the refusal's text; any other error
+fails the cell.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch yi-6b --shape decode_32k
-    python -m repro_torch.launch.dryrun --all [--jobs 2] [--force]
+    python -m repro_torch.launch.dryrun --arch yi-6b --shape train_4k \\
+        --mesh single
+    python -m repro_torch.launch.dryrun --all [--meshes single multi] \\
+        [--jobs 2] [--force]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -48,15 +65,30 @@ from repro_torch.configs.registry import (ALL_ARCHS, SHAPES, ShapeSpec,
 from repro_torch.core import hlo_cost, tree
 from repro_torch.core import roofline as rl
 from repro_torch.core.hardware import TARGET_CHIP
+from repro_torch.distributed import logical, sharding
+from repro_torch.launch.mesh import rank_view
 from repro_torch.models.base import family_module
+from repro_torch.optim import adamw
 from repro_torch.training.train_step import (TrainConfig, abstract_state,
                                              make_train_step)
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__),
                            "../../../benchmarks/results/dryrun_torch")
-#: mesh name -> cards.  The reference's 256- and 512-chip pod meshes wait
-#: for tensor-parallel and FSDP placement (ROADMAP item 7b).
-MESHES = {"h100": 1}
+#: mesh name -> (sizes, axis names); the chips are their product
+MESHES = {"h100": ((1,), ("data",)),
+          "single": ((16, 16), ("data", "model")),
+          "multi": ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def chips_of(mesh_name: str) -> int:
+    return math.prod(MESHES[mesh_name][0])
+
+
+def rank_mesh(mesh_name: str):
+    """Rank 0 of a pod mesh, without a world; None for one card."""
+    if chips_of(mesh_name) == 1:
+        return None
+    return rank_view(*MESHES[mesh_name])
 
 
 def _result_path(out_dir: str, mesh_name: str, arch: str, shape: str,
@@ -66,19 +98,23 @@ def _result_path(out_dir: str, mesh_name: str, arch: str, shape: str,
     return os.path.join(d, f"{arch}__{shape}.json")
 
 
-def default_train_config(cfg, spec: ShapeSpec,
-                         chip=TARGET_CHIP) -> TrainConfig:
+def default_train_config(cfg, spec: ShapeSpec, chip=TARGET_CHIP,
+                         mesh=None) -> TrainConfig:
     """Pick microbatches so the activation carry fits the card's memory.
 
     The reference bounds its layer-scan carry (one residual-stream tensor
     a layer: B_local × S × d_model × 2 bytes × n_layers) by 4 GiB a chip
     over its data axis; on one card B_local is the global batch and the
-    bound is the card's HBM.  Gradient accumulation divides B_local.
+    bound is the card's HBM.  On a pod mesh the reference's rule holds as
+    it is.  Gradient accumulation divides B_local.
     """
-    b_local = spec.global_batch
+    data = 1 if mesh is None else (mesh.shape.get("data", 1)
+                                   * mesh.shape.get("pod", 1))
+    b_local = max(spec.global_batch // data, 1)
     carry = b_local * spec.seq_len * cfg.d_model * 2 * cfg.n_layers
+    target = chip.hbm_bytes if mesh is None else 4 * (1 << 30)
     mb = 1
-    while mb < b_local and carry / mb > chip.hbm_bytes:
+    while mb < b_local and carry / mb > target:
         mb *= 2
     return TrainConfig(microbatches=mb)
 
@@ -96,8 +132,11 @@ def step_fn(cfg, mode: str, tcfg: TrainConfig = None):
     return lambda p, t, c, pos: mod.decode_step(cfg, p, t, c, pos)
 
 
-def build_cell(cfg, shape_name: str, tcfg: TrainConfig = None):
-    """(fn, abstract args, cfg it runs) for one cell, on ``meta``.
+def build_cell(cfg, shape_name: str, tcfg: TrainConfig = None, mesh=None,
+               rules=None):
+    """(fn, abstract args, cfg it runs) for one cell, on ``meta``; on a
+    rank ``mesh``, the rank's shards (call it under ``logical.use_rules``
+    of the same mesh and rules).
 
     Training runs on the plain ``torch`` route (attention, experts,
     recurrences), as ``launch/train.py`` does (K2, K4, K5 and K6 have no
@@ -109,8 +148,13 @@ def build_cell(cfg, shape_name: str, tcfg: TrainConfig = None):
     batch = input_specs(cfg, spec)
     if spec.mode == "train":
         cfg = cfg.with_(backend="torch")
-        tcfg = tcfg or default_train_config(cfg, spec)
+        tcfg = tcfg or default_train_config(cfg, spec, mesh=mesh)
         params, opt_state = abstract_state(cfg, tcfg)
+        if mesh is not None:
+            params = sharding.shard_params(params, mesh, rules)
+            opt_state = adamw.init(tcfg.optimizer, params)
+            batch = sharding.local_batch(batch, mesh, tcfg.microbatches,
+                                         rules)
         args = (params, opt_state, batch)
         if tcfg.grad_compression:     # the error-feedback residual
             args += (tree.tree_map(lambda x: torch.empty(
@@ -119,6 +163,10 @@ def build_cell(cfg, shape_name: str, tcfg: TrainConfig = None):
     params = mod.init(cfg, None, "meta")
     cache = mod.init_cache(cfg, spec.global_batch, spec.seq_len,
                            device="meta")
+    if mesh is not None:
+        params = sharding.shard_params(params, mesh, rules)
+        cache = sharding.shard_cache(cache, mesh, cfg, rules)
+        batch = sharding.local_batch(batch, mesh, 1, rules)
     if spec.mode == "prefill":
         return step_fn(cfg, "prefill"), (params, batch, cache), cfg
     return (step_fn(cfg, "decode"),
@@ -151,23 +199,26 @@ def count_step(fn, args, train: bool):
 
 def run_cell(arch: str, shape: str, mesh_name: str = "h100",
              force: bool = False, overrides=None, tag: str = "",
-             tcfg: TrainConfig = None, out_dir: str = RESULTS_DIR) -> dict:
+             tcfg: TrainConfig = None, out_dir: str = RESULTS_DIR,
+             rules=None) -> dict:
     out_path = _result_path(out_dir, mesh_name, arch, shape, tag)
     if os.path.exists(out_path) and not force:
         with open(out_path) as f:
             return json.load(f)
 
     cfg = get_config(arch, **(overrides or {}))
-    chips = MESHES[mesh_name]
+    chips = chips_of(mesh_name)
+    mesh = rank_mesh(mesh_name)
     spec = SHAPES[shape]
     mf = model_flops(cfg, shape)
     result = {"arch": arch, "shape": shape, "mesh": mesh_name,
               "chips": chips, "mode": spec.mode, "model_flops_total": mf}
     t0 = time.time()
     try:
-        fn, args, cfg = build_cell(cfg, shape, tcfg)
-        build_s = time.time() - t0
-        cost, out, trace_s = count_step(fn, args, spec.mode == "train")
+        with logical.use_rules(mesh, rules):
+            fn, args, cfg = build_cell(cfg, shape, tcfg, mesh, rules)
+            build_s = time.time() - t0
+            cost, out, trace_s = count_step(fn, args, spec.mode == "train")
     except NotPorted as e:
         result.update(status="not_ported", reason=str(e))
     else:
@@ -204,7 +255,7 @@ def run_cell(arch: str, shape: str, mesh_name: str = "h100",
 
 def _run_all(args):
     cells = [(arch, shape, mesh_name) for arch, shape in all_cells()
-             for mesh_name in MESHES]
+             for mesh_name in args.meshes]
     print(f"dry-run: {len(cells)} cells", flush=True)
     procs, failures, done = [], [], 0
     for arch, shape, mesh_name in cells:
@@ -254,6 +305,8 @@ def main(argv=None):
     ap.add_argument("--arch", choices=ALL_ARCHS)
     ap.add_argument("--shape", choices=tuple(SHAPES))
     ap.add_argument("--mesh", choices=tuple(MESHES), default="h100")
+    ap.add_argument("--meshes", nargs="+", choices=tuple(MESHES),
+                    default=list(MESHES), help="the meshes of --all")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--jobs", type=int, default=2)

@@ -7,7 +7,8 @@ rank's card, ``make_mesh`` lays named axes over the world's ranks (a torch
 ``DeviceMesh``, which holds one process group an axis), and
 ``abstract_mesh`` carries sizes and names alone (the reference's
 ``compat_abstract_mesh``), so that the sharding rules can be held without
-a world.  ``run_world`` spawns the ranks of a world on this host (the
+a world; ``rank_view`` adds one rank's coordinate, so that a step can run
+on ``meta`` as that rank runs it.  ``run_world`` spawns the ranks of a world on this host (the
 multi-rank tests, ``chip_smoke.py``).
 
 Single pod: 16×16 = 256 ranks (data, model); multi-pod: 2×16×16 with an
@@ -33,19 +34,38 @@ import torch.distributed as dist
 DEFAULT_TIMEOUT = 600.0
 
 
+class AxisGroup:
+    """The group of one axis of a rank view (``rank_view``): its name and
+    size, and no process group.  ``distributed.collectives`` records a
+    collective over it on ``meta`` tensors and runs nothing."""
+
+    def __init__(self, axis: str, size: int):
+        self.axis, self.size = axis, size
+
+    def __repr__(self) -> str:
+        return f"AxisGroup({self.axis!r}, {self.size})"
+
+
 class Mesh:
     """Named axes over ranks, as ``jax.sharding.Mesh`` shows them:
     ``shape`` maps each axis name to its size, in mesh order.
     ``device_mesh`` is the torch ``DeviceMesh`` over the world's first
-    ``size`` ranks (row-major), None for an abstract mesh."""
+    ``size`` ranks (row-major), None for an abstract mesh or a rank view
+    (``rank_view``: one rank's coordinate, no world)."""
 
-    def __init__(self, shape: "dict[str, int]", device_mesh=None):
+    def __init__(self, shape: "dict[str, int]", device_mesh=None,
+                 coordinate: "Optional[tuple[int, ...]]" = None):
         self.shape = dict(shape)
         self.device_mesh = device_mesh
+        self._view = None if coordinate is None else tuple(coordinate)
 
     @property
     def axis_names(self) -> "tuple[str, ...]":
         return tuple(self.shape)
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
 
     def _ranks(self):
         if self.device_mesh is None:
@@ -55,9 +75,20 @@ class Mesh:
         return self.device_mesh
 
     @property
+    def has_rank(self) -> bool:
+        """Whether this process is a rank of the mesh: a rank of the world
+        inside it, or a rank view.  An abstract mesh has none."""
+        if self._view is not None:
+            return True
+        return (self.device_mesh is not None
+                and self.device_mesh.get_coordinate() is not None)
+
+    @property
     def coordinate(self) -> "Optional[tuple[int, ...]]":
         """This rank's place on each axis; None for a rank of the world
         outside the mesh."""
+        if self._view is not None:
+            return self._view
         c = self._ranks().get_coordinate()
         return None if c is None else tuple(c)
 
@@ -69,10 +100,15 @@ class Mesh:
         return c[self.axis_names.index(axis)]
 
     def group(self, axis: str):
-        """The process group of this rank's line along ``axis``."""
+        """The process group of this rank's line along ``axis`` (an
+        ``AxisGroup`` on a rank view)."""
+        if self._view is not None:
+            return AxisGroup(axis, self.shape[axis])
         return self._ranks().get_group(axis)
 
     def __repr__(self) -> str:
+        if self._view is not None:
+            return f"Mesh({self.shape}, rank view at {self._view})"
         kind = "abstract " if self.device_mesh is None else ""
         return f"{kind}Mesh({self.shape})"
 
@@ -85,6 +121,20 @@ def abstract_mesh(sizes, names) -> Mesh:
     if len(sizes) != len(names):
         raise ValueError(f"sizes {sizes} and names {names} differ in length")
     return Mesh(dict(zip(names, sizes)))
+
+
+def rank_view(sizes, names, coordinate=None) -> Mesh:
+    """One rank of a mesh of ``sizes`` over ``names``, without a world:
+    its coordinate (rank 0's by default) and an ``AxisGroup`` an axis.
+    Run on ``meta`` tensors, a step under it is that rank's program, its
+    collectives recorded and not run: how the dry run counts one rank of
+    a 256-rank mesh in one process."""
+    mesh = abstract_mesh(sizes, names)
+    coordinate = tuple(coordinate or (0,) * len(mesh.shape))
+    if len(coordinate) != len(mesh.shape) or not all(
+            0 <= c < n for c, n in zip(coordinate, mesh.shape.values())):
+        raise ValueError(f"coordinate {coordinate} is not on {mesh!r}")
+    return Mesh(mesh.shape, coordinate=coordinate)
 
 
 @dataclasses.dataclass(frozen=True)

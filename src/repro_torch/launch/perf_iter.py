@@ -2,14 +2,18 @@
 
 The reference's experiment list (``repro.launch.perf_iter``), each a
 (cell, overrides, rules, tcfg-delta) tuple with its hypothesis, run
-through the port's dry run (``launch/dryrun.py``) on mesh ``h100``:
-results land in tagged result dirs next to the baselines and are
-summarised as before/after on the dominant term.  The hypotheses are the
-reference's, written for its pods; on one card the collective term is 0.
+through the port's dry run (``launch/dryrun.py``): results land in
+tagged result dirs next to the baselines and are summarised as
+before/after on the dominant term.  The hypotheses are the reference's,
+written for its pods.  An experiment with ``rules=`` (they place leaves
+on the model axis) runs on the reference's ``single`` mesh, rank 0's
+program, both its baseline and itself; the others on one card
+(``h100``), where the collective term is 0.
 
 Experiments the port cannot run are recorded with ``"status":
-"not_ported"`` and the reason: those with ``rules=``, which place leaves
-on a model axis larger than 1 (ROADMAP item 7b).
+"not_ported"`` and the reason: the two that take the reference's GSPMD
+expert parallelism (``moe_shard_map=False`` on the model axis, ROADMAP
+item 7c).
 
     PYTHONPATH=src python -m repro_torch.launch.perf_iter [--only NAME]
 """
@@ -27,6 +31,8 @@ from repro_torch.launch import dryrun
 from repro_torch.training.train_step import TrainConfig
 
 MESH = "h100"
+#: the mesh of an experiment with ``rules=``
+RULES_MESH = "single"
 
 
 def _tc(microbatches=None, **kw):
@@ -124,11 +130,15 @@ def _resolve_overrides(ov):
 
 def not_ported(exp) -> "str | None":
     """Why the port cannot run ``exp`` before it tries, or None."""
-    if exp.get("rules"):
-        return ("rules= place leaves on a model axis larger than 1: "
-                "tensor-parallel and FSDP placement are not ported "
-                "(ROADMAP item 7b)")
+    if exp.get("overrides", {}).get("moe_shard_map") is False:
+        return ("moe_shard_map=False on a model axis is the reference's "
+                "GSPMD expert parallelism, which is not ported (ROADMAP "
+                "item 7c)")
     return None
+
+
+def mesh_of(exp) -> str:
+    return RULES_MESH if exp.get("rules") else MESH
 
 
 def run_experiment(exp, force=False, out_dir=dryrun.RESULTS_DIR):
@@ -137,11 +147,13 @@ def run_experiment(exp, force=False, out_dir=dryrun.RESULTS_DIR):
         print(f"\n=== {exp['name']}: not ported: {reason}")
         return {"name": exp["name"], "status": "not_ported",
                 "reason": reason}
-    base = dryrun.run_cell(exp["arch"], exp["shape"], MESH, out_dir=out_dir)
+    mesh = mesh_of(exp)
+    base = dryrun.run_cell(exp["arch"], exp["shape"], mesh, out_dir=out_dir)
     res = dryrun.run_cell(
-        exp["arch"], exp["shape"], MESH, force=force,
+        exp["arch"], exp["shape"], mesh, force=force,
         overrides=_resolve_overrides(exp.get("overrides")),
-        tcfg=exp.get("tcfg"), tag="_" + exp["name"], out_dir=out_dir)
+        tcfg=exp.get("tcfg"), tag="_" + exp["name"], out_dir=out_dir,
+        rules=exp.get("rules"))
     for r in (base, res):
         if r["status"] != "ok":
             print(f"\n=== {exp['name']}: not ported: {r['reason']}")
@@ -165,7 +177,8 @@ def run_experiment(exp, force=False, out_dir=dryrun.RESULTS_DIR):
     print(f"bound: {bound_b:.3g}s -> {bound_a:.3g}s "
           f"({bound_b / max(bound_a, 1e-12):.2f}x) | frac "
           f"{b['roofline_fraction']:.3f} -> {a['roofline_fraction']:.3f}")
-    return {"name": exp["name"], "status": "ok", "before": b, "after": a,
+    return {"name": exp["name"], "status": "ok", "mesh": mesh,
+            "before": b, "after": a,
             "speedup": bound_b / max(bound_a, 1e-12)}
 
 

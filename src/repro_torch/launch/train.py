@@ -21,10 +21,25 @@ tokens and labels only, as the reference's does: an encoder-decoder
 model (Whisper), whose batch needs ``audio_embeds``, is refused up front
 (the reference's launcher fails on it mid-step); it trains through
 ``training.train_step.make_train_step`` on a batch that carries them.
-One device only: ``--mesh host`` with
-``--model-parallel 1``.  ``launch.mesh`` and ``distributed/`` serve a
-mesh, but training on one (the dense leaves placed tensor-parallel or
-FSDP, through K1) is ROADMAP queue 1, item 7b.
+
+On a mesh, as the reference's launcher: ``--mesh host --model-parallel
+m`` lays (world / m, m) over (data, model) across the running world
+(``torchrun``'s environment through ``launch.mesh.init_world``, or a
+world already joined, as ``launch.mesh.run_world`` joins one); ``--mesh
+single`` and ``multi`` need a world of 256 and 512 ranks.  Without a
+world the run is one process, and ``--model-parallel`` has nothing to
+split (the reference's ``make_host_mesh`` on one device).  Every rank
+seeds the whole model, keeps its shards under the default rules
+(``distributed.sharding.shard_params``: FSDP over data, Megatron tensor
+parallelism over model) and takes its rows of each microbatch; the
+dense and MoE families train so, the recurrent families and Whisper
+refuse a mesh (``NotPorted``, ROADMAP item 7c).  Checkpoints hold the
+whole leaves in the reference's layout (rank 0 writes, one leaf gathered
+at a time), so a one-process run resumes them and any mesh restores
+them::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh host \\
+        --model-parallel 2 --reduced --device cpu --steps 4
 
 ``main(argv)`` parses the flags and builds the configuration;
 ``train(cfg, args)`` runs the loop for any configuration (a full-width
@@ -35,14 +50,19 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.backend import default_matmul_backend
 from repro_torch.configs.registry import ALL_ARCHS, get_config
+from repro_torch.core import tree
 from repro_torch.core.precision import disable_tf32
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.distributed import logical, sharding
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.serve import resolve_device
 from repro_torch.models.base import ArchConfig, family_module
 from repro_torch.optim import adamw
@@ -83,12 +103,47 @@ class TrainResult:
     step_ms_device: "list[float]"  # CUDA events on a card, else empty
 
 
+#: ranks of the reference's pod meshes
+POD_RANKS = {"single": 256, "multi": 512}
+
+
+def _world_size() -> int:
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 def _check_mesh(args) -> None:
-    if args.mesh != "host" or args.model_parallel != 1:
-        raise SystemExit(
-            f"--mesh {args.mesh} --model-parallel {args.model_parallel}: "
-            "the port trains on one device (--mesh host, --model-parallel "
-            "1); training on a mesh is ROADMAP queue 1, item 7b")
+    """Stop up front when ``--mesh`` asks for a world that is not there."""
+    need = POD_RANKS.get(args.mesh)
+    if need is not None and _world_size() != need:
+        raise SystemExit(f"--mesh {args.mesh} needs a world of {need} ranks "
+                         f"(the {'2 x ' if args.mesh == 'multi' else ''}"
+                         f"16 x 16 mesh); this one has {_world_size()}")
+    if args.model_parallel < 1:
+        raise SystemExit(f"--model-parallel {args.model_parallel}: at "
+                         "least 1")
+
+
+def _mesh(args, device):
+    """The run's mesh: None for one process (a world of one rank)."""
+    if not dist.is_initialized() and _world_size() > 1:
+        mesh_lib.init_world(device)
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return None
+    if args.mesh == "host":
+        return mesh_lib.make_host_mesh(model=args.model_parallel)
+    return mesh_lib.make_production_mesh(multi_pod=args.mesh == "multi")
+
+
+def train_config(args) -> TrainConfig:
+    """The step's configuration under the launcher's flags."""
+    return TrainConfig(
+        optimizer=adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
+                                    warmup_steps=max(args.steps // 20, 1)),
+        microbatches=args.microbatches,
+        grad_compression=args.grad_compression,
+        loss_chunk=min(512, args.seq_len))
 
 
 def _check_stream(cfg: ArchConfig) -> None:
@@ -109,40 +164,56 @@ def train(cfg: ArchConfig, args) -> TrainResult:
     device = resolve_device(args.device)
     if device.type == "cuda":
         disable_tf32()
+    mesh = _mesh(args, device)
+    with logical.use_rules(mesh):
+        return _train(cfg, args, device, mesh)
+
+
+def _train(cfg: ArchConfig, args, device, mesh) -> TrainResult:
     # the reference trains on its xla route: the plain torch route here
     # (attention, experts, recurrences); the projections stay on the zoo's
     # matmul route
     cfg = cfg.with_(backend="torch")
     mod = family_module(cfg)
-    tcfg = TrainConfig(
-        optimizer=adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
-                                    warmup_steps=max(args.steps // 20, 1)),
-        microbatches=args.microbatches,
-        grad_compression=args.grad_compression,
-        loss_chunk=min(512, args.seq_len))
+    tcfg = train_config(args)
     step_fn = make_train_step(cfg, tcfg)
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   global_batch=args.global_batch,
                                   seq_len=args.seq_len), device=device)
-    mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    writer = mesh is None or dist.get_rank() == 0
+    mgr = (CheckpointManager(args.ckpt_dir, writer=writer)
+           if args.ckpt_dir else None)
     watchdog = StepWatchdog()
     preempt = PreemptionHandler()
+    where = "" if mesh is None else (
+        f", rank {dist.get_rank()} of {mesh!r} at {mesh.coordinate}")
     print(f"[train] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
-          f"{str(cfg.dtype)[6:]}, remat={cfg.remat}, on {device}; "
+          f"{str(cfg.dtype)[6:]}, remat={cfg.remat}, on {device}{where}; "
           f"{cfg.family} on the plain route (backend=torch, as the "
           f"reference trains on xla), projections on the "
           f"{default_matmul_backend()!r} matmul route", flush=True)
 
     params = mod.init(cfg, torch.Generator(device=device).manual_seed(0),
                       device)
+    whole = None
+    if mesh is not None:
+        params = sharding.shard_params(params, mesh)
+        like = {"params": mod.init(cfg, None, "meta")}
+        like["opt"] = adamw.init(tcfg.optimizer, like["params"])
+
+        def whole(state, fn):
+            sharding.gather_params(state, like, mesh, leaf_fn=fn)
     opt = adamw.init(tcfg.optimizer, params)
     residual = None
     start = 0
     if mgr and mgr.latest_step() is not None:
-        restored, extra = mgr.restore(mgr.latest_step(),
-                                      {"params": params, "opt": opt},
-                                      device=device)
+        restored, extra = mgr.restore(
+            mgr.latest_step(), {"params": params, "opt": opt},
+            device="cpu" if mesh is not None else device)
         del params, opt
+        if mesh is not None:
+            restored = tree.tree_map(lambda x: x.to(device),
+                                     sharding.shard_params(restored, mesh))
         params, opt = restored["params"], restored["opt"]
         data.load_state_dict(extra["data"])
         start = extra["train_step"]
@@ -158,6 +229,8 @@ def train(cfg: ArchConfig, args) -> TrainResult:
                 ev1 = torch.cuda.Event(enable_timing=True)
                 ev0.record()
             batch = next(data)
+            if mesh is not None:
+                batch = sharding.local_batch(batch, mesh, args.microbatches)
             params, opt, metrics, residual = step_fn(params, opt, batch,
                                                      residual)
             if timed:
@@ -169,7 +242,7 @@ def train(cfg: ArchConfig, args) -> TrainResult:
             if timed:
                 device_ms.append(ev0.elapsed_time(ev1))
             slow = watchdog.record_step(dt)
-            if step % args.log_every == 0 or slow:
+            if writer and (step % args.log_every == 0 or slow):
                 tag = " STRAGGLER" if slow else ""
                 print(f"step {step:5d} loss {loss:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.3f} "
@@ -179,7 +252,7 @@ def train(cfg: ArchConfig, args) -> TrainResult:
             if want_ckpt:
                 mgr.save_async(step + 1, {"params": params, "opt": opt},
                                extra={"data": data.state_dict(),
-                                      "train_step": step + 1})
+                                      "train_step": step + 1}, whole=whole)
             if preempt.requested:
                 print("preemption requested: checkpointed, exiting")
                 break

@@ -12,7 +12,12 @@ Attention offers three implementations (``cfg.backend``):
 * ``dense``  — the reference oracle, for tiny smoke tests only.
 
 The reference's ``distributed.logical.constrain`` sharding annotations
-are dropped: without a device mesh they are no-ops.
+are dropped: its GSPMD moves the data they ask for.  Under a mesh this
+process is a rank of, the projections, attention, the embedding and the
+logits run on the rank's shards instead, moving the data themselves
+(``distributed.tensor_parallel``): column-parallel projections behind
+the region's entry, row-parallel ones before its exit, the embedding
+vocab-parallel, the logits column-parallel over the vocabulary.
 """
 
 from __future__ import annotations
@@ -24,8 +29,10 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import NotPorted
 from repro_torch.core import tree
 from repro_torch.core.fusion import linear
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.matmul import ops as mm_ops
 from repro_torch.models.base import ArchConfig
 
@@ -246,17 +253,96 @@ def attn_init(cfg: ArchConfig, gen: torch.Generator, device=None):
 
 
 def qkv_project(cfg: ArchConfig, p, x, positions):
-    """x: (B, S, d) -> q (B, H, S, hd), k/v (B, Hkv, S, hd) with RoPE."""
+    """x: (B, S, d) -> q (B, H, S, hd), k/v (B, Hkv, S, hd) with RoPE.
+    Under a mesh, the rank's heads (``_qkv_placed``)."""
+    pl = tp.current()
+    if pl is not None:
+        return _qkv_placed(cfg, pl, p, x, positions)
+    return _qkv(cfg, x, (p["wq"], p["wk"], p["wv"]),
+                (p.get("bq"), p.get("bk"), p.get("bv")),
+                (p.get("q_norm"), p.get("k_norm")), positions)
+
+
+def _qkv(cfg: ArchConfig, x, w, bias, norms, positions):
     b, s, _ = x.shape
-    q = linear(x, p["wq"], p.get("bq"), backend=_mm_backend(cfg))
-    k = linear(x, p["wk"], p.get("bk"), backend=_mm_backend(cfg))
-    v = linear(x, p["wv"], p.get("bv"), backend=_mm_backend(cfg))
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
+    q, k, v = (linear(x, wi, bi, backend=_mm_backend(cfg))
+               for wi, bi in zip(w, bias))
+    q = q.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
+    k = k.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
+    v = v.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.rms_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.rms_eps)
+        q = rmsnorm(q, norms[0], cfg.rms_eps)
+        k = rmsnorm(k, norms[1], cfg.rms_eps)
+    if positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _qkv_placed(cfg: ArchConfig, pl, p, x, positions):
+    """The rank's q heads and the KV heads they read, from its shards.
+
+    ``wq`` holds the rank's q columns.  Where the q heads divide
+    ``model`` those are whole heads; else (gemma2-2b's 8 on 16) the
+    columns are all-gathered and every rank attends with every head, as
+    GSPMD replicates them (``attn_out`` then takes the rank's rows).
+    Where the rank's KV heads are the ones its q heads read, K and V come
+    from its own columns; else (yi-6b's 4 KV heads on 16) the KV weights
+    are gathered over ``model`` and the rank computes the KV heads its q
+    heads read."""
+    d, hd = cfg.d_model, cfg.head_dim
+    wq, qd = pl.param(p["wq"], "wq", (d, cfg.q_dim))
+    wk, kd = pl.param(p["wk"], "wk", (d, cfg.kv_dim))
+    wv, vd = pl.param(p["wv"], "wv", (d, cfg.kv_dim))
+    bias = (p.get("bq"), p.get("bk"), p.get("bv"))
+    norms = (p.get("q_norm"), p.get("k_norm"))
+    if qd is None and kd is None and vd is None:       # whole on every rank
+        if pl.seq:
+            raise NotPorted("attention held whole under sequence "
+                            "parallelism (ROADMAP item 7c)")
+        return _qkv(cfg, x, (wq, wk, wv), bias, norms, positions)
+    if qd != 1 or kd != vd:
+        raise NotPorted(f"{cfg.name}: q columns {qd} and KV columns {kd} "
+                        "over model in other forms (ROADMAP item 7c)")
+    m, r = pl.model, pl.rank
+    h = pl.enter(x)
+    cols = cfg.q_dim // m
+    bq = pl.whole_in_region(bias[0])
+    bq = None if bq is None else bq[r * cols:(r + 1) * cols]
+    gather_q = cfg.n_heads % m != 0
+    hq = cfg.n_heads if gather_q else cfg.n_heads // m
+    q0 = 0 if gather_q else r * hq
+    group = cfg.n_heads // cfg.n_kv_heads
+    if hq % group == 0:
+        k0, hk = q0 // group, hq // group
+    elif group % hq == 0:
+        k0, hk = q0 // group, 1
+    else:
+        raise NotPorted(f"{cfg.name}: {hq} q heads a rank do not map onto "
+                        f"whole KV groups of {group} (ROADMAP item 7c)")
+    kv_local = cfg.n_kv_heads // m
+    own = (kd == 1 and cfg.n_kv_heads % m == 0
+           and (k0, hk) == (r * kv_local, kv_local))
+    bk, bv = (pl.whole_in_region(b_) for b_ in bias[1:])
+    if own:
+        span = slice(r * kv_local * hd, (r + 1) * kv_local * hd)
+    else:
+        span = slice(k0 * hd, (k0 + hk) * hd)
+        wk, wv = ((pl.gather_model(w_, 1) if kd == 1
+                   else pl.whole_in_region(w_))[:, span] for w_ in (wk, wv))
+    bk, bv = (None if b_ is None else b_[span] for b_ in (bk, bv))
+    q = linear(h, wq, bq, backend=_mm_backend(cfg))
+    if gather_q:
+        q = pl.gather_model(q, -1)
+    k = linear(h, wk, bk, backend=_mm_backend(cfg))
+    v = linear(h, wv, bv, backend=_mm_backend(cfg))
+    b, s, _ = h.shape
+    q = q.reshape(b, s, hq, hd).transpose(1, 2)
+    k = k.reshape(b, s, hk, hd).transpose(1, 2)
+    v = v.reshape(b, s, hk, hd).transpose(1, 2)
+    if cfg.qk_norm:
+        q = rmsnorm(q, pl.whole_in_region(norms[0]), cfg.rms_eps)
+        k = rmsnorm(k, pl.whole_in_region(norms[1]), cfg.rms_eps)
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -264,10 +350,29 @@ def qkv_project(cfg: ArchConfig, p, x, positions):
 
 
 def attn_out(cfg: ArchConfig, p, ctx):
-    """ctx: (B, H, S, hd) -> (B, S, d)."""
+    """ctx: (B, H, S, hd) -> (B, S, d).  Under a mesh, the rank's rows of
+    ``wo`` (row parallel), then the region's exit."""
     b, h, s, hd = ctx.shape
     ctx = ctx.transpose(1, 2).reshape(b, s, h * hd)
-    return linear(ctx, p["wo"], backend=_mm_backend(cfg))
+    pl = tp.current()
+    if pl is None:
+        return linear(ctx, p["wo"], backend=_mm_backend(cfg))
+    wo, od = pl.param(p["wo"], "wo", (cfg.q_dim, cfg.d_model))
+    if od is None:
+        return linear(ctx, wo, backend=_mm_backend(cfg))
+    rows = cfg.q_dim // pl.model
+    if h * hd == cfg.q_dim and pl.model > 1:      # every head: the rank's
+        ctx = ctx[..., pl.rank * rows:(pl.rank + 1) * rows]
+    return _row_parallel(cfg, pl, ctx, wo)
+
+
+def _row_parallel(cfg: ArchConfig, pl, x, w):
+    """A row-parallel projection's region exit.  The ranks' partial
+    products are summed in fp32 and rounded once to ``x``'s dtype, as one
+    rank's K1 accumulates the whole product: bf16 partials would round
+    twice."""
+    y = linear(x, w, out_dtype=torch.float32, backend=_mm_backend(cfg))
+    return pl.exit(y).to(x.dtype)
 
 
 def _mm_backend(cfg: ArchConfig) -> str:
@@ -292,9 +397,30 @@ def mlp_init(cfg: ArchConfig, gen: torch.Generator, device=None):
 
 
 def mlp_apply(cfg: ArchConfig, p, x):
-    h = linear(x, p["wi"], activation=cfg.mlp_activation, glu=cfg.mlp_glu,
+    """Under a mesh, ``wi``'s rank columns (its gate and up halves paired,
+    ``sharding.shard_leaf``) and ``wo``'s rows inside one region."""
+    wi, wo, region = p["wi"], p["wo"], None
+    pl = tp.current()
+    if pl is not None:
+        mult = 2 if cfg.mlp_glu else 1
+        wi, idim = pl.param(wi, "wi", (cfg.d_model, mult * cfg.d_ff))
+        wo, odim = pl.param(wo, "wo", (cfg.d_ff, cfg.d_model))
+        if (idim, odim) == (1, 0) and not cfg.mlp_glu:
+            raise NotPorted(f"{cfg.name}: a non-GLU MLP split over model "
+                            "(its wi is sharded as GLU halves; ROADMAP item "
+                            "7c)")
+        if (idim, odim) == (1, 0):
+            region = pl
+        elif (idim, odim) != (None, None) or pl.seq:
+            raise NotPorted(f"{cfg.name}: an MLP split as {idim}, {odim} "
+                            "over model (ROADMAP item 7c)")
+    if region is not None:
+        x = region.enter(x)
+    h = linear(x, wi, activation=cfg.mlp_activation, glu=cfg.mlp_glu,
                backend=_mm_backend(cfg))
-    return linear(h, p["wo"], backend=_mm_backend(cfg))
+    if region is not None:
+        return _row_parallel(cfg, region, h, wo)
+    return linear(h, wo, backend=_mm_backend(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -302,18 +428,62 @@ def mlp_apply(cfg: ArchConfig, p, x):
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg: ArchConfig, embedding, tokens):
-    x = embedding[tokens]
+    """Under a mesh, vocab-parallel: each rank looks up the tokens of its
+    vocabulary range (zeros elsewhere) and the ranks' rows are summed
+    (reduce-scattered along the sequence when the pass shards it)."""
+    pl = tp.current()
+    if pl is None:
+        x = embedding[tokens]
+    else:
+        w, vd = pl.param(embedding, "embedding",
+                         (cfg.padded_vocab, cfg.d_model))
+        if vd is None:
+            if pl.seq:
+                raise NotPorted("a whole embedding under sequence "
+                                "parallelism (ROADMAP item 7c)")
+            x = w[tokens]
+        else:
+            n = w.shape[0]
+            local = tokens - pl.rank * n
+            hit = (local >= 0) & (local < n)
+            x = torch.where(hit[..., None], w[torch.where(hit, local, 0)],
+                            0.0).to(w.dtype)
+            x = pl.exit(x)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model),
                              dtype=torch.float32).to(x.dtype)
     return x
 
 
+def output_weight(cfg: ArchConfig, params, pl=None):
+    """(the (d, V) output weight, whether it holds the rank's vocabulary
+    columns): the tied embedding's transpose or ``lm_head``, gathered over
+    the data axes under a mesh."""
+    if cfg.tie_embeddings:
+        w, vd = params["embedding"], None
+        if pl is not None:
+            w, vd = pl.param(w, "embedding", (cfg.padded_vocab, cfg.d_model))
+        return w.T, vd is not None
+    w, vd = params["lm_head"], None
+    if pl is not None:
+        w, vd = pl.param(w, "lm_head", (cfg.d_model, cfg.padded_vocab))
+    return w, vd is not None
+
+
 def logits_out(cfg: ArchConfig, params, x):
-    w = (params["embedding"].T if cfg.tie_embeddings
-         else params["lm_head"])
-    return linear(x, w, softcap=cfg.final_softcap, out_dtype=torch.float32,
-                  backend=_mm_backend(cfg))
+    """Under a mesh, column-parallel over the vocabulary (the softcap per
+    element, as on one card), then gathered: every rank returns every
+    column."""
+    pl = tp.current()
+    w, split = output_weight(cfg, params, pl)
+    if split:
+        x = pl.enter(x)
+    elif pl is not None and pl.seq:
+        raise NotPorted("a whole output weight under sequence parallelism "
+                        "(ROADMAP item 7c)")
+    y = linear(x, w, softcap=cfg.final_softcap, out_dtype=torch.float32,
+               backend=_mm_backend(cfg))
+    return pl.gather_model(y, -1) if split else y
 
 
 # ---------------------------------------------------------------------------

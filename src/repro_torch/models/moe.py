@@ -7,19 +7,27 @@ weights.  ``moe_apply_local`` takes a window of experts
 (``e_start``, ``wi_local.shape[0]``), as in the reference, so that the
 partial outputs of disjoint windows sum to the whole.
 
-Distribution (EP): under a mesh with a ``model`` axis (``moe_apply``'s
-argument, else ``distributed.logical.active_mesh()``), activations are
-replicated across ``model`` and the experts are sharded across it.  Each
-rank of the mesh routes its data slice of the tokens to the experts it
-holds, runs the grouped GEMMs (K4) on them and forms its partial output;
-one all-reduce over ``model`` sums the partials (the reference's
-``psum``, in the activation dtype), and an all-gather over the data axes
-puts the batch back together.  The reference writes this as
-``shard_map``; here each rank is a process and the collectives go
-through ``distributed.collectives``.  Under a mesh without ranks
+Distribution (EP): under a mesh with a ``model`` axis, activations are
+replicated across ``model`` and the experts are sharded across it.  On a
+rank of the active rules' mesh (``distributed.tensor_parallel``: a
+trained model, or a served one placed by
+``sharding.EXPERT_PARALLEL_RULES``) the block takes the rank's rows of
+the batch, as the rest of the model does; the rank routes them to the
+experts it holds (gathered over the data axes where FSDP shards their
+width), runs the grouped GEMMs (K4) on them behind the region's entry
+and forms its partial output, and ``reduce_from_group`` sums the
+partials over ``model`` (the reference's ``psum``, in the activation
+dtype), its backward passing the gradient on, so that the block trains
+(``_moe_expert_parallel``).  ``moe_apply(..., mesh=)`` on one of the
+mesh's ranks is the reference's ``shard_map`` call: the whole batch in,
+the rank's data slice through the same function, an all-gather over the
+data axes after.  The reference writes this as ``shard_map``; here each
+rank is a process and the collectives go through
+``distributed.collectives``.  Under a mesh without ranks
 (``launch.mesh.abstract_mesh``) one process runs every shard in turn over
-the whole expert leaves and adds the partials in shard order.  Without a
-mesh the same function runs with ``e_start=0`` and all experts local.
+the whole expert leaves and adds the partials in shard order
+(``_moe_shards_in_turn``).  Without a mesh the same function runs with
+``e_start=0`` and all experts local.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 
 from repro_torch import NotPorted
 from repro_torch.core.fusion import ACTIVATIONS, Epilogue, linear
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import common as cm
 from repro_torch.models.base import ArchConfig
 
@@ -176,23 +185,36 @@ def moe_capacity(cfg: ArchConfig, tokens_local: int) -> int:
 
 
 def moe_apply(cfg: ArchConfig, p, x, mesh=None):
-    """x: (B, S, d) -> (B, S, d).  Expert-parallel over the ``model``
-    axis when a mesh with one is given or active and the experts divide
-    over it (``_moe_expert_parallel``); all experts here otherwise."""
+    """x: (B, S, d) -> (B, S, d).  On a rank of the active rules' mesh,
+    ``x`` is the rank's rows (``_moe_expert_parallel``).  With ``mesh``
+    given and this process one of its ranks, ``x`` is the whole batch
+    (``_moe_on_rank``).  On an abstract mesh with a ``model`` axis the
+    experts divide, every shard in turn (``_moe_shards_in_turn``); all
+    experts here otherwise."""
     b, s, d = x.shape
     m = cfg.moe
+    pl = None
     if mesh is None:
         from repro_torch.distributed import logical
-        mesh = logical.active_mesh()
+        pl, mesh = tp.current(), logical.active_mesh()
+    elif mesh.has_rank:
+        return _moe_on_rank(cfg, p, x, mesh)
     model = mesh.shape.get("model", 1) if mesh is not None else 1
     if not cfg.moe_shard_map and model > 1:
         raise NotPorted(
             "moe_shard_map=False under a mesh with a model axis is the "
             "reference's GSPMD expert parallelism, which is not ported "
-            "(ROADMAP item 7b)")
-    if (cfg.moe_shard_map and mesh is not None and "model" in mesh.shape
+            "(ROADMAP item 7c)")
+    dense = (p.get("dense_wi"), p.get("dense_wo"))
+    if pl is not None:
+        y = _moe_expert_parallel(cfg, pl, p, x)
+        if cfg.moe.dense_parallel:
+            dense = (pl.param(dense[0], "dense_wi",
+                              (d, (2 if cfg.mlp_glu else 1) * cfg.d_ff))[0],
+                     pl.param(dense[1], "dense_wo", (cfg.d_ff, d))[0])
+    elif (cfg.moe_shard_map and mesh is not None and "model" in mesh.shape
             and m.n_experts % model == 0):
-        y = _moe_expert_parallel(cfg, p, x, mesh)
+        y = _moe_shards_in_turn(cfg, p, x, mesh)
     else:
         capacity = moe_capacity(cfg, b * s)
         y = moe_apply_local(cfg, x.reshape(-1, d), p["w_router"],
@@ -200,11 +222,64 @@ def moe_apply(cfg: ArchConfig, p, x, mesh=None):
                             _experts(p["experts_wo"], m.n_experts), 0,
                             capacity).reshape(b, s, d)
     if cfg.moe.dense_parallel:
-        # Arctic: dense residual MLP in parallel with the MoE branch.
-        h = linear(x, p["dense_wi"], activation=cfg.mlp_activation,
+        # Arctic: dense residual MLP in parallel with the MoE branch (its
+        # leaves are replicated by the rules: whole on every rank).
+        h = linear(x, dense[0], activation=cfg.mlp_activation,
                    glu=cfg.mlp_glu)
-        y = y + linear(h, p["dense_wo"])
+        y = y + linear(h, dense[1])
     return y
+
+
+def _moe_expert_parallel(cfg: ArchConfig, pl, p, x):
+    """The block on a rank of a placed model (the reference's
+    ``shard_map`` branch on its data slice): ``x`` is the rank's rows,
+    capacity from their tokens.  Where the experts lie over ``model`` the
+    rank runs its ``e_local`` from ``rank * e_local`` behind the region's
+    entry and the partials are summed by ``reduce_from_group``; the
+    router, replicated, takes the region's gradient share
+    (``whole_in_region``)."""
+    b, s, d = x.shape
+    m = cfg.moe
+    mult = 2 if cfg.mlp_glu else 1
+    router, _ = pl.param(p["w_router"], "w_router", (d, m.n_experts))
+    wi, ed = pl.param(p["experts_wi"], "experts_wi",
+                      (m.n_experts, d, mult * m.d_ff_expert))
+    wo, od = pl.param(p["experts_wo"], "experts_wo",
+                      (m.n_experts, m.d_ff_expert, d))
+    capacity = moe_capacity(cfg, b * s)
+    if ed is None and od is None:
+        return moe_apply_local(cfg, x.reshape(-1, d), router, wi, wo, 0,
+                               capacity).reshape(b, s, d)
+    if (ed, od) != (0, 0):
+        raise NotPorted(f"{cfg.name}: expert leaves split over model along "
+                        f"dims {ed}, {od} (ROADMAP item 7c)")
+    e_local = m.n_experts // pl.model
+    out = moe_apply_local(cfg, pl.enter(x).reshape(-1, d),
+                          pl.whole_in_region(router), wi, wo,
+                          pl.rank * e_local, capacity)
+    return pl.exit(out.reshape(b, s, d))
+
+
+def _moe_on_rank(cfg: ArchConfig, p, x, mesh):
+    """``moe_apply(..., mesh=)`` on a rank of ``mesh``: ``x`` is the whole
+    batch and ``p`` the rank's leaves under
+    ``sharding.EXPERT_PARALLEL_RULES``.  The rank's data slice runs the
+    block under those rules (``_moe_expert_parallel``), and the slices
+    are all-gathered over the data axes, pod major."""
+    from repro_torch.distributed import collectives, logical, sharding
+    data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
+    n_data, data_idx = 1, 0
+    for a in data_axes:                                # pod major
+        n_data *= mesh.shape[a]
+        data_idx = data_idx * mesh.shape[a] + mesh.index(a)
+    b_local = x.shape[0] // n_data
+    with logical.use_rules(mesh, sharding.EXPERT_PARALLEL_RULES):
+        out = moe_apply(cfg, p,
+                        x[data_idx * b_local:(data_idx + 1) * b_local])
+    for a in reversed(data_axes):          # data within pod, then pod
+        if mesh.shape[a] > 1:
+            out = collectives.all_gather(out, mesh.group(a))
+    return out
 
 
 def _experts(w: torch.Tensor, n: int) -> torch.Tensor:
@@ -217,17 +292,11 @@ def _experts(w: torch.Tensor, n: int) -> torch.Tensor:
     return w
 
 
-def _moe_expert_parallel(cfg: ArchConfig, p, x, mesh):
-    """The reference's ``shard_map`` branch: on this rank of ``mesh``, its
-    data slice of ``x`` and its ``e_local`` experts (``p``'s expert
-    leaves are its shard, placed by ``distributed.sharding``) from
-    ``shard * e_local``, capacity from the slice's tokens, its partial
-    output all-reduced over ``model``, then all-gathered over the data
-    axes.
-
-    On an abstract mesh (sizes, no ranks) this process runs every data
-    slice and every shard in turn over the whole expert leaves, adding
-    the partials in shard order in the activation dtype.  With two shards
+def _moe_shards_in_turn(cfg: ArchConfig, p, x, mesh):
+    """Expert parallelism on an abstract mesh (sizes, no ranks): this
+    process runs every data slice of ``x`` and every shard of the whole
+    expert leaves in turn, capacity from the slice's tokens, adding the
+    partials in shard order in the activation dtype.  With two shards
     that is the two-rank all-reduce bit for bit (one rounding of the
     exact sum of two partials), so a run on one device holds the ranks'
     arithmetic; against ``moe_apply_local`` over all experts, which adds
@@ -237,43 +306,22 @@ def _moe_expert_parallel(cfg: ArchConfig, p, x, mesh):
     m = cfg.moe
     n_shards = mesh.shape["model"]
     e_local = m.n_experts // n_shards
-    data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
     n_data = 1
-    for a in data_axes:
-        n_data *= mesh.shape[a]
+    for a in ("pod", "data"):
+        n_data *= mesh.shape.get(a, 1)
     b_local = b // n_data
     capacity = moe_capacity(cfg, b_local * s)
-
-    def partial(x_l, shard, wi, wo):
-        return moe_apply_local(cfg, x_l.reshape(-1, d), p["w_router"], wi,
-                               wo, shard * e_local, capacity
-                               ).reshape(x_l.shape)
-
-    if mesh.device_mesh is None:
-        wi = _experts(p["experts_wi"], m.n_experts)
-        wo = _experts(p["experts_wo"], m.n_experts)
-        outs = []
-        for i in range(n_data):                        # pod major
-            x_l = x[i * b_local:(i + 1) * b_local]
-            y = None
-            for shard in range(n_shards):
-                window = slice(shard * e_local, (shard + 1) * e_local)
-                part = partial(x_l, shard, wi[window], wo[window])
-                y = part if y is None else y + part
-            outs.append(y)
-        return torch.cat(outs)
-
-    from repro_torch.distributed import collectives
-    shard = mesh.index("model")
-    data_idx = 0
-    for a in data_axes:                                # pod major
-        data_idx = data_idx * mesh.shape[a] + mesh.index(a)
-    out = partial(x[data_idx * b_local:(data_idx + 1) * b_local], shard,
-                  _experts(p["experts_wi"], e_local),
-                  _experts(p["experts_wo"], e_local))
-    if n_shards > 1:
-        collectives.all_reduce(out, mesh.group("model"))
-    for a in reversed(data_axes):          # data within pod, then pod
-        if mesh.shape[a] > 1:
-            out = collectives.all_gather(out, mesh.group(a))
-    return out
+    wi = _experts(p["experts_wi"], m.n_experts)
+    wo = _experts(p["experts_wo"], m.n_experts)
+    outs = []
+    for i in range(n_data):                            # pod major
+        x_l = x[i * b_local:(i + 1) * b_local]
+        y = None
+        for shard in range(n_shards):
+            window = slice(shard * e_local, (shard + 1) * e_local)
+            part = moe_apply_local(cfg, x_l.reshape(-1, d), p["w_router"],
+                                   wi[window], wo[window], shard * e_local,
+                                   capacity).reshape(x_l.shape)
+            y = part if y is None else y + part
+        outs.append(y)
+    return torch.cat(outs)

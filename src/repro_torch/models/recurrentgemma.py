@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import tree
 from repro_torch.core.fusion import linear
+from repro_torch.distributed.tensor_parallel import refuse_mesh
 from repro_torch.models import common as cm
 from repro_torch.models.base import ArchConfig, register_family
 
@@ -265,6 +266,7 @@ def _apply_stack(cfg: ArchConfig, params, x, positions, states=None,
 def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):
     """Full-sequence forward (training / evaluation); ``return_hidden``
     stops at the final norm, for the chunked loss."""
+    refuse_mesh("griffin")
     x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _apply_stack(cfg, params, x, positions)
@@ -306,6 +308,7 @@ def prefill(cfg: ArchConfig, params, batch, cache):
     """A sequence pass for the last position's logits, then a stateful pass
     over the prompt's last ``window`` tokens that fills the cache, as the
     reference does."""
+    refuse_mesh("griffin")
     tokens = batch["tokens"]
     x = cm.embed_tokens(cfg, params["embedding"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -331,6 +334,7 @@ def _prefill_states(cfg: ArchConfig, params, batch, cache):
 
 def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
     """tokens: (B, 1); pos: current length (int).  One decode step."""
+    refuse_mesh("griffin")
     x = cm.embed_tokens(cfg, params["embedding"], tokens)
     positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)

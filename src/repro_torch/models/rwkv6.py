@@ -29,6 +29,7 @@ import sys
 import torch
 
 from repro_torch.core.fusion import linear
+from repro_torch.distributed.tensor_parallel import refuse_mesh
 from repro_torch.kernels.rwkv6.ref import rwkv6_ref
 from repro_torch.kernels.rwkv6.rwkv6 import rwkv6_chunked
 from repro_torch.models import common as cm
@@ -194,6 +195,7 @@ def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):
     """Full-sequence forward (training / evaluation), each layer under
     ``cm.remat`` as the reference remats its scan body; ``return_hidden``
     stops at the final norm, for the chunked loss."""
+    refuse_mesh("rwkv6")
     x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
     x = cm.layernorm(x, params["ln_in"], params["ln_in_b"])
     for j in range(cfg.n_layers):
@@ -248,10 +250,12 @@ def _run_stateful(cfg: ArchConfig, params, tokens, cache):
 
 
 def prefill(cfg: ArchConfig, params, batch, cache):
+    refuse_mesh("rwkv6")
     return _run_stateful(cfg, params, batch["tokens"], cache)
 
 
 def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
+    refuse_mesh("rwkv6")
     del pos                                        # state carries position
     return _run_stateful(cfg, params, tokens, cache)
 

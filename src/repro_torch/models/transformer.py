@@ -12,8 +12,11 @@ Layer parameters are stacked on a leading layer axis, as in the
 reference, and a Python loop walks the stack where the reference runs
 ``lax.scan``; gemma2's alternating pattern walks (local, global) *pairs*.
 Activation remat wraps each pair (``common.remat``) where autograd tracks
-the forward; the reference's ``constrain`` sharding annotations are no-ops
-without a mesh and dropped.
+the forward.  The reference's ``constrain`` sharding annotations are
+dropped: under a mesh this process is a rank of, each block runs on the
+rank's shards (``distributed.tensor_parallel``), and where the rules map
+``seq`` to ``model`` the residual stream between blocks holds the rank's
+share of the sequence (``tensor_parallel.begin_pass``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch import NotPorted
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import common as cm
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.base import ArchConfig, register_family
@@ -51,17 +56,25 @@ def block_init(cfg: ArchConfig, gen: torch.Generator, device=None):
 
 
 def _norm(cfg, x, w):
+    if tp.seq_sharded():   # the scale's gradient: a share of the sequence's
+        w = tp.current().whole_in_region(w)
     return cm.rmsnorm(x, w, cfg.rms_eps, cfg.rmsnorm_unit_offset)
 
 
 def block_apply(cfg: ArchConfig, p, x, *, positions, window: int,
                 kv_cache=None, cache_pos: Optional[int] = None):
     """x: (B, S, d) -> (B, S, d).  ``kv_cache`` (k, v) is written in place
-    at ``cache_pos``."""
+    at ``cache_pos``.  Under sequence parallelism ``x`` holds the rank's
+    share of the sequence (``positions`` stay the whole sequence's)."""
     h = _norm(cfg, x, p["ln_attn"])
     q, k, v = cm.qkv_project(cfg, p["attn"], h, positions)
 
     if kv_cache is not None:
+        if k.shape[1] != kv_cache[0].shape[1]:
+            raise NotPorted(
+                f"{cfg.name}: a cache of {kv_cache[0].shape[1]} KV heads "
+                f"where the rank computes {k.shape[1]}: the reference's "
+                "sequence-sharded cache (ROADMAP item 7c)")
         k_cache, v_cache = cm.cache_update(*kv_cache, k, v, cache_pos)
         if q.shape[2] == 1:                      # decode: one new token
             from repro_torch.kernels.attention.ops import decode_attention
@@ -81,6 +94,9 @@ def block_apply(cfg: ArchConfig, p, x, *, positions, window: int,
 
     h = _norm(cfg, x, p["ln_mlp"])
     if cfg.moe is not None:
+        if tp.seq_sharded():
+            raise NotPorted("MoE under sequence parallelism (ROADMAP item "
+                            "7c)")
         mlp_out = moe_lib.moe_apply(cfg, p["moe"], h)
     else:
         mlp_out = cm.mlp_apply(cfg, p["mlp"], h)
@@ -153,6 +169,9 @@ def _embed_inputs(cfg: ArchConfig, params, batch):
     tokens = batch["tokens"]
     x = cm.embed_tokens(cfg, params["embedding"], tokens)
     if cfg.vision_prefix:
+        if tp.seq_sharded():
+            raise NotPorted("a vision prefix under sequence parallelism "
+                            "(ROADMAP item 7c)")
         # Stub ViT frontend: precomputed patch embeddings replace the
         # first ``vision_prefix`` positions.
         vis = batch["vision_embeds"].to(x.dtype)
@@ -162,9 +181,12 @@ def _embed_inputs(cfg: ArchConfig, params, batch):
 
 def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):
     """Full-sequence forward (training / evaluation); ``return_hidden``
-    stops at the final norm, for the chunked loss."""
+    stops at the final norm, for the chunked loss (under sequence
+    parallelism the rank's share of the sequence, which the loss
+    gathers)."""
+    tp.begin_pass(batch["tokens"].shape[1])
     x = _embed_inputs(cfg, params, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = torch.arange(batch["tokens"].shape[1], device=x.device)
     x, _ = _run_blocks(cfg, params, x, positions=positions)
     x = _norm(cfg, x, params["ln_final"])
     if return_hidden:
@@ -185,16 +207,20 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int,
 
 def prefill(cfg: ArchConfig, params, batch, cache):
     """Process the prompt, fill the cache, return last-position logits."""
+    pl = tp.begin_pass(batch["tokens"].shape[1])
     x = _embed_inputs(cfg, params, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = torch.arange(batch["tokens"].shape[1], device=x.device)
     x, cache = _run_blocks(cfg, params, x, positions=positions,
                            caches=cache, cache_pos=0)
     x = _norm(cfg, x, params["ln_final"])
+    if pl is not None:                      # the last token's rank's share
+        x = pl.whole_sequence(x)
     return cm.logits_out(cfg, params, x[:, -1]), cache
 
 
 def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
     """tokens: (B, 1); pos: current length (int).  One decode step."""
+    tp.begin_pass(tokens.shape[1])
     x = cm.embed_tokens(cfg, params["embedding"], tokens)
     positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)

@@ -28,6 +28,7 @@ import sys
 import torch
 
 from repro_torch.core.fusion import linear
+from repro_torch.distributed.tensor_parallel import refuse_mesh
 from repro_torch.models import common as cm
 from repro_torch.models.base import ArchConfig, register_family
 
@@ -158,6 +159,7 @@ def _final(cfg: ArchConfig, params, x):
 
 def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):
     """batch: tokens (B, S) + audio_embeds (B, Ta, d)."""
+    refuse_mesh("encdec")
     enc_out = encode(cfg, params, batch["audio_embeds"])
     x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
     x = x + params["pos_dec"][None, : x.shape[1]]
@@ -186,6 +188,7 @@ def prefill(cfg: ArchConfig, params, batch, cache):
     """Encode the audio, cache every decoder layer's cross K/V, run the
     decoder over the prompt; returns last-position logits and the
     cache (written in place)."""
+    refuse_mesh("encdec")
     enc_out = encode(cfg, params, batch["audio_embeds"])
     kc, vc = cache["cross"]
     for j in range(cfg.n_layers):
@@ -201,6 +204,7 @@ def prefill(cfg: ArchConfig, params, batch, cache):
 
 def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
     """tokens: (B, 1); pos: current length (int).  One decode step."""
+    refuse_mesh("encdec")
     x = cm.embed_tokens(cfg, params["embedding"], tokens)
     x = x + params["pos_dec"][pos:pos + 1][None]
     x, cache = _decode_stack(cfg, params, x, caches=cache, cache_pos=pos)

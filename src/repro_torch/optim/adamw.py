@@ -59,9 +59,17 @@ def init(cfg: AdamWConfig, params):
     }
 
 
-def global_norm(leaves_or_tree):
+def global_norm(leaves_or_tree, placement=None, specs=None):
+    """The norm over every leaf.  Under a mesh (``placement``, a
+    ``distributed.tensor_parallel.Placement``, and each leaf's spec) the
+    leaves are this rank's shards: their squares are summed and
+    all-reduced over the mesh, a leaf replicated over an axis counted
+    once."""
+    leaves = tree.leaves(leaves_or_tree)
+    if placement is not None:
+        return placement.global_norm(leaves, specs)
     return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree.leaves(leaves_or_tree)))
+                          for x in leaves))
 
 
 def _slices(x: torch.Tensor):
@@ -74,13 +82,17 @@ def _slices(x: torch.Tensor):
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, grads, state, params):
+def update(cfg: AdamWConfig, grads, state, params, placement=None,
+           specs=None):
     """Returns (params, state, metrics): ``params`` and ``state`` are the
-    tensors given, written in place (``state["step"]`` is replaced)."""
+    tensors given, written in place (``state["step"]`` is replaced).
+    Under a mesh every tree holds this rank's shards and the clipping
+    norm is the whole gradient's (``global_norm``); the update is
+    elementwise, so each rank updates its own shards."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
     flat_g = tree.leaves(grads)
-    gnorm = global_norm(flat_g)
+    gnorm = global_norm(flat_g, placement, specs)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
 
     b1, b2 = cfg.beta1, cfg.beta2

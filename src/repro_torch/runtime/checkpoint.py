@@ -26,7 +26,10 @@ Guarantees:
 ``restore`` loads each leaf whole, onto a device, and places it on a mesh
 when given shardings (``distributed.sharding.apply_shardings``): a
 checkpoint is mesh-agnostic, so it restores onto any mesh (elastic
-restore).
+restore).  A state held as each rank's shards is saved whole: every rank
+calls ``save``/``save_async`` with ``whole``, which gathers one leaf at a
+time (``distributed.sharding.gather_params``), and the ``writer`` alone
+(rank 0) copies it to the host and writes.
 """
 
 from __future__ import annotations
@@ -75,21 +78,30 @@ def _load_leaf(path: str, dtype: str, device) -> torch.Tensor:
 
 
 class CheckpointManager:
-    def __init__(self, root: str, keep: int = 3):
+    def __init__(self, root: str, keep: int = 3, writer: bool = True):
         self.root = root
         self.keep = keep
+        self.writer = writer
         self._thread: Optional[threading.Thread] = None
         os.makedirs(root, exist_ok=True)
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, state: Any, extra: Optional[dict] = None):
+    def save(self, step: int, state: Any, extra: Optional[dict] = None,
+             whole=None):
         self.wait()
-        self._write(step, self._snapshot(state), extra or {})
+        snap = self._snapshot(state, whole)
+        if self.writer:
+            self._write(step, snap, extra or {})
 
     def save_async(self, step: int, state: Any,
-                   extra: Optional[dict] = None):
+                   extra: Optional[dict] = None, whole=None):
+        """``whole(state, fn)``: for a state of shards, calls ``fn(i,
+        leaf)`` on each leaf gathered whole, in order (every rank takes
+        part; only the writer keeps the host copies)."""
         self.wait()
-        snap = self._snapshot(state)         # device->host before returning
+        snap = self._snapshot(state, whole)  # device->host before returning
+        if not self.writer:
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, snap, extra or {}), daemon=True)
         self._thread.start()
@@ -99,9 +111,16 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def _snapshot(self, state):
-        return [(tree.path_str(p), *_to_numpy(x))
-                for p, x in tree.flatten_with_path(state)]
+    def _snapshot(self, state, whole=None):
+        paths = [tree.path_str(p) for p, _ in tree.flatten_with_path(state)]
+        if whole is None:
+            arrays = [_to_numpy(x) for x in tree.leaves(state)]
+        else:
+            arrays = []
+            whole(state, lambda i, x: arrays.append(
+                _to_numpy(x) if self.writer else None))
+        return [(p, *a) for p, a in zip(paths, arrays)] if self.writer \
+            else []
 
     def _write(self, step: int, leaves, extra: dict):
         final = os.path.join(self.root, f"step_{step:08d}")

@@ -15,6 +15,13 @@ The logits are fp32 from fp32 accumulation, as the reference's
 through ``linear`` with an fp32 output on the zoo's matmul route (K1
 through its autograd op, its softcap fused in the epilogue, or the
 plain route on fp32-cast operands).
+
+Under a mesh this process is a rank of (``distributed.tensor_parallel``)
+the loss is vocab-parallel: each rank's logits are its vocabulary
+columns, and the row max, the sum of exponentials and the label's logit
+are each reduced over ``model`` (``_chunk_ce_placed``).  The token count
+is summed over the batch axes, so that a rank's loss is its share of the
+global microbatch's mean and the ranks' gradients sum to the reference's.
 """
 
 from __future__ import annotations
@@ -23,8 +30,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import NotPorted
 from repro_torch.backend import matmul_backend_string
 from repro_torch.core.fusion import linear
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.base import ArchConfig
 
 
@@ -52,11 +61,48 @@ def _chunk_ce(x, w, labels, softcap: float, z_loss: float,
             torch.sum(valid.to(torch.float32)))
 
 
+def _chunk_ce_placed(pl, x, w, labels, softcap: float, z_loss: float,
+                     onehot_pick: bool = False):
+    """``_chunk_ce`` on the rank's vocabulary columns ``w`` (d, V/m): the
+    logsumexp from the all-reduced row max and sum of exponentials, the
+    label's logit from the rank that holds it."""
+    logits = linear(x, w, softcap=softcap, out_dtype=torch.float32,
+                    backend=matmul_backend_string())
+    row_max = pl.reduce_max(logits.amax(dim=-1))
+    total = pl.reduce(torch.sum(torch.exp(logits - row_max[..., None]), -1))
+    lse = row_max + torch.log(total)
+    valid = labels >= 0
+    n = logits.shape[-1]
+    local = labels.long() - pl.rank * n
+    hit = valid & (local >= 0) & (local < n)
+    safe = torch.where(hit, local, 0)
+    if onehot_pick:
+        onehot = F.one_hot(safe, n).to(logits.dtype) * hit[..., None]
+        picked = torch.einsum("bcv,bcv->bc", logits, onehot)
+    else:
+        picked = torch.where(
+            hit, torch.gather(logits, -1, safe[..., None])[..., 0], 0.0)
+    picked = pl.reduce(picked)
+    nll = torch.where(valid, lse - picked, 0.0)
+    z = torch.where(valid, torch.square(lse), 0.0)
+    return (torch.sum(nll), z_loss * torch.sum(z),
+            torch.sum(valid.to(torch.float32)))
+
+
 def chunked_softmax_xent(cfg: ArchConfig, params, hidden, labels, *,
                          chunk: int = 512, z_loss: float = 1e-4,
                          onehot_pick: bool = False):
-    """hidden: (B, S, d); labels: (B, S) with -1 = masked."""
-    w = (params["embedding"].T if cfg.tie_embeddings else params["lm_head"])
+    """hidden: (B, S, d); labels: (B, S) with -1 = masked.  Under a mesh,
+    ``hidden`` holds the rank's share of the sequence where the forward's
+    pass shards it (sequence parallelism): it is gathered first."""
+    from repro_torch.models.common import output_weight
+    pl = tp.current()
+    w, split = output_weight(cfg, params, pl)
+    if split:
+        hidden = pl.enter(hidden)
+    elif pl is not None and pl.seq:
+        raise NotPorted("a whole output weight under sequence parallelism "
+                        "(ROADMAP item 7c)")
     b, s, d = hidden.shape
     chunk = min(chunk, s)
     pad = (-s) % chunk
@@ -68,6 +114,9 @@ def chunked_softmax_xent(cfg: ArchConfig, params, hidden, labels, *,
     ls = labels.reshape(b, n, chunk).unbind(1)
 
     def body(x_c, l_c):
+        if split:
+            return _chunk_ce_placed(pl, x_c, w, l_c, cfg.final_softcap,
+                                    z_loss, onehot_pick)
         return _chunk_ce(x_c, w, l_c, cfg.final_softcap, z_loss, onehot_pick)
 
     zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
@@ -80,6 +129,8 @@ def chunked_softmax_xent(cfg: ArchConfig, params, hidden, labels, *,
         else:
             out = body(x_c, l_c)
         nll, z, cnt = nll + out[0], z + out[1], cnt + out[2]
+    if pl is not None:
+        cnt = pl.sum_over_batch(cnt.detach().clone())
     cnt = torch.clamp(cnt, min=1.0)
     return (nll + z) / cnt, {"nll": nll / cnt, "z": z / cnt, "tokens": cnt}
 

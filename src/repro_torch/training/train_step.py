@@ -8,6 +8,15 @@ the activation working set is 1/N of the global batch.  As the
 reference's jitted step donates its buffers, the step writes the new
 parameters and optimizer state into the tensors it is given.
 
+Under a mesh this process is a rank of (the active ``logical`` rules,
+``distributed.tensor_parallel``), ``params`` and ``opt_state`` are the
+rank's shards (``sharding.shard_params``) and ``batch`` its rows of each
+microbatch (``sharding.local_batch``).  The loss is the rank's share of
+the global microbatch's mean; FSDP leaves' gradients are reduce-scattered
+in the backward, every other leaf's all-reduced over the batch axes its
+spec does not name; the clipping norm counts each leaf once; the loss
+returned is the global one.
+
 Every family trains, as in the reference, on the ``torch`` and ``dense``
 routes (``cfg.backend``): the reference never differentiates its Pallas
 kernels, and on the ``torch`` route MoE's experts, the RG-LRU and the WKV
@@ -24,7 +33,9 @@ import functools
 
 import torch
 
-from repro_torch.core import tree
+from repro_torch.core import hlo_cost, tree
+from repro_torch.distributed import sharding
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models.base import ArchConfig, family_module
 from repro_torch.optim import adamw, compression
 from repro_torch.training import loss as loss_lib
@@ -74,10 +85,37 @@ def _split_microbatch(batch, n: int, i: int):
     return {k: slice_one(v) for k, v in batch.items()}
 
 
+def leaf_specs(cfg: ArchConfig, params, mesh):
+    """Each leaf's spec under the active rules of ``mesh``, in tree order,
+    from the whole shapes; raises where a leaf of ``params`` is not the
+    rank's shard under them.  The whole tree is built on ``meta``,
+    outside any cost count."""
+    with hlo_cost.quiet():
+        whole = family_module(cfg).init(cfg, None, "meta")
+    specs = sharding.param_specs(whole)
+    for (path, x), w, spec in zip(tree.flatten_with_path(params),
+                                  tree.leaves(whole), specs):
+        want = sharding.local_shape(mesh, w.shape, spec)
+        if tuple(x.shape) != want:
+            raise ValueError(f"{path}: a leaf of {tuple(x.shape)} where the "
+                             f"rank's shard of {tuple(w.shape)} under the "
+                             f"rules is {want}")
+    return specs
+
+
 def make_train_step(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig()):
     grad_fn = functools.partial(value_and_grad, cfg, tcfg)
+    specs_of: dict = {}
 
     def train_step(params, opt_state, batch, residual=None):
+        pl = tp.current()
+        specs = None
+        if pl is not None:
+            key = id(pl)
+            if key not in specs_of:
+                specs_of.clear()
+                specs_of[key] = (pl, leaf_specs(cfg, params, pl.mesh))
+            specs = specs_of[key][1]
         n = tcfg.microbatches
         if n == 1:
             loss, metrics, grads = grad_fn(params, batch)
@@ -98,11 +136,17 @@ def make_train_step(cfg: ArchConfig, tcfg: TrainConfig = TrainConfig()):
             loss = loss_sum / n
             metrics = {}
 
+        if pl is not None:
+            with torch.no_grad():
+                pl.reduce_gradients(tree.leaves(grads), specs)
+                loss = pl.sum_over_batch(loss.clone())
+                metrics = {k: pl.sum_over_batch(v.clone()) if k != "tokens"
+                           else v for k, v in metrics.items()}
         if tcfg.grad_compression and residual is not None:
             grads, residual = compression.compressed_gradients(grads,
                                                                residual)
         params, opt_state, opt_metrics = adamw.update(
-            tcfg.optimizer, grads, opt_state, params)
+            tcfg.optimizer, grads, opt_state, params, pl, specs)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

@@ -183,7 +183,7 @@ class TestMoeMeshRules:
     def test_gspmd_expert_parallelism_refused(self):
         cfg, p, x = self._case()
         mesh = abstract_mesh((1, 2), ("data", "model"))
-        with pytest.raises(NotImplementedError, match="item 7b"):
+        with pytest.raises(NotImplementedError, match="item 7c"):
             moe.moe_apply(cfg.with_(moe_shard_map=False), p, x, mesh=mesh)
         # a model axis of 1 is the single-device math either way
         one = abstract_mesh((2, 1), ("data", "model"))

@@ -240,16 +240,19 @@ def test_perf_iter_on_a_reduced_experiment(tmp_path, reduced_grid):
 
 
 def test_perf_iter_records_what_it_cannot_run(tmp_path, reduced_grid):
-    """Only the ``rules=`` experiments (a model axis larger than 1: item
-    7b) are ``not_ported``; the ``attn_pv_bf16`` and ``remat="dots"``
-    ones run (on the reduced grid here)."""
+    """Only the two experiments of the reference's GSPMD expert
+    parallelism (``moe_shard_map=False`` on the model axis: item 7c) are
+    ``not_ported``; ``g2_seq_parallel``'s rules run on the pod mesh
+    (``tests/test_torch_tensor_parallel.py``), and the ``attn_pv_bf16``
+    and ``remat="dots"`` ones run (on the reduced grid here)."""
     names = {e["name"]: e for e in perf_iter.EXPERIMENTS}
     assert len(names) == 14
     refused = {n for n, e in names.items() if perf_iter.not_ported(e)}
-    assert refused == {"g2_seq_parallel", "ar_gspmd_ep", "ar_combo"}
+    assert refused == {"ar_gspmd_ep", "ar_combo"}
+    assert perf_iter.mesh_of(names["g2_seq_parallel"]) == "single"
     for name in sorted(refused):
         got = perf_iter.run_experiment(names[name], out_dir=str(tmp_path))
-        assert got["status"] == "not_ported" and "item 7b" in got["reason"]
+        assert got["status"] == "not_ported" and "item 7c" in got["reason"]
     perf_iter.main(["--only", "g2_pv_bf16", "--out", str(tmp_path)])
     written = json.loads((tmp_path / "perf_iterations.json").read_text())
     assert [w["name"] for w in written] == ["g2_pv_bf16"]

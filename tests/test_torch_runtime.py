@@ -234,8 +234,17 @@ class TestLauncher:
     @pytest.mark.parametrize("flags", [["--mesh", "single"],
                                        ["--model-parallel", "2"]])
     def test_one_device_only(self, flags):
-        with pytest.raises(SystemExit, match="item 7"):
-            launch_train.main(self.ARGV + flags)
+        """Without a world the run is one process: a pod mesh stops up
+        front (it needs its 256 ranks); ``--model-parallel`` has nothing
+        to split, and the run is the one without it (the reference's
+        ``make_host_mesh`` on one device).  Meshes over a world:
+        ``tests/test_torch_tensor_parallel.py``."""
+        if flags[0] == "--mesh":
+            with pytest.raises(SystemExit, match="256 ranks"):
+                launch_train.main(self.ARGV + flags)
+            return
+        split = launch_train.main(self.ARGV + flags)
+        assert split.losses == launch_train.main(self.ARGV).losses
 
     def test_no_card_no_fallback(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
