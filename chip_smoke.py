@@ -741,6 +741,14 @@ DIST_TP_FP32_LAYERS, DIST_TP_DECODE = 4, 4
 # heads swapped; by max-norm the first two lie 2.7e-2-3.2e-2 and
 # 3.3e-2-3.8e-2 of max |logit| from one rank, too close to hold apart
 TOL_TP_BF16 = 0.73
+# serving on a model axis that does not divide the KV heads (phase
+# dist-seq): DIST_SEQ_RANKS ranks on (data 1, model DIST_SEQ_RANKS), gloo
+# sharing the one card; yi-6b's 4 KV heads on 8, so each rank's cache
+# holds every KV head at its CACHE_LEN / 8 positions (sequence-parallel
+# decode attention); dist-tp's traffic, depths, weights and limits, held
+# to the same one-rank runs, and a rank's peak against its meta
+# reckoning within TOL_TRAIN_MEMORY
+DIST_SEQ_RANKS, DIST_SEQ_TIMEOUT = 8, 600.0
 DIST_TRAIN_FP32_LAYERS, DIST_TRAIN_FP32_BATCH = 2, (4, 256)
 DIST_TRAIN_LAYERS = 4
 DIST_TRAIN_ARGV = ["--global-batch", "8", "--seq-len", "512",
@@ -3986,7 +3994,11 @@ def phase_dist(s_max, reckoned):
           "devices": [got["world"]["device"] for got in ranks],
           "world_wall_s": world_s,
           "wall_s": time.perf_counter() - t_phase, "launches": launches})
-    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    for f in DIST_DIR.iterdir():            # dist-seq reads mesh_one.pt
+        if f.is_dir():
+            shutil.rmtree(f)
+        elif f.name != "mesh_one.pt":
+            f.unlink()
     return launches
 
 
@@ -4023,8 +4035,9 @@ def _mesh_serve(cfg, params, cache, follow=None):
     through ``serving.engine.make_prefill`` and DIST_TP_DECODE steps of
     ``make_decode``, CUDA events around each: {logits (fp32, on the CPU,
     one a step), greedy (the argmax of each, (4, steps + 1)), prefill_ms,
-    decode_ms}.  The decode steps feed ``follow``'s tokens where given
-    (the one-rank run's), else the run's own greedy ones."""
+    decode_ms, cache (as the steps left it)}.  The decode steps feed
+    ``follow``'s tokens where given (the one-rank run's), else the run's
+    own greedy ones."""
     from repro_torch.serving.engine import make_decode, make_prefill
     lengths, rng = prompt_lengths()
     s = int(max(lengths[:MAX_BATCH]))
@@ -4051,7 +4064,8 @@ def _mesh_serve(cfg, params, cache, follow=None):
         decode_ms.append(ms)
     return {"logits": out,
             "greedy": torch.stack([x.argmax(-1) for x in out], 1),
-            "prefill_ms": prefill_ms, "decode_ms": decode_ms}
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+            "cache": cache}
 
 
 def _mesh_train_collectives(cfg, sizes: dict, rows: int, seq: int,
@@ -4375,7 +4389,8 @@ def phase_dist_mesh():
     and the launcher's run of DIST_TRAIN_ARGV at DIST_TRAIN_LAYERS
     (without a world it is one process).  Then the ranks
     (``_dist_mesh_rank``).  A rank that fails, or a world that outlives
-    DIST_MESH_TIMEOUT, fails the phase.  Writes no checkpoint."""
+    DIST_MESH_TIMEOUT, fails the phase.  Writes no checkpoint; leaves
+    ``mesh_one.pt`` (with the fp32 run's cache) for ``phase_dist_seq``."""
     import shutil
 
     from repro_torch.core import tree
@@ -4400,6 +4415,9 @@ def phase_dist_mesh():
         follow = (one["tp-bf16"]["greedy"][:, :-1] if tag == "fp32-full"
                   else None)
         one[f"tp-{tag}"] = _mesh_serve(cfg, params, cache, follow)
+        cache = one[f"tp-{tag}"].pop("cache")
+        if tag == "fp32":               # dist-seq holds its gathered cache
+            one["tp-fp32"]["cache"] = tree.tree_map(lambda x: x.cpu(), cache)
         del params, cache
         torch.cuda.empty_cache()
     one["tp-bf16"]["fp32_logits"] = one.pop("tp-fp32-full")["logits"]
@@ -4443,6 +4461,250 @@ def phase_dist_mesh():
           "devices": [got["world"]["device"] for got in ranks],
           "one_rank_s": one_s, "world_wall_s": world_s,
           "wall_s": time.perf_counter() - t_phase, "launches": launches})
+    for f in DIST_DIR.iterdir():            # dist-seq reads mesh_one.pt
+        if f.is_dir():
+            shutil.rmtree(f)
+        elif f.name != "mesh_one.pt":
+            f.unlink()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Serving on a model axis that does not divide the KV heads: the cache
+# shared out along its sequence.
+# ---------------------------------------------------------------------------
+
+def _seq_serve_launches(cfg, steps: int) -> dict:
+    """K1's and K2's launches by tile on one rank of ``dist-seq``: a
+    prefill of the serve traffic's first batch and ``steps`` decode
+    steps of yi-6b (untied logits, no bias), as on one rank: a layer's
+    6 projections (K and V one call each, over every KV head) and the
+    logits at M = 4 (K1's decode tile), the prefill's on the tensor-core
+    tile in bf16 and the SIMT tile in fp32; one K2 call a layer at
+    prefill, decode attention in plain ops."""
+    n = cfg.n_layers
+    big = "tc" if cfg.dtype == torch.bfloat16 else "simt"
+    k1 = {"tc": 0, "decode": 1 + steps * (6 * n + 1), "simt": 0}
+    k1[big] += 6 * n
+    k2 = {"tc": 0, "simt": 0}
+    k2[big] += n
+    return {"fused_matmul_by_tile": k1, "flash_attention_by_tile": k2}
+
+
+def _seq_decode_collectives(cfg, sizes: dict, rows: int) -> dict:
+    """Collective bytes by kind of one decode step of a dense model with an
+    untied output weight, pre-norms only and no bias (yi-6b) on one rank
+    of a mesh of ``sizes`` whose model axis does not divide its KV heads
+    (the cache every KV head at the rank's share of the positions), under
+    the default rules, ``rows`` rows on the rank.
+    ``tests/test_torch_tensor_parallel.py`` holds it to the meta count.
+
+    * all-gather: a layer's weights over data where it is larger than 1,
+      whole in d (wq, wk, wv, wo, wi and the MLP's wo, each with its model
+      shard); q over model (rows x q_dim: the rank's heads gathered for
+      the attention over its positions, or its columns where the q heads
+      do not divide the axis); the KV weights over model (d x kv_dim
+      each, every KV head computed on every rank) where their columns are
+      split; the embedding and the output weight over data, and the
+      logits over model (rows x vocab, fp32);
+    * all-reduce: a layer's attention row max (rows x heads) and its sum
+      of exponentials with P·V (rows x heads x (1 + head_dim)), in fp32,
+      and the two region exits (rows x d, fp32); the embedding's sum
+      (rows x d, the model's dtype)."""
+    d, q, kv, ff, v, n = (cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.d_ff,
+                          cfg.padded_vocab, cfg.n_layers)
+    e = torch.finfo(cfg.dtype).bits // 8
+    m, data = sizes["model"], sizes.get("data", 1)
+    fsdp = (d * q + 2 * d * kv + q * d + d * 2 * ff + ff * d) // m * e
+    fsdp = fsdp if data > 1 else 0
+    kv_gather = 2 * d * kv * e if kv % m == 0 else 0
+    vocab = 2 * v // m * d * e if data > 1 else 0
+    gather = n * (fsdp + rows * q * e + kv_gather) + vocab + rows * v * 4
+    h = cfg.n_heads
+    reduce = (n * (rows * h * 4 + rows * h * (1 + cfg.head_dim) * 4
+                   + 2 * rows * d * 4) + rows * d * e)
+    out = {"all-gather": float(gather), "all-reduce": float(reduce)}
+    out["total"] = sum(out.values())
+    return out
+
+
+def _dist_seq_rank(world, out_dir: str) -> None:
+    """One rank of phase ``dist-seq``, spawned by ``run_world``: yi-6b
+    served on (data 1, model DIST_SEQ_RANKS), whose 4 KV heads the axis
+    does not divide, so that the rank's cache holds every KV head at its
+    CACHE_LEN / DIST_SEQ_RANKS positions; dist-tp's two runs (fp32 at
+    DIST_TP_FP32_LAYERS, bf16 at full depth) held to the same one-rank
+    runs.  Each rank builds the whole model on the card in its turn and
+    keeps its shards, so that the card holds one whole model at a time.
+    Prints a dist-seq-fp32 and a dist-seq-bf16 line, raises on a failed
+    check (which fails the world) and writes its launch counts to
+    ``out_dir/seq_rank{r}.json``."""
+    import torch.distributed as dist
+    from repro_torch.core import tree
+    from repro_torch.core.precision import disable_tf32
+    from repro_torch.distributed import logical, sharding
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, rank_view
+    from repro_torch.models.base import family_module
+    from repro_torch.serving.engine import make_decode, make_prefill
+    global _EMIT_LOCK
+    disable_tf32()
+    out_dir, r = Path(out_dir), world.rank
+    _EMIT_LOCK = out_dir / "emit.lock"
+    one = torch.load(out_dir / "mesh_one.pt")
+    head = {"rank": r, "world": world.size, "backend": world.backend,
+            "backend_reason": world.reason, "device": str(world.device)}
+    dense = {"fused_matmul": fused_matmul, "flash_attention": flash_attention}
+    mesh = make_mesh((1, DIST_SEQ_RANKS), ("data", "model"))
+    view = rank_view(tuple(mesh.shape.values()), mesh.axis_names,
+                     mesh.coordinate)
+    s = int(max(prompt_lengths()[0][:MAX_BATCH]))
+    launches = {}
+    for tag, cfg in _mesh_tp_configs():
+        mod = family_module(cfg)
+        for turn in range(world.size):
+            if turn == r:
+                whole = mod.init(cfg, torch.Generator(
+                    device="cuda").manual_seed(DIST_SEED), "cuda")
+                params = sharding.shard_params(whole, mesh)
+                del whole
+                torch.cuda.empty_cache()
+            dist.barrier()
+        cache = sharding.shard_cache(mod.init_cache(
+            cfg, MAX_BATCH, CACHE_LEN, device="cuda"), mesh, cfg)
+        torch.cuda.empty_cache()
+        ref = one[f"tp-{tag}"]
+        read = _counted(dense)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with logical.use_rules(mesh):
+            got = _mesh_serve(cfg, params, cache,
+                              follow=ref["greedy"][:, :-1])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts = read()
+        errs = [rel_err(a, b)[0] for a, b in zip(got["logits"],
+                                                 ref["logits"])]
+        agree = float((got["greedy"] == ref["greedy"]).float().mean())
+        line = {}
+        if tag == "bf16":
+            fp32 = ref["fp32_logits"]
+            line["l2_vs_one_rank_over_one_rank_bf16_vs_fp32"] = [
+                l2_dist(a, b) / l2_dist(b, c) for a, b, c in
+                zip(got["logits"], ref["logits"], fp32)]
+            line["tol_ratio"] = TOL_TP_BF16
+        else:
+            # the cache gathered from every rank's share against one rank's
+            whole = sharding.gather_cache(got["cache"], mesh, cfg)
+            pairs = list(zip(tree.leaves(whole), tree.leaves(ref["cache"])))
+            line["cache_rel_err"] = max(rel_err(a.cpu(), b)[0]
+                                        for a, b in pairs)
+            line["cache_bit_equal"] = all(torch.equal(a.cpu(), b)
+                                          for a, b in pairs)
+            del whole, pairs
+        # one more decode step, counted on the card and on meta at this
+        # rank's coordinate; the serve steps' peak against the meta trace
+        tok = ref["greedy"][:, -1:].to("cuda", torch.int32)
+        pos = s + DIST_TP_DECODE
+        with logical.use_rules(mesh):
+            card, _, _ = dryrun.count_step(make_decode(cfg), (
+                params, tok, got["cache"], pos), False)
+        with logical.use_rules(view):
+            meta_params = sharding.shard_params(mod.init(cfg, None, "meta"),
+                                                view)
+            meta_cache = sharding.shard_cache(mod.init_cache(
+                cfg, MAX_BATCH, CACHE_LEN, device="meta"), view, cfg)
+            tokens = torch.empty((MAX_BATCH, s), dtype=torch.int32,
+                                 device="meta")
+            pre, _, _ = dryrun.count_step(make_prefill(cfg), (
+                meta_params, {"tokens": tokens}, meta_cache), False)
+            meta, _, _ = dryrun.count_step(make_decode(cfg), (
+                meta_params, tokens[:, :1], meta_cache, pos), False)
+        mem = {"arguments": dryrun.tree_bytes((meta_params, meta_cache,
+                                                tokens)),
+               "temp_meta": max(pre.temp_bytes, meta.temp_bytes)}
+        mem["total"] = mem["arguments"] + mem["temp_meta"]
+        counted = {**{k: float(x) for k, x in card.per_collective.items()},
+                   "total": card.collective_bytes}
+        reckoned = _seq_decode_collectives(cfg, dict(mesh.shape), MAX_BATCH)
+        tiles = _seq_serve_launches(cfg, DIST_TP_DECODE)
+        phase = f"dist-seq-{tag}"
+        emit({"phase": phase, **head, **counts,
+              "config": f"{ARCH} full width, {cfg.n_layers} layers, "
+                        f"{str(cfg.dtype)[6:]}, (data 1, model "
+                        f"{DIST_SEQ_RANKS}): {cfg.n_heads // DIST_SEQ_RANKS}"
+                        f" q heads a rank, every KV head at positions "
+                        f"[{r * CACHE_LEN // DIST_SEQ_RANKS}, "
+                        f"{(r + 1) * CACHE_LEN // DIST_SEQ_RANKS})",
+              "cache_held": list(cache[0][0].shape),
+              "logits_rel_err": errs, "tol": TOL_PATH if tag == "fp32"
+              else None, **line, "greedy_tokens_agree": agree,
+              "launches_reckoned": tiles,
+              "collective_bytes_decode_step": counted,
+              "collective_bytes_meta": meta.per_collective,
+              "collective_bytes_reckoned": reckoned,
+              "prefill_ms": got["prefill_ms"], "decode_ms": got["decode_ms"],
+              "one_rank_prefill_ms": ref["prefill_ms"],
+              "one_rank_decode_ms": ref["decode_ms"],
+              "max_memory_allocated": peak, "memory_reckoned": mem,
+              "memory_rel": peak / mem["total"] - 1.0,
+              "tol_memory": TOL_TRAIN_MEMORY})
+        require(all(bool(torch.isfinite(x).all()) for x in got["logits"]),
+                f"{phase}: logits not finite")
+        if tag == "fp32":
+            require(all(e_ <= TOL_PATH for e_ in errs),
+                    f"{phase}: logits {errs} against {TOL_PATH}")
+            require(agree == 1.0, f"{phase}: greedy tokens differ from one "
+                    "rank's")
+            require(line["cache_rel_err"] <= TOL_PATH,
+                    f"{phase}: gathered cache {line['cache_rel_err']} "
+                    "from one rank's")
+        else:
+            ratio = line["l2_vs_one_rank_over_one_rank_bf16_vs_fp32"]
+            require(all(x <= TOL_TP_BF16 for x in ratio),
+                    f"{phase}: {ratio} against {TOL_TP_BF16}")
+        require({k: counts[k] for k in tiles} == tiles,
+                f"{phase}: launches {counts}, reckoned {tiles}")
+        require(counted == reckoned and card.per_collective
+                == meta.per_collective, f"{phase}: a decode step's "
+                f"collective bytes {counted}, meta {meta.per_collective}, "
+                f"reckoned {reckoned}")
+        require(abs(peak / mem["total"] - 1.0) <= TOL_TRAIN_MEMORY,
+                f"{phase}: peak {peak} B against {mem['total']} B reckoned")
+        launches[phase] = counts
+        del params, cache, got, card, meta, pre
+        torch.cuda.empty_cache()
+    (out_dir / f"seq_rank{r}.json").write_text(json.dumps(
+        {"world": head, "launches": launches}))
+
+
+def phase_dist_seq():
+    """yi-6b served on DIST_SEQ_RANKS ranks of (data 1, model
+    DIST_SEQ_RANKS) through ``launch.mesh.run_world`` (gloo: the ranks
+    share the card), its cache shared out along the sequence
+    (``_dist_seq_rank``), held to ``phase_dist_mesh``'s one-rank runs
+    (``mesh_one.pt``).  A rank that fails, or a world that outlives
+    DIST_SEQ_TIMEOUT, fails the phase."""
+    import shutil
+
+    from repro_torch.launch.mesh import run_world
+    t0 = time.perf_counter()
+    try:
+        run_world(_dist_seq_rank, DIST_SEQ_RANKS, (str(DIST_DIR),),
+                  rendezvous=str(DIST_DIR / "rendezvous"),
+                  timeout=DIST_SEQ_TIMEOUT)
+    except Exception as e:                   # a rank failed or hung
+        raise PhaseFailed(f"dist-seq: {type(e).__name__}: {e}") from None
+    ranks = [json.loads((DIST_DIR / f"seq_rank{i}.json").read_text())
+             for i in range(DIST_SEQ_RANKS)]
+    launches = {f"{path}/rank{i}": counts for i, got in enumerate(ranks)
+                for path, counts in got["launches"].items()}
+    emit({"phase": "dist-seq", "ranks": DIST_SEQ_RANKS,
+          "backend": ranks[0]["world"]["backend"],
+          "backend_reason": ranks[0]["world"]["backend_reason"],
+          "wall_s": time.perf_counter() - t0, "launches": launches})
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     return launches
 
@@ -5267,6 +5529,9 @@ def main() -> int:
         # yi-6b served tensor-parallel and trained with FSDP and tensor
         # parallelism on DIST_MESH_RANKS ranks
         launches.update(phase_dist_mesh())
+        # yi-6b served on 8 ranks, its 4 KV heads' cache shared out along
+        # the sequence
+        launches.update(phase_dist_seq())
         launches["dryrun"] = phase_dryrun(card)
         kernels = phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, launches)
     except PhaseFailed as e:

@@ -24,7 +24,8 @@ contiguous column shard would give rank 0 only gates, so a rank's shard
 of ``wi`` is ``wi.view(d, 2, d_ff)[:, :, r·d_ff/m:(r+1)·d_ff/m]``: the
 same size as the reference's shard, its gate and up columns paired.
 ``local_batch`` gives a rank its rows of each microbatch and
-``shard_cache`` its KV cache shard.
+``shard_cache`` its KV cache shard, in each of the reference's three
+forms (``gather_cache`` is its inverse).
 """
 
 from __future__ import annotations
@@ -131,31 +132,35 @@ def batch_shardings(batch, mesh: Optional[Mesh],
         return tree.tree_map(one, batch)
 
 
+def _cache_axes(shape, model: int) -> tuple:
+    """The logical axes of a cache leaf of ``shape`` on a model axis of
+    ``model`` (the reference's choice, leaf by leaf)."""
+    if len(shape) == 5:
+        # (L, B, Hkv, S, D) KV cache or (L, B, H, C, C) rwkv state.
+        heads, seq = shape[2], shape[3]
+        if heads % model == 0:
+            return (None, "batch", "kv_heads", None, None)
+        if seq % model == 0:
+            return (None, "batch", None, "heads", None)
+        return (None, "batch", None, None, None)
+    if len(shape) >= 2:
+        return (None, "batch") + (None,) * (len(shape) - 2)
+    return (None,) * len(shape)
+
+
 def cache_shardings(cache, mesh: Optional[Mesh], cfg,
                     rules: Optional[dict] = None):
     """KV caches: batch over (pod, data); the model axis takes the KV-head
     dim when it divides, else the cache *sequence* dim (sequence-parallel
     decode attention — e.g. deepseek-67b's 8 KV heads on a 16-way model
-    axis)."""
+    axis), else neither (the cache whole over ``model``)."""
     if mesh is None:
         return tree.tree_map(lambda _: None, cache)
     model = mesh.shape.get("model", 1)
     with logical.use_rules(mesh, rules):
         def one(leaf):
-            if leaf.ndim == 5:
-                # (L, B, Hkv, S, D) KV cache or (L, B, H, C, C) rwkv state.
-                heads, seq = leaf.shape[2], leaf.shape[3]
-                if heads % model == 0:
-                    axes = (None, "batch", "kv_heads", None, None)
-                elif seq % model == 0:
-                    axes = (None, "batch", None, "heads", None)
-                else:
-                    axes = (None, "batch", None, None, None)
-            elif leaf.ndim >= 2:
-                axes = (None, "batch") + (None,) * (leaf.ndim - 2)
-            else:
-                axes = (None,) * leaf.ndim
-            s = logical.sharding_for(leaf.shape, axes)
+            s = logical.sharding_for(leaf.shape,
+                                     _cache_axes(leaf.shape, model))
             return s if s is not None else NamedSharding(mesh, ())
         return tree.tree_map(one, cache)
 
@@ -282,22 +287,78 @@ def gather_params(local, like, mesh: Mesh, rules: Optional[dict] = None,
     return tree.unflatten(local, out)
 
 
+#: the attribute of a rank's cache leaf that holds the whole leaf's shape
+#: (``shard_cache``): a leaf whose whole holds every KV head reads the
+#: same, a share of the positions or all of them, and only the whole
+#: length tells which
+WHOLE_SHAPE = "whole_shape"
+
+
 def shard_cache(cache, mesh: Mesh, cfg, rules: Optional[dict] = None):
-    """This rank's shard of each cache leaf (``cache_shardings``).  The
-    sequence-sharded form the reference takes when the KV heads do not
-    divide ``model`` (its sequence-parallel decode attention) is not
-    ported: ``NotPorted``, ROADMAP item 7c."""
+    """This rank's shard of each cache leaf (``cache_shardings``), a
+    tensor that owns its memory: its KV heads where they divide
+    ``model``; else, where the length does, every head at its share of
+    the positions (``[r·S/m, (r+1)·S/m)`` on rank r of ``model``: the
+    sequence-parallel decode attention of ``models/transformer.py``);
+    else every head at every position.  Each leaf carries the whole
+    leaf's shape (``WHOLE_SHAPE``), which ``cache_placement`` reads."""
     shardings = cache_shardings(cache, mesh, cfg, rules)
     out = []
     for leaf, s in zip(tree.leaves(cache), tree.leaves(shardings)):
-        if leaf.ndim == 5 and axis_names(s.spec[3]):
-            raise NotPorted(
-                f"{cfg.name}: {leaf.shape[2]} KV heads do not divide the "
-                f"model axis of {mesh.shape.get('model', 1)}, and the "
-                "reference shards the cache's sequence instead "
-                "(sequence-parallel decode attention): ROADMAP item 7c")
-        out.append(_own(shard_leaf(leaf, s.spec, mesh)))
+        x = _own(shard_leaf(leaf, s.spec, mesh))
+        setattr(x, WHOLE_SHAPE, tuple(leaf.shape))
+        out.append(x)
     return tree.unflatten(cache, out)
+
+
+def gather_cache(local, mesh: Mesh, cfg, rules: Optional[dict] = None):
+    """The whole cache from each rank's shards (``shard_cache``'s
+    inverse): all-gathers each leaf over the axes its spec names.  Every
+    rank of the mesh calls it."""
+    with logical.use_rules(mesh, rules):
+        specs = [cache_placement(x, cfg, mesh)[1] for x in tree.leaves(local)]
+    return tree.unflatten(local, [gather_leaf(x, spec, mesh) for x, spec
+                                  in zip(tree.leaves(local), specs)])
+
+
+def cache_placement(leaf, cfg, mesh: Mesh):
+    """(the whole shape, the spec) of a rank's cache leaf under the
+    active rules: from its ``WHOLE_SHAPE``, or, where a leaf lacks it (a
+    shard rebuilt from its shape alone), from the one whole length whose
+    spec gives the leaf's shape: the leaf's own, or that times the ranks
+    of the axes the sequence may take (the batch is the rank's rows
+    either way).  Raises where both do: a leaf of every KV head can be a
+    share of the positions or all of them."""
+    shape = tuple(leaf.shape)
+    model = mesh.shape.get("model", 1)
+    whole = getattr(leaf, WHOLE_SHAPE, None)
+    if whole is not None:
+        return whole, _spec_of_cache(whole, model)
+    if len(shape) != 5:
+        return shape, _spec_of_cache(shape, model)
+    fits = []
+    for n in sorted({1, _seq_ranks(mesh)}):
+        cand = shape[:2] + (cfg.n_kv_heads, shape[3] * n, shape[4])
+        spec = _spec_of_cache(cand, model)
+        if local_shape(mesh, cand, spec)[2:] == shape[2:]:
+            fits.append((cand, spec))
+    if len(fits) != 1:
+        raise ValueError(
+            f"a cache leaf of {shape} on {mesh!r} is a shard of "
+            f"{[f[0] for f in fits] or 'no whole leaf'}: place the cache "
+            "with sharding.shard_cache, which records its whole shape")
+    return fits[0]
+
+
+def _spec_of_cache(shape, model: int) -> tuple:
+    spec = logical.spec_for(tuple(shape), _cache_axes(shape, model))
+    return spec if spec is not None else (None,) * len(shape)
+
+
+def _seq_ranks(mesh: Mesh) -> int:
+    """The ranks the active rules give a cache's sequence (``heads``)."""
+    names = axis_names(logical._ACTIVE[-1][1].get("heads"))
+    return math.prod(mesh.shape[a] for a in names if a in mesh.shape)
 
 
 def local_batch(batch, mesh: Mesh, microbatches: int = 1,

@@ -32,16 +32,33 @@ moving themselves:
 * ``sum_over_batch`` adds a value over the batch axes (the loss's token
   count, a replicated leaf's gradient); ``global_norm`` counts each leaf
   once however many ranks hold it.
+* ``cache_shard`` says where the rank's KV cache lies in the whole
+  (``sharding.shard_cache``): its own KV heads, or every KV head at a
+  share of the positions (split over ``model``) or at all of them.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from repro_torch import NotPorted
 from repro_torch.distributed import collectives, logical, sharding
+
+
+@dataclass(frozen=True)
+class CacheShard:
+    """Where a rank's KV cache leaf (L, B, Hkv, S, D) lies in the whole:
+    ``every_head``, whether it holds every KV head (else the rank's own);
+    positions ``[start, start + S)`` of a cache of ``length``; ``split``,
+    whether the positions are shared out over ``model`` (each rank
+    attends over its own and the ranks combine)."""
+    every_head: bool
+    start: int
+    length: int
+    split: bool
 
 
 class Placement:
@@ -146,6 +163,19 @@ class Placement:
         if self.model > 1:
             collectives.all_reduce(t, self.group("model"), op="max")
         return t
+
+    def cache_shard(self, cfg, leaf: torch.Tensor) -> CacheShard:
+        """Where this rank's cache leaf ``leaf`` lies in the whole cache
+        (``sharding.cache_placement``)."""
+        whole, spec = sharding.cache_placement(leaf, cfg, self.mesh)
+        names = tuple(a for a in sharding.axis_names(spec[3])
+                      if self.mesh.shape[a] > 1)
+        if names not in ((), ("model",)):
+            raise NotPorted(f"a cache sequence split over {names} (ROADMAP "
+                            "item 7c)")
+        start = self.rank * leaf.shape[3] if names else 0
+        return CacheShard(every_head=leaf.shape[2] == cfg.n_kv_heads,
+                          start=start, length=whole[3], split=bool(names))
 
     # -- the batch and the optimizer ----------------------------------------
     def sum_over_batch(self, t: torch.Tensor) -> torch.Tensor:

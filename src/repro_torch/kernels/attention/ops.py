@@ -4,7 +4,11 @@
 ``select_tile`` picks (each masks ragged lengths itself, so nothing is
 padded to blocks), and CPU tensors to its plain version.
 ``decode_attention`` (one query against a long cache) is plain tensor
-code, as in the reference.
+code, as in the reference.  ``decode_attention_partial`` and
+``decode_attention_merge`` split it over shares of the cache's positions
+(sequence-parallel decode attention, ``models/transformer.py``): each
+share gives its running max, sum of exponentials and unnormalised P·V,
+and the merge rescales and adds them.
 """
 
 from __future__ import annotations
@@ -103,3 +107,52 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bngs,bnsd->bngd", p, v_cache.float())
     return out.reshape(b, h, 1, d).to(q.dtype)
+
+
+def decode_attention_partial(q, k_cache, v_cache, cache_len, *,
+                             start: int = 0,
+                             sm_scale: Optional[float] = None,
+                             window: int = 0, softcap: float = 0.0):
+    """``decode_attention`` over a share of the cache: ``k_cache`` and
+    ``v_cache`` hold positions ``[start, start + S)``, masked as the
+    whole cache's are (``pos < cache_len``, and ``pos >= cache_len -
+    window`` with a window), in absolute positions.  Returns fp32 (m, l,
+    acc): the row max of the masked scores, the sum of their
+    exponentials and P·V, unnormalised, shaped (B, Hkv, group, 1), (B,
+    Hkv, group, 1) and (B, Hkv, group, D).  A share whose every position
+    is masked gives l = 0 and acc = 0 (and m = -1e30)."""
+    b, h, _, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    qe = q.reshape(b, hkv, h // hkv, d).float()
+    scores = torch.einsum("bngd,bnsd->bngs", qe, k_cache.float()) * sm_scale
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    pos = start + torch.arange(s, device=q.device)
+    cache_len = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    valid = pos[None, :] < cache_len                          # (B, S)
+    if window > 0:
+        valid &= pos[None, :] >= (cache_len - window)
+    valid = valid[:, None, None, :]
+    scores = torch.where(valid, scores, -1e30)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    acc = torch.einsum("bngs,bnsd->bngd", p, v_cache.float())
+    return m, p.sum(dim=-1, keepdim=True), acc
+
+
+def decode_attention_merge(m, l, acc, *, reduce_max, reduce_sum, dtype):
+    """The attention output (B, H, 1, D) in ``dtype`` from the shares'
+    (m, l, acc) (``decode_attention_partial``): the max over the shares
+    (``reduce_max``), each share's sum and P·V rescaled to it and added
+    (``reduce_sum``, once over both).  The shares lie on the ranks of a
+    group (all-reduces), or along a leading dim of one process's
+    tensors (``amax`` and ``sum`` over it)."""
+    top = reduce_max(m)
+    scale = torch.exp(m - top)
+    both = reduce_sum(torch.cat([l * scale, acc * scale], dim=-1))
+    l, acc = both[..., :1], both[..., 1:]
+    out = acc / torch.where(l == 0.0, 1.0, l)
+    b, hkv, group, d = out.shape
+    return out.reshape(b, hkv * group, 1, d).to(dtype)

@@ -30,10 +30,9 @@ bound.  Where the reference lowers and compiles (``lower_s``,
 host seconds of building the cell (``build_s``) and of running it under
 the counter (``trace_s``), the counter's own totals (``cost_analysis``)
 and its table by kernel (``kernels``).  A cell the port cannot run, which
-raises ``repro_torch.NotPorted`` (a family not ported to a mesh, a cache
-the reference shards along its sequence: ROADMAP item 7c), is written
-with ``"status": "not_ported"`` and the refusal's text; any other error
-fails the cell.
+raises ``repro_torch.NotPorted`` (a family not ported to a mesh: ROADMAP
+item 7c), is written with ``"status": "not_ported"`` and the refusal's
+text; any other error fails the cell.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch yi-6b --shape decode_32k

@@ -252,12 +252,13 @@ def attn_init(cfg: ArchConfig, gen: torch.Generator, device=None):
     return p
 
 
-def qkv_project(cfg: ArchConfig, p, x, positions):
+def qkv_project(cfg: ArchConfig, p, x, positions, every_kv: bool = False):
     """x: (B, S, d) -> q (B, H, S, hd), k/v (B, Hkv, S, hd) with RoPE.
-    Under a mesh, the rank's heads (``_qkv_placed``)."""
+    Under a mesh, the rank's heads (``_qkv_placed``); ``every_kv``, K and
+    V of every KV head however few the rank's q heads read."""
     pl = tp.current()
     if pl is not None:
-        return _qkv_placed(cfg, pl, p, x, positions)
+        return _qkv_placed(cfg, pl, p, x, positions, every_kv)
     return _qkv(cfg, x, (p["wq"], p["wk"], p["wv"]),
                 (p.get("bq"), p.get("bk"), p.get("bv")),
                 (p.get("q_norm"), p.get("k_norm")), positions)
@@ -279,7 +280,25 @@ def _qkv(cfg: ArchConfig, x, w, bias, norms, positions):
     return q, k, v
 
 
-def _qkv_placed(cfg: ArchConfig, pl, p, x, positions):
+def rank_heads(cfg: ArchConfig, pl) -> "tuple[int, int, int, int]":
+    """(first q head, q heads, first KV head, KV heads) the rank attends
+    with under ``pl``, where ``wq``'s columns are split over ``model``:
+    its own q heads where they divide ``model``, else (gemma2-2b's 8 on
+    16) every head; the KV heads they read."""
+    m, r = pl.model, pl.rank
+    gather_q = cfg.n_heads % m != 0
+    hq = cfg.n_heads if gather_q else cfg.n_heads // m
+    q0 = 0 if gather_q else r * hq
+    group = cfg.n_heads // cfg.n_kv_heads
+    if hq % group == 0:
+        return q0, hq, q0 // group, hq // group
+    if group % hq == 0:
+        return q0, hq, q0 // group, 1
+    raise NotPorted(f"{cfg.name}: {hq} q heads a rank do not map onto "
+                    f"whole KV groups of {group} (ROADMAP item 7c)")
+
+
+def _qkv_placed(cfg: ArchConfig, pl, p, x, positions, every_kv=False):
     """The rank's q heads and the KV heads they read, from its shards.
 
     ``wq`` holds the rank's q columns.  Where the q heads divide
@@ -289,7 +308,9 @@ def _qkv_placed(cfg: ArchConfig, pl, p, x, positions):
     Where the rank's KV heads are the ones its q heads read, K and V come
     from its own columns; else (yi-6b's 4 KV heads on 16) the KV weights
     are gathered over ``model`` and the rank computes the KV heads its q
-    heads read."""
+    heads read, or, with ``every_kv`` (a cache that holds every KV head
+    on each rank: ``models/transformer.py``), every KV head in one
+    product, as the reference's one matmul does."""
     d, hd = cfg.d_model, cfg.head_dim
     wq, qd = pl.param(p["wq"], "wq", (d, cfg.q_dim))
     wk, kd = pl.param(p["wk"], "wk", (d, cfg.kv_dim))
@@ -309,17 +330,9 @@ def _qkv_placed(cfg: ArchConfig, pl, p, x, positions):
     cols = cfg.q_dim // m
     bq = pl.whole_in_region(bias[0])
     bq = None if bq is None else bq[r * cols:(r + 1) * cols]
-    gather_q = cfg.n_heads % m != 0
-    hq = cfg.n_heads if gather_q else cfg.n_heads // m
-    q0 = 0 if gather_q else r * hq
-    group = cfg.n_heads // cfg.n_kv_heads
-    if hq % group == 0:
-        k0, hk = q0 // group, hq // group
-    elif group % hq == 0:
-        k0, hk = q0 // group, 1
-    else:
-        raise NotPorted(f"{cfg.name}: {hq} q heads a rank do not map onto "
-                        f"whole KV groups of {group} (ROADMAP item 7c)")
+    q0, hq, k0, hk = rank_heads(cfg, pl)
+    if every_kv:
+        k0, hk = 0, cfg.n_kv_heads
     kv_local = cfg.n_kv_heads // m
     own = (kd == 1 and cfg.n_kv_heads % m == 0
            and (k0, hk) == (r * kv_local, kv_local))
@@ -332,7 +345,7 @@ def _qkv_placed(cfg: ArchConfig, pl, p, x, positions):
                    else pl.whole_in_region(w_))[:, span] for w_ in (wk, wv))
     bk, bv = (None if b_ is None else b_[span] for b_ in (bk, bv))
     q = linear(h, wq, bq, backend=_mm_backend(cfg))
-    if gather_q:
+    if hq == cfg.n_heads:                   # every head: the columns gathered
         q = pl.gather_model(q, -1)
     k = linear(h, wk, bk, backend=_mm_backend(cfg))
     v = linear(h, wv, bv, backend=_mm_backend(cfg))
@@ -490,19 +503,28 @@ def logits_out(cfg: ArchConfig, params, x):
 # KV cache helpers (dense buffer, optionally quantized dtype).
 # ---------------------------------------------------------------------------
 
-def cache_update(k_cache, v_cache, k_new, v_new, pos: int):
+def cache_update(k_cache, v_cache, k_new, v_new, pos: int, start: int = 0,
+                 length: "int | None" = None):
     """Write (B, Hkv, S_new, D) at position ``pos`` along the S axis.
 
     Writes in place (the reference returns new arrays): a serving cache
     is updated every step, and a copy per step would double its memory.
-    Returns the same two tensors.
+    ``k_cache`` and ``v_cache`` may hold a share of a cache of ``length``
+    positions (by default their own), positions ``[start, start + S)``:
+    of the new rows, those that fall there are written.  Returns the
+    same two tensors.
     """
     s_new, cap = k_new.shape[2], k_cache.shape[2]
-    if not 0 <= pos <= cap - s_new:
+    length = cap if length is None else length
+    if not 0 <= pos <= length - s_new:
         raise ValueError(f"cache write of {s_new} at {pos} exceeds its "
-                         f"length {cap}")
-    k_cache[:, :, pos:pos + s_new] = k_new.to(k_cache.dtype)
-    v_cache[:, :, pos:pos + s_new] = v_new.to(v_cache.dtype)
+                         f"length {length}")
+    lo, hi = max(pos, start), min(pos + s_new, start + cap)
+    if lo < hi:
+        k_cache[:, :, lo - start:hi - start] = \
+            k_new[:, :, lo - pos:hi - pos].to(k_cache.dtype)
+        v_cache[:, :, lo - start:hi - start] = \
+            v_new[:, :, lo - pos:hi - pos].to(v_cache.dtype)
     return k_cache, v_cache
 
 

@@ -642,14 +642,88 @@ def test_pod_train_cell_collectives_as_reckoned(tmp_path, pod_grid,
 
 
 @pytest.mark.parametrize("arch, shape", [
-    ("olmoe-1b-7b", "decode_32k"),          # 4 KV heads on 16
-    ("yi-6b", "prefill_32k"), ("rwkv6-7b", "train_4k"),
-    ("recurrentgemma-2b", "train_4k"), ("whisper-tiny", "train_4k")])
+    ("rwkv6-7b", "train_4k"), ("recurrentgemma-2b", "train_4k"),
+    ("whisper-tiny", "train_4k"), ("recurrentgemma-2b", "decode_32k"),
+    ("rwkv6-7b", "prefill_32k")])
 def test_pod_cells_the_port_cannot_run_name_item_7c(tmp_path, pod_grid,
                                                     arch, shape):
     r = dryrun.run_cell(arch, shape, "single", out_dir=str(tmp_path))
     assert r["status"] == "not_ported" and "item 7c" in r["reason"]
     assert r["chips"] == 256
+
+
+def _reference_cache_specs(arch, shape_name, mesh_case):
+    """The reference's cache of a cell, placed by its ``cache_shardings``:
+    (shape, spec, itemsize) a leaf."""
+    cfg = j_get_config(arch, reduced=True)
+    spec = reg.SHAPES[shape_name]
+    cache = jax.eval_shape(lambda: j_family(cfg).init_cache(
+        cfg, spec.global_batch, spec.seq_len))
+    sh = j_sharding.cache_shardings(cache, compat_abstract_mesh(*mesh_case),
+                                    cfg)
+    return [(x.shape, tuple(s.spec), x.dtype.itemsize) for x, s in
+            zip(jax.tree.leaves(cache), jax.tree.leaves(sh))]
+
+
+@pytest.mark.parametrize("mesh_name", ["single", "multi"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])
+@pytest.mark.parametrize("arch", ["yi-6b", "gemma2-2b", "internvl2-1b",
+                                  "deepseek-67b", "arctic-480b"])
+def test_pod_serving_cells_shard_the_cache_sequence(tmp_path, pod_grid, arch,
+                                                    shape, mesh_name):
+    """The prefill and decode cells of the five configurations whose KV
+    heads do not divide the model axis of 16 (2 KV heads reduced; at full
+    size 4, 4, 2, 8 and 8) count on both pod meshes: the cache holds
+    every KV head at the rank's 64 / 16 positions, and a rank's argument
+    bytes equal its share of the reference's params and cache under
+    ``param_shardings`` and ``cache_shardings``, and its batch rows."""
+    r = dryrun.run_cell(arch, shape, mesh_name, out_dir=str(tmp_path))
+    assert r["status"] == "ok", r.get("reason")
+    sizes_names = dryrun.MESHES[mesh_name]
+    sizes = dict(zip(sizes_names[1], sizes_names[0]))
+    cfg = reg.get_config(arch, reduced=True)
+    cache = _reference_cache_specs(arch, shape, sizes_names)
+    assert all(sp[2:4] == (None, "model") for _, sp, _ in cache)
+    want = sum(_local_bytes(shape_, spec_, sizes, size)
+               for shape_, spec_, size in
+               _reference_specs(arch, sizes_names) + cache)
+    spec = reg.SHAPES[shape]
+    rows = spec.global_batch // (sizes["data"] * sizes.get("pod", 1))
+    if spec.mode == "prefill":
+        want += rows * spec.seq_len * 4
+        if cfg.vision_prefix:
+            want += rows * cfg.vision_prefix * cfg.d_model * 4
+    else:
+        want += rows * 4
+    assert r["memory"]["argument_bytes"] == want
+    assert r["kernels"]["fused_matmul"]["calls"] > 0
+
+
+def test_pod_decode_cell_collectives_as_reckoned(tmp_path, pod_grid):
+    """yi-6b's decode_32k cell on ``single``, rank 0 (reduced: d 64, 4 q
+    heads and 2 KV heads of 16, d_ff 128, vocab 512, 3 layers, bf16; 2
+    rows a rank).  4 q heads on 16 are a quarter of a head a rank, so q
+    is gathered over model (every head on every rank) and so are the KV
+    weights (every KV head on every rank).
+
+    * all-gather: a layer's weights over data (d 4q/16, d 2kv/16 twice,
+      4q/16 d, d 2ff/16, ff/16 d), q over model (2 x 4q) and the KV
+      weights (d 2kv, twice); the embedding and the output weight over
+      data (vocab/16 x d each), the logits over model (2 x vocab, fp32).
+    * all-reduce, fp32: a layer's row max (2 x 4 heads), sum of
+      exponentials with P·V (2 x 4 x (1 + 16)) and two exits (2 x d);
+      the embedding's sum (2 x d, bf16)."""
+    r = dryrun.run_cell("yi-6b", "decode_32k", "single",
+                        out_dir=str(tmp_path))
+    d, q, kv, ff, v, n, rows, e = 64, 64, 32, 128, 512, 3, 2, 2
+    layer = ((d * q + 2 * d * kv + q * d + d * 2 * ff + ff * d) // 16 * e
+             + rows * q * e + 2 * d * kv * e)
+    gather = n * layer + 2 * v // 16 * d * e + rows * v * 4
+    reduce = (n * (rows * 4 * 4 + rows * 4 * 17 * 4 + 2 * rows * d * 4)
+              + rows * d * e)
+    assert r["collective_bytes"] == {"all-gather": gather,
+                                     "all-reduce": reduce,
+                                     "total": gather + reduce}
 
 
 def test_pod_serving_cells_whose_kv_heads_divide(tmp_path, pod_grid,
@@ -728,3 +802,45 @@ def test_chip_smoke_reckons_the_mesh_step(sizes):
     assert got == smoke._mesh_train_collectives(cfg, sizes, 2, seq, mb, 4)
     assert cost.kernels["fused_matmul"]["calls"] == \
         mb * smoke._train_k1_calls(cfg, 1)
+
+
+@pytest.mark.parametrize("sizes", [{"data": 1, "model": 8},
+                                   {"data": 1, "model": 4},
+                                   {"data": 2, "model": 4},
+                                   {"data": 16, "model": 16}],
+                         ids=lambda s: "x".join(map(str, s.values())))
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+def test_chip_smoke_reckons_the_seq_decode_step(sizes, dtype):
+    """``chip_smoke.py``'s reckonings of phase ``dist-seq`` (a decode
+    step's collective bytes by kind; K1's and K2's launches of a prefill
+    and decode steps) against the meta count of one rank's steps of
+    reduced yi-6b, whose 2 KV heads the model axis does not divide, on a
+    rank view; the card's count is held to the meta count there."""
+    from repro_torch.serving.engine import make_decode, make_prefill
+    smoke = _chip_smoke()
+    cfg = reg.get_config("yi-6b", reduced=True)
+    if dtype == "fp32":
+        cfg = cfg.with_(dtype=torch.float32, kv_cache_dtype=torch.float32)
+    rows, s, length = 2, 12, 16 * sizes["model"]
+    view = rank_view(tuple(sizes.values()), tuple(sizes))
+    mod = family_module(cfg)
+    with logical.use_rules(view):
+        params = sharding.shard_params(mod.init(cfg, None, "meta"), view)
+        cache = sharding.shard_cache(mod.init_cache(
+            cfg, rows * sizes["data"], length, device="meta"), view, cfg)
+        assert cache[0][0].shape[2:4] == (cfg.n_kv_heads, 16)
+        tokens = torch.empty((rows, s), dtype=torch.int32, device="meta")
+        pre, _, _ = dryrun.count_step(make_prefill(cfg), (
+            params, {"tokens": tokens}, cache), False)
+        step, _, _ = dryrun.count_step(make_decode(cfg), (
+            params, tokens[:, :1], cache, s), False)
+    got = {**step.per_collective, "total": step.collective_bytes}
+    assert got == smoke._seq_decode_collectives(cfg, sizes, rows)
+    tiles = smoke._seq_serve_launches(cfg, 1)
+    k1 = tiles["fused_matmul_by_tile"]
+    assert (pre.kernels["fused_matmul"]["calls"]
+            + step.kernels["fused_matmul"]["calls"]) == sum(k1.values())
+    assert step.kernels["fused_matmul"]["calls"] == k1["decode"] - 1
+    assert pre.kernels["flash_attention"]["calls"] == sum(
+        tiles["flash_attention_by_tile"].values()) == cfg.n_layers
+    assert "flash_attention" not in step.kernels
