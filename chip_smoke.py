@@ -749,6 +749,34 @@ TOL_TP_BF16 = 0.73
 # to the same one-rank runs, and a rank's peak against its meta
 # reckoning within TOL_TRAIN_MEMORY
 DIST_SEQ_RANKS, DIST_SEQ_TIMEOUT = 8, 600.0
+# the recurrent families and Whisper on a mesh (phase dist-rec):
+# DIST_REC_RANKS ranks, gloo sharing the one card.  Serving on (data 1,
+# model DIST_REC_RANKS), the serve traffic's first batch and
+# DIST_TP_DECODE steps: each family in fp32 at its DIST_REC_FP32_LAYERS
+# (None: whole; Griffin's 6 are two (rec, rec, attn) triples, so the ring
+# and the state both run), held to one rank within TOL_FP32 of max
+# |logit| with identical greedy tokens and the gathered cache within
+# TOL_FP32; Griffin and RWKV-6 at full depth in bf16 by dist-tp's
+# yardstick, at each family's limit (TOL_TP_BF16_REC).  Training on
+# (data 2, model 2): one fp32 AdamW step of each at
+# DIST_REC_TRAIN_LAYERS on a batch of DIST_TRAIN_FP32_BATCH, the plain
+# torch route (K5 and K6 have no backward), held to one rank's
+# (TOL_TRAIN_LOSS, TOL_TRAIN_GRAD).  Each rank's serving peak against
+# its meta reckoning (TOL_DIST_MEMORY)
+DIST_REC_RANKS, DIST_REC_TIMEOUT = 4, 600.0
+DIST_REC_FP32_LAYERS = {"recurrentgemma-2b": 6, "rwkv6-7b": 4,
+                        "whisper-tiny": None}
+DIST_REC_TRAIN_LAYERS = {"recurrentgemma-2b": 6, "rwkv6-7b": 2,
+                         "whisper-tiny": None}
+# dist-rec's bf16 yardstick a family (TOL_TP_BF16's ratio; that limit was
+# set on yi-6b at 2 ranks).  On an H100 (scripts/tp_bf16_yardstick.py
+# --arch ... --ranks 4, seeds 7-9, 15 logits each) Griffin's 26 layers
+# read 0.735-0.789 for the path as it is, 0.959-1.028 with the partials
+# rounded to bf16 before the sum and 1.01-4.09 with rank 1's q heads
+# reversed; RWKV-6's 32 read 0.845-0.907, 0.999-1.071 and 18.6-19.6
+# with rank 1's receptance heads reversed: each limit lies between the
+# sound path and the partials rounded twice
+TOL_TP_BF16_REC = {"recurrentgemma-2b": 0.87, "rwkv6-7b": 0.95}
 DIST_TRAIN_FP32_LAYERS, DIST_TRAIN_FP32_BATCH = 2, (4, 256)
 DIST_TRAIN_LAYERS = 4
 DIST_TRAIN_ARGV = ["--global-batch", "8", "--seq-len", "512",
@@ -3528,13 +3556,15 @@ def _counted(wrappers: dict):
     reads them: {name: launches, f"{name}_by_tile": {tile: launches}}."""
     for fn in wrappers.values():
         fn.launches = 0
-        fn.launches_by_tile = dict.fromkeys(fn.launches_by_tile, 0)
+        if hasattr(fn, "launches_by_tile"):        # K5 has one tile
+            fn.launches_by_tile = dict.fromkeys(fn.launches_by_tile, 0)
 
     def read():
         out = {}
         for name, fn in wrappers.items():
             out[name] = fn.launches
-            out[f"{name}_by_tile"] = dict(fn.launches_by_tile)
+            if hasattr(fn, "launches_by_tile"):
+                out[f"{name}_by_tile"] = dict(fn.launches_by_tile)
         return out
     return read
 
@@ -3682,7 +3712,8 @@ def _dist_rank(world, out_dir: str, s_max: int, reckoned: dict) -> None:
         torch.cuda.reset_peak_memory_stats()
         whole = family_module(cfg).init(cfg, gen, "cuda")
         params = sharding.shard_params(whole, mesh,
-                                       sharding.EXPERT_PARALLEL_RULES)
+                                       sharding.EXPERT_PARALLEL_RULES,
+                                       glu=cfg.mlp_glu)
         n_whole = sum(x.numel() for x in tree.leaves(whole))
         del whole
         torch.cuda.synchronize()
@@ -4031,18 +4062,21 @@ def _mesh_train_fp32():
 
 
 def _mesh_serve(cfg, params, cache, follow=None):
-    """The serve traffic's first batch (4 prompts padded to 221 tokens)
+    """The serve traffic's first batch (4 prompts padded to 221 tokens,
+    with seeded stub-frontend inputs where the model has a frontend)
     through ``serving.engine.make_prefill`` and DIST_TP_DECODE steps of
     ``make_decode``, CUDA events around each: {logits (fp32, on the CPU,
     one a step), greedy (the argmax of each, (4, steps + 1)), prefill_ms,
-    decode_ms, cache (as the steps left it)}.  The decode steps feed
-    ``follow``'s tokens where given (the one-rank run's), else the run's
-    own greedy ones."""
+    decode_ms, cache (as the steps left it), batch (the prefill's)}.
+    The decode steps feed ``follow``'s tokens where given (the one-rank
+    run's), else the run's own greedy ones."""
     from repro_torch.serving.engine import make_decode, make_prefill
     lengths, rng = prompt_lengths()
     s = int(max(lengths[:MAX_BATCH]))
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
         MAX_BATCH, s))).to(device="cuda", dtype=torch.int32)
+    batch = {"tokens": tokens, **stub_inputs(cfg, MAX_BATCH, torch.Generator(
+        device="cuda").manual_seed(DIST_SEED))}
     prefill, decode = make_prefill(cfg), make_decode(cfg)
 
     def timed(fn, *args):
@@ -4052,8 +4086,7 @@ def _mesh_serve(cfg, params, cache, follow=None):
         end.record()
         end.synchronize()
         return out, start.elapsed_time(end)
-    (logits, cache), prefill_ms = timed(prefill, params, {"tokens": tokens},
-                                        cache)
+    (logits, cache), prefill_ms = timed(prefill, params, batch, cache)
     out, decode_ms = [logits.float().cpu()], []
     for i in range(DIST_TP_DECODE):
         nxt = (follow[:, i] if follow is not None
@@ -4065,7 +4098,7 @@ def _mesh_serve(cfg, params, cache, follow=None):
     return {"logits": out,
             "greedy": torch.stack([x.argmax(-1) for x in out], 1),
             "prefill_ms": prefill_ms, "decode_ms": decode_ms,
-            "cache": cache}
+            "cache": cache, "batch": batch}
 
 
 def _mesh_train_collectives(cfg, sizes: dict, rows: int, seq: int,
@@ -4133,7 +4166,8 @@ def _mesh_train_collectives(cfg, sizes: dict, rows: int, seq: int,
     if sizes.get("pod", 1) > 1:
         mesh = rank_view(tuple(sizes.values()), tuple(sizes))
         local = sharding.shard_params(
-            family_module(cfg).init(cfg, None, "meta"), mesh)
+            family_module(cfg).init(cfg, None, "meta"), mesh,
+            glu=cfg.mlp_glu)
         out["all-reduce"] += sum(x.numel() for x in tree.leaves(local)) * (
             grad_bytes if microbatches > 1 else e)
     metrics = 1 if microbatches > 1 else 3
@@ -4183,7 +4217,7 @@ def _dist_mesh_rank(world, out_dir: str) -> None:
         mod = family_module(cfg)
         whole = mod.init(cfg, torch.Generator(device="cuda").manual_seed(
             DIST_SEED), "cuda")
-        params = sharding.shard_params(whole, tp_mesh)
+        params = sharding.shard_params(whole, tp_mesh, glu=cfg.mlp_glu)
         del whole
         cache = tree.tree_map(
             lambda x: torch.zeros(x.shape, dtype=x.dtype, device="cuda"),
@@ -4249,7 +4283,7 @@ def _dist_mesh_rank(world, out_dir: str) -> None:
     cfg, tcfg = _mesh_train_fp32()
     whole = family_module(cfg).init(cfg, torch.Generator(
         device="cuda").manual_seed(DIST_SEED), "cuda")
-    params = sharding.shard_params(whole, mesh)
+    params = sharding.shard_params(whole, mesh, glu=cfg.mlp_glu)
     del whole
     torch.cuda.empty_cache()
     opt = adamw.init(tcfg.optimizer, params)
@@ -4261,7 +4295,8 @@ def _dist_mesh_rank(world, out_dir: str) -> None:
     counts = read()
     ref = one["train-fp32"]
     ref_mu = sharding.shard_params(
-        torch.load(out_dir / "mesh_train_mu.pt", mmap=True), mesh)
+        torch.load(out_dir / "mesh_train_mu.pt", mmap=True), mesh,
+        glu=cfg.mlp_glu)
     worst = torch.stack([(a - b.cuda()).abs().max().float() for a, b in
                          zip(tree.leaves(opt["mu"]), tree.leaves(ref_mu))])
     collectives.all_reduce(worst, op="max")
@@ -4310,7 +4345,7 @@ def _dist_mesh_rank(world, out_dir: str) -> None:
                      mesh.coordinate)
     with logical.use_rules(view):
         meta_params = sharding.shard_params(abstract_state(cfg, tcfg)[0],
-                                            view)
+                                            view, glu=cfg.mlp_glu)
         meta_args = (meta_params, adamw.init(tcfg.optimizer, meta_params),
                      {k: torch.empty(x.shape, dtype=x.dtype, device="meta")
                       for k, x in batch.items()})
@@ -4416,6 +4451,7 @@ def phase_dist_mesh():
                   else None)
         one[f"tp-{tag}"] = _mesh_serve(cfg, params, cache, follow)
         cache = one[f"tp-{tag}"].pop("cache")
+        one[f"tp-{tag}"].pop("batch")
         if tag == "fp32":               # dist-seq holds its gathered cache
             one["tp-fp32"]["cache"] = tree.tree_map(lambda x: x.cpu(), cache)
         del params, cache
@@ -4568,7 +4604,7 @@ def _dist_seq_rank(world, out_dir: str) -> None:
             if turn == r:
                 whole = mod.init(cfg, torch.Generator(
                     device="cuda").manual_seed(DIST_SEED), "cuda")
-                params = sharding.shard_params(whole, mesh)
+                params = sharding.shard_params(whole, mesh, glu=cfg.mlp_glu)
                 del whole
                 torch.cuda.empty_cache()
             dist.barrier()
@@ -4613,7 +4649,7 @@ def _dist_seq_rank(world, out_dir: str) -> None:
                 params, tok, got["cache"], pos), False)
         with logical.use_rules(view):
             meta_params = sharding.shard_params(mod.init(cfg, None, "meta"),
-                                                view)
+                                                view, glu=cfg.mlp_glu)
             meta_cache = sharding.shard_cache(mod.init_cache(
                 cfg, MAX_BATCH, CACHE_LEN, device="meta"), view, cfg)
             tokens = torch.empty((MAX_BATCH, s), dtype=torch.int32,
@@ -4705,6 +4741,496 @@ def phase_dist_seq():
           "backend": ranks[0]["world"]["backend"],
           "backend_reason": ranks[0]["world"]["backend_reason"],
           "wall_s": time.perf_counter() - t0, "launches": launches})
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families and Whisper on a mesh: Griffin's channels, RWKV-6's
+# heads and Whisper's heads on each rank.
+# ---------------------------------------------------------------------------
+
+def _rec_serve_configs():
+    """(tag, config) of ``dist-rec``'s serving runs: each family at full
+    width in fp32 at its DIST_REC_FP32_LAYERS, then Griffin and RWKV-6 at
+    full depth in bf16."""
+    out = [(f"{arch}-fp32", _cut(arch, n, dtype=torch.float32,
+                                 kv_cache_dtype=torch.float32))
+           for arch, n in DIST_REC_FP32_LAYERS.items()]
+    return out + [(f"{arch}-bf16", _cut(arch, None))
+                  for arch in (GRIFFIN_ARCH, RWKV_ARCH)]
+
+
+def _rec_train_fp32(arch):
+    """(config, TrainConfig) of a ``dist-rec`` train step: ``arch`` at full
+    width, DIST_REC_TRAIN_LAYERS, fp32, remat "full", the plain torch route
+    with K1 for the projections, one AdamW step."""
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import TrainConfig
+    cfg = _cut(arch, DIST_REC_TRAIN_LAYERS[arch], dtype=torch.float32,
+               backend="torch")
+    return cfg, TrainConfig(
+        optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+        loss_chunk=DIST_TRAIN_FP32_BATCH[1])
+
+
+def _rec_serve_launches(cfg) -> dict:
+    """K5's and K6's launches on one rank of ``dist-rec`` serving the
+    first batch and its decode steps, as on one rank: a prefill runs
+    Griffin's stack twice (the sequence pass, then the stateful pass over
+    the window's tail), one K5 call a recurrent layer each; RWKV-6's
+    stateful prefill one K6 call a layer (the tensor-core tile in bf16,
+    the SIMT tile in fp32); a decode step runs neither (the one-token
+    steps are plain)."""
+    if cfg.family == "griffin":
+        rec = sum(1 for i in range(cfg.n_layers)
+                  if cfg.rnn.block_pattern[i % len(cfg.rnn.block_pattern)]
+                  == "rec")
+        return {"rglru_scan": 2 * rec}
+    if cfg.family == "rwkv6":
+        big = "tc" if cfg.dtype == torch.bfloat16 else "simt"
+        return {"rwkv6_scan_by_tile": {"tc": 0, "simt": 0,
+                                       big: cfg.n_layers}}
+    return {}
+
+
+def _rec_decode_collectives(cfg, sizes: dict, rows: int,
+                            cache_len: int) -> dict:
+    """Collective bytes by kind of one decode step of Griffin, RWKV-6 or
+    Whisper on one rank of a mesh of ``sizes`` (data and model; the
+    embedding axis is data's alone), under the default rules, ``rows``
+    rows on the rank of a batch of rows x data, a cache of ``cache_len``
+    (Whisper's self cache).  ``tests/test_torch_tensor_parallel.py``
+    holds it to the meta count.  Everywhere:
+
+    * all-gather: each layer's weights over data where it is larger than
+      1, whole in d with their model shards (FSDP); the embedding twice
+      (its lookup, and the tied logits; RWKV-6's lm_head) over data; the
+      logits over model (rows x vocab, fp32);
+    * all-reduce: each row-parallel exit (rows x d, fp32) and the
+      embedding's sum (rows x d, the model's dtype).
+
+    Griffin: a recurrent layer gathers its conv output over model (rows
+    x d_rnn); an attention layer its q columns (every head a rank where
+    the q heads do not divide model, or for the ring split over model)
+    and its KV weights (every KV head computed a rank), and with its ring
+    split along the window all-reduces the row max and the sum of
+    exponentials with P·V; the state is written back gathered over model
+    (conv tail and carry, every stacked layer at once) and, for the
+    unstacked tail, over data along the rows, after its carry's channels
+    (split over data) were gathered on reading.  RWKV-6: the channel
+    mix's receptance gathered over model (rows x d).  Whisper: q of the
+    self- and cross-attention gathered where the heads do not divide
+    model, the self-attention's KV weights too (every head computed),
+    and each cache split along its positions all-reduces its row max and
+    sums."""
+    d, n, e = cfg.d_model, cfg.n_layers, torch.finfo(cfg.dtype).bits // 8
+    m, data = sizes.get("model", 1), sizes.get("data", 1)
+    if "pod" in sizes:
+        raise ValueError("reckoned for (data, model) meshes")
+    v, ff, q, kv = cfg.padded_vocab, cfg.d_ff, cfg.q_dim, cfg.kv_dim
+    h, hd = cfg.n_heads, cfg.head_dim
+    big = m > 1
+
+    def split(x):                   # a dim over model, where it divides
+        return x // m if x % m == 0 else x
+
+    def fsdp(*sizes_):              # (rows, cols) of weights over data
+        return sum(r_ * split(c_) for r_, c_ in sizes_) * e if data > 1 \
+            else 0
+    gather = (2 * split(v) * d * e if data > 1 else 0) + (
+        rows * v * 4 if big else 0)
+    reduce = rows * d * e if big else 0
+    exits = 0
+    attend = rows * h * 4 + rows * h * (1 + hd) * 4     # max, then sums
+    if cfg.family == "rwkv6":
+        gather += n * (fsdp((d, d), (d, d), (d, d), (d, d), (d, d),
+                            (d, d), (d, ff), (ff, d))
+                       + (rows * d * e if big else 0))
+        exits = 2 * n
+    elif cfg.family == "griffin":
+        c, w = cfg.rnn.d_rnn, cfg.rnn.conv_width - 1
+        pat = cfg.rnn.block_pattern
+        triples = n // len(pat)
+        tail = n - triples * len(pat)
+        n_rec = triples * pat.count("rec") + tail
+        n_attn = n - n_rec
+        mlp = ((d, 2 * ff), (ff, d))
+        gather += n_rec * (fsdp((d, c), (d, c), (c, d), *mlp)
+                           + (rows * c * e if big else 0))
+        ring_split = big and cfg.window % m == 0
+        gather_q = big and (h % m != 0 or ring_split)
+        gather += n_attn * (fsdp((d, q), (d, kv), (d, kv), (q, d), *mlp)
+                            + (rows * q * e if gather_q else 0)
+                            + (2 * d * kv * e if big and kv % m == 0
+                               else 0))
+        reduce += n_attn * attend if ring_split else 0
+        exits = 2 * n
+        if big:                     # the state gathered over model
+            gather += (triples * pat.count("rec") + tail) * rows * c * (
+                w * e + 4)
+        if data > 1 and tail:
+            b = rows * data
+            gather += tail * b * c * (w * e + 4)          # over the rows
+            gather += tail * b * c * 4 if c % data == 0 else 0   # read
+            gather += tail * b * w * c * e if w % data == 0 else 0
+    elif cfg.family == "encdec":
+        every = big and h % m != 0
+        mlp = ((d, ff), (ff, d))
+        gather += n * (fsdp((d, q), (d, kv), (d, kv), (q, d), (d, q),
+                            (q, d), *mlp)
+                       + (2 * rows * q * e if every else 0)
+                       + (2 * d * kv * e if every and kv % m == 0 else 0))
+        for length in (cache_len, cfg.encdec.n_audio_ctx):
+            reduce += n * attend if every and length % m == 0 else 0
+        exits = 3 * n
+    else:
+        raise ValueError(f"no reckoning for the {cfg.family} family")
+    reduce += exits * rows * d * 4 if big else 0
+    out = {"all-gather": float(gather), "all-reduce": float(reduce)}
+    out = {k: x for k, x in out.items() if x}
+    out["total"] = sum(out.values())
+    return out
+
+
+def _rec_kernel_checks(gen, model: int) -> list:
+    """K5 and K6 against their plain versions at a rank's shapes on
+    (data 1, model ``model``): K5 on Griffin's d_rnn / model channels of
+    the first batch, fp32 with a carried state, bit for bit; K6's
+    tensor-core tile on RWKV-6's heads / model, bf16 with a carried state
+    (the output within TOL_BF16 over the tensor and row by row, the
+    state within TOL_WKV_FP32)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.rwkv6.ops import rwkv6_scan
+    g, r_ = get_config(GRIFFIN_ARCH), get_config(RWKV_ARCH)
+    s = int(max(prompt_lengths()[0][:MAX_BATCH]))
+    out = []
+    args = lru_case(gen, MAX_BATCH, s, g.rnn.d_rnn // model, h0=True)
+    h, last = run_lru(*args)
+    ref, ref_last = plain_lru(*args)
+    out.append({"kernel": "rglru_scan", "shape": list(args[1].shape),
+                "bit_equal": bool(torch.equal(h, ref)
+                                  and torch.equal(last, ref_last)),
+                "ok": bool(torch.equal(h, ref)
+                           and torch.equal(last, ref_last))})
+    shape = (MAX_BATCH, r_.n_heads // model, s, r_.rwkv.head_size)
+    args = wkv_case(gen, *shape, torch.bfloat16, s0=True)
+    before = dict(rwkv6_scan.launches_by_tile)
+    o, st = run_wkv(*args, chunk=64)
+    tile = [t for t, n in rwkv6_scan.launches_by_tile.items()
+            if n != before[t]]
+    ref, ref_st = plain_wkv(*args, chunk=64)
+    errs = {"out": rel_err(o, ref)[0], "out_rows": row_rel_err(o, ref)[0],
+            "state": rel_err(st, ref_st)[0]}
+    out.append({"kernel": "rwkv6_wkv", "shape": list(shape), "tile": tile,
+                **errs, "ok": tile == ["tc"] and errs["out"] <= TOL_BF16
+                and errs["out_rows"] <= TOL_BF16
+                and errs["state"] <= TOL_WKV_FP32})
+    return out
+
+
+def _dist_rec_rank(world, out_dir: str) -> None:
+    """One rank of phase ``dist-rec``, spawned by ``run_world``: serves
+    each of ``_rec_serve_configs`` on (data 1, model DIST_REC_RANKS) and
+    takes each family's train step on (data 2, model 2), held to the
+    parent's one-rank runs (``rec_one.pt``); checks K5 and K6 at its
+    shapes.  Each rank builds a whole model on the card in its turn and
+    keeps its shards; a run's peak is the process's over the serve steps
+    less cuBLAS's workspace (taken first, and measured), so that whatever
+    one run leaves behind counts in the next one's peak.
+    Prints a dist-rec-serve line a run, a
+    dist-rec-train line a family and a dist-rec-kernels line, raises on
+    a failed check (which fails the world) and writes its launch counts
+    to ``out_dir/rec_rank{r}.json``."""
+    import torch.distributed as dist
+    from repro_torch.core import tree
+    from repro_torch.core.precision import disable_tf32
+    from repro_torch.distributed import collectives, logical, sharding
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rwkv6.ops import rwkv6_scan
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, rank_view
+    from repro_torch.models.base import family_module
+    from repro_torch.optim import adamw
+    from repro_torch.serving.engine import make_decode, make_prefill
+    from repro_torch.training.train_step import make_train_step
+    global _EMIT_LOCK
+    disable_tf32()
+    out_dir, r = Path(out_dir), world.rank
+    _EMIT_LOCK = out_dir / "emit.lock"
+    one = torch.load(out_dir / "rec_one.pt")
+    head = {"rank": r, "world": world.size, "backend": world.backend,
+            "backend_reason": world.reason, "device": str(world.device)}
+    wrappers = {"fused_matmul": fused_matmul,
+                "flash_attention": flash_attention,
+                "rglru_scan": rglru_scan, "rwkv6_scan": rwkv6_scan}
+    mesh = make_mesh((1, DIST_REC_RANKS), ("data", "model"))
+    view = rank_view(tuple(mesh.shape.values()), mesh.axis_names,
+                     mesh.coordinate)
+    s = int(max(prompt_lengths()[0][:MAX_BATCH]))
+    launches = {}
+    # cuBLAS's workspace (32 MiB on Hopper) is allocated at the first
+    # product through it and held by the process, which the reckoning
+    # does not count: take it before any run and measure it
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.ones((8, 8), device="cuda") @ torch.ones((8, 8), device="cuda")
+    torch.cuda.synchronize()
+    workspace = torch.cuda.memory_allocated() - base
+
+    def built(cfg, mesh_):
+        """The rank's shards of the seeded model, each rank in its turn."""
+        mod = family_module(cfg)
+        for turn in range(world.size):
+            if turn == r:
+                whole = mod.init(cfg, torch.Generator(
+                    device="cuda").manual_seed(DIST_SEED), "cuda")
+                params = sharding.shard_params(whole, mesh_,
+                                               glu=cfg.mlp_glu)
+                del whole
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return params
+
+    for tag, cfg in _rec_serve_configs():
+        mod = family_module(cfg)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()        # before the run
+        params = built(cfg, mesh)
+        cache = sharding.shard_cache(mod.init_cache(
+            cfg, MAX_BATCH, CACHE_LEN, device="cuda"), mesh, cfg)
+        ref = one[f"serve-{tag}"]
+        read = _counted(wrappers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with logical.use_rules(mesh):
+            got = _mesh_serve(cfg, params, cache,
+                              follow=ref["greedy"][:, :-1])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - workspace
+        counts = read()
+        errs = [rel_err(a, b)[0] for a, b in zip(got["logits"],
+                                                 ref["logits"])]
+        agree = float((got["greedy"] == ref["greedy"]).float().mean())
+        line = {}
+        fp32 = cfg.dtype == torch.float32
+        if fp32:
+            whole = sharding.gather_cache(got["cache"], mesh, cfg)
+            pairs = list(zip(tree.leaves(whole), tree.leaves(ref["cache"])))
+            line["cache_rel_err"] = max(rel_err(a.cpu(), b)[0]
+                                        for a, b in pairs)
+            del whole, pairs
+        else:
+            line["l2_vs_one_rank_over_one_rank_bf16_vs_fp32"] = [
+                l2_dist(a, b) / l2_dist(b, c) for a, b, c in
+                zip(got["logits"], ref["logits"], ref["fp32_logits"])]
+            line["tol_ratio"] = TOL_TP_BF16_REC[cfg.name]
+        # one more decode step, counted on the card and on meta at this
+        # rank's coordinate; the serve steps' peak against the meta trace
+        tok = ref["greedy"][:, -1:].to("cuda", torch.int32)
+        pos = s + DIST_TP_DECODE
+        with logical.use_rules(mesh):
+            card, _, _ = dryrun.count_step(make_decode(cfg), (
+                params, tok, got["cache"], pos), False)
+        with logical.use_rules(view):
+            meta_params = sharding.shard_params(
+                mod.init(cfg, None, "meta"), view, glu=cfg.mlp_glu)
+            meta_cache = sharding.shard_cache(mod.init_cache(
+                cfg, MAX_BATCH, CACHE_LEN, device="meta"), view, cfg)
+            batch = {k: torch.empty(x.shape, dtype=x.dtype, device="meta")
+                     for k, x in got["batch"].items()}
+            pre, _, _ = dryrun.count_step(make_prefill(cfg), (
+                meta_params, batch, meta_cache), False)
+            meta, _, _ = dryrun.count_step(make_decode(cfg), (
+                meta_params, batch["tokens"][:, :1], meta_cache, pos), False)
+        mem = {"arguments": dryrun.tree_bytes((meta_params, meta_cache,
+                                                batch)),
+               "temp_meta": max(pre.temp_bytes, meta.temp_bytes)}
+        mem["total"] = mem["arguments"] + mem["temp_meta"]
+        counted = {**{k: float(x) for k, x in card.per_collective.items()},
+                   "total": card.collective_bytes}
+        reckoned = _rec_decode_collectives(cfg, dict(mesh.shape), MAX_BATCH,
+                                           CACHE_LEN)
+        kernels = _rec_serve_launches(cfg)
+        phase = "dist-rec-serve"
+        emit({"phase": phase, **head, "run": tag, **counts,
+              "config": f"{cfg.name} full width, {cfg.n_layers} layers, "
+                        f"{str(cfg.dtype)[6:]}, (data 1, model "
+                        f"{DIST_REC_RANKS})",
+              "cache_held": {tree.path_str(p_): list(x.shape)
+                             for p_, x in tree.flatten_with_path(
+                                 got["cache"])},
+              "logits_rel_err": errs, "tol": TOL_FP32 if fp32 else None,
+              **line, "greedy_tokens_agree": agree,
+              "launches_reckoned": kernels,
+              "collective_bytes_decode_step": counted,
+              "collective_bytes_meta": meta.per_collective,
+              "collective_bytes_reckoned": reckoned,
+              "prefill_ms": got["prefill_ms"], "decode_ms": got["decode_ms"],
+              "one_rank_prefill_ms": ref["prefill_ms"],
+              "one_rank_decode_ms": ref["decode_ms"],
+              "max_memory_allocated": peak, "held_before_run": held,
+              "cublas_workspace": workspace,
+              "memory_reckoned": mem,
+              "memory_rel": peak / mem["total"] - 1.0,
+              "tol_memory": TOL_DIST_MEMORY})
+        require(all(bool(torch.isfinite(x).all()) for x in got["logits"]),
+                f"{phase} {tag}: logits not finite")
+        if fp32:
+            require(all(e_ <= TOL_FP32 for e_ in errs),
+                    f"{phase} {tag}: logits {errs} against {TOL_FP32}")
+            require(agree == 1.0, f"{phase} {tag}: greedy tokens differ "
+                    "from one rank's")
+            require(line["cache_rel_err"] <= TOL_FP32,
+                    f"{phase} {tag}: gathered cache {line['cache_rel_err']} "
+                    "from one rank's")
+        else:
+            ratio = line["l2_vs_one_rank_over_one_rank_bf16_vs_fp32"]
+            require(all(x <= line["tol_ratio"] for x in ratio),
+                    f"{phase} {tag}: {ratio} against {line['tol_ratio']}")
+        require({k: counts[k] for k in kernels} == kernels,
+                f"{phase} {tag}: launches {counts}, reckoned {kernels}")
+        require(counts["fused_matmul"] > 0 and (
+            counts["flash_attention"] > 0 or cfg.family == "rwkv6"),
+                f"{phase} {tag}: launches {counts}")
+        require(counted == reckoned and card.per_collective
+                == meta.per_collective, f"{phase} {tag}: a decode step's "
+                f"collective bytes {counted}, meta {meta.per_collective}, "
+                f"reckoned {reckoned}")
+        require(abs(peak / mem["total"] - 1.0) <= TOL_DIST_MEMORY,
+                f"{phase} {tag}: peak {peak} B against {mem['total']} B "
+                "reckoned")
+        launches[f"dist-rec-{tag}"] = counts
+        del params, cache, got, card, meta, pre, meta_params, meta_cache
+        torch.cuda.empty_cache()
+
+    # one fp32 AdamW step of each family on (data 2, model 2)
+    train_mesh = make_mesh((2, 2), ("data", "model"))
+    for arch in DIST_REC_TRAIN_LAYERS:
+        cfg, tcfg = _rec_train_fp32(arch)
+        params = built(cfg, train_mesh)
+        opt = adamw.init(tcfg.optimizer, params)
+        batch = train_batch(cfg, *DIST_TRAIN_FP32_BATCH, "cuda")
+        read = _counted(wrappers)
+        with logical.use_rules(train_mesh):
+            _, opt, metrics, _ = make_train_step(cfg, tcfg)(
+                params, opt, sharding.local_batch(batch, train_mesh))
+        counts = read()
+        ref = one[f"train-{arch}"]
+        ref_mu = sharding.shard_params(
+            torch.load(out_dir / f"rec_train_mu_{arch}.pt", mmap=True),
+            train_mesh, glu=cfg.mlp_glu)
+        worst = torch.stack([(a - b.cuda()).abs().max().float() for a, b in
+                             zip(tree.leaves(opt["mu"]),
+                                 tree.leaves(ref_mu))])
+        collectives.all_reduce(worst, op="max")
+        grad_rel = (worst.cpu() / torch.tensor(ref["mu_max"])).tolist()
+        loss = float(metrics["loss"])
+        loss_rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+        emit({"phase": "dist-rec-train", **head, **counts,
+              "config": f"{arch} full width, {cfg.n_layers} layers, fp32, "
+                        f"(data 2, model 2), batch {DIST_TRAIN_FP32_BATCH}",
+              "loss": loss, "one_rank_loss": ref["loss"],
+              "loss_rel": loss_rel, "tol_loss": TOL_TRAIN_LOSS,
+              "mu_rel_max": max(grad_rel), "tol_grad": TOL_TRAIN_GRAD})
+        require(loss_rel <= TOL_TRAIN_LOSS, f"dist-rec-train {arch}: loss "
+                f"{loss} against one rank's {ref['loss']}")
+        require(max(grad_rel) <= TOL_TRAIN_GRAD, f"dist-rec-train {arch}: "
+                f"first moment {max(grad_rel)} of a leaf's max")
+        require(counts["fused_matmul"] > 0 and counts["rglru_scan"] == 0
+                and counts["rwkv6_scan"] == 0,
+                f"dist-rec-train {arch}: launches {counts}")
+        launches[f"dist-rec-train-{arch}"] = counts
+        del params, opt, ref_mu, metrics
+        torch.cuda.empty_cache()
+
+    checks = _rec_kernel_checks(torch.Generator(device="cuda").manual_seed(
+        DIST_SEED + r), DIST_REC_RANKS)
+    emit({"phase": "dist-rec-kernels", **head, "checks": checks})
+    require(all(c["ok"] for c in checks), f"dist-rec-kernels: {checks}")
+    (out_dir / f"rec_rank{r}.json").write_text(json.dumps(
+        {"world": head, "launches": launches}))
+
+
+def phase_dist_rec():
+    """RecurrentGemma-2B, RWKV-6-7B and whisper-tiny served and trained on
+    DIST_REC_RANKS ranks through ``launch.mesh.run_world`` (gloo: the
+    ranks share the card; ``_dist_rec_rank``).  First, in this process,
+    what the ranks are held to, on one rank: each serving run of
+    ``_rec_serve_configs`` (``_mesh_serve``; the fp32 runs keep their
+    cache, the bf16 runs beside an fp32 run at full depth on their
+    tokens, the yardstick) and each family's fp32 train step (its first
+    moment saved for the ranks to read).  A rank that fails, or a world
+    that outlives DIST_REC_TIMEOUT, fails the phase."""
+    import shutil
+
+    from repro_torch.core import tree
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.models.base import family_module
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import make_train_step
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    one = {}
+    for tag, cfg in _rec_serve_configs():
+        runs = [(tag, cfg)]
+        if cfg.dtype == torch.bfloat16:
+            runs.append((tag + "-fp32", cfg.with_(
+                dtype=torch.float32, kv_cache_dtype=torch.float32)))
+        for run, c in runs:
+            mod = family_module(c)
+            params = mod.init(c, torch.Generator(device="cuda").manual_seed(
+                DIST_SEED), "cuda")
+            cache = mod.init_cache(c, MAX_BATCH, CACHE_LEN, device="cuda")
+            follow = one[f"serve-{tag}"]["greedy"][:, :-1] if run != tag \
+                else None
+            got = _mesh_serve(c, params, cache, follow)
+            cache = got.pop("cache")
+            got.pop("batch")
+            if c.dtype == torch.float32 and run == tag:
+                got["cache"] = tree.tree_map(lambda x: x.cpu(), cache)
+            if run == tag:
+                one[f"serve-{tag}"] = got
+            else:
+                one[f"serve-{tag}"]["fp32_logits"] = got["logits"]
+            del params, cache, got
+            torch.cuda.empty_cache()
+    for arch in DIST_REC_TRAIN_LAYERS:
+        cfg, tcfg = _rec_train_fp32(arch)
+        params = family_module(cfg).init(cfg, torch.Generator(
+            device="cuda").manual_seed(DIST_SEED), "cuda")
+        _, opt, metrics, _ = make_train_step(cfg, tcfg)(
+            params, adamw.init(tcfg.optimizer, params),
+            train_batch(cfg, *DIST_TRAIN_FP32_BATCH, "cuda"))
+        mu = tree.tree_map(lambda x: x.cpu(), opt["mu"])
+        one[f"train-{arch}"] = {"loss": float(metrics["loss"]), "mu_max": [
+            float(x.abs().max()) for x in tree.leaves(mu)]}
+        torch.save(mu, DIST_DIR / f"rec_train_mu_{arch}.pt")
+        del params, opt, metrics, mu
+        torch.cuda.empty_cache()
+    torch.save(one, DIST_DIR / "rec_one.pt")
+    one_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    try:
+        run_world(_dist_rec_rank, DIST_REC_RANKS, (str(DIST_DIR),),
+                  rendezvous=str(DIST_DIR / "rendezvous"),
+                  timeout=DIST_REC_TIMEOUT)
+    except Exception as e:                   # a rank failed or hung
+        raise PhaseFailed(f"dist-rec: {type(e).__name__}: {e}") from None
+    world_s = time.perf_counter() - t0
+    ranks = [json.loads((DIST_DIR / f"rec_rank{i}.json").read_text())
+             for i in range(DIST_REC_RANKS)]
+    launches = {f"{path}/rank{i}": counts for i, got in enumerate(ranks)
+                for path, counts in got["launches"].items()}
+    emit({"phase": "dist-rec", "ranks": DIST_REC_RANKS,
+          "backend": ranks[0]["world"]["backend"],
+          "backend_reason": ranks[0]["world"]["backend_reason"],
+          "one_rank_s": one_s, "world_wall_s": world_s,
+          "wall_s": time.perf_counter() - t_phase, "launches": launches})
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     return launches
 
@@ -5532,6 +6058,10 @@ def main() -> int:
         # yi-6b served on 8 ranks, its 4 KV heads' cache shared out along
         # the sequence
         launches.update(phase_dist_seq())
+        # RecurrentGemma-2B, RWKV-6-7B and whisper-tiny served and trained
+        # on DIST_REC_RANKS ranks: K5 on each rank's channels, K6 on its
+        # heads
+        launches.update(phase_dist_rec())
         launches["dryrun"] = phase_dryrun(card)
         kernels = phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, launches)
     except PhaseFailed as e:

@@ -2,13 +2,16 @@
 """Hold phase ``dist-tp``'s bf16 yardstick against two known faults of the
 tensor-parallel path, on this machine's first card.
 
-    PYTHONPATH=src python scripts/tp_bf16_yardstick.py [--seeds 7 8 9]
+    PYTHONPATH=src python scripts/tp_bf16_yardstick.py [--seeds 7 8 9] \
+        [--arch yi-6b] [--ranks 2]
 
-yi-6b at full width and depth (32 layers, bf16) serves the serve
-traffic's first batch (4 prompts padded to 221 tokens) and 4 decode
-steps, as ``chip_smoke.py::_mesh_serve`` does, first on one rank in bf16
-and in fp32 (the fp32 run decodes the bf16 run's tokens), then on two
-ranks of a (data 1, model 2) mesh in bf16, decoding the same tokens.  A
+yi-6b (``--arch``: or RecurrentGemma-2B or RWKV-6-7B, whose limits
+phase ``dist-rec`` holds) at full width and depth in bf16 serves the
+serve traffic's first batch (4 prompts padded to 221 tokens) and 4
+decode steps, as ``chip_smoke.py::_mesh_serve`` does, first on one rank
+in bf16 and in fp32 (the fp32 run decodes the bf16 run's tokens), then
+on ``--ranks`` ranks of a (data 1, model ranks) mesh in bf16, decoding
+the same tokens.  A
 sound tensor-parallel path rounds as one rank does, in another order, so
 its distance from the fp32 logits is about one rank's, and its distance
 from one rank's bf16 logits is a share of that.  At each of the 5 logits
@@ -23,9 +26,12 @@ Each seed's weights run three variants on the ranks:
 - ``sound``: the path as it is;
 - ``round-twice``: each row-parallel projection's partial product is
   rounded to bf16 before the ranks' sum, which rounds again
-  (``models/common.py::_row_parallel`` replaced in memory);
-- ``kv-swap``: rank 1 attends with its two KV heads swapped
-  (``models/common.py::_qkv_placed``'s output permuted in memory).
+  (``models/common.py::row_parallel`` replaced in memory);
+- a head swap on rank 1, in memory: yi-6b's ``kv-swap`` (its two KV
+  heads swapped, ``models/common.py::_qkv_placed``'s output permuted),
+  RecurrentGemma's ``q-swap`` (its q heads in reverse order, the same
+  output) and RWKV-6's ``r-swap`` (the receptance's heads in reverse
+  order at the WKV, ``models/rwkv6.py::_wkv_stateful``'s input).
 
 The faults are patched into the ranks' processes only; no file changes.
 One JSON line a seed and variant (from rank 0), after the card's name and
@@ -49,9 +55,10 @@ import torch                                                # noqa: E402
 
 import chip_smoke as smoke                                  # noqa: E402
 
-RANKS = 2
 OUT = ROOT / "build" / "tp_bf16_yardstick"
-VARIANTS = ("sound", "round-twice", "kv-swap")
+#: each architecture's head swap (the third variant)
+SWAP = {"yi-6b": "kv-swap", "recurrentgemma-2b": "q-swap",
+        "rwkv6-7b": "r-swap"}
 
 
 def _rms_rel(out, ref) -> float:
@@ -64,19 +71,18 @@ def _distances(logits, ref) -> dict:
             "rms": [_rms_rel(a, b) for a, b in zip(logits, ref)]}
 
 
-def _config(dtype):
-    cfg = smoke._mesh_tp_configs()[1][1]
-    return cfg.with_(dtype=dtype, kv_cache_dtype=dtype)
+def _config(arch, dtype):
+    return smoke._cut(arch, None, dtype=dtype, kv_cache_dtype=dtype)
 
 
-def _one_rank(seeds) -> None:
+def _one_rank(arch, seeds) -> None:
     """One rank's bf16 and fp32 runs of each seed, saved for the ranks."""
     from repro_torch.models.base import family_module
     for seed in seeds:
         runs = {}
         for tag, dtype in (("bf16", torch.bfloat16),
                            ("fp32", torch.float32)):
-            cfg = _config(dtype)
+            cfg = _config(arch, dtype)
             mod = family_module(cfg)
             params = mod.init(cfg, torch.Generator(
                 device="cuda").manual_seed(seed), "cuda")
@@ -84,20 +90,24 @@ def _one_rank(seeds) -> None:
                                    device="cuda")
             follow = runs["bf16"]["greedy"][:, :-1] if tag == "fp32" else None
             runs[tag] = smoke._mesh_serve(cfg, params, cache, follow)
-            del params, cache
+            del runs[tag]["cache"], runs[tag]["batch"], params, cache
             torch.cuda.empty_cache()
         torch.save(runs, OUT / f"one_{seed}.pt")
 
 
-def _rank(world, seeds) -> None:
+def _rank(world, arch, seeds) -> None:
+    import torch.distributed as dist
     from repro_torch.core import tree
     from repro_torch.core.precision import disable_tf32
     from repro_torch.distributed import logical, sharding
+    from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import common as cm
+    from repro_torch.models import rwkv6
     from repro_torch.models.base import family_module
     disable_tf32()
-    row_parallel, qkv_placed = cm._row_parallel, cm._qkv_placed
+    row_parallel, qkv_placed = cm.row_parallel, cm._qkv_placed
+    wkv_stateful = rwkv6._wkv_stateful
 
     def round_twice(cfg, pl, x, w, *rest):
         y = cm.linear(x, w, backend=cm._mm_backend(cfg))    # bf16 partial
@@ -109,20 +119,36 @@ def _rank(world, seeds) -> None:
             k, v = k.flip(1), v.flip(1)
         return q, k, v
 
-    mesh = make_mesh((1, RANKS), ("data", "model"))
-    cfg = _config(torch.bfloat16)
+    def q_swap(cfg, pl, *rest):
+        q, k, v = qkv_placed(cfg, pl, *rest)
+        return (q.flip(1) if pl.rank == 1 else q), k, v
+
+    def r_swap(cfg, r, *rest):
+        if tp.current().rank == 1:
+            r = r.flip(1)
+        return wkv_stateful(cfg, r, *rest)
+
+    mesh = make_mesh((1, world.size), ("data", "model"))
+    cfg = _config(arch, torch.bfloat16)
     mod = family_module(cfg)
+    swap = SWAP[arch]
     for seed in seeds:
         one = torch.load(OUT / f"one_{seed}.pt")
-        whole = mod.init(cfg, torch.Generator(device="cuda").manual_seed(
-            seed), "cuda")
-        params = sharding.shard_params(whole, mesh)
-        del whole
-        torch.cuda.empty_cache()
-        for variant in VARIANTS:
-            cm._row_parallel = (round_twice if variant == "round-twice"
-                                else row_parallel)
-            cm._qkv_placed = kv_swap if variant == "kv-swap" else qkv_placed
+        for turn in range(world.size):     # one whole model at a time
+            if turn == world.rank:
+                whole = mod.init(cfg, torch.Generator(
+                    device="cuda").manual_seed(seed), "cuda")
+                params = sharding.shard_params(whole, mesh, glu=cfg.mlp_glu)
+                del whole
+                torch.cuda.empty_cache()
+            dist.barrier()
+        for variant in ("sound", "round-twice", swap):
+            cm.row_parallel = (round_twice if variant == "round-twice"
+                               else row_parallel)
+            cm._qkv_placed = {"kv-swap": kv_swap, "q-swap": q_swap}.get(
+                variant, qkv_placed)
+            rwkv6._wkv_stateful = (r_swap if variant == "r-swap"
+                                   else wkv_stateful)
             cache = tree.tree_map(
                 lambda x: torch.zeros(x.shape, dtype=x.dtype, device="cuda"),
                 sharding.shard_cache(mod.init_cache(
@@ -137,6 +163,7 @@ def _rank(world, seeds) -> None:
                                   one["fp32"]["logits"])
             if world.rank == 0:
                 print(json.dumps({
+                    "arch": arch, "ranks": world.size,
                     "seed": seed, "variant": variant,
                     "backend": world.backend,
                     "tp_vs_one_bf16": _distances(got["logits"],
@@ -153,12 +180,15 @@ def _rank(world, seeds) -> None:
                     "tol_ratio": smoke.TOL_TP_BF16,
                     "greedy_agree": float((got["greedy"] == one["bf16"][
                         "greedy"]).float().mean())}), flush=True)
-    cm._row_parallel, cm._qkv_placed = row_parallel, qkv_placed
+    cm.row_parallel, cm._qkv_placed = row_parallel, qkv_placed
+    rwkv6._wkv_stateful = wkv_stateful
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[7, 8, 9])
+    ap.add_argument("--arch", choices=tuple(SWAP), default="yi-6b")
+    ap.add_argument("--ranks", type=int, default=2)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("tp_bf16_yardstick: no CUDA device")
@@ -170,8 +200,8 @@ def main(argv=None) -> None:
     from repro_torch.launch.mesh import run_world
     disable_tf32()
     OUT.mkdir(parents=True, exist_ok=True)
-    _one_rank(args.seeds)
-    run_world(_rank, RANKS, (args.seeds,),
+    _one_rank(args.arch, args.seeds)
+    run_world(_rank, args.ranks, (args.arch, args.seeds),
               rendezvous=str(OUT / "rendezvous"),
               timeout=300 + 200 * len(args.seeds))
 

@@ -39,11 +39,15 @@ function                  forward                backward
 ``reduce_from_group``     all-reduce             identity
 ``gather_from_group``     all-gather along dim   reduce-scatter
 ``scatter_to_group``      reduce-scatter         all-gather
+``gather_to_whole``       all-gather along dim   the rank's chunk
 ========================  =====================  ======================
 
 ``gather_from_group`` is the FSDP weight gather over the data axes and the
 sequence-parallel gather over ``model``; ``scatter_to_group`` the
-sequence-parallel reduce-scatter.
+sequence-parallel reduce-scatter; ``gather_to_whole`` gathers a region's
+column shards where every rank then computes the same from them (Megatron's
+gather at a column-parallel output), so that each rank's gradient is
+already the whole one.
 """
 
 from __future__ import annotations
@@ -219,6 +223,19 @@ class _ScatterToGroup(torch.autograd.Function):
         return all_gather(g, ctx.group, ctx.dim), None, None
 
 
+class _GatherToWhole(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        rank = (0 if _recorded_only(g, ctx.group)
+                else dist.get_rank(ctx.group))
+        return g.narrow(ctx.dim, rank * ctx.size, ctx.size), None, None
+
+
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` as it is; its gradient all-reduced over ``group`` (the input
     of a region whose ranks each compute a share of what follows)."""
@@ -241,3 +258,10 @@ def scatter_to_group(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """This rank's chunk along ``dim`` of the sum of ``x`` over
     ``group``; its gradient all-gathered."""
     return _ScatterToGroup.apply(x, group, dim)
+
+
+def gather_to_whole(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` along ``dim``; its gradient narrowed to this
+    rank's chunk (the ranks compute the same from the whole, so each
+    holds the whole gradient)."""
+    return _GatherToWhole.apply(x, group, dim)

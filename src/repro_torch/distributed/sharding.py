@@ -23,6 +23,9 @@ the up projection in its second, and K1 reads it as (d, 2, d_ff/...).  A
 contiguous column shard would give rank 0 only gates, so a rank's shard
 of ``wi`` is ``wi.view(d, 2, d_ff)[:, :, r·d_ff/m:(r+1)·d_ff/m]``: the
 same size as the reference's shard, its gate and up columns paired.
+Only a GLU's ``wi`` is paired: the callers pass the config's
+``mlp_glu``, and a plain MLP's ``wi`` (Whisper's GELU projection) takes
+the reference's contiguous column shard.
 ``local_batch`` gives a rank its rows of each microbatch and
 ``shard_cache`` its KV cache shard, in each of the reference's three
 forms (``gather_cache`` is its inverse).
@@ -189,7 +192,7 @@ def local_shape(mesh: Mesh, shape, spec) -> "tuple[int, ...]":
                  for n, e in zip(shape, spec))
 
 
-def _block(mesh: Mesh, names) -> int:
+def block_index(mesh: Mesh, names) -> int:
     """This rank's index over ``names`` together, major first."""
     idx = 0
     for a in names:
@@ -205,7 +208,7 @@ def shard_leaf(x: torch.Tensor, spec, mesh: Mesh, glu: bool = False):
         if not names:
             continue
         n = math.prod(mesh.shape[a] for a in names)
-        i = _block(mesh, names)
+        i = block_index(mesh, names)
         if glu and d == x.ndim - 1:
             pairs = x.unflatten(d, (2, x.shape[d] // 2))
             if pairs.shape[d + 1] % n:
@@ -256,24 +259,27 @@ def param_specs(params):
             for path, leaf in tree.flatten_with_path(params)]
 
 
-def shard_params(params, mesh: Mesh, rules: Optional[dict] = None):
+def shard_params(params, mesh: Mesh, rules: Optional[dict] = None, *,
+                 glu: bool):
     """Each leaf of a whole tree (params, or an optimizer state that
     mirrors them) as this rank's shard under ``rules``, a plain tensor
-    that owns its memory (a leaf kept whole is returned as it is); the
-    ``wi`` leaves are GLU projections (``shard_leaf``).  On ``meta``
-    leaves, the shards' shapes."""
+    that owns its memory (a leaf kept whole is returned as it is); with
+    ``glu`` (the config's ``mlp_glu``) the ``wi`` leaves are GLU
+    projections (``shard_leaf``).  On ``meta`` leaves, the shards'
+    shapes."""
     with logical.use_rules(mesh, rules):
         out = [_own(shard_leaf(leaf, spec_of(_leaf_name(path), leaf.shape),
-                               mesh, _leaf_name(path) == "wi"))
+                               mesh, glu and _leaf_name(path) == "wi"))
                for path, leaf in tree.flatten_with_path(params)]
     return tree.unflatten(params, out)
 
 
 def gather_params(local, like, mesh: Mesh, rules: Optional[dict] = None,
-                  leaf_fn=None):
+                  leaf_fn=None, *, glu: bool):
     """The whole tree in the reference's layout from each rank's shards
-    ``local`` (``shard_params``'s inverse); ``like`` has the whole
-    shapes (``meta`` serves).  Every rank of the mesh calls it.
+    ``local`` (``shard_params``'s inverse, with the same ``glu``);
+    ``like`` has the whole shapes (``meta`` serves).  Every rank of the
+    mesh calls it.
     ``leaf_fn(i, whole)`` is applied to each whole leaf as it is
     gathered, one leaf at a time (a checkpoint copies it to the host);
     its results are returned instead of the leaves."""
@@ -282,7 +288,7 @@ def gather_params(local, like, mesh: Mesh, rules: Optional[dict] = None,
         for i, ((path, x), big) in enumerate(zip(
                 tree.flatten_with_path(local), tree.leaves(like))):
             whole = gather_leaf(x, spec_of(_leaf_name(path), big.shape),
-                                mesh, _leaf_name(path) == "wi")
+                                mesh, glu and _leaf_name(path) == "wi")
             out.append(whole if leaf_fn is None else leaf_fn(i, whole))
     return tree.unflatten(local, out)
 
@@ -328,13 +334,21 @@ def cache_placement(leaf, cfg, mesh: Mesh):
     spec gives the leaf's shape: the leaf's own, or that times the ranks
     of the axes the sequence may take (the batch is the rank's rows
     either way).  Raises where both do: a leaf of every KV head can be a
-    share of the positions or all of them."""
+    share of the positions or all of them.  A recurrent state leaf (not
+    5-D) has no such reading where the batch axes split anything: its
+    rows or, unstacked, its channels."""
     shape = tuple(leaf.shape)
     model = mesh.shape.get("model", 1)
     whole = getattr(leaf, WHOLE_SHAPE, None)
     if whole is not None:
         return whole, _spec_of_cache(whole, model)
     if len(shape) != 5:
+        batch = axis_names(logical._ACTIVE[-1][1].get("batch"))
+        if any(mesh.shape.get(a, 1) > 1 for a in batch):
+            raise ValueError(
+                f"a state leaf of {shape} on {mesh!r} has no whole shape: "
+                "place the cache with sharding.shard_cache, which records "
+                "its whole shape")
         return shape, _spec_of_cache(shape, model)
     fits = []
     for n in sorted({1, _seq_ranks(mesh)}):
@@ -380,7 +394,7 @@ def local_batch(batch, mesh: Mesh, microbatches: int = 1,
                              f"into {microbatches} microbatches over {n} "
                              "ranks")
         mb = x.shape[0] // microbatches
-        i = _block(mesh, names)
+        i = block_index(mesh, names)
         rows = x.unflatten(0, (microbatches, n, mb // n))[:, i]
         return _own(rows.flatten(0, 1))
     return _map_pair(one, batch, shardings)

@@ -35,10 +35,14 @@ moving themselves:
 * ``cache_shard`` says where the rank's KV cache lies in the whole
   (``sharding.shard_cache``): its own KV heads, or every KV head at a
   share of the positions (split over ``model``) or at all of them.
+* ``read_state`` and ``write_state`` move a recurrent state leaf that the
+  reference keeps whole over ``model`` (Griffin's conv tail and RG-LRU
+  carry) between the cache's form and the rank's rows and channels.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -59,6 +63,12 @@ class CacheShard:
     start: int
     length: int
     split: bool
+
+    @classmethod
+    def whole(cls, length: int) -> "CacheShard":
+        """A cache held whole: every KV head at all ``length`` positions
+        (one process, off a mesh)."""
+        return cls(every_head=True, start=0, length=length, split=False)
 
 
 class Placement:
@@ -157,6 +167,14 @@ class Placement:
             return t
         return collectives.gather_from_group(t, self.group("model"), dim)
 
+    def gather_whole(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` along ``dim`` over ``model``, where every
+        rank then computes the same from it; the gradient is the rank's
+        chunk of its own."""
+        if self.model == 1:
+            return t
+        return collectives.gather_to_whole(t, self.group("model"), dim)
+
     def reduce_max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise max of ``t`` over ``model``, no gradient."""
         t = t.detach().clone()
@@ -176,6 +194,66 @@ class Placement:
         start = self.rank * leaf.shape[3] if names else 0
         return CacheShard(every_head=leaf.shape[2] == cfg.n_kv_heads,
                           start=start, length=whole[3], split=bool(names))
+
+    # -- recurrent state ---------------------------------------------------
+    def _rows(self, n: int) -> "tuple[str, ...]":
+        """The axes a batch of ``n`` rows is split over (``local_batch``)."""
+        spec = logical.spec_for((n,), ("batch",))
+        return tuple(a for a in sharding.axis_names(spec[0])
+                     if self.mesh.shape[a] > 1)
+
+    def _state_spec(self, cfg, leaf, batch_dim: int):
+        """(the leaf's spec, the axes its rows are split over, the axes
+        the batch's rows are)."""
+        whole, spec = sharding.cache_placement(leaf, cfg, self.mesh)
+        held = tuple(a for a in sharding.axis_names(spec[batch_dim])
+                     if self.mesh.shape[a] > 1)
+        return spec, held, self._rows(whole[batch_dim])
+
+    def read_state(self, cfg, leaf: torch.Tensor, batch_dim: int,
+                   chan_dim: int) -> torch.Tensor:
+        """A copy of a state leaf of the cache (in the reference's form,
+        its channels whole over ``model``; placed by
+        ``sharding.shard_cache``) at the rank's rows, as its batch holds
+        them, and its ``model`` share of the channels (dim ``chan_dim``).
+        A dim the form splits otherwise (an unstacked leaf's channels,
+        which the reference splits over the batch axes) is gathered."""
+        spec, held, rows = self._state_spec(cfg, leaf, batch_dim)
+        x = leaf
+        for d, entry in enumerate(spec):
+            if d == batch_dim and held == rows:
+                continue
+            for a in reversed(sharding.axis_names(entry)):
+                if self.mesh.shape[a] > 1:
+                    x = collectives.all_gather(x, self.group(a), d)
+        if rows != held:
+            n = x.shape[batch_dim] // math.prod(self.mesh.shape[a]
+                                                for a in rows)
+            x = x.narrow(batch_dim, sharding.block_index(self.mesh, rows) * n,
+                         n)
+        if self.model > 1:
+            c = x.shape[chan_dim] // self.model
+            x = x.narrow(chan_dim, self.rank * c, c)
+        return x.clone(memory_format=torch.contiguous_format)
+
+    def write_state(self, cfg, leaf: torch.Tensor, new: torch.Tensor,
+                    batch_dim: int, chan_dim: int) -> None:
+        """Write ``new`` (``read_state``'s form: the rank's rows and
+        channels) into the cache's leaf: gathered over ``model`` along the
+        channels, over the batch axes along the rows where the leaf holds
+        them all, then the leaf's shard of it."""
+        spec, held, rows = self._state_spec(cfg, leaf, batch_dim)
+        x = new
+        if self.model > 1:
+            x = collectives.all_gather(x, self.group("model"), chan_dim)
+        if rows != held:
+            for a in reversed(rows):
+                x = collectives.all_gather(x, self.group(a), batch_dim)
+            x = sharding.shard_leaf(x, spec, self.mesh)
+        else:
+            x = sharding.shard_leaf(x, spec[:batch_dim] + (None,)
+                                    + spec[batch_dim + 1:], self.mesh)
+        leaf.copy_(x)
 
     # -- the batch and the optimizer ----------------------------------------
     def sum_over_batch(self, t: torch.Tensor) -> torch.Tensor:
@@ -240,12 +318,3 @@ def seq_sharded() -> bool:
     """Whether the current pass holds the rank's share of the sequence."""
     pl = current()
     return pl is not None and pl.seq
-
-
-def refuse_mesh(family: str) -> None:
-    """Stop a family that does not run on a mesh, under any axis larger
-    than 1."""
-    mesh = logical.active_mesh()
-    if mesh is not None and any(n > 1 for n in mesh.shape.values()):
-        raise NotPorted(f"the {family} family on a mesh ({mesh!r}) is not "
-                        "ported: ROADMAP item 7c")

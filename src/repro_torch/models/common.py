@@ -33,6 +33,9 @@ from repro_torch import NotPorted
 from repro_torch.core import tree
 from repro_torch.core.fusion import linear
 from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.kernels.attention.ops import (decode_attention,
+                                               decode_attention_merge,
+                                               decode_attention_partial)
 from repro_torch.kernels.matmul import ops as mm_ops
 from repro_torch.models.base import ArchConfig
 
@@ -252,25 +255,38 @@ def attn_init(cfg: ArchConfig, gen: torch.Generator, device=None):
     return p
 
 
-def qkv_project(cfg: ArchConfig, p, x, positions, every_kv: bool = False):
-    """x: (B, S, d) -> q (B, H, S, hd), k/v (B, Hkv, S, hd) with RoPE.
-    Under a mesh, the rank's heads (``_qkv_placed``); ``every_kv``, K and
-    V of every KV head however few the rank's q heads read."""
+def qkv_project(cfg: ArchConfig, p, x, positions, every_kv: bool = False,
+                kv_x=None):
+    """x: (B, S, d) -> q (B, H, S, hd), k/v (B, Hkv, S', hd) with RoPE;
+    K and V are projected from ``kv_x`` (B, S', d) where given (a
+    cross-attention's encoder output), else from ``x``.  Under a mesh,
+    the rank's heads (``_qkv_placed``); ``every_kv``, K and V of every KV
+    head however few the rank's q heads read.  A cross-attention's
+    projections take no route (``_route``)."""
     pl = tp.current()
     if pl is not None:
-        return _qkv_placed(cfg, pl, p, x, positions, every_kv)
+        return _qkv_placed(cfg, pl, p, x, positions, every_kv, kv_x)
     return _qkv(cfg, x, (p["wq"], p["wk"], p["wv"]),
                 (p.get("bq"), p.get("bk"), p.get("bv")),
-                (p.get("q_norm"), p.get("k_norm")), positions)
+                (p.get("q_norm"), p.get("k_norm")), positions, kv_x)
 
 
-def _qkv(cfg: ArchConfig, x, w, bias, norms, positions):
+def _route(cfg: ArchConfig, cross: bool) -> "str | None":
+    """A q/K/V projection's matmul route: ``_mm_backend``'s, but none
+    for a cross-attention's, which resolves it through the tuned
+    dispatch by shape, as the reference's cross projections do."""
+    return None if cross else _mm_backend(cfg)
+
+
+def _qkv(cfg: ArchConfig, x, w, bias, norms, positions, kv_x=None):
     b, s, _ = x.shape
-    q, k, v = (linear(x, wi, bi, backend=_mm_backend(cfg))
-               for wi, bi in zip(w, bias))
+    src = x if kv_x is None else kv_x
+    route = _route(cfg, kv_x is not None)
+    q, k, v = (linear(xi, wi, bi, backend=route)
+               for xi, wi, bi in zip((x, src, src), w, bias))
     q = q.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
-    k = k.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
-    v = v.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
+    k = k.reshape(b, src.shape[1], -1, cfg.head_dim).transpose(1, 2)
+    v = v.reshape(b, src.shape[1], -1, cfg.head_dim).transpose(1, 2)
     if cfg.qk_norm:
         q = rmsnorm(q, norms[0], cfg.rms_eps)
         k = rmsnorm(k, norms[1], cfg.rms_eps)
@@ -298,7 +314,8 @@ def rank_heads(cfg: ArchConfig, pl) -> "tuple[int, int, int, int]":
                     f"whole KV groups of {group} (ROADMAP item 7c)")
 
 
-def _qkv_placed(cfg: ArchConfig, pl, p, x, positions, every_kv=False):
+def _qkv_placed(cfg: ArchConfig, pl, p, x, positions, every_kv=False,
+                kv_x=None):
     """The rank's q heads and the KV heads they read, from its shards.
 
     ``wq`` holds the rank's q columns.  Where the q heads divide
@@ -309,8 +326,9 @@ def _qkv_placed(cfg: ArchConfig, pl, p, x, positions, every_kv=False):
     from its own columns; else (yi-6b's 4 KV heads on 16) the KV weights
     are gathered over ``model`` and the rank computes the KV heads its q
     heads read, or, with ``every_kv`` (a cache that holds every KV head
-    on each rank: ``models/transformer.py``), every KV head in one
-    product, as the reference's one matmul does."""
+    on each rank: ``_attend_placed``), every KV head in one product, as
+    the reference's one matmul does.  ``kv_x`` (a cross-attention's
+    encoder output) enters the region beside ``x``."""
     d, hd = cfg.d_model, cfg.head_dim
     wq, qd = pl.param(p["wq"], "wq", (d, cfg.q_dim))
     wk, kd = pl.param(p["wk"], "wk", (d, cfg.kv_dim))
@@ -321,15 +339,13 @@ def _qkv_placed(cfg: ArchConfig, pl, p, x, positions, every_kv=False):
         if pl.seq:
             raise NotPorted("attention held whole under sequence "
                             "parallelism (ROADMAP item 7c)")
-        return _qkv(cfg, x, (wq, wk, wv), bias, norms, positions)
+        return _qkv(cfg, x, (wq, wk, wv), bias, norms, positions, kv_x)
     if qd != 1 or kd != vd:
         raise NotPorted(f"{cfg.name}: q columns {qd} and KV columns {kd} "
                         "over model in other forms (ROADMAP item 7c)")
     m, r = pl.model, pl.rank
     h = pl.enter(x)
-    cols = cfg.q_dim // m
-    bq = pl.whole_in_region(bias[0])
-    bq = None if bq is None else bq[r * cols:(r + 1) * cols]
+    src = h if kv_x is None else pl.enter(kv_x)
     q0, hq, k0, hk = rank_heads(cfg, pl)
     if every_kv:
         k0, hk = 0, cfg.n_kv_heads
@@ -344,15 +360,14 @@ def _qkv_placed(cfg: ArchConfig, pl, p, x, positions, every_kv=False):
         wk, wv = ((pl.gather_model(w_, 1) if kd == 1
                    else pl.whole_in_region(w_))[:, span] for w_ in (wk, wv))
     bk, bv = (None if b_ is None else b_[span] for b_ in (bk, bv))
-    q = linear(h, wq, bq, backend=_mm_backend(cfg))
-    if hq == cfg.n_heads:                   # every head: the columns gathered
-        q = pl.gather_model(q, -1)
-    k = linear(h, wk, bk, backend=_mm_backend(cfg))
-    v = linear(h, wv, bv, backend=_mm_backend(cfg))
+    route = _route(cfg, kv_x is not None)
+    q = _q_columns(cfg, pl, h, wq, bias[0], hq, route)
+    k = linear(src, wk, bk, backend=route)
+    v = linear(src, wv, bv, backend=route)
     b, s, _ = h.shape
     q = q.reshape(b, s, hq, hd).transpose(1, 2)
-    k = k.reshape(b, s, hk, hd).transpose(1, 2)
-    v = v.reshape(b, s, hk, hd).transpose(1, 2)
+    k = k.reshape(b, src.shape[1], hk, hd).transpose(1, 2)
+    v = v.reshape(b, src.shape[1], hk, hd).transpose(1, 2)
     if cfg.qk_norm:
         q = rmsnorm(q, pl.whole_in_region(norms[0]), cfg.rms_eps)
         k = rmsnorm(k, pl.whole_in_region(norms[1]), cfg.rms_eps)
@@ -360,6 +375,120 @@ def _qkv_placed(cfg: ArchConfig, pl, p, x, positions, every_kv=False):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _q_columns(cfg: ArchConfig, pl, h, wq, bq, hq: int, route):
+    """The rank's q columns of ``h`` (inside the region), gathered over
+    ``model`` where the rank attends with every head (``rank_heads``)."""
+    cols = cfg.q_dim // pl.model
+    bq = pl.whole_in_region(bq)
+    bq = None if bq is None else bq[pl.rank * cols:(pl.rank + 1) * cols]
+    q = linear(h, wq, bq, backend=route)
+    if hq == cfg.n_heads:                   # every head: the columns gathered
+        q = pl.gather_model(q, -1)
+    return q
+
+
+def cross_q_project(cfg: ArchConfig, p, x):
+    """A cross-attention's q alone (B, H, S, hd), no RoPE: a decode step,
+    whose K and V are cached.  Under a mesh, the rank's heads as
+    ``qkv_project`` gives them."""
+    pl = tp.current()
+    wq, qd = (p["wq"], None) if pl is None else pl.param(
+        p["wq"], "wq", (cfg.d_model, cfg.q_dim))
+    route = _route(cfg, cross=True)
+    if qd is None:
+        q = linear(x, wq, p.get("bq"), backend=route)
+    else:
+        hq = rank_heads(cfg, pl)[1]
+        q = _q_columns(cfg, pl, pl.enter(x), wq, p.get("bq"), hq, route)
+    b, s, _ = x.shape
+    return q.reshape(b, s, -1, cfg.head_dim).transpose(1, 2)
+
+
+def self_attention(cfg: ArchConfig, p, h, positions, *, window: int,
+                   kv_cache=None, cache_pos=None, shard=None):
+    """Causal self-attention's context (B, H, S, hd) of ``h`` (B, S, d),
+    the rank's heads under a mesh (``attn_out`` takes it).  ``kv_cache``
+    (k, v) is written in place at ``cache_pos``: a decode step (one new
+    token) attends over it, a prefill over the prompt.  ``shard`` (under
+    a mesh) says where the rank's cache lies in the whole: a cache of
+    every KV head goes through ``_attend_placed``."""
+    if shard is not None and shard.every_head:
+        return _attend_placed(cfg, p, h, positions, window, kv_cache,
+                              cache_pos, shard)
+    q, k, v = qkv_project(cfg, p, h, positions)
+    if kv_cache is None:
+        return attention(cfg, q, k, v, causal=True, window=window)
+    if k.shape[1] != kv_cache[0].shape[1]:
+        raise NotPorted(
+            f"{cfg.name}: a cache of {kv_cache[0].shape[1]} KV heads "
+            f"where the rank computes {k.shape[1]} (ROADMAP item 7c)")
+    k_cache, v_cache = cache_update(*kv_cache, k, v, cache_pos)
+    if q.shape[2] == 1:                          # decode: one new token
+        return decode_attention(q, k_cache, v_cache, cache_pos + 1,
+                                sm_scale=cfg.sm_scale, window=window,
+                                softcap=cfg.attn_softcap)
+    return attention(cfg, q, k, v, causal=True, window=window)
+
+
+def _attend_placed(cfg: ArchConfig, p, h, positions, window, kv_cache,
+                   cache_pos, shard):
+    """Attention on a rank whose cache holds every KV head (the
+    reference's cache on a model axis its KV heads do not divide), at
+    positions ``[shard.start, shard.start + S)`` of the whole.
+
+    The rank computes K and V of every KV head (``qkv_project`` with
+    ``every_kv``) and writes the new rows that fall in its positions: a
+    prefill its share of the prompt, a decode step the new token where
+    its rank holds ``cache_pos``.  A prefill attends with the rank's q
+    heads over the whole prompt (K2), as without a cache.  A decode step
+    whose cache holds every position attends so over it; where the
+    positions are shared out over ``model`` (``shard.split``), each rank
+    attends with every q head over its own positions (``split_decode``).
+    Every rank returns every head's context; ``attn_out`` takes its
+    rows."""
+    pl = tp.current()
+    if pl.seq:
+        raise NotPorted(f"{cfg.name}: a cache of every KV head under "
+                        "sequence parallelism (ROADMAP item 7c)")
+    q, k, v = qkv_project(cfg, p, h, positions, every_kv=True)
+    read = kv_read(cfg, pl, q)
+    k_cache, v_cache = cache_update(*kv_cache, k, v, cache_pos,
+                                    shard.start, shard.length)
+    if q.shape[2] > 1:                           # prefill writes + attends
+        return attention(cfg, q, k[:, read], v[:, read], causal=True,
+                         window=window)
+    kw = dict(sm_scale=cfg.sm_scale, window=window, softcap=cfg.attn_softcap)
+    if not shard.split:
+        return decode_attention(q, k_cache[:, read], v_cache[:, read],
+                                cache_pos + 1, **kw)
+    return split_decode(cfg, pl, q, k_cache, v_cache, cache_pos + 1,
+                        shard.start, **kw)
+
+
+def kv_read(cfg: ArchConfig, pl, q) -> slice:
+    """The KV heads (of every one) that the rank's q heads read."""
+    if q.shape[1] == cfg.n_heads:                # every q head on the rank
+        return slice(0, cfg.n_kv_heads)
+    _, _, k0, hk = rank_heads(cfg, pl)
+    return slice(k0, k0 + hk)
+
+
+def split_decode(cfg: ArchConfig, pl, q, k_cache, v_cache, cache_len,
+                 start: int, **kw):
+    """Decode attention over a cache whose positions are shared out over
+    ``model``: each rank attends with every q head (gathered over
+    ``model`` where it holds its own) over its positions ``[start, start
+    + S)``, in fp32, and the ranks combine the row max, the sum of
+    exponentials and P·V (``decode_attention_merge``: one max and one sum
+    all-reduced).  ``kw``: ``decode_attention``'s masks."""
+    if q.shape[1] != cfg.n_heads:
+        q = pl.gather_model(q, 1)
+    m, l, acc = decode_attention_partial(q, k_cache, v_cache, cache_len,
+                                         start=start, **kw)
+    return decode_attention_merge(m, l, acc, reduce_max=pl.reduce_max,
+                                  reduce_sum=pl.reduce, dtype=q.dtype)
 
 
 def attn_out(cfg: ArchConfig, p, ctx):
@@ -376,10 +505,10 @@ def attn_out(cfg: ArchConfig, p, ctx):
     rows = cfg.q_dim // pl.model
     if h * hd == cfg.q_dim and pl.model > 1:      # every head: the rank's
         ctx = ctx[..., pl.rank * rows:(pl.rank + 1) * rows]
-    return _row_parallel(cfg, pl, ctx, wo)
+    return row_parallel(cfg, pl, ctx, wo)
 
 
-def _row_parallel(cfg: ArchConfig, pl, x, w):
+def row_parallel(cfg: ArchConfig, pl, x, w):
     """A row-parallel projection's region exit.  The ranks' partial
     products are summed in fp32 and rounded once to ``x``'s dtype, as one
     rank's K1 accumulates the whole product: bf16 partials would round
@@ -410,18 +539,15 @@ def mlp_init(cfg: ArchConfig, gen: torch.Generator, device=None):
 
 
 def mlp_apply(cfg: ArchConfig, p, x):
-    """Under a mesh, ``wi``'s rank columns (its gate and up halves paired,
-    ``sharding.shard_leaf``) and ``wo``'s rows inside one region."""
+    """Under a mesh, ``wi``'s rank columns (a GLU's gate and up halves
+    paired, ``sharding.shard_leaf``; a plain MLP's contiguous) and
+    ``wo``'s rows inside one region."""
     wi, wo, region = p["wi"], p["wo"], None
     pl = tp.current()
     if pl is not None:
         mult = 2 if cfg.mlp_glu else 1
         wi, idim = pl.param(wi, "wi", (cfg.d_model, mult * cfg.d_ff))
         wo, odim = pl.param(wo, "wo", (cfg.d_ff, cfg.d_model))
-        if (idim, odim) == (1, 0) and not cfg.mlp_glu:
-            raise NotPorted(f"{cfg.name}: a non-GLU MLP split over model "
-                            "(its wi is sharded as GLU halves; ROADMAP item "
-                            "7c)")
         if (idim, odim) == (1, 0):
             region = pl
         elif (idim, odim) != (None, None) or pl.seq:
@@ -432,8 +558,18 @@ def mlp_apply(cfg: ArchConfig, p, x):
     h = linear(x, wi, activation=cfg.mlp_activation, glu=cfg.mlp_glu,
                backend=_mm_backend(cfg))
     if region is not None:
-        return _row_parallel(cfg, region, h, wo)
+        return row_parallel(cfg, region, h, wo)
     return linear(h, wo, backend=_mm_backend(cfg))
+
+
+def whole_stream_pass(cfg: ArchConfig, seq_len: int):
+    """Begin a pass over ``seq_len`` tokens (``tensor_parallel.begin_pass``)
+    of a family whose residual stream stays whole along the sequence
+    between blocks."""
+    pl = tp.begin_pass(seq_len)
+    if pl is not None and pl.seq:
+        raise NotPorted(f"{cfg.name}: sequence parallelism (ROADMAP item "
+                        "7c)")
 
 
 # ---------------------------------------------------------------------------

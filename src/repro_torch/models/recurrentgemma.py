@@ -17,6 +17,23 @@ scan (``kernels/rglru``) and prefill attention through the flash kernel;
 the plain one-token step on every route.  The serving state is updated
 in place: the RNN carry and conv tail are copied into the cache, and the
 window's keys and values are written into its ring.
+
+Under a mesh this process is a rank of (``distributed.tensor_parallel``),
+the recurrent block runs on the rank's share of the d_rnn channels:
+``w_gate_in`` and ``w_rnn_in`` column-parallel, the conv and the RG-LRU
+(K5) on its channels, ``w_rnn_out`` row-parallel.  The gates contract
+over every channel, so the conv output is gathered over ``model`` and the
+rank computes its columns of each gate in one product over the whole
+width, as one rank does.  The leaves the rules replicate (the conv, the
+gates, ``lambda_p``) are sliced to the rank's channels, their gradients
+partial sums (``whole_in_region``).  The state keeps the reference's
+form, whole over ``model``: a pass reads the rank's rows and channels of
+it and writes its new state back gathered (``Placement.read_state`` /
+``write_state``).  The local attention's ring takes the reference's
+sequence form where ``model`` divides the window: a rank writes the
+slots it holds and a decode step attends over them, the ranks' max, sum
+and P·V merged (``common.split_decode``).  One process runs the same
+path over a ring it holds whole (``CacheShard.whole``).
 """
 
 from __future__ import annotations
@@ -25,9 +42,10 @@ import sys
 
 import torch
 
+from repro_torch import NotPorted
 from repro_torch.core import tree
 from repro_torch.core.fusion import linear
-from repro_torch.distributed.tensor_parallel import refuse_mesh
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import common as cm
 from repro_torch.models.base import ArchConfig, register_family
 
@@ -71,13 +89,21 @@ def _causal_conv(x, w, b, conv_state=None):
     return y.to(x.dtype), xp[:, -(width - 1):]
 
 
-def _rglru_gates(cfg: ArchConfig, p, x):
-    """log_a (B, T, C) and gated input for the RG-LRU, both fp32."""
-    i_gate = torch.sigmoid(
-        linear(x, p["w_input_gate"], p["b_input_gate"]).float())
-    r_gate = torch.sigmoid(
-        linear(x, p["w_rec_gate"], p["b_rec_gate"]).float())
-    lam = p["lambda_p"].float()
+def _rglru_gates(cfg: ArchConfig, p, x, pl=None, span=None):
+    """log_a (B, T, C) and gated input for the RG-LRU, both fp32.  On a
+    rank (``span``: its channels), the gates' columns of ``x`` gathered
+    over every channel."""
+    names = ("w_input_gate", "b_input_gate", "w_rec_gate", "b_rec_gate",
+             "lambda_p")
+    w_i, b_i, w_r, b_r, lam = (p[k] for k in names)
+    src = x
+    if span is not None:
+        src = pl.gather_model(x, -1)
+        w_i, b_i, w_r, b_r, lam = (pl.whole_in_region(t)[..., span]
+                                   for t in (w_i, b_i, w_r, b_r, lam))
+    i_gate = torch.sigmoid(linear(src, w_i, b_i).float())
+    r_gate = torch.sigmoid(linear(src, w_r, b_r).float())
+    lam = lam.float()
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))  # jax's form
     log_a = -cfg.rnn.c * softplus * r_gate
     return log_a, i_gate * x.float()
@@ -106,13 +132,30 @@ def _rglru_stateful(cfg: ArchConfig, log_a, gated, h0):
 
 
 def rec_block_apply(cfg: ArchConfig, p, x, state=None):
-    """x: (B, T, d).  state: {conv: (B, W-1, C), h: (B, C)} or None."""
-    gate = linear(x, p["w_gate_in"], activation="gelu_tanh")
-    rnn_in = linear(x, p["w_rnn_in"])
+    """x: (B, T, d).  state: {conv: (B, W-1, C), h: (B, C)} or None: on a
+    rank of a mesh, its rows and its channels of them."""
+    w_gate, w_rnn, w_out = p["w_gate_in"], p["w_rnn_in"], p["w_rnn_out"]
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    pl, span = tp.current(), None
+    if pl is not None:
+        d, c = cfg.d_model, cfg.rnn.d_rnn
+        w_gate, gd = pl.param(w_gate, "w_gate_in", (d, c))
+        w_rnn, rd = pl.param(w_rnn, "w_rnn_in", (d, c))
+        w_out, od = pl.param(w_out, "w_rnn_out", (c, d))
+        if (gd, rd, od) == (1, 1, 0):
+            cols = c // pl.model
+            span = slice(pl.rank * cols, (pl.rank + 1) * cols)
+            x = pl.enter(x)
+            conv_w, conv_b = (pl.whole_in_region(t)[..., span]
+                              for t in (conv_w, conv_b))
+        elif (gd, rd, od) != (None, None, None):
+            raise NotPorted(f"{cfg.name}: a recurrent block split as {gd}, "
+                            f"{rd}, {od} over model (ROADMAP item 7c)")
+    gate = linear(x, w_gate, activation="gelu_tanh")
+    rnn_in = linear(x, w_rnn)
     conv_state = state["conv"] if state is not None else None
-    rnn_in, new_conv = _causal_conv(rnn_in, p["conv_w"], p["conv_b"],
-                                    conv_state)
-    log_a, gated = _rglru_gates(cfg, p, rnn_in)
+    rnn_in, new_conv = _causal_conv(rnn_in, conv_w, conv_b, conv_state)
+    log_a, gated = _rglru_gates(cfg, p, rnn_in, pl, span)
     if state is None:
         h = _rglru_seq(cfg, log_a, gated)
         new_state = None
@@ -120,7 +163,9 @@ def rec_block_apply(cfg: ArchConfig, p, x, state=None):
         h, h_final = _rglru_stateful(cfg, log_a, gated, state["h"])
         new_state = {"conv": new_conv, "h": h_final}
     h = h.to(x.dtype) * gate
-    return linear(h, p["w_rnn_out"]), new_state
+    if span is not None:
+        return cm.row_parallel(cfg, pl, h, w_out), new_state
+    return linear(h, w_out), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -140,38 +185,37 @@ def _block_init(cfg: ArchConfig, gen: torch.Generator, kind: str,
     return p
 
 
-def _ring_write(k_cache, v_cache, k_new, v_new, pos: int):
+def _ring_write(k_cache, v_cache, k_new, v_new, pos: int, start: int = 0,
+                length: "int | None" = None):
     """Write (B, Hkv, S_new, D) into the window ring at slot ``pos``.
 
     The start is clamped to [0, window - S_new], as the reference's
     ``dynamic_update_slice`` clamps it: a prompt longer than the window
     writes its last ``window`` keys from slot 0 (slot i holds position
     s - window + i), and the next decode step writes at ``pos % window``.
+    The ring may be a rank's share of a window of ``length`` slots,
+    slots ``[start, start + S)`` (``common.cache_update``).
     """
-    start = max(0, min(pos, k_cache.shape[2] - k_new.shape[2]))
-    return cm.cache_update(k_cache, v_cache, k_new, v_new, start)
+    window = k_cache.shape[2] if length is None else length
+    at = max(0, min(pos, window - k_new.shape[2]))
+    return cm.cache_update(k_cache, v_cache, k_new, v_new, at, start, window)
 
 
 def block_apply(cfg: ArchConfig, p, x, *, kind, positions, state=None,
-                cache_pos=None):
+                cache_pos=None, shard=None):
+    """``shard``: where an attention block's ring (``state``) lies in
+    the whole window (``_ring_attention``)."""
     h = cm.rmsnorm(x, p["ln_t"], cfg.rms_eps, unit_offset=True)
     if kind == "rec":
         t_out, new_state = rec_block_apply(cfg, p["temporal"], h, state)
     else:
-        q, k, v = cm.qkv_project(cfg, p["temporal"], h, positions)
-        if state is not None:
-            # Ring-buffer local window cache: bounded at window size.
-            k_c, v_c = _ring_write(state["k"], state["v"], k, v,
-                                   cache_pos % cfg.window)
-            new_state = {"k": k_c, "v": v_c}
-            if q.shape[2] == 1:
-                ctx = _ring_decode(cfg, q, k_c, v_c, cache_pos)
-            else:
-                ctx = cm.attention(cfg, q, k, v, causal=True,
-                                   window=cfg.window)
-        else:
-            new_state = None
+        if state is None:
+            q, k, v = cm.qkv_project(cfg, p["temporal"], h, positions)
             ctx = cm.attention(cfg, q, k, v, causal=True, window=cfg.window)
+        else:
+            ctx = _ring_attention(cfg, p["temporal"], h, positions, state,
+                                  cache_pos, shard)
+        new_state = state
         t_out = cm.attn_out(cfg, p["temporal"], ctx)
     x = x + t_out
     h = cm.rmsnorm(x, p["ln_mlp"], cfg.rms_eps, unit_offset=True)
@@ -198,6 +242,31 @@ def _ring_decode(cfg: ArchConfig, q, k_cache, v_cache, pos: int):
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bngs,bnsd->bngd", p, v_cache.float())
     return out.reshape(b, h, 1, d).to(q.dtype)
+
+
+def _ring_attention(cfg: ArchConfig, p, h, positions, state, pos: int,
+                    shard: tp.CacheShard):
+    """Local attention with the window ring ``state``, which holds the
+    one KV head at slots ``[shard.start, shard.start + S)`` of the
+    window: every slot on one process, or where ``model`` does not divide
+    the window; else the rank's share.  K and V of the KV head are
+    written at the slots the ring holds, from ``_ring_write``'s clamped
+    start; a prefill attends with the (rank's) q heads over the prompt
+    (K2), as without a ring; a decode step over the ring's valid slots,
+    each rank over its own where they are shared out over ``model``
+    (``common.split_decode``, every q head on each rank)."""
+    pl = tp.current()
+    q, k, v = cm.qkv_project(cfg, p, h, positions, every_kv=True)
+    read = cm.kv_read(cfg, pl, q)
+    k_c, v_c = _ring_write(state["k"], state["v"], k, v, pos % cfg.window,
+                           shard.start, shard.length)
+    if q.shape[2] > 1:
+        return cm.attention(cfg, q, k[:, read], v[:, read], causal=True,
+                            window=cfg.window)
+    if not shard.split:
+        return _ring_decode(cfg, q, k_c[:, read], v_c[:, read], pos)
+    return cm.split_decode(cfg, pl, q, k_c, v_c, min(pos + 1, cfg.window),
+                           shard.start, sm_scale=cfg.sm_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -240,13 +309,23 @@ def _store(state, new):
 def _apply_stack(cfg: ArchConfig, params, x, positions, states=None,
                  cache_pos=None):
     """Each (rec, rec, attn) triple under ``cm.remat``, as the reference
-    remats its scan body, then the tail blocks without it."""
+    remats its scan body, then the tail blocks without it.  On a rank of
+    a mesh the recurrent states run as the rank's rows and channels
+    (``_rank_states``) and are written back after the pass."""
     pat, n_triples, rem = _pattern(cfg)
+    pl = tp.current() if states is not None else None
+    work, shards = states, {}
+    if states is not None:
+        shards = {i: (tp.CacheShard.whole(cfg.window) if pl is None
+                      else pl.cache_shard(cfg, states["triples"][i]["k"]))
+                  for i, kind in enumerate(pat) if kind == "attn"}
+    if pl is not None:
+        work = _rank_states(cfg, pl, states)
 
     def run(x, blocks):
-        for kind, lp, st in blocks:
+        for kind, lp, st, shard in blocks:
             x, new = block_apply(cfg, lp, x, kind=kind, positions=positions,
-                                 state=st, cache_pos=cache_pos)
+                                 state=st, cache_pos=cache_pos, shard=shard)
             if st is not None:
                 _store(st, new)
         return x
@@ -254,19 +333,44 @@ def _apply_stack(cfg: ArchConfig, params, x, positions, states=None,
     for j in range(n_triples):
         triple = [(kind, cm.layer(params["triples"][i], j),
                    None if states is None
-                   else cm.layer(states["triples"][i], j))
+                   else cm.layer(work["triples"][i], j), shards.get(i))
                   for i, kind in enumerate(pat)]
         x = cm.remat(cfg, run, x, triple)
     x = run(x, [(kind, params["tail"][i],
-                 None if states is None else states["tail"][i])
+                 None if states is None else work["tail"][i], None)
                 for i, kind in enumerate(rem)])
+    if pl is not None:
+        _write_states(cfg, pl, states, work)
     return x, states
+
+
+#: the batch dim of a state leaf: the stacked triples' lead with layers
+_ROWS = {"triples": 1, "tail": 0}
+
+
+def _rank_states(cfg: ArchConfig, pl, states):
+    """``states`` with each recurrent leaf as the rank's copy of its rows
+    and channels (``Placement.read_state``); the rings as they are."""
+    return {group: tuple({k: pl.read_state(cfg, x, rows, -1)
+                          for k, x in st.items()} if "h" in st else st
+                         for st in states[group])
+            for group, rows in _ROWS.items()}
+
+
+def _write_states(cfg: ArchConfig, pl, states, work) -> None:
+    """Each recurrent leaf of ``work`` back into ``states``' cache leaf
+    (``Placement.write_state``)."""
+    for group, rows in _ROWS.items():
+        for st, new in zip(states[group], work[group]):
+            if "h" in st:
+                for k in st:
+                    pl.write_state(cfg, st[k], new[k], rows, -1)
 
 
 def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):
     """Full-sequence forward (training / evaluation); ``return_hidden``
     stops at the final norm, for the chunked loss."""
-    refuse_mesh("griffin")
+    cm.whole_stream_pass(cfg, batch["tokens"].shape[1])
     x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)
     x, _ = _apply_stack(cfg, params, x, positions)
@@ -308,8 +412,8 @@ def prefill(cfg: ArchConfig, params, batch, cache):
     """A sequence pass for the last position's logits, then a stateful pass
     over the prompt's last ``window`` tokens that fills the cache, as the
     reference does."""
-    refuse_mesh("griffin")
     tokens = batch["tokens"]
+    cm.whole_stream_pass(cfg, tokens.shape[1])
     x = cm.embed_tokens(cfg, params["embedding"], tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     x_out, _ = _apply_stack(cfg, params, x, positions)
@@ -334,7 +438,7 @@ def _prefill_states(cfg: ArchConfig, params, batch, cache):
 
 def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
     """tokens: (B, 1); pos: current length (int).  One decode step."""
-    refuse_mesh("griffin")
+    cm.whole_stream_pass(cfg, tokens.shape[1])
     x = cm.embed_tokens(cfg, params["embedding"], tokens)
     positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)

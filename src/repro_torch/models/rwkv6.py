@@ -19,6 +19,18 @@ the ``torch`` and ``dense`` routes (training).  A decode step (T = 1)
 takes the oracle's single step on every route.  Layers are stacked on a
 leading axis and walked by a Python loop; the serving state is updated
 in place.
+
+Under a mesh this process is a rank of (``distributed.tensor_parallel``),
+the time mix runs on the rank's heads: ``w_r``, ``w_k``, ``w_v`` and
+``w_g`` column-parallel over whole heads, the WKV (K6) on those heads
+with the rank's share of the state, which the reference's cache holds in
+its KV-head form, and ``w_o`` row-parallel.  The DDLerp runs on the whole
+stream on every rank; the leaves the rules replicate and the rank reads a
+slice of (``w0``, ``u``, ``ln_x``, ``ln_x_b``, ``decay_w2``'s columns)
+have partial gradients (``whole_in_region``).  The channel mix runs
+``w_cm_k`` column- and ``w_cm_v`` row-parallel, and the rank's columns of
+the receptance are gathered before they gate the whole output.  A model
+axis that does not divide the heads raises ``NotPorted``.
 """
 
 from __future__ import annotations
@@ -28,8 +40,9 @@ import sys
 
 import torch
 
+from repro_torch import NotPorted
 from repro_torch.core.fusion import linear
-from repro_torch.distributed.tensor_parallel import refuse_mesh
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.rwkv6.ref import rwkv6_ref
 from repro_torch.kernels.rwkv6.rwkv6 import rwkv6_chunked
 from repro_torch.models import common as cm
@@ -134,16 +147,46 @@ def _shift(x, last=None):
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
+def _placed(cfg: ArchConfig, pl, p, spec):
+    """The rank's shards of the projections ``spec`` names ({leaf: whole
+    shape}) and whether they are split over ``model``: all of them in
+    the reference's column/row form, or none."""
+    got = {k: pl.param(p[k], k, shape) for k, shape in spec.items()}
+    dims = [dim for _, dim in got.values()]
+    if any(dim is not None for dim in dims) and None in dims:
+        raise NotPorted(f"{cfg.name}: {dict(zip(spec, dims))} over model "
+                        "(ROADMAP item 7c)")
+    return {k: w for k, (w, _) in got.items()}, dims[0] is not None
+
+
 def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
     """x: (B, T, d) -> (out, x[:, -1], new WKV state).
 
     Without ``wkv_state`` the WKV runs as a sequence from a zero state
     (``forward``) and the new state is None; with it, statefully
-    (serving).
+    (serving).  On a rank of a mesh, the rank's heads, and
+    ``wkv_state`` its heads' share.
     """
     b, t, d = x.shape
     rw = cfg.rwkv
     h = d // rw.head_size
+    names = ("w_r", "w_k", "w_v", "w_g", "w_o")
+    w = {k: p[k] for k in names}
+    side = {k: p[k] for k in ("decay_w2", "w0", "u", "ln_x", "ln_x_b")}
+    pl, split = tp.current(), False
+    if pl is not None:
+        w, split = _placed(cfg, pl, p, dict.fromkeys(names, (d, d)))
+    if split:
+        if h % pl.model:
+            raise NotPorted(f"{cfg.name}: {h} heads on a model axis of "
+                            f"{pl.model}, which would split the WKV state's "
+                            "key channels (ROADMAP item 7c)")
+        h //= pl.model
+        cols = slice(pl.rank * h * rw.head_size,
+                     (pl.rank + 1) * h * rw.head_size)
+        side = {k: pl.whole_in_region(v) for k, v in side.items()}
+        side = {k: v[pl.rank * h:(pl.rank + 1) * h] if k == "u"
+                else v[..., cols] for k, v in side.items()}
     xx = _shift(x, shift_state) - x
     xxx = x + xx * p["mu_x"]
     mix = torch.tanh(linear(xxx, p["mix_w1"]))            # (B, T, 5*r)
@@ -152,36 +195,56 @@ def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
     mixed = x[:, :, None, :] + xx[:, :, None, :] * (
         p["mu_rkvgw"][None, None] + dyn)                  # (B, T, 5, d)
     x_r, x_k, x_v, x_g, x_w = mixed.unbind(2)
+    lora = torch.tanh(linear(x_w, p["decay_w1"]))
+    if split:
+        x_r, x_k, x_v, x_g, lora = (pl.enter(z) for z in (x_r, x_k, x_v,
+                                                         x_g, lora))
 
-    r = linear(x_r, p["w_r"])
-    k = linear(x_k, p["w_k"])
-    v = linear(x_v, p["w_v"])
-    g = linear(x_g, p["w_g"], activation="silu")
-    w_dyn = torch.tanh(linear(x_w, p["decay_w1"])) @ p["decay_w2"]
-    lw = -torch.exp(torch.clamp(p["w0"][None, None].float()
+    r = linear(x_r, w["w_r"])
+    k = linear(x_k, w["w_k"])
+    v = linear(x_v, w["w_v"])
+    g = linear(x_g, w["w_g"], activation="silu")
+    w_dyn = lora @ side["decay_w2"]
+    lw = -torch.exp(torch.clamp(side["w0"][None, None].float()
                                 + w_dyn.float(), -8.0, 6.0))
 
     def heads(z):
         return z.reshape(b, t, h, rw.head_size).transpose(1, 2)
 
-    args = (heads(r), heads(k), heads(v), heads(lw), p["u"])
+    args = (heads(r), heads(k), heads(v), heads(lw), side["u"])
     if wkv_state is None:
         o, wkv_new = _wkv(cfg, *args), None
     else:
         o, wkv_new = _wkv_stateful(cfg, *args, wkv_state)
-    o = o.transpose(1, 2).reshape(b, t, d)
-    o = cm.groupnorm_heads(o, p["ln_x"], p["ln_x_b"], h)
-    return linear(o * g, p["w_o"]), x[:, -1], wkv_new
+    o = o.transpose(1, 2).reshape(b, t, h * rw.head_size)
+    o = cm.groupnorm_heads(o, side["ln_x"], side["ln_x_b"], h)
+    if split:
+        return cm.row_parallel(cfg, pl, o * g, w["w_o"]), x[:, -1], wkv_new
+    return linear(o * g, w["w_o"]), x[:, -1], wkv_new
 
 
 def channel_mix(cfg: ArchConfig, p, x, shift_state=None):
+    """On a rank of a mesh: ``w_cm_k`` column- and ``w_cm_v`` row-parallel;
+    the receptance's columns (``w_cm_r``'s) gathered to gate the whole
+    output, as one rank gates it."""
     xx = _shift(x, shift_state) - x
     x_k = x + xx * p["mu_cm_k"]
     x_r = x + xx * p["mu_cm_r"]
-    k = linear(x_k, p["w_cm_k"], activation="relu2")
-    kv = linear(k, p["w_cm_v"])
-    return torch.sigmoid(linear(x_r, p["w_cm_r"]).float()
-                         ).to(x.dtype) * kv, x[:, -1]
+    d, ff = cfg.d_model, cfg.d_ff
+    w = {k: p[k] for k in ("w_cm_k", "w_cm_v", "w_cm_r")}
+    pl, split = tp.current(), False
+    if pl is not None:
+        w, split = _placed(cfg, pl, p, {"w_cm_k": (d, ff), "w_cm_v": (ff, d),
+                                        "w_cm_r": (d, d)})
+    if not split:
+        k = linear(x_k, w["w_cm_k"], activation="relu2")
+        kv = linear(k, w["w_cm_v"])
+        return torch.sigmoid(linear(x_r, w["w_cm_r"]).float()
+                             ).to(x.dtype) * kv, x[:, -1]
+    k = linear(pl.enter(x_k), w["w_cm_k"], activation="relu2")
+    kv = cm.row_parallel(cfg, pl, k, w["w_cm_v"])
+    r = torch.sigmoid(linear(pl.enter(x_r), w["w_cm_r"]).float()).to(x.dtype)
+    return pl.gather_whole(r, -1) * kv, x[:, -1]
 
 
 def block_apply(cfg: ArchConfig, p, x):
@@ -195,7 +258,7 @@ def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):
     """Full-sequence forward (training / evaluation), each layer under
     ``cm.remat`` as the reference remats its scan body; ``return_hidden``
     stops at the final norm, for the chunked loss."""
-    refuse_mesh("rwkv6")
+    cm.whole_stream_pass(cfg, batch["tokens"].shape[1])
     x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
     x = cm.layernorm(x, params["ln_in"], params["ln_in_b"])
     for j in range(cfg.n_layers):
@@ -208,7 +271,10 @@ def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# Serving: state = per-layer (tm_shift, cm_shift, wkv_state).
+# Serving: state = per-layer (tm_shift, cm_shift, wkv_state).  On a rank
+# of a mesh the cache is its shard in the reference's form: the shifts
+# whole over ``model`` (every rank writes the same rows), the WKV state
+# its heads; both at the rank's batch rows.
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
@@ -250,12 +316,12 @@ def _run_stateful(cfg: ArchConfig, params, tokens, cache):
 
 
 def prefill(cfg: ArchConfig, params, batch, cache):
-    refuse_mesh("rwkv6")
+    cm.whole_stream_pass(cfg, batch["tokens"].shape[1])
     return _run_stateful(cfg, params, batch["tokens"], cache)
 
 
 def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
-    refuse_mesh("rwkv6")
+    cm.whole_stream_pass(cfg, tokens.shape[1])
     del pos                                        # state carries position
     return _run_stateful(cfg, params, tokens, cache)
 

@@ -28,9 +28,6 @@ import torch
 
 from repro_torch import NotPorted
 from repro_torch.distributed import tensor_parallel as tp
-from repro_torch.kernels.attention.ops import (decode_attention,
-                                               decode_attention_merge,
-                                               decode_attention_partial)
 from repro_torch.models import common as cm
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.base import ArchConfig, register_family
@@ -71,29 +68,11 @@ def block_apply(cfg: ArchConfig, p, x, *, positions, window: int,
     at ``cache_pos``.  Under sequence parallelism ``x`` holds the rank's
     share of the sequence (``positions`` stay the whole sequence's).
     ``shard`` (under a mesh) says where the rank's cache lies in the
-    whole (``_attend_placed``)."""
+    whole (``common.self_attention``)."""
     h = _norm(cfg, x, p["ln_attn"])
-    if shard is not None and shard.every_head:
-        ctx = _attend_placed(cfg, p["attn"], h, positions, window, kv_cache,
-                             cache_pos, shard)
-    else:
-        q, k, v = cm.qkv_project(cfg, p["attn"], h, positions)
-        if kv_cache is None:
-            ctx = cm.attention(cfg, q, k, v, causal=True, window=window)
-        else:
-            if k.shape[1] != kv_cache[0].shape[1]:
-                raise NotPorted(
-                    f"{cfg.name}: a cache of {kv_cache[0].shape[1]} KV heads "
-                    f"where the rank computes {k.shape[1]} (ROADMAP item 7c)")
-            k_cache, v_cache = cm.cache_update(*kv_cache, k, v, cache_pos)
-            if q.shape[2] == 1:                  # decode: one new token
-                ctx = decode_attention(
-                    q, k_cache, v_cache, cache_pos + 1,
-                    sm_scale=cfg.sm_scale, window=window,
-                    softcap=cfg.attn_softcap)
-            else:                                # prefill writes + attends
-                ctx = cm.attention(cfg, q, k, v, causal=True, window=window)
-
+    ctx = cm.self_attention(cfg, p["attn"], h, positions, window=window,
+                            kv_cache=kv_cache, cache_pos=cache_pos,
+                            shard=shard)
     attn_out = cm.attn_out(cfg, p["attn"], ctx)
     if cfg.sandwich_norms:
         attn_out = _norm(cfg, attn_out, p["ln_attn_post"])
@@ -110,52 +89,6 @@ def block_apply(cfg: ArchConfig, p, x, *, positions, window: int,
     if cfg.sandwich_norms:
         mlp_out = _norm(cfg, mlp_out, p["ln_mlp_post"])
     return x + mlp_out
-
-
-def _attend_placed(cfg: ArchConfig, p, h, positions, window, kv_cache,
-                   cache_pos, shard: tp.CacheShard):
-    """Attention on a rank whose cache holds every KV head (the
-    reference's cache on a model axis its KV heads do not divide), at
-    positions ``[shard.start, shard.start + S)`` of the whole.
-
-    The rank computes K and V of every KV head (``qkv_project`` with
-    ``every_kv``) and writes the new rows that fall in its positions: a
-    prefill its share of the prompt, a decode step the new token where
-    its rank holds ``cache_pos``.  A prefill attends with the rank's q
-    heads over the whole prompt (K2), as without a cache.  A decode step
-    whose cache holds every position attends so over it; where the
-    positions are shared out over ``model`` (``shard.split``), each rank
-    attends with every q head (gathered over ``model`` where it holds
-    its own) over its own positions, in fp32, and the ranks combine the
-    row max, the sum of exponentials and P·V (``decode_attention_merge``:
-    one max and one sum all-reduced).  Every rank returns every head's
-    context; ``attn_out`` takes its rows."""
-    pl = tp.current()
-    if pl.seq:
-        raise NotPorted(f"{cfg.name}: a cache of every KV head under "
-                        "sequence parallelism (ROADMAP item 7c)")
-    q, k, v = cm.qkv_project(cfg, p, h, positions, every_kv=True)
-    every_q = q.shape[1] == cfg.n_heads          # every q head on the rank
-    if every_q:
-        k0, hk = 0, cfg.n_kv_heads
-    else:
-        _, _, k0, hk = cm.rank_heads(cfg, pl)
-    k_cache, v_cache = cm.cache_update(*kv_cache, k, v, cache_pos,
-                                       shard.start, shard.length)
-    read = slice(k0, k0 + hk)
-    if q.shape[2] > 1:                           # prefill writes + attends
-        return cm.attention(cfg, q, k[:, read], v[:, read], causal=True,
-                            window=window)
-    kw = dict(sm_scale=cfg.sm_scale, window=window, softcap=cfg.attn_softcap)
-    if not shard.split:
-        return decode_attention(q, k_cache[:, read], v_cache[:, read],
-                                cache_pos + 1, **kw)
-    if not every_q:
-        q = pl.gather_model(q, 1)
-    m, l, acc = decode_attention_partial(q, k_cache, v_cache, cache_pos + 1,
-                                         start=shard.start, **kw)
-    return decode_attention_merge(m, l, acc, reduce_max=pl.reduce_max,
-                                  reduce_sum=pl.reduce, dtype=q.dtype)
 
 
 # ---------------------------------------------------------------------------

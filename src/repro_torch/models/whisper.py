@@ -6,11 +6,11 @@ conv1d×2 → GELU.  The backbone is faithful Whisper: pre-LN transformer,
 learned positional embeddings, bidirectional encoder, decoder with
 causal self-attention and cross-attention, tied output embedding.
 
-Serving: prefill runs the encoder once and caches each decoder layer's
-cross-attention K/V; decode appends to the causal self-attention cache
-(``decode_attention``, plain ops) and attends to the cached cross K/V
-through ``cm.attention`` — K2 on the kernel route, one query row
-against ``n_audio_ctx`` keys.
+Serving: prefill runs the encoder once, and each decoder layer writes
+its cross-attention K/V into the cache as it runs; decode appends to the
+causal self-attention cache (``decode_attention``, plain ops) and
+attends to the cached cross K/V through ``cm.attention`` — K2 on the
+kernel route, one query row against ``n_audio_ctx`` keys.
 
 Layer parameters are stacked on a leading layer axis (``enc_layers``,
 ``dec_layers``), as in the reference, and a Python loop walks the stack
@@ -18,7 +18,22 @@ where the reference runs ``lax.scan`` / ``vmap``; each encoder and
 decoder layer runs under ``cm.remat`` (where autograd tracks it, as in
 training), as the reference remats each scan body.  The decoder's
 cross-attention projections call ``linear`` without a route, as the
-reference does, so they resolve it through the tuned dispatch by shape.
+reference does, so they resolve it through the tuned dispatch by shape
+(``common._route``).
+
+Under a mesh this process is a rank of (``distributed.tensor_parallel``),
+every attention (the encoder's, the decoder's self- and
+cross-attention) runs on the rank's heads through ``common``'s placed
+projections, every head on each rank where the heads do not divide
+``model`` (whose q columns are gathered), and the GELU MLP column- then
+row-parallel.  Each cache leaf takes the reference's form
+(``sharding.shard_cache``): the rank's KV heads, or every head at its
+share of the positions, or at all of them.  A prefill projects the cross
+K and V from the whole encoder output, attends with them (K2) as one
+rank does and writes the rank's share into the cache; a decode step
+attends over a cross cache split along its positions with the ranks'
+max, sum and P·V merged (``common.split_decode``).  One process runs the
+same cross-attention over a cache it holds whole (``CacheShard.whole``).
 """
 
 from __future__ import annotations
@@ -27,8 +42,7 @@ import sys
 
 import torch
 
-from repro_torch.core.fusion import linear
-from repro_torch.distributed.tensor_parallel import refuse_mesh
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import common as cm
 from repro_torch.models.base import ArchConfig, register_family
 
@@ -93,41 +107,22 @@ def encode(cfg: ArchConfig, params, audio_embeds):
     return cm.layernorm(x, params["ln_enc_final"], params["ln_enc_final_b"])
 
 
-def _cross_kv(cfg: ArchConfig, lp, enc_out):
-    """One decoder layer's cross-attention K and V, (B, Hkv, Ta, hd)."""
-    b = enc_out.shape[0]
-    k = linear(enc_out, lp["cross"]["wk"]).reshape(
-        b, -1, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
-    v = linear(enc_out, lp["cross"]["wv"]).reshape(
-        b, -1, cfg.n_kv_heads, cfg.head_dim).transpose(1, 2)
-    return k, v
-
-
 def _dec_block(cfg: ArchConfig, lp, x, enc_out=None, cross_kv=None,
-               self_kv=None, cache_pos=None):
+               self_kv=None, cache_pos=None, shards=(None, None)):
     """x: (B, S, d) -> (B, S, d).  ``self_kv`` (k, v) is written in place
-    at ``cache_pos``; ``cross_kv`` is the cached cross K/V, else it is
-    projected from ``enc_out``."""
+    at ``cache_pos``; ``cross_kv`` is the cached cross K/V, which a
+    prefill, passing ``enc_out`` too, writes (``_cross_attention``).
+    ``shards`` says where the self and cross caches lie in the whole
+    (the self cache's ``None`` off a mesh)."""
     h = cm.layernorm(x, lp["ln"], lp["ln_b"])
-    q, k, v = cm.qkv_project(cfg, lp["attn"], h, None)
-    if self_kv is not None:
-        k_c, v_c = cm.cache_update(*self_kv, k, v, cache_pos)
-        if q.shape[2] == 1:                      # decode: one new token
-            from repro_torch.kernels.attention.ops import decode_attention
-            ctx = decode_attention(q, k_c, v_c, cache_pos + 1,
-                                   sm_scale=cfg.sm_scale)
-        else:
-            ctx = cm.attention(cfg, q, k, v, causal=True)
-    else:
-        ctx = cm.attention(cfg, q, k, v, causal=True)
+    ctx = cm.self_attention(cfg, lp["attn"], h, None, window=0,
+                            kv_cache=self_kv, cache_pos=cache_pos,
+                            shard=shards[0])
     x = x + cm.attn_out(cfg, lp["attn"], ctx)
 
     h = cm.layernorm(x, lp["ln_cross"], lp["ln_cross_b"])
-    qc = linear(h, lp["cross"]["wq"]).reshape(
-        h.shape[0], h.shape[1], cfg.n_heads, cfg.head_dim).transpose(1, 2)
-    kc, vc = cross_kv if cross_kv is not None else _cross_kv(cfg, lp,
-                                                             enc_out)
-    ctx = cm.attention(cfg, qc, kc, vc, causal=False)
+    ctx = _cross_attention(cfg, lp["cross"], h, enc_out, cross_kv,
+                           shards[1])
     x = x + cm.attn_out(cfg, lp["cross"], ctx)
 
     h = cm.layernorm(x, lp["ln_mlp"], lp["ln_mlp_b"])
@@ -136,11 +131,22 @@ def _dec_block(cfg: ArchConfig, lp, x, enc_out=None, cross_kv=None,
 
 def _decode_stack(cfg: ArchConfig, params, x, enc_out=None, caches=None,
                   cache_pos=None):
-    """Walk the decoder layers; with ``caches`` each layer reads its
-    cached cross K/V and writes its self-attention K/V in place."""
+    """Walk the decoder layers; with ``caches`` each layer writes its
+    self-attention K/V in place and reads its cached cross K/V, which a
+    prefill (passing ``enc_out`` too) writes first."""
+    pl = tp.current()
+    if caches is None:
+        shards = (None, None)
+    elif pl is None:
+        shards = (None, tp.CacheShard.whole(caches["cross"][0].shape[3]))
+    else:
+        shards = tuple(pl.cache_shard(cfg, caches[k][0])
+                       for k in ("self", "cross"))
+
     def body(x, lp, enc_out, cross_kv, self_kv):
         return _dec_block(cfg, lp, x, enc_out=enc_out, cross_kv=cross_kv,
-                          self_kv=self_kv, cache_pos=cache_pos)
+                          self_kv=self_kv, cache_pos=cache_pos,
+                          shards=shards)
 
     for j in range(cfg.n_layers):
         lp = cm.layer(params["dec_layers"], j)
@@ -148,9 +154,37 @@ def _decode_stack(cfg: ArchConfig, params, x, enc_out=None, caches=None,
             x = cm.remat(cfg, body, x, lp, enc_out, None, None)
         else:
             (ks, vs), (kc, vc) = caches["self"], caches["cross"]
-            x = cm.remat(cfg, body, x, lp, None, (kc[j], vc[j]),
+            x = cm.remat(cfg, body, x, lp, enc_out, (kc[j], vc[j]),
                          (ks[j], vs[j]))
     return x, caches
+
+
+def _cross_attention(cfg: ArchConfig, p, h, enc_out, cross_kv, shard):
+    """Cross-attention's context, the rank's heads under a mesh.  With
+    ``enc_out`` (training, or a prefill) the (rank's) q heads and the KV
+    heads they read are projected (every KV head where the cache holds
+    every one), a prefill writes its share of them into ``cross_kv``
+    (cast to the cache's dtype, so that it attends over what a decode
+    step reads), and K2 attends over every position.  A decode step
+    projects q alone and attends over the cache: every q head over the
+    rank's positions, merged over ``model``, where ``shard.split``."""
+    pl = tp.current()
+    if enc_out is not None:
+        every = shard is not None and shard.every_head
+        q, k, v = cm.qkv_project(cfg, p, h, None, every_kv=every,
+                                 kv_x=enc_out)
+        if cross_kv is not None:
+            k, v = (t.to(cross_kv[0].dtype) for t in (k, v))
+            cm.cache_update(*cross_kv, k, v, 0, shard.start, shard.length)
+        read = cm.kv_read(cfg, pl, q) if every else slice(None)
+        return cm.attention(cfg, q, k[:, read], v[:, read], causal=False)
+    q = cm.cross_q_project(cfg, p, h)
+    kc, vc = cross_kv
+    if shard.split:
+        return cm.split_decode(cfg, pl, q, kc, vc, shard.length,
+                               shard.start, sm_scale=cfg.sm_scale)
+    read = cm.kv_read(cfg, pl, q) if shard.every_head else slice(None)
+    return cm.attention(cfg, q, kc[:, read], vc[:, read], causal=False)
 
 
 def _final(cfg: ArchConfig, params, x):
@@ -159,7 +193,7 @@ def _final(cfg: ArchConfig, params, x):
 
 def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):
     """batch: tokens (B, S) + audio_embeds (B, Ta, d)."""
-    refuse_mesh("encdec")
+    cm.whole_stream_pass(cfg, batch["tokens"].shape[1])
     enc_out = encode(cfg, params, batch["audio_embeds"])
     x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
     x = x + params["pos_dec"][None, : x.shape[1]]
@@ -185,26 +219,23 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
 
 
 def prefill(cfg: ArchConfig, params, batch, cache):
-    """Encode the audio, cache every decoder layer's cross K/V, run the
-    decoder over the prompt; returns last-position logits and the
-    cache (written in place)."""
-    refuse_mesh("encdec")
+    """Encode the audio, run the decoder over the prompt, each layer
+    writing its cross K/V (on a rank of a mesh, its share) and its self
+    K/V into the cache; returns last-position logits and the cache
+    (written in place)."""
+    cm.whole_stream_pass(cfg, batch["tokens"].shape[1])
     enc_out = encode(cfg, params, batch["audio_embeds"])
-    kc, vc = cache["cross"]
-    for j in range(cfg.n_layers):
-        k, v = _cross_kv(cfg, cm.layer(params["dec_layers"], j), enc_out)
-        kc[j].copy_(k)
-        vc[j].copy_(v)
     x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
     x = x + params["pos_dec"][None, : x.shape[1]]
-    x, cache = _decode_stack(cfg, params, x, caches=cache, cache_pos=0)
+    x, cache = _decode_stack(cfg, params, x, enc_out=enc_out, caches=cache,
+                             cache_pos=0)
     x = _final(cfg, params, x)
     return cm.logits_out(cfg, params, x[:, -1]), cache
 
 
 def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
     """tokens: (B, 1); pos: current length (int).  One decode step."""
-    refuse_mesh("encdec")
+    cm.whole_stream_pass(cfg, tokens.shape[1])
     x = cm.embed_tokens(cfg, params["embedding"], tokens)
     x = x + params["pos_dec"][pos:pos + 1][None]
     x, cache = _decode_stack(cfg, params, x, caches=cache, cache_pos=pos)

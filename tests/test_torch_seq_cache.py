@@ -188,7 +188,7 @@ _PORT_PROG = textwrap.dedent("""
             if cfg.vision_prefix:
                 batch["vision_embeds"] = inp[f"{arch}/vision"]
             steps = inp[f"{arch}/tokens"][:, s:s + spec["steps"]]
-            local = sharding.shard_params(params, mesh)
+            local = sharding.shard_params(params, mesh, glu=cfg.mlp_glu)
             cache = sharding.shard_cache(
                 mod.init_cache(cfg, spec["batch"], cache_len), mesh, cfg)
             out[f"{case}/cache_shape"] = np.array(cache[0][0].shape)

@@ -43,13 +43,12 @@ from repro.configs.registry import get_config as j_get_config  # noqa: E402
 from repro.distributed import sharding as j_sharding      # noqa: E402
 from repro.launch.mesh import compat_abstract_mesh        # noqa: E402
 from repro.models.base import family_module as j_family   # noqa: E402
-from repro_torch import NotPorted                         # noqa: E402
 from repro_torch.configs import registry as reg           # noqa: E402
 from repro_torch.core import tree                         # noqa: E402
 from repro_torch.distributed import logical, sharding     # noqa: E402
 from repro_torch.launch import dryrun, perf_iter          # noqa: E402
 from repro_torch.launch import train as launch_train      # noqa: E402
-from repro_torch.launch.mesh import abstract_mesh, rank_view  # noqa: E402
+from repro_torch.launch.mesh import rank_view             # noqa: E402
 from repro_torch.models.base import family_module         # noqa: E402
 
 SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
@@ -186,9 +185,11 @@ _PORT_PROG = textwrap.dedent("""
         for case, (arch, shape, rules) in spec["cases"].items():
             cfg, params, batch = setup(arch)
             mesh = make_mesh(shape, ("data", "model"))
-            local = sharding.shard_params(params, mesh, rules)
+            local = sharding.shard_params(params, mesh, rules,
+                                          glu=cfg.mlp_glu)
             if case == "yi":
-                back = sharding.gather_params(local, params, mesh, rules)
+                back = sharding.gather_params(local, params, mesh, rules,
+                                              glu=cfg.mlp_glu)
                 out["glu/roundtrip"] = np.array(all(
                     torch.equal(a, b) for a, b in
                     zip(tree.leaves(back), tree.leaves(params))))
@@ -204,8 +205,10 @@ _PORT_PROG = textwrap.dedent("""
             with logical.use_rules(mesh, rules):
                 lb = sharding.local_batch(batch, mesh, spec["mb"], rules)
                 p, o, m, _ = make_train_step(cfg, tcfg)(local, opt, lb)
-                p = sharding.gather_params(p, params, mesh, rules)
-                mu = sharding.gather_params(o["mu"], params, mesh, rules)
+                p = sharding.gather_params(p, params, mesh, rules,
+                                           glu=cfg.mlp_glu)
+                mu = sharding.gather_params(o["mu"], params, mesh, rules,
+                                            glu=cfg.mlp_glu)
             out[f"{case}/loss"] = m["loss"]
             for i, x in enumerate(tree.leaves(p)):
                 out[f"{case}/param/{i:03d}"] = x
@@ -423,19 +426,6 @@ class TestLauncherOnAMesh:
 # In process: refusals, the shards' arithmetic, the dry run's pod meshes.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
-                                  "whisper-tiny"])
-def test_families_not_ported_to_a_mesh_refuse_it(arch):
-    cfg = reg.get_config(arch, reduced=True).with_(dtype=torch.float32)
-    mod = family_module(cfg)
-    params = mod.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    batch = reg.concrete_batch(cfg, 2, 8, "train", torch.Generator())
-    with logical.use_rules(abstract_mesh((2, 2), ("data", "model"))):
-        with pytest.raises(NotPorted, match="item 7c"):
-            mod.forward(cfg, params, batch)
-    mod.forward(cfg, params, batch)          # no mesh: runs
-
-
 def test_pod_mesh_needs_its_world():
     with pytest.raises(SystemExit, match="256 ranks"):
         launch_train.main(LAUNCH[:3] + ["--mesh", "single"])
@@ -483,7 +473,8 @@ def test_leaves_must_be_the_ranks_shards():
             mod.forward(cfg, whole, batch)
         with pytest.raises(ValueError, match="rank's shard"):
             leaf_specs(cfg, whole, view)
-    ep = sharding.shard_params(whole, view, sharding.EXPERT_PARALLEL_RULES)
+    ep = sharding.shard_params(whole, view, sharding.EXPERT_PARALLEL_RULES,
+                               glu=cfg.mlp_glu)
     layer = ep["layers"][0]
     assert layer["attn"]["wq"].shape == whole["layers"][0]["attn"]["wq"].shape
     assert (layer["moe"]["experts_wi"].shape[1]
@@ -504,7 +495,7 @@ def test_sequence_parallelism_is_decided_once_a_pass():
     mod = family_module(cfg)
     view = rank_view((1, 2), ("data", "model"))
     params = sharding.shard_params(mod.init(cfg, None, "meta"), view,
-                                   {"seq": "model"})
+                                   {"seq": "model"}, glu=cfg.mlp_glu)
     tokens = torch.zeros((2, 8), dtype=torch.int32, device="meta")
     with logical.use_rules(view, {"seq": "model"}):
         hidden = mod.forward(cfg, params, {"tokens": tokens},
@@ -639,17 +630,6 @@ def test_pod_train_cell_collectives_as_reckoned(tmp_path, pod_grid,
     r = dryrun.run_cell("yi-6b", "train_4k", mesh_name,
                         out_dir=str(tmp_path))
     assert r["collective_bytes"] == _reckoned_collectives(mesh_name)
-
-
-@pytest.mark.parametrize("arch, shape", [
-    ("rwkv6-7b", "train_4k"), ("recurrentgemma-2b", "train_4k"),
-    ("whisper-tiny", "train_4k"), ("recurrentgemma-2b", "decode_32k"),
-    ("rwkv6-7b", "prefill_32k")])
-def test_pod_cells_the_port_cannot_run_name_item_7c(tmp_path, pod_grid,
-                                                    arch, shape):
-    r = dryrun.run_cell(arch, shape, "single", out_dir=str(tmp_path))
-    assert r["status"] == "not_ported" and "item 7c" in r["reason"]
-    assert r["chips"] == 256
 
 
 def _reference_cache_specs(arch, shape_name, mesh_case):
@@ -790,7 +770,8 @@ def test_chip_smoke_reckons_the_mesh_step(sizes):
     tcfg = TrainConfig(microbatches=mb, loss_chunk=seq)
     view = rank_view(tuple(sizes.values()), tuple(sizes))
     with logical.use_rules(view):
-        params = sharding.shard_params(abstract_state(cfg, tcfg)[0], view)
+        params = sharding.shard_params(abstract_state(cfg, tcfg)[0], view,
+                                       glu=cfg.mlp_glu)
         batch = sharding.local_batch(
             {k: torch.empty((2 * mb * n_batch, seq), dtype=torch.int32,
                             device="meta") for k in ("tokens", "labels")},
@@ -825,7 +806,8 @@ def test_chip_smoke_reckons_the_seq_decode_step(sizes, dtype):
     view = rank_view(tuple(sizes.values()), tuple(sizes))
     mod = family_module(cfg)
     with logical.use_rules(view):
-        params = sharding.shard_params(mod.init(cfg, None, "meta"), view)
+        params = sharding.shard_params(mod.init(cfg, None, "meta"), view,
+                                       glu=cfg.mlp_glu)
         cache = sharding.shard_cache(mod.init_cache(
             cfg, rows * sizes["data"], length, device="meta"), view, cfg)
         assert cache[0][0].shape[2:4] == (cfg.n_kv_heads, 16)
@@ -844,3 +826,167 @@ def test_chip_smoke_reckons_the_seq_decode_step(sizes, dtype):
     assert pre.kernels["flash_attention"]["calls"] == sum(
         tiles["flash_attention_by_tile"].values()) == cfg.n_layers
     assert "flash_attention" not in step.kernels
+
+
+def _rec_config(arch):
+    """A reduced configuration of ``arch`` whose heads a model axis of 16
+    divides where the family needs it (RWKV-6: 16 heads of 8)."""
+    import dataclasses
+    cfg = reg.get_config(arch, reduced=True)
+    if arch == "rwkv6-7b":
+        cfg = cfg.with_(n_heads=16, n_kv_heads=16, head_dim=8,
+                        rwkv=dataclasses.replace(cfg.rwkv, head_size=8))
+    return cfg
+
+
+@pytest.mark.parametrize("sizes", [{"data": 1, "model": 4},
+                                   {"data": 1, "model": 8},
+                                   {"data": 2, "model": 2},
+                                   {"data": 16, "model": 16}],
+                         ids=lambda s: "x".join(map(str, s.values())))
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-7b",
+                                  "whisper-tiny"])
+def test_chip_smoke_reckons_the_rec_steps(arch, dtype, sizes):
+    """``chip_smoke.py``'s reckonings of phase ``dist-rec`` (a decode
+    step's collective bytes by kind; K5's and K6's launches of a prefill
+    and decode steps) against the meta count of one rank's steps of the
+    reduced configuration on a rank view; the card's count is held to the
+    meta count there.  Griffin's 5 layers hold a (rec, rec, attn) triple
+    and the unstacked tail, whose carry a data axis splits along its
+    channels; Whisper's caches take the KV-head form on 2, the sequence
+    form on 4 and 8 and, for the cross cache on 16, the whole form."""
+    from repro_torch.serving.engine import make_decode, make_prefill
+    smoke = _chip_smoke()
+    cfg = _rec_config(arch)
+    if dtype == "fp32":
+        cfg = cfg.with_(dtype=torch.float32, kv_cache_dtype=torch.float32)
+    rows, s, length = 2, 12, 16 * sizes["model"]
+    view = rank_view(tuple(sizes.values()), tuple(sizes))
+    mod = family_module(cfg)
+    with logical.use_rules(view):
+        params = sharding.shard_params(mod.init(cfg, None, "meta"), view,
+                                       glu=cfg.mlp_glu)
+        cache = sharding.shard_cache(mod.init_cache(
+            cfg, rows * sizes["data"], length, device="meta"), view, cfg)
+        batch = {k: x[:rows] for k, x in reg.input_specs(
+            cfg, reg.ShapeSpec("t", s, rows, "prefill")).items()}
+        pre, _, _ = dryrun.count_step(make_prefill(cfg), (
+            params, batch, cache), False)
+        step, _, _ = dryrun.count_step(make_decode(cfg), (
+            params, batch["tokens"][:, :1], cache, s), False)
+    got = {**step.per_collective, "total": step.collective_bytes}
+    assert got == smoke._rec_decode_collectives(cfg, sizes, rows, length)
+    want = smoke._rec_serve_launches(cfg)
+    calls = {k: pre.kernels.get(k, {}).get("calls", 0)
+             for k in ("rglru_scan", "rwkv6_wkv")}
+    assert calls == {"rglru_scan": want.get("rglru_scan", 0),
+                     "rwkv6_wkv": sum(want.get("rwkv6_scan_by_tile",
+                                               {}).values())}
+    assert not {"rglru_scan", "rwkv6_wkv"} & set(step.kernels)
+
+
+def _j_rec_config(arch):
+    """The reference's counterpart of ``_rec_config``."""
+    import dataclasses
+    cfg = j_get_config(arch, reduced=True)
+    if arch == "rwkv6-7b":
+        cfg = cfg.with_(n_heads=16, n_kv_heads=16, head_dim=8,
+                        rwkv=dataclasses.replace(cfg.rwkv, head_size=8))
+    return cfg
+
+
+@pytest.fixture
+def rec_pod_grid(pod_grid, monkeypatch):
+    """``pod_grid`` with RWKV-6's reduced heads widened to 16 of 8, which
+    a model axis of 16 divides."""
+    monkeypatch.setattr(dryrun, "get_config",
+                        lambda arch, **ov: _rec_config(arch).with_(**ov))
+
+
+REC_POD_CELLS = [(arch, shape) for arch in ("recurrentgemma-2b", "rwkv6-7b",
+                                            "whisper-tiny")
+                 for shape in ("train_4k", "prefill_32k", "decode_32k",
+                               "long_500k")
+                 if reg.cell_applicable(arch, shape)]
+
+
+@pytest.mark.parametrize("mesh_name", ["single", "multi"])
+@pytest.mark.parametrize("arch, shape", REC_POD_CELLS)
+def test_pod_recurrent_and_whisper_cells_count_rank_zero(
+        tmp_path, rec_pod_grid, arch, shape, mesh_name):
+    """The 22 cells of the recurrent families and Whisper are ``ok`` on
+    both pod meshes: the reference's per-chip fields, and argument bytes
+    equal to rank 0's shards under the reference's own specs: a train
+    cell's params in bf16 with master, mu and nu in fp32, the step and
+    its batch rows; a serving cell's params and cache (placed by
+    ``cache_shardings``: Griffin's ring split along the window, its
+    tail's carry along the channels over the batch axes, RWKV-6's state
+    by heads, Whisper's self cache along its positions and its cross
+    cache whole) and its batch rows (long_500k's one row on every
+    rank)."""
+    r = dryrun.run_cell(arch, shape, mesh_name, out_dir=str(tmp_path))
+    assert r["status"] == "ok", r.get("reason")
+    sizes_names = dryrun.MESHES[mesh_name]
+    sizes = dict(zip(sizes_names[1], sizes_names[0]))
+    chips = math.prod(sizes.values())
+    assert (r["chips"], r["mesh"]) == (chips, mesh_name)
+    assert r["roofline"]["model_flops_per_chip"] == pytest.approx(
+        r["model_flops_total"] / chips, rel=1e-12)
+    jcfg, spec = _j_rec_config(arch), reg.SHAPES[shape]
+    mesh = compat_abstract_mesh(*sizes_names)
+    params = jax.eval_shape(lambda k: j_family(jcfg).init(jcfg, k),
+                            jax.random.PRNGKey(0))
+    sh = j_sharding.param_shardings(params, mesh)
+    extra = 3 * 4 if spec.mode == "train" else 0
+    want = sum(_local_bytes(x.shape, tuple(s_.spec), sizes,
+                            x.dtype.itemsize + extra)
+               for x, s_ in zip(jax.tree.leaves(params), jax.tree.leaves(sh)))
+    batch_ranks = sizes["data"] * sizes.get("pod", 1)
+    rows = (spec.global_batch // batch_ranks
+            if spec.global_batch % batch_ranks == 0 else spec.global_batch)
+    cfg = _rec_config(arch)
+    audio = (rows * cfg.encdec.n_audio_ctx * cfg.d_model * 4
+             if cfg.encdec is not None and spec.mode != "decode" else 0)
+    if spec.mode == "train":
+        want += 4 + 2 * rows * spec.seq_len * 4 + audio
+    else:
+        cache = jax.eval_shape(lambda: j_family(jcfg).init_cache(
+            jcfg, spec.global_batch, spec.seq_len))
+        csh = j_sharding.cache_shardings(cache, mesh, jcfg)
+        want += sum(_local_bytes(x.shape, tuple(s_.spec), sizes,
+                                 x.dtype.itemsize)
+                    for x, s_ in zip(jax.tree.leaves(cache),
+                                     jax.tree.leaves(csh)))
+        want += rows * (spec.seq_len if spec.mode == "prefill" else 1) * 4
+        want += audio
+    assert r["memory"]["argument_bytes"] == want
+    assert r["kernels"]["fused_matmul"]["calls"] > 0
+    if spec.mode == "prefill":
+        k = {"recurrentgemma-2b": "rglru_scan", "rwkv6-7b": "rwkv6_wkv",
+             "whisper-tiny": "flash_attention"}[arch]
+        assert r["kernels"][k]["calls"] > 0
+
+
+def test_pod_rec_decode_cell_collectives_as_reckoned(tmp_path,
+                                                     rec_pod_grid):
+    """RWKV-6's decode_32k cell on ``single``, rank 0 (reduced, widened:
+    d 128, 16 heads of 8, d_ff 256, vocab 512, 3 layers, bf16; 2 rows a
+    rank), each head's state on its rank.
+
+    * all-gather: a layer's weights over data (w_r, w_k, w_v, w_g, w_o
+      and w_cm_r d x d/16 each, w_cm_k and w_cm_v d x d_ff/16), and the
+      channel mix's receptance over model (2 x d); the embedding and the
+      lm_head over data (vocab/16 x d each), the logits over model (2 x
+      vocab, fp32).
+    * all-reduce, fp32: a layer's two exits (2 x d); the embedding's sum
+      (2 x d, bf16)."""
+    r = dryrun.run_cell("rwkv6-7b", "decode_32k", "single",
+                        out_dir=str(tmp_path))
+    d, ff, v, n, rows, e = 128, 256, 512, 3, 2, 2
+    layer = (6 * d * d + 2 * d * ff) // 16 * e + rows * d * e
+    gather = n * layer + 2 * v // 16 * d * e + rows * v * 4
+    reduce = n * 2 * rows * d * 4 + rows * d * e
+    assert r["collective_bytes"] == {"all-gather": gather,
+                                     "all-reduce": reduce,
+                                     "total": gather + reduce}
