@@ -183,6 +183,20 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 ``get("sharded", units=2)``, bit for bit against the
                 kernel backend); dist-compress (``psum_compressed`` bit
                 for bit against one rank's sum);
+22b. dist-gspmd — OLMoE-1B-7B under the reference's GSPMD expert
+                parallelism (``moe_shard_map=False``) on 4 ranks of (data
+                2, model 2) spawned on the card: each rank keeps 32 of the
+                64 experts with 512 of their 1,024 d_ff columns, gathers
+                the tokens of the traffic's first batch (2 of its 4
+                prompts a rank) and routes them whole at the whole batch's
+                capacity; 4 layers fp32 under perf_iter's ar_gspmd_ep
+                rules against one process off the mesh, 16 layers bf16
+                with the dense leaves whole bit for bit against one
+                process running the ranks' partials in turn; launches by
+                tile, capacities, a decode step's collective bytes
+                against the reckoning and the meta count, peak against
+                its meta reckoning (after phases dist-mesh, dist-seq and
+                dist-rec, which the lines above and the README describe);
 23. dryrun     — the one-card dry run (``launch/dryrun.py``,
                 ``core/hlo_cost.py``) held to the card: full-size yi-6b
                 and OLMoE-1B-7B, one prefill and one decode step of the
@@ -204,7 +218,10 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
    decode shapes (head_dim 64), and K6 at RWKV-6's prefill shape
    (tensor-core tiles, beside the SIMT tiles at the same shapes), timed
    from CUDA-graph
-   replays; K3 and K5 from CUDA-graph replays over copies of their inputs
+   replays; K1 on fp8 (e4m3fn, e5m2) at the prefill GLU shape (SIMT tile)
+   and the decode one (decode tile) beside ``torch._scaled_mm`` where it
+   takes the pair, K4 on fp8 at OLMoE's prefill and decode capacities,
+   K2 on int8 at yi-6b's prefill shape (within 1, paged bit-identical); K3 and K5 from CUDA-graph replays over copies of their inputs
    that together exceed the L2 (``rotating``), with the older single-call
    timing beside it.
 
@@ -242,6 +259,10 @@ PROMPT_RANGE = (16, 256)            # inclusive, drawn with numpy seed 0
 PARITY_LAYERS, PARITY_DECODE = 4, 4
 GRIFFIN_PARITY_LAYERS = 6           # two (rec, rec, attn) triples
 TOL_BF16, TOL_FP32 = 3e-2, 1e-5
+# fp8 inputs (e4m3fn, e5m2) to K1 and K4, and the reference's tolerance
+# for them (tests/test_matmul_kernel.py's 3e-2 of max |ref|)
+FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+TOL_FP8 = 3e-2
 # K2 (flash attention) is held row by row (``row_rel_err``): each query
 # row's max |out - ref| against that row's own max |ref|.  Row 0 of a
 # causal call is one V row (|ref| near 4 for unit normals) while a row
@@ -777,6 +798,28 @@ DIST_REC_TRAIN_LAYERS = {"recurrentgemma-2b": 6, "rwkv6-7b": 2,
 # with rank 1's receptance heads reversed: each limit lies between the
 # sound path and the partials rounded twice
 TOL_TP_BF16_REC = {"recurrentgemma-2b": 0.87, "rwkv6-7b": 0.95}
+# dist-gspmd: OLMoE-1B-7B served under the reference's GSPMD expert
+# parallelism (moe_shard_map=False) on DIST_GSPMD_RANKS ranks of (data 2,
+# model 2): each rank holds 32 of the 64 experts (its data block), each
+# with 512 of its 1,024 d_ff columns (its model block), and routes the
+# whole batch (the 4 prompts of the serve traffic's first batch, 2 a data
+# rank) at the whole batch's capacity.  fp32 at DIST_GSPMD_FP32_LAYERS
+# under perf_iter's ar_gspmd_ep rules as they are (GSPMD_RULES: the
+# attention's heads, the vocabulary and the experts' d_ff over model)
+# against one process off the mesh (TOL_FP32, greedy identical); bf16 at
+# full depth under GSPMD_WHOLE_RULES (the same expert placement, the
+# dense leaves whole on every rank) bit for bit against one process
+# running every rank's partial in turn under an abstract mesh: the tensor
+# parallel attention's sums of partials would differ from one process's
+# in rounding, so only the whole dense leaves let one process hold the
+# ranks' arithmetic to the bit
+DIST_GSPMD_RANKS, DIST_GSPMD_TIMEOUT = 4, 600.0
+DIST_GSPMD_MESH = (2, 2)
+DIST_GSPMD_FP32_LAYERS = 4
+GSPMD_RULES = {"experts": "data", "mlp_expert": "model", "embed": None}
+GSPMD_WHOLE_RULES = {"embed": None, "heads": None, "kv_heads": None,
+                     "mlp": None, "vocab": None, "experts": "data",
+                     "mlp_expert": "model"}
 DIST_TRAIN_FP32_LAYERS, DIST_TRAIN_FP32_BATCH = 2, (4, 256)
 DIST_TRAIN_LAYERS = 4
 DIST_TRAIN_ARGV = ["--global-batch", "8", "--seq-len", "512",
@@ -996,8 +1039,8 @@ def matmul_case(gen, m, k, n, dtype, *, glu=False, act="none", bias=None,
                   activation=act, glu=glu, softcap=softcap,
                   has_scale_a=scale_a, has_scale_b=scale_b,
                   has_residual=residual,
-                  out_dtype=out_dtype or (torch.float32 if dtype ==
-                                          torch.int8 else dtype))
+                  out_dtype=out_dtype or (torch.float32 if dtype in (
+                      torch.int8,) + FP8 else dtype))
     return a, b, ep, ops
 
 
@@ -1058,7 +1101,8 @@ def grouped_case(gen, e, c, k, n, dtype, *, glu=False, act="none"):
     if dtype.is_floating_point:
         w = (w.float() / k ** 0.5).to(dtype)
     ep = Epilogue(activation=act, glu=glu, out_dtype=(
-        torch.int32 if dtype == torch.int8 else dtype))
+        torch.int32 if dtype == torch.int8 else torch.float32
+        if dtype in FP8 else dtype))
     return x, w, ep
 
 
@@ -4061,7 +4105,7 @@ def _mesh_train_fp32():
         loss_chunk=DIST_TRAIN_FP32_BATCH[1])
 
 
-def _mesh_serve(cfg, params, cache, follow=None):
+def _mesh_serve(cfg, params, cache, follow=None, rows=None):
     """The serve traffic's first batch (4 prompts padded to 221 tokens,
     with seeded stub-frontend inputs where the model has a frontend)
     through ``serving.engine.make_prefill`` and DIST_TP_DECODE steps of
@@ -4069,7 +4113,9 @@ def _mesh_serve(cfg, params, cache, follow=None):
     one a step), greedy (the argmax of each, (4, steps + 1)), prefill_ms,
     decode_ms, cache (as the steps left it), batch (the prefill's)}.
     The decode steps feed ``follow``'s tokens where given (the one-rank
-    run's), else the run's own greedy ones."""
+    run's, all 4 rows), else the run's own greedy ones.  ``rows``: the
+    slice of the batch this process serves (a data rank's), all 4 where
+    None."""
     from repro_torch.serving.engine import make_decode, make_prefill
     lengths, rng = prompt_lengths()
     s = int(max(lengths[:MAX_BATCH]))
@@ -4077,6 +4123,9 @@ def _mesh_serve(cfg, params, cache, follow=None):
         MAX_BATCH, s))).to(device="cuda", dtype=torch.int32)
     batch = {"tokens": tokens, **stub_inputs(cfg, MAX_BATCH, torch.Generator(
         device="cuda").manual_seed(DIST_SEED))}
+    if rows is not None:
+        batch = {k: x[rows] for k, x in batch.items()}
+        follow = follow[rows] if follow is not None else None
     prefill, decode = make_prefill(cfg), make_decode(cfg)
 
     def timed(fn, *args):
@@ -4929,6 +4978,60 @@ def _rec_kernel_checks(gen, model: int) -> list:
     return out
 
 
+def _gspmd_serve_launches(cfg, steps: int) -> dict:
+    """K1's, K2's and K4's launches by tile on one rank of ``dist-gspmd``
+    (OLMoE): a prefill of the serve traffic's first batch (2 of its 4
+    rows a data rank) and ``steps`` decode steps.  A layer's 4 attention
+    projections and the logits at M = 4 on K1's decode tile, the
+    prefill's on the tensor-core tile in bf16 and the SIMT tile in fp32;
+    one K2 call a layer at prefill (decode attention in plain ops); both
+    expert GEMMs of a layer on K4 at the whole batch's capacity: 144 at
+    prefill (tc in bf16, simt in fp32), 8 at decode (the decode tile)."""
+    n = cfg.n_layers
+    big = "tc" if cfg.dtype == torch.bfloat16 else "simt"
+    k1 = {"tc": 0, "decode": 1 + steps * (4 * n + 1), "simt": 0}
+    k1[big] += 4 * n
+    k4 = {"tc": 0, "decode": steps * 2 * n, "simt": 0}
+    k4[big] += 2 * n
+    k2 = {"tc": 0, "simt": 0}
+    k2[big] += n
+    return {"fused_matmul_by_tile": k1, "flash_attention_by_tile": k2,
+            "grouped_matmul_by_tile": k4}
+
+
+def _gspmd_decode_collectives(cfg, sizes: dict, rows: int,
+                              tp: bool) -> dict:
+    """Collective bytes by kind of one decode step of OLMoE on one rank of
+    a (data, model) mesh of ``sizes``, ``rows`` rows on the rank, under
+    GSPMD_RULES (``tp``: the attention's heads and the vocabulary split
+    over model as well) or GSPMD_WHOLE_RULES (the dense leaves whole).
+    ``tests/test_torch_gspmd_ep.py`` holds it to the meta count.
+
+    * all-gather: each MoE layer's input over data (rows x data x d, the
+      model's dtype); with ``tp``, the logits over model (rows x padded
+      vocab, fp32);
+    * reduce-scatter: each MoE layer's fp32 partial over data, the
+      rank's rows (rows x d x 4);
+    * all-reduce: each MoE layer's partial over model (rows x d x 4);
+      with ``tp``, each attention exit (rows x d x 4) and the embedding's
+      sum (rows x d, the model's dtype).
+    No expert weight moves."""
+    d, n = cfg.d_model, cfg.n_layers
+    e = torch.finfo(cfg.dtype).bits // 8
+    data, model = sizes.get("data", 1), sizes.get("model", 1)
+    gather = n * rows * data * d * e if data > 1 else 0
+    scatter = n * rows * d * 4 if data > 1 else 0
+    reduce = n * rows * d * 4 if model > 1 else 0
+    if tp and model > 1:
+        gather += rows * cfg.padded_vocab * 4
+        reduce += n * rows * d * 4 + rows * d * e
+    out = {k: float(v) for k, v in (("all-gather", gather),
+                                    ("reduce-scatter", scatter),
+                                    ("all-reduce", reduce)) if v}
+    out["total"] = sum(out.values())
+    return out
+
+
 def _dist_rec_rank(world, out_dir: str) -> None:
     """One rank of phase ``dist-rec``, spawned by ``run_world``: serves
     each of ``_rec_serve_configs`` on (data 1, model DIST_REC_RANKS) and
@@ -5236,6 +5339,258 @@ def phase_dist_rec():
 
 
 # ---------------------------------------------------------------------------
+# GSPMD expert parallelism: OLMoE's experts over data, each expert's d_ff
+# over model, the tokens gathered and the partials summed.
+# ---------------------------------------------------------------------------
+
+def _gspmd_configs():
+    """(tag, config, rules) of ``dist-gspmd``'s two runs: OLMoE-1B-7B at
+    full width with ``moe_shard_map=False``, DIST_GSPMD_FP32_LAYERS in
+    fp32 under GSPMD_RULES, then full depth in bf16 under
+    GSPMD_WHOLE_RULES."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(MOE_ARCH).with_(moe_shard_map=False)
+    return (("fp32", cfg.with_(n_layers=DIST_GSPMD_FP32_LAYERS,
+                               dtype=torch.float32,
+                               kv_cache_dtype=torch.float32), GSPMD_RULES),
+            ("bf16", cfg, GSPMD_WHOLE_RULES))
+
+
+def _dist_gspmd_rank(world, out_dir: str) -> None:
+    """One rank of phase ``dist-gspmd``, spawned by ``run_world``: OLMoE
+    served on (data 2, model 2) under GSPMD expert parallelism, each of
+    ``_gspmd_configs``, the rank's 2 rows of the serve traffic's first
+    batch, held to the parent's one-process runs (``gspmd_one.pt``).
+    Each rank builds the whole model on the card in its turn and keeps its
+    shards; a run's peak is the process's less cuBLAS's workspace (taken
+    first and measured).  Prints a dist-gspmd-fp32 and a dist-gspmd-bf16
+    line, raises on a failed check (which fails the world) and writes its
+    launch counts to ``out_dir/gspmd_rank{r}.json``."""
+    import torch.distributed as dist
+    from repro_torch.core.precision import disable_tf32
+    from repro_torch.distributed import logical, sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, rank_view
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.base import family_module
+    from repro_torch.serving.engine import make_decode, make_prefill
+    global _EMIT_LOCK
+    disable_tf32()
+    out_dir, r = Path(out_dir), world.rank
+    _EMIT_LOCK = out_dir / "emit.lock"
+    one = torch.load(out_dir / "gspmd_one.pt")
+    head = {"rank": r, "world": world.size, "backend": world.backend,
+            "backend_reason": world.reason, "device": str(world.device)}
+    mesh = make_mesh(DIST_GSPMD_MESH, ("data", "model"))
+    view = rank_view(DIST_GSPMD_MESH, mesh.axis_names, mesh.coordinate)
+    n = MAX_BATCH // DIST_GSPMD_MESH[0]
+    rows = slice(mesh.index("data") * n, (mesh.index("data") + 1) * n)
+    s = int(max(prompt_lengths()[0][:MAX_BATCH]))
+    launches = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.ones((8, 8), device="cuda") @ torch.ones((8, 8), device="cuda")
+    torch.cuda.synchronize()
+    workspace = torch.cuda.memory_allocated() - base
+    inner_capacity = moe_lib.moe_capacity
+    for tag, cfg, rules in _gspmd_configs():
+        mod = family_module(cfg)
+        for turn in range(world.size):
+            if turn == r:
+                whole = mod.init(cfg, torch.Generator(
+                    device="cuda").manual_seed(DIST_SEED), "cuda")
+                params = sharding.shard_params(whole, mesh, rules,
+                                               glu=cfg.mlp_glu)
+                del whole
+                torch.cuda.empty_cache()
+            dist.barrier()
+        wi = params["layers"][0]["moe"]["experts_wi"]
+        cache = sharding.shard_cache(mod.init_cache(
+            cfg, MAX_BATCH, CACHE_LEN, device="cuda"), mesh, cfg, rules)
+        ref = one[tag]
+        capacities = []
+
+        def capacity(c, tokens):
+            capacities.append(inner_capacity(c, tokens))
+            return capacities[-1]
+        read = _counted(_moe_wrappers())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        moe_lib.moe_capacity = capacity
+        try:
+            with logical.use_rules(mesh, rules):
+                got = _mesh_serve(cfg, params, cache,
+                                  follow=ref["greedy"][:, :-1], rows=rows)
+        finally:
+            moe_lib.moe_capacity = inner_capacity
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - workspace
+        counts = read()
+        mine = [x[rows] for x in ref["logits"]]
+        errs = [rel_err(a, b)[0] for a, b in zip(got["logits"], mine)]
+        agree = float((got["greedy"] == ref["greedy"][rows]).float().mean())
+        line = {}
+        if tag == "bf16":
+            line["logits_bit_identical_to_ranks_in_turn"] = all(
+                torch.equal(a, b) for a, b in zip(got["logits"], mine))
+            line["vs_all_experts_at_once_rel_err"] = [
+                rel_err(a, b[rows])[0] for a, b in
+                zip(got["logits"], one["bf16-all"]["logits"])]
+        # one more decode step, counted on the card and on meta at this
+        # rank's coordinate; the serve steps' peak against the meta trace
+        tok = ref["greedy"][rows, -1:].to("cuda", torch.int32)
+        pos = s + DIST_TP_DECODE
+        with logical.use_rules(mesh, rules):
+            card, _, _ = dryrun.count_step(make_decode(cfg), (
+                params, tok, got["cache"], pos), False)
+        with logical.use_rules(view, rules):
+            meta_params = sharding.shard_params(
+                mod.init(cfg, None, "meta"), view, rules, glu=cfg.mlp_glu)
+            meta_cache = sharding.shard_cache(mod.init_cache(
+                cfg, MAX_BATCH, CACHE_LEN, device="meta"), view, cfg, rules)
+            tokens = torch.empty((n, s), dtype=torch.int32, device="meta")
+            pre, _, _ = dryrun.count_step(make_prefill(cfg), (
+                meta_params, {"tokens": tokens}, meta_cache), False)
+            meta, _, _ = dryrun.count_step(make_decode(cfg), (
+                meta_params, tokens[:, :1], meta_cache, pos), False)
+        mem = {"arguments": dryrun.tree_bytes((meta_params, meta_cache,
+                                                tokens)),
+               "temp_meta": max(pre.temp_bytes, meta.temp_bytes)}
+        mem["total"] = mem["arguments"] + mem["temp_meta"]
+        counted = {**{k: float(x) for k, x in card.per_collective.items()},
+                   "total": card.collective_bytes}
+        reckoned = _gspmd_decode_collectives(
+            cfg, dict(mesh.shape), n, rules is GSPMD_RULES)
+        kernels = _gspmd_serve_launches(cfg, DIST_TP_DECODE)
+        want_caps = [moe_lib.moe_capacity(cfg, MAX_BATCH * s)] * cfg.n_layers \
+            + [moe_lib.moe_capacity(cfg, MAX_BATCH)] * (
+                cfg.n_layers * DIST_TP_DECODE)
+        phase = f"dist-gspmd-{tag}"
+        emit({"phase": phase, **head, **counts,
+              "config": f"{MOE_ARCH} full width, {cfg.n_layers} layers, "
+                        f"{str(cfg.dtype)[6:]}, moe_shard_map=False, (data "
+                        f"{DIST_GSPMD_MESH[0]}, model {DIST_GSPMD_MESH[1]}),"
+                        f" rules {rules}: experts "
+                        f"[{sharding.block_index(mesh, ('data',)) * wi.shape[1]}"
+                        f", +{wi.shape[1]}) of {cfg.moe.n_experts}, each "
+                        f"with {wi.shape[-1] // 2} of its "
+                        f"{cfg.moe.d_ff_expert} d_ff columns; rows {rows.start}"
+                        f"-{rows.stop - 1} of {MAX_BATCH}",
+              "held_against": ("one process off the mesh" if tag == "fp32"
+                               else "one process, the ranks' partials in "
+                                    "turn under an abstract mesh"),
+              "logits_rel_err": errs,
+              "tol": TOL_FP32 if tag == "fp32" else 0.0, **line,
+              "greedy_tokens_agree": agree,
+              "moe_capacities": sorted(set(capacities)),
+              "launches_reckoned": kernels,
+              "collective_bytes_decode_step": counted,
+              "collective_bytes_meta": meta.per_collective,
+              "collective_bytes_reckoned": reckoned,
+              "prefill_ms": got["prefill_ms"], "decode_ms": got["decode_ms"],
+              "one_process_prefill_ms": ref["prefill_ms"],
+              "one_process_decode_ms": ref["decode_ms"],
+              "max_memory_allocated": peak, "cublas_workspace": workspace,
+              "memory_reckoned": mem,
+              "memory_rel": peak / mem["total"] - 1.0,
+              "tol_memory": TOL_DIST_MEMORY})
+        require(all(bool(torch.isfinite(x).all()) for x in got["logits"]),
+                f"{phase}: logits not finite")
+        require(tuple(wi.shape[1:]) == (
+            cfg.moe.n_experts // DIST_GSPMD_MESH[0], cfg.d_model,
+            2 * cfg.moe.d_ff_expert // DIST_GSPMD_MESH[1]),
+                f"{phase}: a rank's experts_wi {tuple(wi.shape)}")
+        if tag == "fp32":
+            require(all(e_ <= TOL_FP32 for e_ in errs),
+                    f"{phase}: logits {errs} against {TOL_FP32}")
+        else:
+            require(line["logits_bit_identical_to_ranks_in_turn"],
+                    f"{phase}: logits {errs} differ from the ranks' "
+                    "partials in turn")
+        require(agree == 1.0, f"{phase}: greedy tokens differ from one "
+                "process's")
+        require(capacities == want_caps, f"{phase}: capacities "
+                f"{sorted(set(capacities))}, the whole batch's "
+                f"{sorted(set(want_caps))}")
+        require({k: counts[k] for k in kernels} == kernels,
+                f"{phase}: launches {counts}, reckoned {kernels}")
+        require(counted == reckoned and card.per_collective
+                == meta.per_collective, f"{phase}: a decode step's "
+                f"collective bytes {counted}, meta {meta.per_collective}, "
+                f"reckoned {reckoned}")
+        require(abs(peak / mem["total"] - 1.0) <= TOL_DIST_MEMORY,
+                f"{phase}: peak {peak} B against {mem['total']} B reckoned")
+        launches[phase] = counts
+        del params, cache, got, card, meta, pre, meta_params, meta_cache, wi
+        torch.cuda.empty_cache()
+    (out_dir / f"gspmd_rank{r}.json").write_text(json.dumps(
+        {"world": head, "launches": launches}))
+
+
+def phase_dist_gspmd():
+    """OLMoE-1B-7B served under GSPMD expert parallelism on
+    DIST_GSPMD_RANKS ranks of (data 2, model 2) through
+    ``launch.mesh.run_world`` (gloo: the ranks share the card;
+    ``_dist_gspmd_rank``).  First, in this process, what the ranks are
+    held to: the fp32 run off the mesh (the reference's function: one
+    routing of the whole batch, all experts at once), and the bf16 run
+    under an abstract mesh with GSPMD_WHOLE_RULES (every rank's partial
+    in turn, summed as the ranks sum them) and off the mesh on its tokens
+    (the distance reported).  A rank that fails, or a world that outlives
+    DIST_GSPMD_TIMEOUT, fails the phase."""
+    import shutil
+
+    from repro_torch.distributed import logical
+    from repro_torch.launch.mesh import abstract_mesh, run_world
+    from repro_torch.models.base import family_module
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    one = {}
+    in_turn = abstract_mesh(DIST_GSPMD_MESH, ("data", "model"))
+    for tag, cfg, rules in _gspmd_configs():
+        mod = family_module(cfg)
+        params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(
+            DIST_SEED), "cuda")
+        runs = ((tag, None),) if tag == "fp32" else (
+            (tag, in_turn), ("bf16-all", None))
+        for run, mesh in runs:
+            cache = mod.init_cache(cfg, MAX_BATCH, CACHE_LEN, device="cuda")
+            follow = one[tag]["greedy"][:, :-1] if run != tag else None
+            with (logical.use_rules(mesh, rules) if mesh is not None
+                  else contextlib.nullcontext()):
+                got = _mesh_serve(cfg, params, cache, follow)
+            got.pop("cache")
+            got.pop("batch")
+            one[run] = got
+            del cache
+        del params
+        torch.cuda.empty_cache()
+    torch.save(one, DIST_DIR / "gspmd_one.pt")
+    one_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    try:
+        run_world(_dist_gspmd_rank, DIST_GSPMD_RANKS, (str(DIST_DIR),),
+                  rendezvous=str(DIST_DIR / "rendezvous"),
+                  timeout=DIST_GSPMD_TIMEOUT)
+    except Exception as e:                   # a rank failed or hung
+        raise PhaseFailed(f"dist-gspmd: {type(e).__name__}: {e}") from None
+    world_s = time.perf_counter() - t0
+    ranks = [json.loads((DIST_DIR / f"gspmd_rank{i}.json").read_text())
+             for i in range(DIST_GSPMD_RANKS)]
+    launches = {f"{path}/rank{i}": counts for i, got in enumerate(ranks)
+                for path, counts in got["launches"].items()}
+    emit({"phase": "dist-gspmd", "ranks": DIST_GSPMD_RANKS,
+          "backend": ranks[0]["world"]["backend"],
+          "backend_reason": ranks[0]["world"]["backend_reason"],
+          "one_process_s": one_s, "world_wall_s": world_s,
+          "wall_s": time.perf_counter() - t_phase, "launches": launches})
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Times at the paths' largest shapes.
 # ---------------------------------------------------------------------------
 
@@ -5506,6 +5861,24 @@ def rotating(fn, copies):
     return call
 
 
+def _scaled_mm(a, b):
+    """(a callable of ``torch._scaled_mm`` on fp8 ``a`` and ``b``, B
+    column-major, one fp32 scale each, fp32 out; what it is) where the
+    library takes the operands, else (None, why not): a yardstick only."""
+    bt = b.t().contiguous().t()
+    one = torch.ones((), device="cuda")
+
+    def call():
+        return torch._scaled_mm(a, bt, scale_a=one, scale_b=one,
+                                out_dtype=torch.float32)
+    try:
+        call()
+    except (RuntimeError, ValueError) as e:   # shapes or types it refuses
+        return None, f"none: torch._scaled_mm refused ({str(e)[:160]})"
+    return call, ("torch._scaled_mm, B column-major, tensor-wide scales, "
+                  "fp32 out (no epilogue)")
+
+
 def bound(flops: float, nbytes: float, peak: float, bw: float):
     t_ops, t_bytes = flops / peak, nbytes / bw
     return (max(t_ops, t_bytes) * 1e3,
@@ -5742,6 +6115,139 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
                          f"{n_rows} rows" if routed else ""),
             "library_call": "torch.bmm in bf16 on the full shape (no "
                             "epilogue)"})
+
+    # K1 and K4 on fp8 (e4m3fn, e5m2), each on the tile the rule names
+    # (SIMT above 8 rows, decode at 8 and fewer), held against the plain
+    # version at TOL_FP8 and timed as 10 calls replayed from a CUDA graph:
+    # K1 at yi-6b's prefill and decode GLU projection, K4 at OLMoE's
+    # gate/up projection at the prefill's capacity and at decode's.  No
+    # served path runs fp8: ``launches`` is each kernel's over the paths.
+    # The bound counts one byte an fp8 element, 4 an fp32 output, and the
+    # operations at the fp8 peak.  The library yardstick is
+    # ``torch._scaled_mm`` (one fp32 scale a matrix, the product without
+    # the epilogue) where it takes the operands, else none.
+    for fmt in FP8:
+        name = str(fmt)[6:]
+        for tag, rows in (("prefill", MAX_BATCH * s_max),
+                          ("decode", MAX_BATCH)):
+            a, b, ep, ops = matmul_case(gen, rows, k, n, fmt, glu=True,
+                                        act="silu")
+            fns = {"kernel": lambda: run_matmul(a, b, ep, ops),
+                   "plain": lambda: plain_matmul(a, b, ep, ops)}
+            library, why = _scaled_mm(a, b)
+            if library is not None:
+                fns["library"] = library
+            t = graph_ms(fns)
+            tile = tile_for(a, b, ep)
+            rel, diff = rel_err(run_matmul(a, b, ep, ops),
+                                plain_matmul(a, b, ep, ops))
+            require(rel <= TOL_FP8, f"kernels fp8: K1 {name} {tag} {rel} "
+                    f"against {TOL_FP8}")
+            ms, by = bound(2.0 * rows * n * k,
+                           rows * k + k * n + 4.0 * rows * n // 2,
+                           chip.peak_fp8, chip.hbm_bw)
+            kernels.append({
+                "name": "fused_matmul", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/" + (
+                    "decode_tile.cuh" if tile == "decode" else
+                    "gemm_tile.cuh"),
+                "replaces": "src/repro/kernels/matmul/matmul.py:39",
+                **counts("fused_matmul"),
+                "launches_by_tile": by_tile("fused_matmul"),
+                "tile": tile, "max_abs_err": diff, "rel_err": rel,
+                "tol": TOL_FP8,
+                "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
+                "bound_by": by, "library_ms": t.get("library"),
+                "shape": f"{tag}: {name} ({rows},{k})@({k},{n}) GLU-silu "
+                         f"-> ({rows},{n // 2}) fp32",
+                "library_call": why})
+    for fmt in FP8:
+        name = str(fmt)[6:]
+        for tag, tokens in (("prefill", MAX_BATCH * s_max),
+                            ("decode", MAX_BATCH)):
+            c = moe_capacity(moe_cfg, tokens)
+            x, w, ep = grouped_case(gen, e, c, dm, 2 * fe, fmt, glu=True,
+                                    act="silu")
+            t = graph_ms({"kernel": lambda: run_grouped(x, w, ep),
+                          "plain": lambda: plain_grouped(x, w, ep)})
+            tile = grouped_tile_for(x, w, ep)
+            rel, diff = rel_err(run_grouped(x, w, ep),
+                                plain_grouped(x, w, ep))
+            require(rel <= TOL_FP8, f"kernels fp8: K4 {name} {tag} {rel} "
+                    f"against {TOL_FP8}")
+            ms, by = bound(2.0 * e * c * dm * 2 * fe,
+                           e * c * dm + e * dm * 2 * fe + 4.0 * e * c * fe,
+                           chip.peak_fp8, chip.hbm_bw)
+            kernels.append({
+                "name": "grouped_matmul", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+                "replaces": "src/repro/kernels/moe/grouped_matmul.py:21",
+                **counts("grouped_matmul"),
+                "launches_by_tile": by_tile("grouped_matmul"),
+                "tile": tile, "max_abs_err": diff, "rel_err": rel,
+                "tol": TOL_FP8,
+                "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
+                "bound_by": by, "library_ms": None,
+                "shape": f"{tag}: {name} ({e},{c},{dm})@({e},{dm},{2 * fe})"
+                         f" GLU-silu -> ({e},{c},{fe}) fp32",
+                "library_call": "none: no single PyTorch call multiplies "
+                                "a batch of fp8 matrices"})
+
+    # K2 on int8 at yi-6b's prefill attention (causal, head_dim 128; every
+    # q head its own KV head: the int8 case the reference's paged route
+    # pins), on the SIMT tile: within 1 of the plain version at every
+    # element (both truncate toward zero; an fp32 value at a whole number
+    # can land one apart), the share that differs reported; the same call
+    # through ``paged_flash_attention`` on a shuffled block table equal to
+    # the contiguous one bit for bit.  The bound counts one byte an
+    # element and the operations at the int8 peak (``bound_fp32_ms``: at
+    # the fp32 peak, as the reference computes in fp32); no PyTorch
+    # attention takes int8.
+    from repro_torch.kernels.attention.paged import (paged_flash_attention,
+                                                     to_paged)
+    h, hd = cfg.n_heads, cfg.head_dim
+    q, kk, v = attention_case(gen, MAX_BATCH, h, h, s_max, s_max, hd,
+                              torch.int8)
+    q = (q // 16).contiguous()          # scores of a moderate range
+    kw = dict(sm_scale=hd ** -0.5, causal=True, window=0, softcap=0.0,
+              q_start=0)
+    t = graph_ms({"kernel": lambda: run_attention(q, kk, v, **kw),
+                  "plain": lambda: plain_attention(q, kk, v, **kw)})
+    out = run_attention(q, kk, v, **kw)
+    ref = plain_attention(q, kk, v, **kw)
+    off = (out.int() - ref.int()).abs()
+    kp, vp, table = to_paged(kk, v, PAGED_BLOCK, seed=5)
+    paged = paged_flash_attention(q, kp, vp, table, seq_len=s_max, **kw)
+    require(out.dtype == torch.int8 and int(off.max()) <= 1,
+            f"kernels int8: K2 {int(off.max())} from the plain version")
+    require(torch.equal(paged, out), "kernels int8: K2 paged differs from "
+            "contiguous")
+    pairs = s_max * (s_max + 1) // 2
+    flops = 4.0 * MAX_BATCH * h * pairs * hd
+    nbytes = 2.0 * q.numel() + kk.numel() + v.numel()
+    ms, by = bound(flops, nbytes, chip.peak_int8, chip.hbm_bw)
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/attention/attention.py:34",
+        **counts("flash_attention"),
+        "launches_by_tile": by_tile("flash_attention"),
+        "tile": attention_tile_for(q, kk, v),
+        "max_abs_err": float(off.max()),
+        "share_differing": float((off > 0).float().mean()),
+        "paged_bit_identical": True,
+        "ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": ms,
+        "bound_by": by,
+        "bound_fp32_ms": bound(flops, nbytes, chip.peak_fp32,
+                               chip.hbm_bw)[0],
+        "library_ms": None,
+        "timing": "per call, median of 10 replays (in turns) of a CUDA "
+                  "graph of 10 calls",
+        "shape": f"int8 q, k, v ({MAX_BATCH},{h},{s_max},{hd}) causal -> "
+                 "int8",
+        "library_call": "none: F.scaled_dot_product_attention takes no "
+                        "int8"})
+    del q, kk, v, kp, vp, out, ref, paged
 
     # K3 at the W8A8 path's shapes: the fp32 activations of the input
     # projection (the row) and of the output projection (``ff_*``), both
@@ -6062,6 +6568,10 @@ def main() -> int:
         # on DIST_REC_RANKS ranks: K5 on each rank's channels, K6 on its
         # heads
         launches.update(phase_dist_rec())
+        # OLMoE-1B-7B served under GSPMD expert parallelism on 4 ranks of
+        # (data 2, model 2): K4 on each rank's 32 experts and 512 d_ff
+        # columns at the whole batch's capacity
+        launches.update(phase_dist_gspmd())
         launches["dryrun"] = phase_dryrun(card)
         kernels = phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, launches)
     except PhaseFailed as e:

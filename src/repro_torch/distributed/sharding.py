@@ -23,9 +23,12 @@ the up projection in its second, and K1 reads it as (d, 2, d_ff/...).  A
 contiguous column shard would give rank 0 only gates, so a rank's shard
 of ``wi`` is ``wi.view(d, 2, d_ff)[:, :, r·d_ff/m:(r+1)·d_ff/m]``: the
 same size as the reference's shard, its gate and up columns paired.
-Only a GLU's ``wi`` is paired: the callers pass the config's
-``mlp_glu``, and a plain MLP's ``wi`` (Whisper's GELU projection) takes
-the reference's contiguous column shard.
+The experts' input projection ``experts_wi`` (E, d, 2·ff) is paired the
+same way where a rule splits its ``mlp_expert`` dim (GSPMD expert
+parallelism, ``models/moe.py``).  Only a GLU's ``wi`` and ``experts_wi``
+are paired: the callers pass the config's ``mlp_glu``, and a plain MLP's
+``wi`` (Whisper's GELU projection) takes the reference's contiguous
+column shard.
 ``local_batch`` gives a rank its rows of each microbatch and
 ``shard_cache`` its KV cache shard, in each of the reference's three
 forms (``gather_cache`` is its inverse).
@@ -73,6 +76,9 @@ _NAME_RULES: "dict[str, tuple]" = {
 }
 # mlp wo: name collision with attention wo is fine — both are row parallel
 # with the sharded dim first.
+
+#: the leaves whose last dim is a GLU's (gate | up) under ``mlp_glu``
+GLU_LEAVES = ("wi", "experts_wi")
 
 #: rules that shard the experts over ``model`` and keep every other leaf
 #: whole: the placement of an expert-parallel served model, whose dense
@@ -269,7 +275,7 @@ def shard_params(params, mesh: Mesh, rules: Optional[dict] = None, *,
     shapes."""
     with logical.use_rules(mesh, rules):
         out = [_own(shard_leaf(leaf, spec_of(_leaf_name(path), leaf.shape),
-                               mesh, glu and _leaf_name(path) == "wi"))
+                               mesh, glu and _leaf_name(path) in GLU_LEAVES))
                for path, leaf in tree.flatten_with_path(params)]
     return tree.unflatten(params, out)
 
@@ -288,7 +294,7 @@ def gather_params(local, like, mesh: Mesh, rules: Optional[dict] = None,
         for i, ((path, x), big) in enumerate(zip(
                 tree.flatten_with_path(local), tree.leaves(like))):
             whole = gather_leaf(x, spec_of(_leaf_name(path), big.shape),
-                                mesh, glu and _leaf_name(path) == "wi")
+                                mesh, glu and _leaf_name(path) in GLU_LEAVES)
             out.append(whole if leaf_fn is None else leaf_fn(i, whole))
     return tree.unflatten(local, out)
 

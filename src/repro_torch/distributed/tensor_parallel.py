@@ -12,7 +12,9 @@ moving themselves:
   layer that uses it (``collectives.gather_from_group``, whose backward
   reduce-scatters the gradient), so one layer at a time is whole, as
   ZeRO-3 works; under ``remat`` the recompute gathers again.  It returns
-  the leaf with its ``model`` dim still sharded, and that dim.
+  the leaf with its ``model`` dim still sharded, and that dim; dims in
+  its ``keep`` stay the rank's shard (GSPMD expert parallelism moves the
+  tokens to the experts, not the experts).
 * A column-parallel projection runs on the rank's columns behind
   ``enter`` (identity forward, gradient all-reduced over ``model``); a
   row-parallel one on its rows, then ``exit`` (all-reduce forward).
@@ -88,11 +90,13 @@ class Placement:
         return self.mesh.group(axis)
 
     # -- leaves ------------------------------------------------------------
-    def param(self, w: torch.Tensor, name: str, shape):
+    def param(self, w: torch.Tensor, name: str, shape, keep=()):
         """(``w`` gathered over every axis but ``model``, the dim its
         ``model`` shard lies along or None).  ``shape`` is the whole
         leaf's, and ``w`` must be the rank's shard of it under the rules
-        (the whole leaf where they replicate it)."""
+        (the whole leaf where they replicate it).  The dims in ``keep``
+        stay the rank's shard, whatever axes split them (the experts and
+        their d_ff under GSPMD expert parallelism, ``models/moe.py``)."""
         shape = tuple(shape)
         spec = sharding.spec_of(name, shape)
         want = sharding.local_shape(self.mesh, shape, spec)
@@ -109,6 +113,8 @@ class Placement:
                                     "split over model and another axis "
                                     "(ROADMAP item 7c)")
                 model_dim = d if self.model > 1 else None
+                continue
+            if d in keep:
                 continue
             for a in reversed(names):                  # minor axis first
                 if self.mesh.shape[a] > 1:

@@ -8,14 +8,16 @@ which:
 * ``"tc"`` (``csrc/flash_attention_sm90.cu``): bf16/fp16 at head_dim 64,
   128 or 256 whose pointers and strides TMA can take; wgmma on the
   tensor cores, q, k and v loaded by TMA through their own strides;
-* ``"simt"`` (``csrc/flash_attention.cu``): everything else (fp32, other
-  head dims, which it zero-pads, and views TMA refuses).
+* ``"simt"`` (``csrc/flash_attention.cu``): everything else (fp32,
+  int8, other head dims, which it zero-pads, and views TMA refuses).
 
 ``flash_attention_plain`` computes the same function densely with plain
 tensor ops: the CPU tests run it, and ``chip_smoke.py`` holds each tile
 against it on the card.
 
-q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, H, Sq, D) in q's dtype.
+q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, H, Sq, D) in q's dtype
+(int8: the fp32 result truncated toward zero, as the reference's
+``astype``).
 Query head h reads KV head h // (H / Hkv); query row i sits at position
 ``q_start + i``; a key is seen if it is inside ``Sk``, not after the
 query (causal) and fewer than ``window`` positions before it.  A query
@@ -33,7 +35,8 @@ from repro_torch.core.hlo_cost import tensor_bytes
 from repro_torch.kernels import bind_device, launcher, stream
 from repro_torch.kernels.attention.ref import attention_ref
 
-_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
+                torch.int8: 3}
 _HEAD_DIMS = (32, 64, 128, 256)  # head dims the SIMT tile is built for
 TC_HEAD_DIMS = (64, 128, 256)    # head dims the tensor-core tile is built for
 TILES = ("tc", "simt")
@@ -81,9 +84,9 @@ def select_tile(dtype: torch.dtype, d: int, aligned: bool,
     (TMA never steps along the others).  bf16 and fp16 at head_dim 64,
     128 or 256 take the tensor-core tile when every stride is a positive
     whole 16-byte unit, as TMA needs; fp32 stays off the tensor cores
-    (its parity tolerance is 1e-3, and P would be rounded), and it, the
-    head dims the SIMT tile pads and the views TMA refuses take the SIMT
-    tile.  No tile falls back to another: a failed launch raises.
+    (its parity tolerance is 1e-3, and P would be rounded), and it,
+    int8, the head dims the SIMT tile pads and the views TMA refuses take
+    the SIMT tile.  No tile falls back to another: a failed launch raises.
     """
     if (dtype in (torch.bfloat16, torch.float16) and d in TC_HEAD_DIMS
             and aligned and all(s > 0 and s % TMA_ALIGN == 0
@@ -135,8 +138,9 @@ def flash_attention_cuda(q, k, v, *, sm_scale: float, causal: bool,
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPE_CODES or not (q.dtype == k.dtype == v.dtype):
         raise NotImplementedError(
-            f"the CUDA flash attention takes float32, float16 or bfloat16 "
-            f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+            f"the CUDA flash attention takes float32, float16, bfloat16 or "
+            f"int8 q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+            f"{v.dtype}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("the CUDA flash attention takes q, k, v with unit "
                          "stride along the head dim")
@@ -171,7 +175,7 @@ def flash_attention_tc(q, k, v, *, sm_scale: float, causal: bool,
 
 def flash_attention_simt(q, k, v, *, sm_scale: float, causal: bool,
                          window: int, softcap: float, q_start: int):
-    """The SIMT tile, at any of the three dtypes, on a non-empty q and a
+    """The SIMT tile, at any of the four dtypes, on a non-empty q and a
     key; head dims below 256 that it is not built for are zero-padded."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]

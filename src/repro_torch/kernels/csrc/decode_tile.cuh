@@ -8,11 +8,11 @@
 // (at most 16 operations a byte), so the time is reading B once at the
 // memory rate.  What the design does about that:
 //   * B is read with 8-element vector loads along N (16 bytes in bf16 and
-//     fp16, two of 16 in fp32, 8 in int8): each thread owns 8 output
+//     fp16, two of 16 in fp32, 8 in int8 and fp8): each thread owns 8 output
 //     columns (8 gate and 8 up columns of B under GLU), and the 32 lanes
 //     of a warp read 256 consecutive columns of one row;
 //   * each thread keeps all MR rows' accumulators (fp32, int32 for int8)
-//     in registers;
+//     in registers; fp8 is decoded to fp32 element by element;
 //   * A (at most 8 rows) sits in shared memory in its own type, K-chunked
 //     and laid out [k][row], so a warp reads one row's values as a
 //     broadcast;
@@ -55,13 +55,14 @@ constexpr int D_KA = 512;                // rows of A staged in shared memory at
 constexpr int D_CH = 16;                 // accumulators a round of the warp reduction takes
 constexpr int D_RED_THREADS = 256;       // threads of a block of the split reduction
 
-// 8 consecutive elements of one row of B, as one or two vector loads.
-template <typename T> struct Row8 {
+// 8 consecutive elements of one row of B, as one or two vector loads;
+// one 8-byte load for the one-byte types (int8, fp8 e4m3fn and e5m2).
+template <typename T, int BYTES = sizeof(T)> struct Row8 {
   using V = uint4;
   static constexpr int n = sizeof(T) / 2;
   V r[n];
 };
-template <> struct Row8<int8_t> {
+template <typename T> struct Row8<T, 1> {
   using V = uint2;
   static constexpr int n = 1;
   V r[n];
@@ -297,6 +298,8 @@ int decode_tile_dispatch(int in_code, const DecodeArgs& a, int mr,
     case IN_F16: decode_tile_launch<Tag, __half>(a, mr, ep, s); break;
     case IN_BF16: decode_tile_launch<Tag, __nv_bfloat16>(a, mr, ep, s); break;
     case IN_I8: decode_tile_launch<Tag, int8_t>(a, mr, ep, s); break;
+    case IN_E4M3: decode_tile_launch<Tag, __nv_fp8_e4m3>(a, mr, ep, s); break;
+    case IN_E5M2: decode_tile_launch<Tag, __nv_fp8_e5m2>(a, mr, ep, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

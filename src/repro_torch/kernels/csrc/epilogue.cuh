@@ -8,17 +8,25 @@
 // Order, as the reference defines it: scale_a per row, scale_b per
 // column, bias (zero, row or full), softcap, activation, GLU, residual,
 // cast.
+//
+// Input types: fp32, fp16, bf16 and fp8 (e4m3fn, e5m2) accumulate in
+// fp32, int8 in int32.  The tiles read fp8 from global memory as it lies
+// (one byte an element) and decode each element to fp32 with
+// cuda_fp8.h's conversion: e4m3fn has no infinity and its NaN is
+// 0x7f / 0xff, as torch.float8_e4m3fn; e5m2 is IEEE-like.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-enum InCode { IN_F32 = 0, IN_F16 = 1, IN_BF16 = 2, IN_I8 = 3 };
+enum InCode { IN_F32 = 0, IN_F16 = 1, IN_BF16 = 2, IN_I8 = 3, IN_E4M3 = 4,
+              IN_E5M2 = 5 };
 enum OutCode { OUT_F32 = 0, OUT_F16 = 1, OUT_BF16 = 2, OUT_I32 = 3 };
 enum BiasCode { BIAS_ZERO = 0, BIAS_ROW = 1, BIAS_FULL = 2 };
 // Activation ids follow repro_torch.core.fusion.ACTIVATIONS.
@@ -48,6 +56,12 @@ __device__ __forceinline__ float conv(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ int conv(int8_t x) { return static_cast<int>(x); }
+__device__ __forceinline__ float conv(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float conv(__nv_fp8_e5m2 x) {
+  return static_cast<float>(x);
+}
 
 __device__ __forceinline__ float activate(float x, int act) {
   switch (act) {

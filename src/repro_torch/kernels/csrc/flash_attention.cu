@@ -5,7 +5,10 @@
 // flash_attention): causal mask, sliding window, logit softcap, GQA,
 // the key-length mask and a q_start offset for chunked prefill, fp32
 // statistics and accumulator, output in q's dtype, and a fully masked
-// row gives 0, not NaN.
+// row gives 0, not NaN.  Inputs fp32, fp16, bf16 or int8: int8 q, k and
+// v are read as they lie and converted to fp32, as the reference casts
+// them, and the output is (acc / l) truncated toward zero into int8, as
+// its astype does.
 //
 // What bounds it on an H100: at the prefill shapes of the serving path
 // (a few hundred tokens, head_dim 128) the QK^T and PV products dominate
@@ -32,7 +35,7 @@
 
 namespace {
 
-enum DtypeCode { DT_F32 = 0, DT_F16 = 1, DT_BF16 = 2 };
+enum DtypeCode { DT_F32 = 0, DT_F16 = 1, DT_BF16 = 2, DT_I8 = 3 };
 
 constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64;        // queries per block
@@ -49,6 +52,9 @@ __device__ __forceinline__ float conv(__half x) { return __half2float(x); }
 __device__ __forceinline__ float conv(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float conv(int8_t x) {
+  return static_cast<float>(x);
+}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -59,6 +65,11 @@ template <> __device__ __forceinline__ __half from_f<__half>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+// Toward zero, as a float-to-int cast; the output is a convex combination
+// of int8 values, and the clamp keeps a rounding past the ends in range.
+template <> __device__ __forceinline__ int8_t from_f<int8_t>(float x) {
+  return static_cast<int8_t>(fminf(fmaxf(x, -128.f), 127.f));
 }
 
 // rows x D tile from a (rows, D) slab with row stride `stride` into
@@ -276,6 +287,10 @@ extern "C" int flash_attention_launch(
       return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, H, Hkv, Sq, Sk, st,
                                        sm_scale, causal, window, softcap,
                                        q_start, vec, s);
+    case DT_I8:
+      return dispatch_d<int8_t>(D, q, k, v, o, B, H, Hkv, Sq, Sk, st,
+                                sm_scale, causal, window, softcap, q_start,
+                                vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -4,14 +4,14 @@
 //
 // Each block owns one (problem, row tile, column tile), loops over K
 // inside itself with its fp32 (int32 for int8) accumulator tile in
-// registers, and applies the epilogue (scales, bias, softcap, activation,
+// registers (fp8 read a byte an element and decoded as it is staged), and applies the epilogue (scales, bias, softcap, activation,
 // GLU, residual, cast) in those registers before its one store.  Operand
 // tiles are staged through shared memory with coalesced 16-byte loads
 // wherever the row length and alignment allow, and per-element masked
 // loads at ragged edges, so any M, N, K works.  One 64x64 tile serves
 // what neither the decode tile (M <= 8, decode_tile.cuh) nor the
-// tensor-core tile (bf16/fp16, tc_tile.cuh) takes: fp32, int8 and rows
-// TMA refuses.  The epilogue is in epilogue.cuh.
+// tensor-core tile (bf16/fp16, tc_tile.cuh) takes: fp32, int8, fp8 and
+// rows TMA refuses.  The epilogue is in epilogue.cuh.
 //
 // ``Tag`` only names the instantiation (a profiler then tells K1's
 // launches from K4's); it changes no code.
@@ -191,6 +191,16 @@ int gemm_tile_dispatch(int in_code, const void* A, const void* B, int M,
     case IN_I8:
       gemm_tile_launch<Tag, int8_t>(A, B, M, N, K, batch, stride_a, stride_b,
                                     rows, vec_a, vec_b, ep, s);
+      break;
+    case IN_E4M3:
+      gemm_tile_launch<Tag, __nv_fp8_e4m3>(A, B, M, N, K, batch, stride_a,
+                                           stride_b, rows, vec_a, vec_b, ep,
+                                           s);
+      break;
+    case IN_E5M2:
+      gemm_tile_launch<Tag, __nv_fp8_e5m2>(A, B, M, N, K, batch, stride_a,
+                                           stride_b, rows, vec_a, vec_b, ep,
+                                           s);
       break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -9,8 +9,13 @@ counterparts of the reference's Pallas ``fused_matmul_kernel``
 * ``"tc"`` (``csrc/fused_matmul_sm90.cu``, the tile of
   ``csrc/tc_tile.cuh``): bf16/fp16 with M > 8 whose rows TMA can load
   (16-byte multiples); wgmma on the tensor cores;
-* ``"simt"`` (``csrc/gemm_tile.cuh``): everything else (fp32, int8,
+* ``"simt"`` (``csrc/gemm_tile.cuh``): everything else (fp32, int8, fp8,
   rows TMA refuses).
+
+The input types are the reference's: fp32, fp16, bf16 and fp8 (e4m3fn,
+e5m2) accumulate in fp32, int8 in int32.  The tiles read fp8 operands
+as they lie, one byte an element, and decode them in registers: no
+upcast copy is made.
 
 ``fused_matmul_plain`` computes the same function with plain tensor ops:
 the CPU tests run it, and ``chip_smoke.py`` holds every tile against it
@@ -35,7 +40,7 @@ from repro_torch.core.task import BiasType
 from repro_torch.kernels import bind_device, launcher, stream
 
 _IN_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
-             torch.int8: 3}
+             torch.int8: 3, torch.float8_e4m3fn: 4, torch.float8_e5m2: 5}
 _OUT_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2,
               torch.int32: 3}
 _BIAS_CODES = {BiasType.ZERO: 0, BiasType.ROW: 1, BiasType.FULL: 2}
@@ -108,9 +113,10 @@ def select_tile(m: int, n: int, k: int, dtype: torch.dtype, glu: bool,
     the tensor-core tile when TMA can load every row: A's rows (k), B's
     rows (n) and under GLU each half of B's row (n / 2) are whole 16-byte
     units.  fp32 stays off the tensor cores (TF32 would break its parity
-    tolerance) and int8 too (wgmma's s8 form takes only K-major B, and
-    the weights are (K, N)); they and the rows TMA refuses take the SIMT
-    tile.  No tile falls back to another: a failed launch raises.
+    tolerance), and int8 and fp8 too (wgmma's s8 and fp8 forms take only
+    K-major B, and the weights are (K, N)); they and the rows TMA refuses
+    take the SIMT tile.  No tile falls back to another: a failed launch
+    raises.
     """
     if m <= DECODE_ROWS:
         return "decode"
@@ -186,8 +192,9 @@ def fused_matmul_cuda(a: torch.Tensor, b: torch.Tensor, ep: Epilogue,
         raise ValueError("the CUDA fused matmul takes contiguous operands")
     if a.dtype not in _IN_CODES or b.dtype != a.dtype:
         raise NotImplementedError(
-            f"the CUDA fused matmul takes float32, float16, bfloat16 or "
-            f"int8 operands of one dtype, got {a.dtype} x {b.dtype}")
+            f"the CUDA fused matmul takes operands of one of "
+            f"{sorted(map(str, _IN_CODES))}, of one dtype, got {a.dtype} x "
+            f"{b.dtype}")
     if ep.out_dtype not in _OUT_CODES:
         raise NotImplementedError(f"out_dtype {ep.out_dtype} is not one of "
                                   f"{sorted(map(str, _OUT_CODES))}")

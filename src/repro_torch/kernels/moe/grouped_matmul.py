@@ -11,7 +11,10 @@ one more coordinate, picked by K1's one rule
 * ``"tc"`` (``csrc/grouped_matmul_sm90.cu`` on ``csrc/tc_tile.cuh``):
   bf16/fp16 whose rows TMA can load;
 * ``"simt"`` (``csrc/grouped_matmul.cu`` on ``csrc/gemm_tile.cuh``): the
-  rest (fp32, int8, rows TMA refuses).
+  rest (fp32, int8, fp8, rows TMA refuses).
+
+K1's input types: fp8 (e4m3fn, e5m2) is read a byte an element and
+decoded in registers, as K1's tiles read it.
 
 ``grouped_matmul_plain`` computes the same function with plain tensor
 ops: the CPU tests run it, and ``chip_smoke.py`` holds every tile against
@@ -122,8 +125,9 @@ def grouped_matmul_cuda(x: torch.Tensor, w: torch.Tensor, ep: Epilogue,
         raise ValueError("the CUDA grouped matmul takes contiguous operands")
     if x.dtype not in mm._IN_CODES or w.dtype != x.dtype:
         raise NotImplementedError(
-            f"the CUDA grouped matmul takes float32, float16, bfloat16 or "
-            f"int8 operands of one dtype, got {x.dtype} x {w.dtype}")
+            f"the CUDA grouped matmul takes operands of one of "
+            f"{sorted(map(str, mm._IN_CODES))}, of one dtype, got {x.dtype}"
+            f" x {w.dtype}")
     if ep.out_dtype not in mm._OUT_CODES:
         raise NotImplementedError(f"out_dtype {ep.out_dtype} is not one of "
                                   f"{sorted(map(str, mm._OUT_CODES))}")

@@ -24,6 +24,9 @@ from repro_torch.kernels.moe.grouped_matmul import (grouped_matmul_cuda,
                                                     grouped_matmul_plain,
                                                     launch_cost, tile_for)
 
+#: fp8 input types, whose output is fp32 by default
+FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
                    epilogue: Epilogue = Epilogue(),
@@ -35,7 +38,9 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
 
     The epilogue is operand-free (softcap, activation, GLU, cast).  int8
     accumulates in int32 and returns int32 unless ``out_dtype`` says
-    otherwise; other inputs accumulate in fp32 and return their dtype.
+    otherwise; fp8 accumulates in fp32 and returns fp32 (the fp8
+    policy's output, as K1's; the reference's wrapper keeps x's dtype);
+    other inputs accumulate in fp32 and return their dtype.
 
     Promises the caller may make, so that the kernel skips work; the
     result stays the same function of ``x``:
@@ -76,7 +81,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor, *,
     int8 = x.dtype == torch.int8
     if epilogue.out_dtype is None:
         epilogue = dataclasses.replace(
-            epilogue, out_dtype=torch.int32 if int8 else x.dtype)
+            epilogue, out_dtype=torch.int32 if int8 else torch.float32
+            if x.dtype in FP8 else x.dtype)
     if x.is_cuda or x.is_meta:
         x, w = x.contiguous(), w.contiguous()
         out = grouped_matmul_cuda(

@@ -10,10 +10,11 @@ on the model axis) runs on the reference's ``single`` mesh, rank 0's
 program, both its baseline and itself; the others on one card
 (``h100``), where the collective term is 0.
 
-Experiments the port cannot run are recorded with ``"status":
-"not_ported"`` and the reason: the two that take the reference's GSPMD
-expert parallelism (``moe_shard_map=False`` on the model axis, ROADMAP
-item 7c).
+Every experiment runs, the two of the reference's GSPMD expert
+parallelism (``moe_shard_map=False``, experts over ``data`` and each
+expert's d_ff over ``model``: ``models/moe.py::_moe_gspmd``) included.
+A cell the dry run cannot count is recorded with ``"status":
+"not_ported"`` and the refusal.
 
     PYTHONPATH=src python -m repro_torch.launch.perf_iter [--only NAME]
 """
@@ -128,25 +129,11 @@ def _resolve_overrides(ov):
     return out
 
 
-def not_ported(exp) -> "str | None":
-    """Why the port cannot run ``exp`` before it tries, or None."""
-    if exp.get("overrides", {}).get("moe_shard_map") is False:
-        return ("moe_shard_map=False on a model axis is the reference's "
-                "GSPMD expert parallelism, which is not ported (ROADMAP "
-                "item 7c)")
-    return None
-
-
 def mesh_of(exp) -> str:
     return RULES_MESH if exp.get("rules") else MESH
 
 
 def run_experiment(exp, force=False, out_dir=dryrun.RESULTS_DIR):
-    reason = not_ported(exp)
-    if reason is not None:
-        print(f"\n=== {exp['name']}: not ported: {reason}")
-        return {"name": exp["name"], "status": "not_ported",
-                "reason": reason}
     mesh = mesh_of(exp)
     base = dryrun.run_cell(exp["arch"], exp["shape"], mesh, out_dir=out_dir)
     res = dryrun.run_cell(

@@ -28,9 +28,33 @@ rank is a process and the collectives go through
 the whole expert leaves and adds the partials in shard order
 (``_moe_shards_in_turn``).  Without a mesh the same function runs with
 ``e_start=0`` and all experts local.
+
+GSPMD expert parallelism (``moe_shard_map=False`` under a mesh: the
+reference's ``else`` branch, one routing over the whole batch with its
+capacity, which GSPMD partitions over wherever the rules put the expert
+leaves): the leaves stay the rank's shards, its ``E/|experts axes|``
+experts from its block of them, each with its ``d_ff/|mlp_expert
+axes|`` slice (gate and up columns paired, ``sharding.GLU_LEAVES``).
+The tokens move instead: a rank all-gathers ``x`` over every batch axis
+(pod major), routes the whole batch with the replicated router, runs
+``moe_apply_local`` on its experts and d_ff slice at the whole batch's
+capacity, so that the same tokens overflow as in the reference, and
+forms an fp32 partial of every token's output.  The partials are summed
+over the axes that split the experts or d_ff: a reduce-scatter over
+each such batch axis (the rank's rows), then an all-reduce over each
+other one, one axis at a time; the sum is rounded once to the
+activation dtype (``_moe_gspmd``).  An abstract mesh runs every rank's
+partial in turn and adds them in the same order (``_moe_gspmd_in_turn``):
+where each of those axes has at most two ranks, every sum is of two
+terms, and the ranks' result equals it bit for bit.  It serves
+inference: under autograd it raises ``NotPorted`` (ROADMAP item 7c).
 """
 
 from __future__ import annotations
+
+import contextlib
+import itertools
+import math
 
 import torch
 
@@ -65,8 +89,10 @@ def moe_init(cfg: ArchConfig, gen: torch.Generator, device=None):
     return p
 
 
-def _expert_ffn(cfg: ArchConfig, wi, wo, x, occupancy=None):
-    """x: (E_l, C, d) -> (E_l, C, d) through the per-expert GLU MLP.
+def _expert_ffn(cfg: ArchConfig, wi, wo, x, occupancy=None,
+                out_dtype=None):
+    """x: (E_l, C, d) -> (E_l, C, d) through the per-expert GLU MLP, in
+    ``out_dtype`` (x's dtype where None).
 
     ``cfg.backend == "kernel"`` runs the grouped-GEMM kernel (its plain
     version on CPU tensors); ``"torch"`` and ``"dense"`` run the einsum
@@ -82,7 +108,7 @@ def _expert_ffn(cfg: ArchConfig, wi, wo, x, occupancy=None):
         ep = Epilogue(activation=cfg.mlp_activation, glu=cfg.mlp_glu,
                       out_dtype=x.dtype)
         h = grouped_matmul(x, wi, epilogue=ep, **occupancy)
-        return grouped_matmul(h, wo,
+        return grouped_matmul(h, wo, epilogue=Epilogue(out_dtype=out_dtype),
                               **(occupancy if keeps_zero_rows(ep) else {}))
     if cfg.backend not in ("torch", "dense"):
         raise ValueError(f"unknown MoE backend {cfg.backend!r}; use "
@@ -95,7 +121,8 @@ def _expert_ffn(cfg: ArchConfig, wi, wo, x, occupancy=None):
     else:
         h = act(h)
     h = h.to(x.dtype)
-    return torch.einsum("ecf,efd->ecd", h.float(), wo.float()).to(x.dtype)
+    return torch.einsum("ecf,efd->ecd", h.float(), wo.float()).to(
+        out_dtype or x.dtype)
 
 
 def route(cfg: ArchConfig, x2d, w_router):
@@ -115,15 +142,18 @@ def route(cfg: ArchConfig, x2d, w_router):
 
 
 def moe_apply_local(cfg: ArchConfig, x2d, w_router, wi_local, wo_local,
-                    e_start: int, capacity: int):
+                    e_start: int, capacity: int, out_dtype=None):
     """Partial MoE output of the locally-held experts.
 
     x2d: (T, d); wi_local: (E_l, d, mult·ff); e_start: first owned expert.
-    Returns (T, d), in x2d's dtype.
+    Returns (T, d), in ``out_dtype`` (x2d's dtype where None): the
+    second expert GEMM's output, the gate products and each token's sum
+    are all in it.
     """
     k = cfg.moe.top_k
     t, d = x2d.shape
     e_local = wi_local.shape[0]
+    odt = out_dtype or x2d.dtype
 
     gate, idx = route(cfg, x2d, w_router)
     flat_idx = idx.reshape(-1)                             # (T·k,)
@@ -158,21 +188,21 @@ def moe_apply_local(cfg: ArchConfig, x2d, w_router, wi_local, wo_local,
     occupancy = dict(
         rows=torch.clamp(counts[:e_local], max=capacity).to(torch.int32),
         max_rows=min(capacity, t), max_experts=min(e_local, t * k))
-    y = _expert_ffn(cfg, wi_local, wo_local, disp,
-                    occupancy)                             # (E_l, C, d)
+    y = _expert_ffn(cfg, wi_local, wo_local, disp, occupancy,
+                    odt)                                   # (E_l, C, d)
     y_flat = y.reshape(trash, d)
 
     contrib = torch.where(
         keep[:, None],
-        flat_gate[order][:, None].to(x2d.dtype)
-        * y_flat[torch.clamp(slot, max=trash - 1)], 0.0).to(x2d.dtype)
+        flat_gate[order][:, None].to(odt)
+        * y_flat[torch.clamp(slot, max=trash - 1)], 0.0).to(odt)
     # The reference scatter-adds ``contrib`` into zeros in its sorted
     # order.  Atomics would make the order, and so the rounding in
     # x2d's dtype, change from run to run; instead each token's k
     # contributions are gathered, in that same sorted order, and added
     # one after another.
     per_token = contrib[torch.argsort(token, stable=True)].reshape(t, k, d)
-    out = torch.zeros((t, d), dtype=x2d.dtype, device=x2d.device)
+    out = torch.zeros((t, d), dtype=odt, device=x2d.device)
     for j in range(k):
         out = out + per_token[:, j]
     return out
@@ -186,11 +216,13 @@ def moe_capacity(cfg: ArchConfig, tokens_local: int) -> int:
 
 def moe_apply(cfg: ArchConfig, p, x, mesh=None):
     """x: (B, S, d) -> (B, S, d).  On a rank of the active rules' mesh,
-    ``x`` is the rank's rows (``_moe_expert_parallel``).  With ``mesh``
-    given and this process one of its ranks, ``x`` is the whole batch
-    (``_moe_on_rank``).  On an abstract mesh with a ``model`` axis the
-    experts divide, every shard in turn (``_moe_shards_in_turn``); all
-    experts here otherwise."""
+    ``x`` is the rank's rows (``_moe_expert_parallel``, or ``_moe_gspmd``
+    with ``moe_shard_map=False``).  With ``mesh`` given and this process
+    one of its ranks, ``x`` is the whole batch (``_moe_on_rank``).  On an
+    abstract mesh with a ``model`` axis the experts divide, every shard
+    in turn (``_moe_shards_in_turn``); with ``moe_shard_map=False`` every
+    rank's partial in turn where the rules split the expert leaves
+    (``_moe_gspmd_in_turn``); all experts here otherwise."""
     b, s, d = x.shape
     m = cfg.moe
     pl = None
@@ -200,14 +232,10 @@ def moe_apply(cfg: ArchConfig, p, x, mesh=None):
     elif mesh.has_rank:
         return _moe_on_rank(cfg, p, x, mesh)
     model = mesh.shape.get("model", 1) if mesh is not None else 1
-    if not cfg.moe_shard_map and model > 1:
-        raise NotPorted(
-            "moe_shard_map=False under a mesh with a model axis is the "
-            "reference's GSPMD expert parallelism, which is not ported "
-            "(ROADMAP item 7c)")
     dense = (p.get("dense_wi"), p.get("dense_wo"))
     if pl is not None:
-        y = _moe_expert_parallel(cfg, pl, p, x)
+        y = (_moe_expert_parallel(cfg, pl, p, x) if cfg.moe_shard_map
+             else _moe_gspmd(cfg, pl, p, x))
         if cfg.moe.dense_parallel:
             dense = (pl.param(dense[0], "dense_wi",
                               (d, (2 if cfg.mlp_glu else 1) * cfg.d_ff))[0],
@@ -215,6 +243,9 @@ def moe_apply(cfg: ArchConfig, p, x, mesh=None):
     elif (cfg.moe_shard_map and mesh is not None and "model" in mesh.shape
             and m.n_experts % model == 0):
         y = _moe_shards_in_turn(cfg, p, x, mesh)
+    elif not cfg.moe_shard_map and mesh is not None and any(
+            _gspmd_axes(cfg, mesh)[:2]):
+        y = _moe_gspmd_in_turn(cfg, p, x, mesh)
     else:
         capacity = moe_capacity(cfg, b * s)
         y = moe_apply_local(cfg, x.reshape(-1, d), p["w_router"],
@@ -262,18 +293,19 @@ def _moe_expert_parallel(cfg: ArchConfig, pl, p, x):
 
 def _moe_on_rank(cfg: ArchConfig, p, x, mesh):
     """``moe_apply(..., mesh=)`` on a rank of ``mesh``: ``x`` is the whole
-    batch and ``p`` the rank's leaves under
-    ``sharding.EXPERT_PARALLEL_RULES``.  The rank's data slice runs the
-    block under those rules (``_moe_expert_parallel``), and the slices
-    are all-gathered over the data axes, pod major."""
-    from repro_torch.distributed import collectives, logical, sharding
+    batch and ``p`` the rank's leaves under the active rules where they
+    are ``mesh``'s, else under ``sharding.EXPERT_PARALLEL_RULES``.  The
+    rank's data slice runs the block under those rules
+    (``_moe_expert_parallel``, or ``_moe_gspmd``), and the slices are
+    all-gathered over the data axes, pod major."""
+    from repro_torch.distributed import collectives, sharding
     data_axes = tuple(a for a in ("pod", "data") if a in mesh.shape)
     n_data, data_idx = 1, 0
     for a in data_axes:                                # pod major
         n_data *= mesh.shape[a]
         data_idx = data_idx * mesh.shape[a] + mesh.index(a)
     b_local = x.shape[0] // n_data
-    with logical.use_rules(mesh, sharding.EXPERT_PARALLEL_RULES):
+    with _rules_of(mesh, sharding.EXPERT_PARALLEL_RULES):
         out = moe_apply(cfg, p,
                         x[data_idx * b_local:(data_idx + 1) * b_local])
     for a in reversed(data_axes):          # data within pod, then pod
@@ -325,3 +357,140 @@ def _moe_shards_in_turn(cfg: ArchConfig, p, x, mesh):
             y = part if y is None else y + part
         outs.append(y)
     return torch.cat(outs)
+
+
+def _rules_of(mesh, rules=None):
+    """The active rules where they are ``mesh``'s, else ``rules`` on it
+    (the default ones where None)."""
+    from repro_torch.distributed import logical
+    return (contextlib.nullcontext() if logical.active_mesh() is mesh
+            else logical.use_rules(mesh, rules))
+
+
+def _gspmd_axes(cfg: ArchConfig, mesh):
+    """(the axes that split the experts, those that split each expert's
+    d_ff, the order in which the partials are summed over them), each of
+    more than one rank, under ``_rules_of(mesh)``.  The order: the batch
+    axes major first (each rank's rows, by reduce-scatters), then the
+    others in the mesh's order.  A dim split over ``model`` and another
+    axis, and expert leaves split unlike each other, raise
+    ``NotPorted``."""
+    from repro_torch.distributed import logical, sharding
+    m = cfg.moe
+    mult = 2 if cfg.mlp_glu else 1
+    with _rules_of(mesh):
+        wi = sharding.spec_of("experts_wi", (m.n_experts, cfg.d_model,
+                                             mult * m.d_ff_expert))
+        wo = sharding.spec_of("experts_wo", (m.n_experts, m.d_ff_expert,
+                                             cfg.d_model))
+        batch = [a for a in sharding.axis_names(
+            logical._ACTIVE[-1][1].get("batch")) if a in mesh.shape]
+
+    def axes(entry):
+        names = sharding.axis_names(entry)
+        if "model" in names and len(names) > 1:
+            raise NotPorted(f"{cfg.name}: an expert dim split over {names}: "
+                            "a dim split over model and another axis "
+                            "(ROADMAP item 7c)")
+        return tuple(a for a in names if mesh.shape[a] > 1)
+    e_axes, f_axes = axes(wi[0]), axes(wi[2])
+    if (axes(wo[0]), axes(wo[1])) != (e_axes, f_axes):
+        raise NotPorted(f"{cfg.name}: experts_wi split as {wi}, experts_wo "
+                        f"as {wo} (ROADMAP item 7c)")
+    split = e_axes + f_axes
+    order = ([a for a in batch if a in split]
+             + [a for a in mesh.axis_names if a in split and a not in batch])
+    return e_axes, f_axes, order
+
+
+def _refuse_autograd(*tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotPorted("GSPMD expert parallelism (moe_shard_map=False under "
+                        "a mesh) serves only: training through it is not "
+                        "ported (ROADMAP item 7c)")
+
+
+def _moe_gspmd(cfg: ArchConfig, pl, p, x):
+    """GSPMD expert parallelism on a rank of a placed model: ``x`` is the
+    rank's rows, the expert leaves its shards under the active rules (not
+    gathered: each rank runs its experts and d_ff slice), the router
+    replicated.  ``x`` is all-gathered over the batch axes, routed
+    whole at the whole batch's capacity, and the fp32 partials are
+    summed over the splitting axes in ``_gspmd_axes``'s order, the rank
+    keeping its rows; rounded once to x's dtype."""
+    from repro_torch.distributed import collectives, sharding
+    b, s, d = x.shape
+    m = cfg.moe
+    mesh = pl.mesh
+    mult = 2 if cfg.mlp_glu else 1
+    router, _ = pl.param(p["w_router"], "w_router", (d, m.n_experts))
+    wi, _ = pl.param(p["experts_wi"], "experts_wi",
+                     (m.n_experts, d, mult * m.d_ff_expert), keep=(0, 2))
+    wo, _ = pl.param(p["experts_wo"], "experts_wo",
+                     (m.n_experts, m.d_ff_expert, d), keep=(0, 1))
+    _refuse_autograd(x, router, wi, wo)
+    if pl.seq:
+        raise NotPorted("GSPMD expert parallelism under sequence "
+                        "parallelism (ROADMAP item 7c)")
+    e_axes, _, order = _gspmd_axes(cfg, mesh)
+    xs = x
+    for a in reversed(pl.batch_axes):          # data within pod, then pod
+        if mesh.shape[a] > 1:
+            xs = collectives.all_gather(xs, pl.group(a))
+    part = moe_apply_local(
+        cfg, xs.reshape(-1, d), router, wi, wo,
+        sharding.block_index(mesh, e_axes) * wi.shape[0],
+        moe_capacity(cfg, xs.shape[0] * s), torch.float32).reshape(xs.shape)
+    for a in pl.batch_axes:                    # major first: the rank's rows
+        n = mesh.shape[a]
+        if a in order:
+            part = collectives.reduce_scatter(part, pl.group(a))
+        elif n > 1:
+            rows = part.shape[0] // n
+            part = part.narrow(0, mesh.index(a) * rows, rows)
+    for a in order:
+        if a not in pl.batch_axes:
+            collectives.all_reduce(part, pl.group(a))
+    return part.to(x.dtype)
+
+
+def _moe_gspmd_in_turn(cfg: ArchConfig, p, x, mesh):
+    """GSPMD expert parallelism on an abstract mesh: this process runs
+    each rank's partial over the whole batch in turn, on windows of the
+    whole expert leaves (copied, as a rank holds its shards), and adds
+    them over the splitting axes in ``_gspmd_axes``'s order, then rounds
+    once."""
+    b, s, d = x.shape
+    m = cfg.moe
+    mult = 2 if cfg.mlp_glu else 1
+    e_axes, f_axes, order = _gspmd_axes(cfg, mesh)
+    e_l = m.n_experts // math.prod(mesh.shape[a] for a in e_axes)
+    f_l = m.d_ff_expert // math.prod(mesh.shape[a] for a in f_axes)
+    wi = _experts(p["experts_wi"], m.n_experts)
+    wo = _experts(p["experts_wo"], m.n_experts)
+    _refuse_autograd(x, p["w_router"], wi, wo)
+    capacity = moe_capacity(cfg, b * s)
+
+    def block(at, axes):
+        """A coordinate's block index over ``axes``, major first."""
+        idx = 0
+        for a in axes:
+            idx = idx * mesh.shape[a] + at[a]
+        return idx
+    parts = {}
+    for coord in itertools.product(*(range(mesh.shape[a]) for a in order)):
+        at = dict(zip(order, coord))
+        e0, f0 = block(at, e_axes) * e_l, block(at, f_axes) * f_l
+        wi_l = wi[e0:e0 + e_l].unflatten(2, (mult, m.d_ff_expert)).narrow(
+            3, f0, f_l).flatten(2).contiguous()
+        wo_l = wo[e0:e0 + e_l, f0:f0 + f_l].contiguous()
+        parts[coord] = moe_apply_local(cfg, x.reshape(-1, d),
+                                       p["w_router"], wi_l, wo_l, e0,
+                                       capacity, torch.float32)
+    for _ in order:                          # one axis at a time, in order
+        summed = {}
+        for coord, part in parts.items():
+            rest = coord[1:]
+            summed[rest] = part if rest not in summed else summed[rest] + part
+        parts = summed
+    return parts[()].reshape(b, s, d).to(x.dtype)

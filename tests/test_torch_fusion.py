@@ -24,8 +24,11 @@ from repro_torch.models.convert import to_torch          # noqa: E402
 DT = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16,
                                                      torch.bfloat16),
       "fp16": (jnp.float16, torch.float16), "int8": (jnp.int8, torch.int8),
-      "int32": (jnp.int32, torch.int32)}
-TOL = {"fp32": 1e-5, "bf16": 3e-2, "fp16": 3e-2, "int8": 0.0}
+      "int32": (jnp.int32, torch.int32),
+      "e4m3": (jnp.float8_e4m3fn, torch.float8_e4m3fn),
+      "e5m2": (jnp.float8_e5m2, torch.float8_e5m2)}
+TOL = {"fp32": 1e-5, "bf16": 3e-2, "fp16": 3e-2, "int8": 0.0, "e4m3": 3e-2,
+       "e5m2": 3e-2}
 
 
 def _err(out, ref):
@@ -60,7 +63,10 @@ def _operands(rng, m, k, n, dt, *, glu=False, bias=None, scale_a=False,
     t_ops = tf.EpilogueOperands(**{k_: None if v is None else
                                    torch.from_numpy(v)
                                    for k_, v in extra.items()})
-    ta, tb = torch.from_numpy(a).to(tdt), torch.from_numpy(b).to(tdt)
+    if dt in ("e4m3", "e5m2"):      # the reference's fp8 bits, as they are
+        ta, tb = to_torch(ja), to_torch(jb)
+    else:
+        ta, tb = torch.from_numpy(a).to(tdt), torch.from_numpy(b).to(tdt)
     if glu:
         jb, tb = jb.reshape(k, 2, n // 2), tb.reshape(k, 2, n // 2)
     return (ja, jb, j_ops), (ta, tb, t_ops)
@@ -92,6 +98,13 @@ CASES = [
                                           bias="row", has_scale_b=True,
                                           has_residual=True)),
     ("bf16", "fp32", (4, 128, 512), dict(softcap=30.0)),
+    # fp8 (paper §4.1): e4m3fn and e5m2 accumulate in fp32
+    ("e4m3", "fp32", (96, 128, 128), {}),
+    ("e5m2", "fp32", (33, 72, 130), {}),
+    ("e4m3", "fp32", (4, 128, 256), dict(glu=True, activation="silu")),
+    ("e5m2", "fp32", (40, 64, 96), dict(bias="row", has_scale_b=True,
+                                        has_residual=True,
+                                        activation="gelu")),
 ]
 
 
@@ -125,6 +138,24 @@ def test_cute_matmul_vs_jax_xla_and_pallas(case, route):
         assert _err(out, ref) <= tol, _err(out, ref)
     if out_dt == "int32":
         np.testing.assert_array_equal(out.numpy(), np.asarray(ref_xla))
+
+
+@pytest.mark.parametrize("dt", ["e4m3", "e5m2"])
+def test_fp8_output_follows_the_policy(dt):
+    """Without an out dtype, fp8 inputs give the fp8 policy's fp32, as the
+    reference's ``cute_matmul`` does; the cost counter counts the launch's
+    bytes at one an fp8 element."""
+    rng = np.random.default_rng(1)
+    (ja, jb, _), (ta, tb, _) = _operands(rng, 8, 32, 48, dt)
+    from repro_torch.core import hlo_cost
+    with hlo_cost.counting() as counter:
+        out = tf.cute_matmul(ta, tb, backend="kernel")
+    ref = jf.cute_matmul(ja, jb, backend="xla")
+    assert out.dtype == torch.float32 and ref.dtype == jnp.float32
+    assert _err(out, ref) <= TOL[dt]
+    # K1's launch counts one byte an fp8 element, four an fp32 output
+    assert counter.cost.kernels["fused_matmul"]["bytes"] == \
+        8 * 32 + 32 * 48 + 4 * 8 * 48
 
 
 ACTS = list(jf.ACTIVATIONS)

@@ -2,7 +2,8 @@
 quantiser, K4 grouped MoE matmul, K5 RG-LRU scan, K6 chunked RWKV-6 WKV)
 against their plain versions on the card, at small and ragged shapes; K1,
 K2, K4 and K6 on each of their tiles, K4 with and without its zero-row
-promises.
+promises; K1 and K4 on fp8 (e4m3fn, e5m2) and K2 on int8 (contiguous
+and paged).
 
 These need a Hopper card and nvcc; elsewhere they skip.  On the card:
 
@@ -103,7 +104,22 @@ MM_CASES = [  # (m, k, n, dtype, out dtype, epilogue fields, tol, tile)
     # bf16 with K not a multiple of 8: TMA refuses the rows, SIMT serves
     (70, 100, 128, torch.bfloat16, None, dict(activation="silu"), 3e-2,
      "simt"),
+    # fp8 e4m3fn and e5m2, read a byte an element, fp32 out: the decode
+    # tile (K split, GLU, ragged N) and the SIMT tile (every epilogue
+    # field, ragged edges); the reference's tolerance
+    (4, 4096, 22016, torch.float8_e4m3fn, None, dict(
+        glu=True, activation="silu"), 3e-2, "decode"),
+    (4, 4096, 22016, torch.float8_e5m2, None, dict(
+        glu=True, activation="silu"), 3e-2, "decode"),
+    (1, 40, 27, torch.float8_e5m2, None, dict(activation="relu"), 3e-2,
+     "decode"),
+    (200, 520, 304, torch.float8_e4m3fn, None, dict(
+        glu=True, activation="silu", has_residual=True), 3e-2, "simt"),
+    (70, 96, 130, torch.float8_e5m2, None, dict(
+        bias="full", activation="gelu", has_scale_a=True, has_scale_b=True,
+        softcap=5.0), 3e-2, "simt"),
 ]
+FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 
 
 def _mm_case(card, m, k, n, dt, out_dt, fields):
@@ -129,8 +145,8 @@ def _mm_case(card, m, k, n, dt, out_dt, fields):
         residual=rnd(m, n_out) if fields.get("has_residual") else None)
     ep = Epilogue(bias_type={None: BiasType.ZERO, "row": BiasType.ROW,
                              "full": BiasType.FULL}[bias],
-                  out_dtype=out_dt or (torch.float32 if dt == torch.int8
-                                       else dt), **fields)
+                  out_dtype=out_dt or (torch.float32 if dt in (
+                      torch.int8,) + FP8 else dt), **fields)
     return a, b, ep, ops
 
 
@@ -168,10 +184,23 @@ def test_fused_matmul_tile_repeats_bit_for_bit(card, tile, m):
     assert torch.equal(one, two)
 
 
-def test_fused_matmul_kernel_refuses_fp8(card):
-    a = torch.zeros(4, 32, device="cuda").to(torch.float8_e4m3fn)
-    with pytest.raises(NotImplementedError):
-        mm_ops.fused_matmul(a, a.T.contiguous())
+@pytest.mark.parametrize("m", [2, 9], ids=["decode", "simt"])
+@pytest.mark.parametrize("dt", FP8, ids=lambda v: str(v)[6:])
+def test_fused_matmul_kernel_decodes_every_fp8_code(card, dt, m):
+    """A K = 1 product by 1.0 gives B's values as cuda_fp8.h decoded them
+    in the tile: all 256 codes of each format (subnormals, zeros, e5m2's
+    infinities, the NaNs) equal torch's decoding; fp32 out by default,
+    as the fp8 policy writes."""
+    a = torch.ones(m, 1, device="cuda").to(dt)
+    b = torch.arange(256, dtype=torch.uint8, device="cuda").view(
+        dt).reshape(1, 256)
+    out = mm_ops.fused_matmul(a, b)
+    torch.cuda.synchronize()
+    want = b.float().expand(m, 256)
+    assert out.dtype == torch.float32
+    assert torch.equal(out.isnan(), want.isnan())
+    ok = ~want.isnan()
+    assert torch.equal(out[ok], want[ok])
 
 
 ATTN_CASES = [  # (b, h, hkv, sq, sk, d, dtype, flags, tol)
@@ -201,6 +230,53 @@ def test_flash_attention_kernel_vs_plain(card, case):
     torch.cuda.synchronize()
     assert out.dtype == ref.dtype and out.shape == ref.shape
     assert _rel(out, ref) <= tol
+
+
+INT8_ATTN_CASES = [  # (b, h, hkv, sq, sk, d, flags)
+    (4, 32, 32, 221, 221, 128, dict(causal=True)),
+    (2, 4, 1, 33, 100, 64, dict(causal=True, window=16, q_start=40)),
+    (2, 4, 4, 32, 32, 16, dict(causal=True)),
+]
+
+
+def _int8_qkv(card, b, h, hkv, sq, sk, d):
+    q = torch.randint(-8, 9, (b, h, sq, d), generator=card, device="cuda",
+                      dtype=torch.int8)
+    k, v = (torch.randint(-127, 128, (b, hkv, sk, d), generator=card,
+                          device="cuda", dtype=torch.int8)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", INT8_ATTN_CASES,
+                         ids=lambda c: f"q{c[3]}k{c[4]}d{c[5]}")
+def test_flash_attention_kernel_int8(card, case):
+    """int8 q, k, v on the SIMT tile, the output truncated toward zero
+    into int8: within 1 of the plain version at every element."""
+    b, h, hkv, sq, sk, d, flags = case
+    q, k, v = _int8_qkv(card, b, h, hkv, sq, sk, d)
+    before = attn_ops.flash_attention.launches_by_tile["simt"]
+    out = attn_ops.flash_attention(q, k, v, **flags)
+    assert attn_ops.flash_attention.launches_by_tile["simt"] == before + 1
+    kw = dict(sm_scale=d ** -0.5, window=0, softcap=0.0, q_start=0) | flags
+    ref = flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.int8 and out.shape == ref.shape
+    assert (out.int() - ref.int()).abs().max().item() <= 1
+
+
+def test_paged_flash_attention_int8_bit_exact(card):
+    """int8 pages under a shuffled block table through K2 equal the
+    contiguous call bit for bit (the reference's int8 paged flash route)."""
+    from repro_torch.kernels.attention.paged import (paged_flash_attention,
+                                                     to_paged)
+    q, k, v = _int8_qkv(card, 2, 4, 4, 32, 32, 16)
+    ref = attn_ops.flash_attention(q, k, v)
+    for block_tokens in (8, 16):
+        kp, vp, table = to_paged(k, v, block_tokens, seed=5)
+        got = paged_flash_attention(q, kp, vp, table, seq_len=32)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int8 and torch.equal(got, ref)
 
 
 def test_flash_attention_fully_masked_rows_are_zero(card):
@@ -347,6 +423,15 @@ GM_CASES = [  # (e, c, k, n, dtype, epilogue fields, tol, tile, rows,
      [2, 0, 0, 4, 1], None, None),
     (5, 8, 640, 96, torch.int8, {}, 0.0, "decode", [0, 8, 3, 0, 1], None,
      None),
+    # fp8, fp32 out: OLMoE's prefill GLU shape on the SIMT tile (with a
+    # routing's rows), and its decode capacity on the decode tile
+    (4, 144, 2048, 2048, torch.float8_e4m3fn, dict(glu=True,
+                                                  activation="silu"), 3e-2,
+     "simt", [144, 0, 3, 77], None, None),
+    (6, 8, 2048, 512, torch.float8_e5m2, dict(glu=True, activation="silu"),
+     3e-2, "decode", [4, 0, 1, 0, 3, 2], 4, 3),
+    (3, 8, 1024, 2048, torch.float8_e4m3fn, {}, 3e-2, "decode", None, None,
+     None),
 ]
 
 
@@ -377,7 +462,8 @@ def _gm_case(card, e, c, k, n, dt, fields, rows=None, tile=None):
             x[i, skip:] = 127 if dt == torch.int8 else float("nan")
         rows = torch.tensor(rows, dtype=torch.int32, device="cuda")
     int8 = dt == torch.int8
-    ep = Epilogue(out_dtype=torch.int32 if int8 else dt, **fields)
+    ep = Epilogue(out_dtype=torch.int32 if int8 else torch.float32
+                  if dt in FP8 else dt, **fields)
     return x, x_ref, w, ep, rows
 
 

@@ -125,6 +125,39 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
 }
 """
 
+# cuda_fp8.h's two formats, decoded bit by bit as __nv_fp8_e4m3 and
+# __nv_fp8_e5m2 decode them: e4m3fn has no infinity and its NaN is
+# 0x7f / 0xff; e5m2 has IEEE infinities and NaNs; both have subnormals.
+CUDA_FP8_H = r"""
+#pragma once
+#include <cmath>
+#include <cstdint>
+typedef unsigned char __nv_fp8_storage_t;
+inline float emu_fp8(unsigned x, int mbits, int bias, bool fn) {
+  const int e = (x & 0x7f) >> mbits, m = x & ((1 << mbits) - 1);
+  const int emax = (1 << (7 - mbits)) - 1;
+  float v;
+  if (fn ? (e == emax && m == (1 << mbits) - 1) : (e == emax && m != 0))
+    v = NAN;
+  else if (!fn && e == emax)
+    v = INFINITY;
+  else if (e == 0)
+    v = std::ldexp((float)m, 1 - bias - mbits);
+  else
+    v = std::ldexp((float)(m + (1 << mbits)), e - bias - mbits);
+  return (x & 0x80) ? -v : v;
+}
+struct __nv_fp8_e4m3 {
+  __nv_fp8_storage_t __x;
+  explicit operator float() const { return emu_fp8(__x, 3, 7, true); }
+};
+struct __nv_fp8_e5m2 {
+  __nv_fp8_storage_t __x;
+  explicit operator float() const { return emu_fp8(__x, 2, 15, false); }
+};
+"""
+FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
 
 def _emulable(src: str) -> str:
     """``k<<<grid, block, smem, stream>>>(args)`` becomes
@@ -169,7 +202,8 @@ def emulated(tmp_path_factory):
     d = tmp_path_factory.mktemp("cuda_emu")
     for name, text in (("cuda_runtime.h", CUDA_RUNTIME_H),
                        ("cuda_fp16.h", CUDA_FP16_H),
-                       ("cuda_bf16.h", CUDA_BF16_H)):
+                       ("cuda_bf16.h", CUDA_BF16_H),
+                       ("cuda_fp8.h", CUDA_FP8_H)):
         (d / name).write_text(text)
     for header in build.CSRC.glob("*.cuh"):
         (d / header.name).write_text(_emulable(header.read_text()))
@@ -281,6 +315,20 @@ MM_CASES = [  # (m, k, n, dtype, epilogue fields, tol); m <= 8: decode tile
      1e-5),
     (4, 64, 64, torch.bfloat16, dict(glu=True, activation="gelu_tanh",
                                      bias="row", has_residual=True), 3e-2),
+    # fp8 (e4m3fn, e5m2): read a byte an element and decoded in the tile,
+    # the plain version decoding the same values, both accumulating in
+    # fp32: the decode tile at 1, 4 and 8 rows (K split across blocks,
+    # ragged N, GLU) and the SIMT tile (ragged edges, every epilogue field)
+    (4, 520, 90, torch.float8_e4m3fn, dict(glu=True, activation="silu"),
+     1e-5),
+    (1, 40, 27, torch.float8_e5m2, dict(activation="relu"), 1e-5),
+    (8, 300, 200, torch.float8_e5m2, dict(bias="row", has_scale_a=True,
+                                         has_scale_b=True), 1e-5),
+    (70, 40, 96, torch.float8_e4m3fn, dict(bias="full", activation="gelu",
+                                           has_residual=True, softcap=3.0),
+     1e-5),
+    (66, 48, 80, torch.float8_e5m2, dict(glu=True, activation="silu"), 1e-5),
+    (9, 257, 130, torch.float8_e4m3fn, {}, 1e-5),
 ]
 
 
@@ -312,7 +360,7 @@ def test_fused_matmul_source_vs_plain(bound, case):
     ep = Epilogue(bias_type={None: BiasType.ZERO, "row": BiasType.ROW,
                              "full": BiasType.FULL}[bias],
                   out_dtype=(torch.int32 if trivial else torch.float32
-                             if dt == torch.int8 else dt), **fields)
+                             if dt in (torch.int8,) + FP8 else dt), **fields)
     assert mm.tile_for(a, b, ep) == ("decode" if m <= 8 else "simt")
     out = mm.fused_matmul_cuda(a, b, ep, ops)
     ref = mm.fused_matmul_plain(a, b, ep, ops, torch.int32
@@ -321,6 +369,24 @@ def test_fused_matmul_source_vs_plain(bound, case):
     if trivial:
         assert torch.equal(out, ref)
     assert _rel(out, ref) <= tol
+
+
+@pytest.mark.parametrize("m", [2, 9], ids=["decode", "simt"])
+@pytest.mark.parametrize("dt", FP8, ids=lambda v: str(v)[6:])
+def test_fused_matmul_source_decodes_every_fp8_code(bound, dt, m):
+    """A K = 1 product by 1.0 gives B's values as the tile decoded them:
+    every one of the 256 codes of both formats, subnormals, zeros,
+    e5m2's infinities and both formats' NaNs, equal to torch's
+    decoding."""
+    a = torch.ones(m, 1).to(dt)
+    b = torch.arange(256, dtype=torch.uint8).view(dt).reshape(1, 256)
+    ep = Epilogue(out_dtype=torch.float32)
+    assert mm.tile_for(a, b, ep) == ("decode" if m <= 8 else "simt")
+    out = mm.fused_matmul_cuda(a, b, ep, EpilogueOperands())
+    want = b.float().expand(m, 256)
+    assert torch.equal(out.isnan(), want.isnan())
+    ok = ~want.isnan()
+    assert torch.equal(out[ok], want[ok])
 
 
 def test_decode_split_covers_k_once():
@@ -377,6 +443,9 @@ def test_select_tile_on_served_shapes(arch):
     ((884, 48, 64, torch.bfloat16, True, True), "tc"),
     ((884, 4096, 4096, torch.float32, False, True), "simt"),
     ((884, 4096, 4096, torch.int8, False, True), "simt"),
+    ((884, 4096, 22016, torch.float8_e4m3fn, True, True), "simt"),
+    ((884, 4096, 4096, torch.float8_e5m2, False, True), "simt"),
+    ((4, 4096, 22016, torch.float8_e5m2, True, True), "decode"),
     ((884, 4096, 4096, torch.bfloat16, False, False), "simt"),  # unaligned
 ], ids=lambda v: "-".join(map(str, v)).replace("torch.", "")
     if isinstance(v, tuple) else v)
@@ -456,6 +525,56 @@ def test_flash_attention_source_fully_masked_rows_are_zero(bound):
     assert torch.equal(out, torch.zeros_like(out))
 
 
+INT8_ATTN_CASES = [  # (b, h, hkv, sq, sk, d, flags)
+    (1, 4, 2, 70, 70, 32, dict(causal=True)),
+    (2, 4, 1, 33, 100, 64, dict(causal=True, window=16, q_start=40)),
+    (2, 4, 4, 32, 32, 16, dict(causal=True)),     # padded to 32
+    (1, 2, 1, 20, 30, 128, dict(causal=False, softcap=5.0)),
+]
+
+
+def _int8_qkv(b, h, hkv, sq, sk, d, seed):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randint(-8, 9, (b, h, sq, d), generator=g, dtype=torch.int8)
+    k, v = (torch.randint(-127, 128, (b, hkv, sk, d), generator=g,
+                          dtype=torch.int8) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", INT8_ATTN_CASES,
+                         ids=lambda c: f"q{c[3]}k{c[4]}d{c[5]}")
+def test_flash_attention_source_int8(bound, case):
+    """int8 q, k, v on the SIMT tile: read as they lie, fp32 inside, the
+    output truncated toward zero into int8 as the plain version's cast
+    truncates; the two sum in other orders, so an element whose fp32
+    value lies at a whole number may truncate one apart: within 1 at
+    every element."""
+    b, h, hkv, sq, sk, d, flags = case
+    q, k, v = _int8_qkv(b, h, hkv, sq, sk, d, sq * sk + d)
+    kw = dict(sm_scale=d ** -0.5, window=0, softcap=0.0, q_start=0) | flags
+    out, tile = attn.flash_attention_cuda(q, k, v, **kw)
+    ref = attn.flash_attention_plain(q, k, v, **kw)
+    assert tile == "simt" and attn.tile_for(q, k, v) == "simt"
+    assert out.dtype == ref.dtype == torch.int8 and out.shape == ref.shape
+    assert (out.int() - ref.int()).abs().max() <= 1
+
+
+def test_flash_attention_source_int8_paged_and_masked(bound):
+    """Paged int8 K and V through the kernel equal the contiguous call bit
+    for bit; a fully masked int8 row is 0."""
+    from repro_torch.kernels.attention.paged import gather_paged, to_paged
+    q, k, v = _int8_qkv(2, 4, 2, 32, 32, 16, 3)
+    kw = dict(sm_scale=0.25, causal=True, window=0, softcap=0.0, q_start=0)
+    want, _ = attn.flash_attention_cuda(q, k, v, **kw)
+    kp, vp, table = to_paged(k, v, 8, seed=5)
+    got, _ = attn.flash_attention_cuda(q, gather_paged(kp, table, 32),
+                                       gather_paged(vp, table, 32), **kw)
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    out, _ = attn.flash_attention_cuda(q, k, v, **kw | dict(window=4,
+                                                            q_start=100))
+    assert torch.equal(out, torch.zeros_like(out))
+
+
 GM_CASES = [  # (e, c, k, n, dtype, epilogue fields, tol, tile the rule picks)
     (3, 5, 72, 200, torch.float32, {}, 1e-5, "decode"),
     (2, 8, 64, 96, torch.bfloat16, dict(glu=True, activation="silu"), 3e-2,
@@ -477,6 +596,14 @@ GM_CASES = [  # (e, c, k, n, dtype, epilogue fields, tol, tile the rule picks)
     (4, 1, 40, 27, torch.int8, {}, 0.0, "decode"),
     (2, 8, 100, 48, torch.float16, dict(glu=True, activation="relu"), 3e-2,
      "decode"),
+    # fp8, fp32 out: the decode tile with K split, and the SIMT tile
+    (3, 8, 520, 64, torch.float8_e4m3fn, dict(glu=True, activation="silu"),
+     1e-5, "decode"),
+    (2, 4, 72, 40, torch.float8_e5m2, {}, 1e-5, "decode"),
+    (2, 70, 48, 64, torch.float8_e5m2, dict(glu=True, activation="silu"),
+     1e-5, "simt"),
+    (2, 9, 40, 48, torch.float8_e4m3fn, dict(activation="relu"), 1e-5,
+     "simt"),
 ]
 SELECT_TILE = mm.select_tile     # the rule itself, before ``bound`` patches
 SELECT_WKV = wkv.select_tile
@@ -497,7 +624,8 @@ def _gm_check(x, w, fields, tol, tile, x_ref=None, **promises):
     (the SIMT tile stands in for ``"tc"``)."""
     e, c, k = x.shape
     int8 = x.dtype == torch.int8
-    ep = Epilogue(out_dtype=torch.int32 if int8 else x.dtype, **fields)
+    ep = Epilogue(out_dtype=torch.int32 if int8 else torch.float32
+                  if x.dtype in FP8 else x.dtype, **fields)
     assert SELECT_TILE(c, w.shape[2], k, x.dtype, ep.glu, True) == tile
     assert gm.tile_for(x, w, ep) == ("simt" if tile == "tc" else tile)
     out = gm.grouped_matmul_cuda(x, w, ep, **promises)
