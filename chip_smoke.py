@@ -820,6 +820,35 @@ GSPMD_RULES = {"experts": "data", "mlp_expert": "model", "embed": None}
 GSPMD_WHOLE_RULES = {"embed": None, "heads": None, "kv_heads": None,
                      "mlp": None, "vocab": None, "experts": "data",
                      "mlp_expert": "model"}
+# sequence parallelism for every family (phase dist-sp): DIST_SP_RANKS
+# ranks, gloo sharing the one card, under the reference's {"seq":
+# "model"} rules (SP_RULES).  Serving on (data 1, model DIST_SP_RANKS):
+# 4 prompts of DIST_SP_PROMPT seeded tokens (after internvl2-1b's 256
+# vision positions), a cache of DIST_SP_CACHE slots, DIST_TP_DECODE
+# decode steps; each family in fp32 at its DIST_SP_FP32_LAYERS, held to
+# one process off the mesh within TOL_FP32 of max |logit| with identical
+# greedy tokens and the gathered cache within TOL_FP32, and OLMoE's GSPMD
+# form on (data 2, model 2) under GSPMD_RULES and SP_RULES held to the
+# same; each family at full depth in bf16 against the same mesh without
+# the seq rule, bit for bit where the ranks' sums run in the same order
+# (gloo: a reduce-scatter is the all-reduce of which each rank keeps its
+# chunk, on the same tensor).  Training on (data 2, model 2): one fp32
+# AdamW step of each at DIST_SP_TRAIN_LAYERS (Griffin one (rec, rec,
+# attn) triple, every block kind: its per-step RG-LRU loop, traced three
+# times a rank, holds the phase near its budget) on a batch of
+# DIST_TRAIN_FP32_BATCH (internvl2-1b's tokens after its 256 vision
+# positions), held to one process under an abstract mesh of the same
+# shape (TOL_TRAIN_LOSS, TOL_TRAIN_GRAD)
+DIST_SP_RANKS, DIST_SP_TIMEOUT = 4, 600.0
+DIST_SP_PROMPT = 256
+DIST_SP_CACHE = {"internvl2-1b": 640}           # 512 slots elsewhere
+DIST_SP_FP32_LAYERS = {"recurrentgemma-2b": 6, "rwkv6-7b": 4,
+                       "whisper-tiny": None, "olmoe-1b-7b": 4,
+                       "internvl2-1b": 4}
+DIST_SP_TRAIN_LAYERS = {"recurrentgemma-2b": 3, "rwkv6-7b": 2,
+                        "whisper-tiny": None, "olmoe-1b-7b": 2,
+                        "internvl2-1b": 2}
+SP_RULES = {"seq": "model"}
 DIST_TRAIN_FP32_LAYERS, DIST_TRAIN_FP32_BATCH = 2, (4, 256)
 DIST_TRAIN_LAYERS = 4
 DIST_TRAIN_ARGV = ["--global-batch", "8", "--seq-len", "512",
@@ -4105,7 +4134,7 @@ def _mesh_train_fp32():
         loss_chunk=DIST_TRAIN_FP32_BATCH[1])
 
 
-def _mesh_serve(cfg, params, cache, follow=None, rows=None):
+def _mesh_serve(cfg, params, cache, follow=None, rows=None, batch=None):
     """The serve traffic's first batch (4 prompts padded to 221 tokens,
     with seeded stub-frontend inputs where the model has a frontend)
     through ``serving.engine.make_prefill`` and DIST_TP_DECODE steps of
@@ -4115,14 +4144,17 @@ def _mesh_serve(cfg, params, cache, follow=None, rows=None):
     The decode steps feed ``follow``'s tokens where given (the one-rank
     run's, all 4 rows), else the run's own greedy ones.  ``rows``: the
     slice of the batch this process serves (a data rank's), all 4 where
-    None."""
+    None.  ``batch``: the whole batch to serve instead of the traffic's."""
     from repro_torch.serving.engine import make_decode, make_prefill
-    lengths, rng = prompt_lengths()
-    s = int(max(lengths[:MAX_BATCH]))
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
-        MAX_BATCH, s))).to(device="cuda", dtype=torch.int32)
-    batch = {"tokens": tokens, **stub_inputs(cfg, MAX_BATCH, torch.Generator(
-        device="cuda").manual_seed(DIST_SEED))}
+    if batch is None:
+        lengths, rng = prompt_lengths()
+        s = int(max(lengths[:MAX_BATCH]))
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+            MAX_BATCH, s))).to(device="cuda", dtype=torch.int32)
+        batch = {"tokens": tokens, **stub_inputs(
+            cfg, MAX_BATCH, torch.Generator(device="cuda").manual_seed(
+                DIST_SEED))}
+    s = batch["tokens"].shape[1]
     if rows is not None:
         batch = {k: x[rows] for k, x in batch.items()}
         follow = follow[rows] if follow is not None else None
@@ -4942,9 +4974,10 @@ def _rec_decode_collectives(cfg, sizes: dict, rows: int,
     return out
 
 
-def _rec_kernel_checks(gen, model: int) -> list:
+def _rec_kernel_checks(gen, model: int, s=None) -> list:
     """K5 and K6 against their plain versions at a rank's shapes on
-    (data 1, model ``model``): K5 on Griffin's d_rnn / model channels of
+    (data 1, model ``model``), over ``s`` tokens (the first batch's where
+    None): K5 on Griffin's d_rnn / model channels of
     the first batch, fp32 with a carried state, bit for bit; K6's
     tensor-core tile on RWKV-6's heads / model, bf16 with a carried state
     (the output within TOL_BF16 over the tensor and row by row, the
@@ -4952,7 +4985,7 @@ def _rec_kernel_checks(gen, model: int) -> list:
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.rwkv6.ops import rwkv6_scan
     g, r_ = get_config(GRIFFIN_ARCH), get_config(RWKV_ARCH)
-    s = int(max(prompt_lengths()[0][:MAX_BATCH]))
+    s = s or int(max(prompt_lengths()[0][:MAX_BATCH]))
     out = []
     args = lru_case(gen, MAX_BATCH, s, g.rnn.d_rnn // model, h0=True)
     h, last = run_lru(*args)
@@ -5591,6 +5624,519 @@ def phase_dist_gspmd():
 
 
 # ---------------------------------------------------------------------------
+# Sequence parallelism for every family: the residual stream between
+# blocks the rank's share of the sequence, gathered at each block's entry
+# and reduce-scattered at its exit.
+# ---------------------------------------------------------------------------
+
+def _sp_batch(cfg):
+    """dist-sp's serving batch: 4 prompts of DIST_SP_PROMPT seeded tokens
+    (numpy seed 0) after the model's vision prefix, with seeded stub
+    frontend inputs."""
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        MAX_BATCH, cfg.vision_prefix + DIST_SP_PROMPT))).to(
+            device="cuda", dtype=torch.int32)
+    return {"tokens": tokens, **stub_inputs(cfg, MAX_BATCH, torch.Generator(
+        device="cuda").manual_seed(DIST_SEED))}
+
+
+def _sp_train_batch(cfg):
+    """dist-sp's train batch: DIST_TRAIN_FP32_BATCH's rows of its tokens
+    after the model's vision prefix (whose labels the loss masks), with
+    seeded prefix embeddings where the model has one."""
+    b, s = DIST_TRAIN_FP32_BATCH
+    batch = train_batch(cfg, b, cfg.vision_prefix + s, "cuda")
+    if cfg.vision_prefix:
+        batch.update(stub_inputs(cfg, DIST_TRAIN_FP32_BATCH[0],
+                                 torch.Generator(device="cuda").manual_seed(
+                                     DIST_SEED)))
+    return batch
+
+
+def _sp_serve_configs():
+    """(tag, config, mesh shape, rules) of dist-sp's fp32 serving runs:
+    each family at DIST_SP_FP32_LAYERS on (data 1, model DIST_SP_RANKS)
+    under SP_RULES, then OLMoE's GSPMD form on (data 2, model 2)."""
+    out = [(f"{arch}-fp32", _cut(arch, n, dtype=torch.float32,
+                                 kv_cache_dtype=torch.float32),
+            (1, DIST_SP_RANKS), SP_RULES)
+           for arch, n in DIST_SP_FP32_LAYERS.items()]
+    olmoe = _cut(MOE_ARCH, DIST_SP_FP32_LAYERS[MOE_ARCH],
+                 dtype=torch.float32, kv_cache_dtype=torch.float32)
+    return out + [(f"{MOE_ARCH}-gspmd-fp32", olmoe.with_(
+        moe_shard_map=False), DIST_GSPMD_MESH, {**GSPMD_RULES, **SP_RULES})]
+
+
+def _sp_train_config(arch):
+    """(config, TrainConfig) of a dist-sp train step: ``arch`` at full
+    width, DIST_SP_TRAIN_LAYERS, fp32, remat "full", the plain torch
+    route with K1 for the projections, one AdamW step."""
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import TrainConfig
+    cfg = _cut(arch, DIST_SP_TRAIN_LAYERS[arch], dtype=torch.float32,
+               backend="torch")
+    return cfg, TrainConfig(
+        optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+        loss_chunk=DIST_TRAIN_FP32_BATCH[1])
+
+
+def _sp_serve_launches(cfg, k1_prefill: int, k1_decode: int,
+                       model: int) -> dict:
+    """K1's, K2's, K4's, K5's and K6's launches by tile on one rank of
+    dist-sp serving the batch and DIST_TP_DECODE decode steps.  K1: the
+    meta count's calls of a prefill (``k1_prefill``) and of a decode step
+    (``k1_decode``), a prefill's on the tensor-core tile in bf16 and the
+    SIMT tile in fp32 but its logits (M = the rank's rows, the decode
+    tile), a decode step's on the decode tile.  K2: one prefill call an
+    attention layer and a pass (Griffin's two passes; Whisper's encoder,
+    decoder self- and cross-attention, and a cross-attention call each
+    decode step where its cache is held whole over ``model``).  K4: both
+    expert GEMMs a layer, a prefill's at its capacity on the big tile, a
+    decode step's (capacity 8) on the decode tile.  K5: Griffin's
+    recurrent layers in both prefill passes.  K6: one call a layer at
+    prefill.  A decode step's attention, RG-LRU and WKV are plain ops."""
+    big = "tc" if cfg.dtype == torch.bfloat16 else "simt"
+    steps, n = DIST_TP_DECODE, cfg.n_layers
+
+    def tiles(count, decode=0, names=("tc", "simt")):
+        out = dict.fromkeys(names, 0)
+        out[big] += count
+        if decode:
+            out["decode"] = decode
+        return out
+    out = {"fused_matmul_by_tile": {"tc": 0, "simt": 0,
+                                    "decode": 1 + steps * k1_decode}}
+    out["fused_matmul_by_tile"][big] += k1_prefill - 1
+    if cfg.family == "griffin":
+        pat = cfg.rnn.block_pattern
+        n_attn = sum(1 for i in range(n) if pat[i % len(pat)] == "attn")
+        out["flash_attention_by_tile"] = tiles(2 * n_attn)
+        out["rglru_scan"] = 2 * (n - n_attn)
+    elif cfg.family == "rwkv6":
+        out["rwkv6_scan_by_tile"] = tiles(n)
+    elif cfg.family == "encdec":
+        whole = cfg.encdec.n_audio_ctx % model != 0
+        out["flash_attention_by_tile"] = tiles(
+            cfg.encdec.n_encoder_layers + 2 * n + (steps * n if whole
+                                                   else 0))
+    else:
+        out["flash_attention_by_tile"] = tiles(n)
+        if cfg.moe is not None:
+            out["grouped_matmul_by_tile"] = tiles(
+                2 * n, 2 * n * steps, ("tc", "simt", "decode"))
+    return out
+
+
+def _sp_prefill_scatter(cfg, sizes: dict, rows: int, s: int) -> float:
+    """The reduce-scatter bytes of one fp32 prefill on a rank of dist-sp
+    (``rows`` rows of ``s`` tokens on a mesh of ``sizes``): every exit of
+    a pass over a sequence that ``model`` divides hands the rank its
+    share, rows x s / model x d x 4 bytes: the embedding's and each
+    row-parallel projection's (a layer's two; Griffin's in both passes,
+    its second over the window's tail; Whisper's encoder two a layer over
+    its frames, its decoder three); OLMoE's GSPMD form adds each MoE
+    layer's fp32 partial over data (the rank's rows of the whole
+    sequence) before its share over model."""
+    d, n, m = cfg.d_model, cfg.n_layers, sizes.get("model", 1)
+
+    def exits(count, length):
+        return count * rows * length // m * d * 4 if length % m == 0 else 0
+    if cfg.family == "griffin":
+        return float(exits(2 * n + 1, s) + exits(2 * n + 1,
+                                                  min(cfg.window, s)))
+    if cfg.family == "encdec":
+        return float(exits(2 * cfg.encdec.n_encoder_layers,
+                           cfg.encdec.n_audio_ctx) + exits(3 * n + 1, s))
+    if cfg.moe is not None and not cfg.moe_shard_map:
+        return float(exits(n + 1, s) + n * rows * s * d * 4 * (
+            sizes.get("data", 1) > 1) + exits(n, s))
+    return float(exits(2 * n + 1, s))
+
+
+def _dist_sp_rank(world, out_dir: str) -> None:
+    """One rank of phase ``dist-sp``, spawned by ``run_world``: serves
+    each of ``_sp_serve_configs`` under its rules, held to the parent's
+    one-process runs (``sp_one.pt``), then each family at full depth in
+    bf16 with and without SP_RULES on the same mesh, and takes each
+    family's train step on (data 2, model 2) under SP_RULES, held to the
+    parent's one-rank steps; checks K5 and K6 at its shapes.  Each rank
+    builds a whole model on the card in its turn and keeps its shards.
+    Prints a dist-sp-serve line a fp32 run, a dist-sp-bf16 line a family,
+    a dist-sp-train line a family and a dist-sp-kernels line, raises on a
+    failed check (which fails the world) and writes its launch counts and
+    times to ``out_dir/sp_rank{r}.json``."""
+    import torch.distributed as dist
+    from repro_torch.core import tree
+    from repro_torch.core.precision import disable_tf32
+    from repro_torch.distributed import collectives, logical, sharding
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.kernels.moe.ops import grouped_matmul
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rwkv6.ops import rwkv6_scan
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, rank_view
+    from repro_torch.models.base import family_module
+    from repro_torch.optim import adamw
+    from repro_torch.serving.engine import make_decode, make_prefill
+    from repro_torch.training.train_step import make_train_step
+    global _EMIT_LOCK
+    disable_tf32()
+    out_dir, r = Path(out_dir), world.rank
+    _EMIT_LOCK = out_dir / "emit.lock"
+    one = torch.load(out_dir / "sp_one.pt")
+    head = {"rank": r, "world": world.size, "backend": world.backend,
+            "backend_reason": world.reason, "device": str(world.device)}
+    wrappers = {"fused_matmul": fused_matmul,
+                "flash_attention": flash_attention,
+                "grouped_matmul": grouped_matmul,
+                "rglru_scan": rglru_scan, "rwkv6_scan": rwkv6_scan}
+    meshes = {}
+
+    def mesh_of(shape):
+        if shape not in meshes:                 # every rank makes each
+            meshes[shape] = make_mesh(shape, ("data", "model"))
+        return meshes[shape]
+    launches, times = {}, {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.ones((8, 8), device="cuda") @ torch.ones((8, 8), device="cuda")
+    torch.cuda.synchronize()
+    workspace = torch.cuda.memory_allocated() - base
+
+    def built(cfg, mesh_, rules):
+        """The rank's shards of the seeded model, each rank in its turn."""
+        mod = family_module(cfg)
+        for turn in range(world.size):
+            if turn == r:
+                whole = mod.init(cfg, torch.Generator(
+                    device="cuda").manual_seed(DIST_SEED), "cuda")
+                params = sharding.shard_params(whole, mesh_, rules,
+                                               glu=cfg.mlp_glu)
+                del whole
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return params
+
+    def rows_of(mesh_):
+        n = MAX_BATCH // mesh_.shape["data"]
+        return slice(mesh_.index("data") * n, (mesh_.index("data") + 1) * n)
+
+    for tag, cfg, shape, rules in _sp_serve_configs():
+        mod, mesh = family_module(cfg), mesh_of(shape)
+        view = rank_view(tuple(mesh.shape.values()), mesh.axis_names,
+                         mesh.coordinate)
+        cache_len = DIST_SP_CACHE.get(cfg.name, 512)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        params = built(cfg, mesh, rules)
+        cache = sharding.shard_cache(mod.init_cache(
+            cfg, MAX_BATCH, cache_len, device="cuda"), mesh, cfg, rules)
+        ref = one[f"serve-{cfg.name}"]
+        rows = rows_of(mesh)
+        batch = _sp_batch(cfg)
+        read = _counted(wrappers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with logical.use_rules(mesh, rules):
+            got = _mesh_serve(cfg, params, cache,
+                              follow=ref["greedy"][:, :-1], rows=rows,
+                              batch=batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - workspace
+        counts = read()
+        errs = [rel_err(a, b[rows])[0] for a, b in zip(got["logits"],
+                                                       ref["logits"])]
+        agree = float((got["greedy"] == ref["greedy"][rows]).float().mean())
+        whole = sharding.gather_cache(got["cache"], mesh, cfg, rules)
+        cache_err = max(rel_err(a.cpu(), b)[0] for a, b in zip(
+            tree.leaves(whole), tree.leaves(ref["cache"])))
+        del whole
+        # the prefill counted again on the card, and on meta at this
+        # rank's coordinate with a decode step; the serve's peak against
+        # the meta trace
+        lb = got["batch"]
+        with logical.use_rules(mesh, rules):
+            card, _, _ = dryrun.count_step(make_prefill(cfg), (
+                params, lb, got["cache"]), False)
+        with logical.use_rules(view, rules):
+            meta_params = sharding.shard_params(
+                mod.init(cfg, None, "meta"), view, rules, glu=cfg.mlp_glu)
+            meta_cache = sharding.shard_cache(mod.init_cache(
+                cfg, MAX_BATCH, cache_len, device="meta"), view, cfg, rules)
+            mb = {k: torch.empty(x.shape, dtype=x.dtype, device="meta")
+                  for k, x in lb.items()}
+            pre, _, _ = dryrun.count_step(make_prefill(cfg), (
+                meta_params, mb, meta_cache), False)
+            dec, _, _ = dryrun.count_step(make_decode(cfg), (
+                meta_params, mb["tokens"][:, :1], meta_cache,
+                lb["tokens"].shape[1]), False)
+        mem = {"arguments": dryrun.tree_bytes((meta_params, meta_cache, mb)),
+               "temp_meta": max(pre.temp_bytes, dec.temp_bytes)}
+        mem["total"] = mem["arguments"] + mem["temp_meta"]
+        counted = {**{k: float(x) for k, x in card.per_collective.items()},
+                   "total": card.collective_bytes}
+        scatter = _sp_prefill_scatter(cfg, dict(mesh.shape),
+                                      lb["tokens"].shape[0],
+                                      lb["tokens"].shape[1])
+        kernels = _sp_serve_launches(
+            cfg, pre.kernels["fused_matmul"]["calls"],
+            dec.kernels["fused_matmul"]["calls"], mesh.shape["model"])
+        phase = "dist-sp-serve"
+        emit({"phase": phase, **head, "run": tag, **counts,
+              "config": f"{cfg.name} full width, {cfg.n_layers} layers, "
+                        f"fp32, (data {shape[0]}, model {shape[1]}), rules "
+                        f"{rules}, {MAX_BATCH} x {batch['tokens'].shape[1]}"
+                        f" tokens, cache {cache_len}",
+              "logits_rel_err": errs, "tol": TOL_FP32,
+              "cache_rel_err": cache_err, "greedy_tokens_agree": agree,
+              "launches_reckoned": kernels,
+              "collective_bytes_prefill": counted,
+              "collective_bytes_meta": pre.per_collective,
+              "reduce_scatter_reckoned": scatter,
+              "prefill_ms": got["prefill_ms"], "decode_ms": got["decode_ms"],
+              "one_process_prefill_ms": ref["prefill_ms"],
+              "one_process_decode_ms": ref["decode_ms"],
+              "max_memory_allocated": peak, "held_before_run": held,
+              "cublas_workspace": workspace, "memory_reckoned": mem,
+              "memory_rel": peak / mem["total"] - 1.0,
+              "tol_memory": TOL_DIST_MEMORY})
+        require(all(bool(torch.isfinite(x).all()) for x in got["logits"]),
+                f"{phase} {tag}: logits not finite")
+        require(all(e_ <= TOL_FP32 for e_ in errs),
+                f"{phase} {tag}: logits {errs} against {TOL_FP32}")
+        require(agree == 1.0, f"{phase} {tag}: greedy tokens differ from "
+                "one process's")
+        require(cache_err <= TOL_FP32, f"{phase} {tag}: gathered cache "
+                f"{cache_err} from one process's")
+        got_tiles = {k: counts[k] for k in kernels}
+        require(got_tiles == kernels, f"{phase} {tag}: launches "
+                f"{got_tiles}, reckoned {kernels}")
+        require(counted.get("reduce-scatter") == scatter and
+                card.per_collective == pre.per_collective,
+                f"{phase} {tag}: a prefill's collective bytes {counted}, "
+                f"meta {pre.per_collective}, reduce-scatter reckoned "
+                f"{scatter}")
+        require(abs(peak / mem["total"] - 1.0) <= TOL_DIST_MEMORY,
+                f"{phase} {tag}: peak {peak} B against {mem['total']} B "
+                "reckoned")
+        launches[f"dist-sp-{tag}"] = counts
+        times[tag] = {"prefill_ms": got["prefill_ms"],
+                      "decode_ms": got["decode_ms"]}
+        del params, cache, got, card, pre, dec, meta_params, meta_cache
+        torch.cuda.empty_cache()
+
+    # each family at full depth in bf16, on the same mesh with and
+    # without the seq rule, the first run's greedy tokens fed to both
+    mesh = mesh_of((1, DIST_SP_RANKS))
+    for arch in DIST_SP_FP32_LAYERS:
+        cfg = _cut(arch, None)
+        mod = family_module(cfg)
+        params = built(cfg, mesh, None)
+        batch = _sp_batch(cfg)
+        runs = {}
+        for run, rules in (("whole", None), ("seq", SP_RULES)):
+            cache = sharding.shard_cache(mod.init_cache(
+                cfg, MAX_BATCH, DIST_SP_CACHE.get(arch, 512),
+                device="cuda"), mesh, cfg, rules)
+            follow = runs["whole"]["greedy"][:, :-1] if runs else None
+            read = _counted(wrappers)
+            with logical.use_rules(mesh, rules):
+                runs[run] = _mesh_serve(cfg, params, cache, follow=follow,
+                                        batch=batch)
+            runs[run]["counts"] = read()
+            del cache
+        counts = runs["seq"]["counts"]
+        same = all(torch.equal(a, b) for a, b in zip(
+            runs["seq"]["logits"], runs["whole"]["logits"]))
+        errs = [rel_err(a, b)[0] for a, b in zip(runs["seq"]["logits"],
+                                                 runs["whole"]["logits"])]
+        agree = float((runs["seq"]["greedy"] == runs["whole"]["greedy"])
+                      .float().mean())
+        kernels = _sp_serve_launches(cfg, 1, 0, mesh.shape["model"])
+        kernels.pop("fused_matmul_by_tile")
+        gloo = world.backend == "gloo"
+        emit({"phase": "dist-sp-bf16", **head, "run": arch, **counts,
+              "config": f"{arch} full width, {cfg.n_layers} layers, bf16, "
+                        f"(data 1, model {DIST_SP_RANKS}), rules {SP_RULES} "
+                        "against none",
+              "bit_identical": same, "logits_rel_err": errs,
+              "held": "bit for bit" if gloo else f"TOL_PATH_BF16 "
+                                                 f"{TOL_PATH_BF16}",
+              "greedy_tokens_agree": agree, "launches_reckoned": kernels,
+              "prefill_ms": runs["seq"]["prefill_ms"],
+              "decode_ms": runs["seq"]["decode_ms"],
+              "no_seq_prefill_ms": runs["whole"]["prefill_ms"],
+              "no_seq_decode_ms": runs["whole"]["decode_ms"]})
+        require(same if gloo else max(errs) <= TOL_PATH_BF16,
+                f"dist-sp-bf16 {arch}: logits {errs} from the run without "
+                "the seq rule")
+        got_tiles = {k: counts[k] for k in kernels}
+        require(got_tiles == kernels and counts["fused_matmul"] > 0,
+                f"dist-sp-bf16 {arch}: launches {got_tiles}, reckoned "
+                f"{kernels}")
+        launches[f"dist-sp-bf16-{arch}"] = counts
+        times[f"{arch}-bf16"] = {
+            "prefill_ms": runs["seq"]["prefill_ms"],
+            "decode_ms": runs["seq"]["decode_ms"],
+            "no_seq_prefill_ms": runs["whole"]["prefill_ms"],
+            "no_seq_decode_ms": runs["whole"]["decode_ms"]}
+        del params, runs
+        torch.cuda.empty_cache()
+
+    # one fp32 AdamW step of each family on (data 2, model 2)
+    train_mesh = mesh_of((2, 2))
+    view = rank_view((2, 2), ("data", "model"), train_mesh.coordinate)
+    for arch in DIST_SP_TRAIN_LAYERS:
+        cfg, tcfg = _sp_train_config(arch)
+        params = built(cfg, train_mesh, SP_RULES)
+        opt = adamw.init(tcfg.optimizer, params)
+        batch = _sp_train_batch(cfg)
+        read = _counted(wrappers)
+        with logical.use_rules(train_mesh, SP_RULES):
+            card, (_, opt, metrics, _), _ = dryrun.count_step(
+                make_train_step(cfg, tcfg), (params, opt, sharding.
+                                             local_batch(batch, train_mesh)),
+                True)
+        counts = read()
+        meta = {}
+        for run, rules in (("seq", SP_RULES), ("whole", None)):
+            with logical.use_rules(view, rules):
+                mp = sharding.shard_params(family_module(cfg).init(
+                    cfg, None, "meta"), view, rules, glu=cfg.mlp_glu)
+                mbatch = {k: torch.empty(x.shape, dtype=x.dtype,
+                                         device="meta") for k, x in
+                          sharding.local_batch(batch, view).items()}
+                meta[run], _, _ = dryrun.count_step(
+                    make_train_step(cfg, tcfg), (
+                        mp, adamw.init(tcfg.optimizer, mp), mbatch), True)
+        ref = one[f"train-{arch}"]
+        ref_mu = sharding.shard_params(
+            torch.load(out_dir / f"sp_train_mu_{arch}.pt", mmap=True),
+            train_mesh, SP_RULES, glu=cfg.mlp_glu)
+        worst = torch.stack([(a - b.cuda()).abs().max().float() for a, b in
+                             zip(tree.leaves(opt["mu"]),
+                                 tree.leaves(ref_mu))])
+        collectives.all_reduce(worst, op="max")
+        grad_rel = (worst.cpu() / torch.tensor(ref["mu_max"])).tolist()
+        loss = float(metrics["loss"])
+        loss_rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+        tol_grad = TOL_TRAIN_GRAD
+        scatter = {run: m.per_collective.get("reduce-scatter", 0.0)
+                   for run, m in meta.items()}
+        emit({"phase": "dist-sp-train", **head, **counts,
+              "config": f"{arch} full width, {cfg.n_layers} layers, fp32, "
+                        f"(data 2, model 2), rules {SP_RULES}, batch "
+                        f"{DIST_TRAIN_FP32_BATCH}",
+              "loss": loss, "one_rank_loss": ref["loss"],
+              "loss_rel": loss_rel, "tol_loss": TOL_TRAIN_LOSS,
+              "mu_rel_max": max(grad_rel), "tol_grad": tol_grad,
+              "collective_bytes_step": card.per_collective,
+              "collective_bytes_meta": meta["seq"].per_collective,
+              "collective_bytes_meta_without_seq":
+                  meta["whole"].per_collective})
+        require(loss_rel <= TOL_TRAIN_LOSS, f"dist-sp-train {arch}: loss "
+                f"{loss} against one rank's {ref['loss']}")
+        require(max(grad_rel) <= tol_grad, f"dist-sp-train {arch}: first "
+                f"moment {max(grad_rel)} of a leaf's max")
+        require(counts["fused_matmul"] > 0 and all(
+            counts[k] == 0 for k in ("flash_attention", "grouped_matmul",
+                                     "rglru_scan", "rwkv6_scan")),
+                f"dist-sp-train {arch}: launches {counts}")
+        require(card.per_collective == meta["seq"].per_collective
+                and scatter["seq"] > scatter["whole"],
+                f"dist-sp-train {arch}: a step's collective bytes "
+                f"{card.per_collective}, meta {meta}")
+        launches[f"dist-sp-train-{arch}"] = counts
+        del params, opt, ref_mu, metrics, card, meta
+        torch.cuda.empty_cache()
+
+    checks = _rec_kernel_checks(torch.Generator(device="cuda").manual_seed(
+        DIST_SEED + r), DIST_SP_RANKS, DIST_SP_PROMPT)
+    emit({"phase": "dist-sp-kernels", **head, "checks": checks})
+    require(all(c["ok"] for c in checks), f"dist-sp-kernels: {checks}")
+    (out_dir / f"sp_rank{r}.json").write_text(json.dumps(
+        {"world": head, "launches": launches, "times": times}))
+
+
+def phase_dist_sp(smi_line):
+    """Every family under the reference's sequence parallelism on
+    DIST_SP_RANKS ranks through ``launch.mesh.run_world`` (gloo: the
+    ranks share the card; ``_dist_sp_rank``).  First, in this process,
+    what the ranks are held to: each family's fp32 serving run off the
+    mesh (its cache kept; OLMoE's GSPMD form routes the whole batch as it
+    does) and each family's fp32 train step on one rank (its first
+    moment saved for the ranks to read), under an abstract (data 2,
+    model 2) mesh: OLMoE's shard_map form routes each data slice at the
+    slice's capacity there, as the ranks and the reference do, and every
+    other leaf runs whole.  A rank that fails, or a world that outlives
+    DIST_SP_TIMEOUT, fails the phase."""
+    import shutil
+
+    from repro_torch.core import tree
+    from repro_torch.distributed import logical
+    from repro_torch.launch.mesh import abstract_mesh, run_world
+    from repro_torch.models.base import family_module
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import make_train_step
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    one = {}
+    for arch, n in DIST_SP_FP32_LAYERS.items():
+        cfg = _cut(arch, n, dtype=torch.float32, kv_cache_dtype=torch.float32)
+        mod = family_module(cfg)
+        params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(
+            DIST_SEED), "cuda")
+        cache = mod.init_cache(cfg, MAX_BATCH, DIST_SP_CACHE.get(arch, 512),
+                               device="cuda")
+        got = _mesh_serve(cfg, params, cache, batch=_sp_batch(cfg))
+        got["cache"] = tree.tree_map(lambda x: x.cpu(), got["cache"])
+        got.pop("batch")
+        one[f"serve-{arch}"] = got
+        del params, cache, got
+        torch.cuda.empty_cache()
+    for arch in DIST_SP_TRAIN_LAYERS:
+        cfg, tcfg = _sp_train_config(arch)
+        params = family_module(cfg).init(cfg, torch.Generator(
+            device="cuda").manual_seed(DIST_SEED), "cuda")
+        with logical.use_rules(abstract_mesh((2, 2), ("data", "model"))):
+            _, opt, metrics, _ = make_train_step(cfg, tcfg)(
+                params, adamw.init(tcfg.optimizer, params),
+                _sp_train_batch(cfg))
+        mu = tree.tree_map(lambda x: x.cpu(), opt["mu"])
+        one[f"train-{arch}"] = {"loss": float(metrics["loss"]), "mu_max": [
+            float(x.abs().max()) for x in tree.leaves(mu)]}
+        torch.save(mu, DIST_DIR / f"sp_train_mu_{arch}.pt")
+        del params, opt, metrics, mu
+        torch.cuda.empty_cache()
+    torch.save(one, DIST_DIR / "sp_one.pt")
+    one_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    try:
+        run_world(_dist_sp_rank, DIST_SP_RANKS, (str(DIST_DIR),),
+                  rendezvous=str(DIST_DIR / "rendezvous"),
+                  timeout=DIST_SP_TIMEOUT)
+    except Exception as e:                   # a rank failed or hung
+        raise PhaseFailed(f"dist-sp: {type(e).__name__}: {e}") from None
+    world_s = time.perf_counter() - t0
+    ranks = [json.loads((DIST_DIR / f"sp_rank{i}.json").read_text())
+             for i in range(DIST_SP_RANKS)]
+    launches = {f"{path}/rank{i}": counts for i, got in enumerate(ranks)
+                for path, counts in got["launches"].items()}
+    emit({"phase": "dist-sp", "ranks": DIST_SP_RANKS,
+          "backend": ranks[0]["world"]["backend"],
+          "backend_reason": ranks[0]["world"]["backend_reason"],
+          "nvidia_smi": smi_line, "times_rank0": ranks[0]["times"],
+          "one_process_s": one_s, "world_wall_s": world_s,
+          "wall_s": time.perf_counter() - t_phase, "launches": launches})
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Times at the paths' largest shapes.
 # ---------------------------------------------------------------------------
 
@@ -5879,6 +6425,25 @@ def _scaled_mm(a, b):
                   "fp32 out (no epilogue)")
 
 
+def _int_mm(a, b):
+    """(a callable of ``torch._int_mm`` on int8 ``a`` and ``b``, int32 out;
+    what it is) where the library takes the operands (B column-major,
+    cuBLASLt's layout, else as it is), else (None, why not): a yardstick
+    only."""
+    why = ""
+    for layout, bt in (("column-major", b.t().contiguous().t()),
+                       ("row-major", b)):
+        def call(bt=bt):
+            return torch._int_mm(a, bt)
+        try:
+            call()
+        except (RuntimeError, ValueError) as e:   # layouts it refuses
+            why = str(e)[:160]
+            continue
+        return call, f"torch._int_mm, B {layout}, int32 out (no epilogue)"
+    return None, f"none: torch._int_mm refused ({why})"
+
+
 def bound(flops: float, nbytes: float, peak: float, bw: float):
     t_ops, t_bytes = flops / peak, nbytes / bw
     return (max(t_ops, t_bytes) * 1e3,
@@ -6115,6 +6680,48 @@ def phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, path_launches):
                          f"{n_rows} rows" if routed else ""),
             "library_call": "torch.bmm in bf16 on the full shape (no "
                             "epilogue)"})
+
+    # K1 on int8 with int32 out (exec's prefill tiles; the W8A8 layer's
+    # product before its scales) at the w8a8 phase's two products, yi-6b's
+    # MLP over the serve traffic's first batch: (884, 4096) @ (4096,
+    # 22016), its GLU's gate and up columns, and (884, 11008) @ (11008,
+    # 4096); on the SIMT tile, equal to the plain version to the bit and
+    # timed as 10 calls replayed from a CUDA graph.  The bound counts one
+    # byte an int8 element, 4 an int32 output, and the operations at the
+    # int8 peak; the library yardstick is ``torch._int_mm``.
+    for tag, (k_, n_) in (("wi", (cfg.d_model, 2 * cfg.d_ff)),
+                          ("wo", (cfg.d_ff, cfg.d_model))):
+        rows = MAX_BATCH * s_max
+        a, b, ep, ops = matmul_case(gen, rows, k_, n_, torch.int8,
+                                    out_dtype=torch.int32)
+        fns = {"kernel": lambda: run_matmul(a, b, ep, ops),
+               "plain": lambda: plain_matmul(a, b, ep, ops)}
+        library, why = _int_mm(a, b)
+        if library is not None:
+            fns["library"] = library
+        t = graph_ms(fns)
+        tile = tile_for(a, b, ep)
+        out, ref = run_matmul(a, b, ep, ops), plain_matmul(a, b, ep, ops)
+        same = bool(torch.equal(out, ref))
+        if library is not None:
+            same = same and bool(torch.equal(library(), ref))
+        require(same, f"kernels int8: K1 {tag} differs from its plain "
+                "version or torch._int_mm")
+        ms, by = bound(2.0 * rows * n_ * k_, rows * k_ + k_ * n_
+                       + 4.0 * rows * n_, chip.peak_int8, chip.hbm_bw)
+        kernels.append({
+            "name": "fused_matmul", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gemm_tile.cuh",
+            "replaces": "src/repro/kernels/matmul/matmul.py:39",
+            **counts("fused_matmul"),
+            "launches_by_tile": by_tile("fused_matmul"),
+            "tile": tile, "max_abs_err": float((out - ref).abs().max()),
+            "bit_equal": same, "ms": t["kernel"], "plain_ms": t["plain"],
+            "bound_ms": ms, "bound_by": by,
+            "library_ms": t.get("library"),
+            "shape": f"{tag}: int8 ({rows},{k_})@({k_},{n_}) -> int32",
+            "library_call": why})
+        del a, b, out, ref
 
     # K1 and K4 on fp8 (e4m3fn, e5m2), each on the tile the rule names
     # (SIMT above 8 rows, decode at 8 and fewer), held against the plain
@@ -6572,6 +7179,10 @@ def main() -> int:
         # (data 2, model 2): K4 on each rank's 32 experts and 512 d_ff
         # columns at the whole batch's capacity
         launches.update(phase_dist_gspmd())
+        # every family under the reference's {"seq": "model"} rules on
+        # DIST_SP_RANKS ranks: K1, K2, K4, K5 and K6 on each rank's
+        # gathered sequence
+        launches.update(phase_dist_sp(card))
         launches["dryrun"] = phase_dryrun(card)
         kernels = phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, launches)
     except PhaseFailed as e:

@@ -22,7 +22,15 @@ moving themselves:
   residual stream between blocks holds the rank's share of the sequence:
   ``enter`` all-gathers it and ``exit`` reduce-scatters.  A model's
   forward decides that once, for the pass (``begin_pass``), and every
-  helper reads it (``seq_sharded``).
+  helper reads it (``seq_sharded``); a second stream of another length
+  in the same pass (Whisper's encoder) decides its own (``shards``) and
+  holds it while it runs (``holding``), remat's recompute included.  A
+  block that reads its neighbours along the sequence (a token shift, a
+  causal conv) takes its input whole once (``gather_stream``) and enters
+  its projections with ``whole_in_region``.  A leaf the rules keep whole
+  acts on the rank's rows (``seq_rows``), or, where it mixes positions,
+  on the gathered stream, every rank computing every row and keeping its
+  own.
 * ``whole_in_region`` marks a leaf replicated over ``model`` that the
   ranks use differently inside such a region (a bias sliced to the
   rank's columns, the QK-norm scales, the MoE router, norm scales on the
@@ -44,6 +52,7 @@ moving themselves:
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -128,8 +137,32 @@ class Placement:
         (Megatron-SP: the rules map ``seq`` to ``model``, whose ranks
         divide it).  That holds until the next pass begins: through the
         loss, the backward and remat's recompute."""
-        self.seq = (self._seq_rule and self.model > 1
-                    and seq_len % self.model == 0)
+        self.seq = self.shards(seq_len)
+
+    def shards(self, seq_len: int) -> bool:
+        """Whether a stream of ``seq_len`` tokens holds the rank's share
+        of the sequence between blocks: the rules map ``seq`` to
+        ``model``, whose ranks divide it (else it runs whole, as the
+        reference's ``spec_for`` falls back)."""
+        return (self._seq_rule and self.model > 1
+                and seq_len % self.model == 0)
+
+    def seq_rows(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The rank's share of ``t``'s whole sequence (dim ``dim``) where
+        the stream holds shares; ``t`` as it is otherwise."""
+        if not self.seq:
+            return t
+        n = t.shape[dim] // self.model
+        return t.narrow(dim, self.rank * n, n)
+
+    def gather_stream(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` of the residual stream whole along the sequence on every
+        rank where the stream holds shares, gathered once for a block
+        whose ranks all compute the same from it before its column
+        entries (``whole_in_region``, not ``enter``): a token shift or a
+        conv that reads across shares.  Its gradient is the rank's share
+        of that whole one."""
+        return self.gather_whole(x, 1) if self.seq else x
 
     def whole_sequence(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` of the residual stream, whole along the sequence (the
@@ -141,6 +174,10 @@ class Placement:
         return self.gather_model(x, 1)
 
     def enter(self, x: torch.Tensor):
+        """``x`` into a region whose ranks each compute a share of what
+        follows: gathered along the sequence where the stream holds
+        shares (the gradient reduce-scattered), else as it is (the
+        gradient all-reduced)."""
         if self.model == 1:
             return x
         if self.seq:
@@ -318,6 +355,23 @@ def begin_pass(seq_len: int) -> Optional[Placement]:
     if pl is not None:
         pl.begin(seq_len)
     return pl
+
+
+@contextlib.contextmanager
+def holding(seq: bool):
+    """Within: the current placement's stream holds the rank's share of
+    the sequence where ``seq`` says (a second stream of a pass, decided
+    by ``Placement.shards``); the pass's own after.  Wrap the body that
+    remat recomputes, so that its recompute holds the same."""
+    pl = current()
+    if pl is None:
+        yield
+        return
+    before, pl.seq = pl.seq, seq
+    try:
+        yield
+    finally:
+        pl.seq = before
 
 
 def seq_sharded() -> bool:

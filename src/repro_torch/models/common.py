@@ -18,6 +18,11 @@ logits run on the rank's shards instead, moving the data themselves
 (``distributed.tensor_parallel``): column-parallel projections behind
 the region's entry, row-parallel ones before its exit, the embedding
 vocab-parallel, the logits column-parallel over the vocabulary.
+Under sequence parallelism a leaf the rules keep whole acts on the rank's
+share of the sequence where it works row by row (a norm, an MLP, the
+embedding's lookup: ``stream_leaf``), and on the gathered stream where it
+mixes positions (attention), every rank computing every row and keeping
+its own.
 """
 
 from __future__ import annotations
@@ -328,7 +333,10 @@ def _qkv_placed(cfg: ArchConfig, pl, p, x, positions, every_kv=False,
     heads read, or, with ``every_kv`` (a cache that holds every KV head
     on each rank: ``_attend_placed``), every KV head in one product, as
     the reference's one matmul does.  ``kv_x`` (a cross-attention's
-    encoder output) enters the region beside ``x``."""
+    encoder output, whole on every rank) enters the region beside ``x``.
+    Where the rules keep the attention's leaves whole, under sequence
+    parallelism the stream is gathered and every rank computes every
+    head (``attn_out`` keeps its rows)."""
     d, hd = cfg.d_model, cfg.head_dim
     wq, qd = pl.param(p["wq"], "wq", (d, cfg.q_dim))
     wk, kd = pl.param(p["wk"], "wk", (d, cfg.kv_dim))
@@ -336,16 +344,19 @@ def _qkv_placed(cfg: ArchConfig, pl, p, x, positions, every_kv=False,
     bias = (p.get("bq"), p.get("bk"), p.get("bv"))
     norms = (p.get("q_norm"), p.get("k_norm"))
     if qd is None and kd is None and vd is None:       # whole on every rank
-        if pl.seq:
-            raise NotPorted("attention held whole under sequence "
-                            "parallelism (ROADMAP item 7c)")
+        if pl.seq:      # every head over the gathered stream; every leaf's
+            x = pl.gather_model(x, 1)  # gradient a share (attn_out's rows)
+            kv_x, wq, wk, wv = (pl.whole_in_region(t)
+                                for t in (kv_x, wq, wk, wv))
+            bias, norms = (tuple(pl.whole_in_region(t) for t in ts)
+                           for ts in (bias, norms))
         return _qkv(cfg, x, (wq, wk, wv), bias, norms, positions, kv_x)
     if qd != 1 or kd != vd:
         raise NotPorted(f"{cfg.name}: q columns {qd} and KV columns {kd} "
                         "over model in other forms (ROADMAP item 7c)")
     m, r = pl.model, pl.rank
     h = pl.enter(x)
-    src = h if kv_x is None else pl.enter(kv_x)
+    src = h if kv_x is None else pl.whole_in_region(kv_x)
     q0, hq, k0, hk = rank_heads(cfg, pl)
     if every_kv:
         k0, hk = 0, cfg.n_kv_heads
@@ -447,11 +458,10 @@ def _attend_placed(cfg: ArchConfig, p, h, positions, window, kv_cache,
     positions are shared out over ``model`` (``shard.split``), each rank
     attends with every q head over its own positions (``split_decode``).
     Every rank returns every head's context; ``attn_out`` takes its
-    rows."""
+    rows.  Under sequence parallelism a prefill's K and V come from the
+    gathered prompt, so that the rank writes the rows of its cache
+    positions as without it."""
     pl = tp.current()
-    if pl.seq:
-        raise NotPorted(f"{cfg.name}: a cache of every KV head under "
-                        "sequence parallelism (ROADMAP item 7c)")
     q, k, v = qkv_project(cfg, p, h, positions, every_kv=True)
     read = kv_read(cfg, pl, q)
     k_cache, v_cache = cache_update(*kv_cache, k, v, cache_pos,
@@ -493,7 +503,9 @@ def split_decode(cfg: ArchConfig, pl, q, k_cache, v_cache, cache_len,
 
 def attn_out(cfg: ArchConfig, p, ctx):
     """ctx: (B, H, S, hd) -> (B, S, d).  Under a mesh, the rank's rows of
-    ``wo`` (row parallel), then the region's exit."""
+    ``wo`` (row parallel), then the region's exit; ``wo`` whole under
+    sequence parallelism, the rank's share of the sequence of a context
+    every rank computed whole (``_qkv_placed``)."""
     b, h, s, hd = ctx.shape
     ctx = ctx.transpose(1, 2).reshape(b, s, h * hd)
     pl = tp.current()
@@ -501,6 +513,8 @@ def attn_out(cfg: ArchConfig, p, ctx):
         return linear(ctx, p["wo"], backend=_mm_backend(cfg))
     wo, od = pl.param(p["wo"], "wo", (cfg.q_dim, cfg.d_model))
     if od is None:
+        if pl.seq:
+            ctx, wo = pl.seq_rows(ctx), pl.whole_in_region(wo)
         return linear(ctx, wo, backend=_mm_backend(cfg))
     rows = cfg.q_dim // pl.model
     if h * hd == cfg.q_dim and pl.model > 1:      # every head: the rank's
@@ -541,7 +555,9 @@ def mlp_init(cfg: ArchConfig, gen: torch.Generator, device=None):
 def mlp_apply(cfg: ArchConfig, p, x):
     """Under a mesh, ``wi``'s rank columns (a GLU's gate and up halves
     paired, ``sharding.shard_leaf``; a plain MLP's contiguous) and
-    ``wo``'s rows inside one region."""
+    ``wo``'s rows inside one region; where the rules keep both whole,
+    under sequence parallelism, the rank's rows of the stream through
+    them (their gradients shares, ``whole_in_region``)."""
     wi, wo, region = p["wi"], p["wo"], None
     pl = tp.current()
     if pl is not None:
@@ -550,9 +566,11 @@ def mlp_apply(cfg: ArchConfig, p, x):
         wo, odim = pl.param(wo, "wo", (cfg.d_ff, cfg.d_model))
         if (idim, odim) == (1, 0):
             region = pl
-        elif (idim, odim) != (None, None) or pl.seq:
+        elif (idim, odim) != (None, None):
             raise NotPorted(f"{cfg.name}: an MLP split as {idim}, {odim} "
                             "over model (ROADMAP item 7c)")
+        elif pl.seq:
+            wi, wo = pl.whole_in_region(wi), pl.whole_in_region(wo)
     if region is not None:
         x = region.enter(x)
     h = linear(x, wi, activation=cfg.mlp_activation, glu=cfg.mlp_glu,
@@ -562,14 +580,14 @@ def mlp_apply(cfg: ArchConfig, p, x):
     return linear(h, wo, backend=_mm_backend(cfg))
 
 
-def whole_stream_pass(cfg: ArchConfig, seq_len: int):
-    """Begin a pass over ``seq_len`` tokens (``tensor_parallel.begin_pass``)
-    of a family whose residual stream stays whole along the sequence
-    between blocks."""
-    pl = tp.begin_pass(seq_len)
-    if pl is not None and pl.seq:
-        raise NotPorted(f"{cfg.name}: sequence parallelism (ROADMAP item "
-                        "7c)")
+def stream_leaf(t):
+    """A leaf applied row by row to the residual stream (a norm's scale
+    or bias, a slice of learned positions): under sequence parallelism
+    each rank applies it to its share of the sequence, so that its
+    gradient is a share of the whole one, summed over ``model``
+    (``whole_in_region``)."""
+    pl = tp.current()
+    return pl.whole_in_region(t) if pl is not None and pl.seq else t
 
 
 # ---------------------------------------------------------------------------
@@ -579,7 +597,9 @@ def whole_stream_pass(cfg: ArchConfig, seq_len: int):
 def embed_tokens(cfg: ArchConfig, embedding, tokens):
     """Under a mesh, vocab-parallel: each rank looks up the tokens of its
     vocabulary range (zeros elsewhere) and the ranks' rows are summed
-    (reduce-scattered along the sequence when the pass shards it)."""
+    (reduce-scattered along the sequence when the pass shards it).  An
+    embedding the rules keep whole looks up the rank's share of the
+    tokens under sequence parallelism."""
     pl = tp.current()
     if pl is None:
         x = embedding[tokens]
@@ -588,8 +608,7 @@ def embed_tokens(cfg: ArchConfig, embedding, tokens):
                          (cfg.padded_vocab, cfg.d_model))
         if vd is None:
             if pl.seq:
-                raise NotPorted("a whole embedding under sequence "
-                                "parallelism (ROADMAP item 7c)")
+                w, tokens = pl.whole_in_region(w), pl.seq_rows(tokens)
             x = w[tokens]
         else:
             n = w.shape[0]
@@ -622,14 +641,14 @@ def output_weight(cfg: ArchConfig, params, pl=None):
 def logits_out(cfg: ArchConfig, params, x):
     """Under a mesh, column-parallel over the vocabulary (the softcap per
     element, as on one card), then gathered: every rank returns every
-    column."""
+    column.  A whole output weight under sequence parallelism takes the
+    gathered stream: every rank computes every row's logits."""
     pl = tp.current()
     w, split = output_weight(cfg, params, pl)
     if split:
         x = pl.enter(x)
-    elif pl is not None and pl.seq:
-        raise NotPorted("a whole output weight under sequence parallelism "
-                        "(ROADMAP item 7c)")
+    elif pl is not None:
+        x = pl.gather_stream(x)
     y = linear(x, w, softcap=cfg.final_softcap, out_dtype=torch.float32,
                backend=_mm_backend(cfg))
     return pl.gather_model(y, -1) if split else y

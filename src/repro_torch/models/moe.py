@@ -48,6 +48,12 @@ partial in turn and adds them in the same order (``_moe_gspmd_in_turn``):
 where each of those axes has at most two ranks, every sum is of two
 terms, and the ranks' result equals it bit for bit.  It serves
 inference: under autograd it raises ``NotPorted`` (ROADMAP item 7c).
+
+Under sequence parallelism (the rules map ``seq`` to ``model``) a rank's
+``x`` is its share of the sequence.  Both forms gather the sequence
+first and route the gathered tokens at the capacity of the whole
+sequence, as the reference routes them; the sum over ``model`` is then a
+reduce-scatter along the sequence, each rank keeping its share.
 """
 
 from __future__ import annotations
@@ -240,6 +246,8 @@ def moe_apply(cfg: ArchConfig, p, x, mesh=None):
             dense = (pl.param(dense[0], "dense_wi",
                               (d, (2 if cfg.mlp_glu else 1) * cfg.d_ff))[0],
                      pl.param(dense[1], "dense_wo", (cfg.d_ff, d))[0])
+            if pl.seq:      # whole, on the rank's rows: gradients shares
+                dense = tuple(pl.whole_in_region(w) for w in dense)
     elif (cfg.moe_shard_map and mesh is not None and "model" in mesh.shape
             and m.n_experts % model == 0):
         y = _moe_shards_in_turn(cfg, p, x, mesh)
@@ -264,12 +272,16 @@ def moe_apply(cfg: ArchConfig, p, x, mesh=None):
 def _moe_expert_parallel(cfg: ArchConfig, pl, p, x):
     """The block on a rank of a placed model (the reference's
     ``shard_map`` branch on its data slice): ``x`` is the rank's rows,
-    capacity from their tokens.  Where the experts lie over ``model`` the
-    rank runs its ``e_local`` from ``rank * e_local`` behind the region's
-    entry and the partials are summed by ``reduce_from_group``; the
-    router, replicated, takes the region's gradient share
-    (``whole_in_region``)."""
-    b, s, d = x.shape
+    capacity from their tokens over the whole sequence.  Where the
+    experts lie over ``model`` the rank runs its ``e_local`` from ``rank
+    * e_local`` behind the region's entry (which gathers the sequence
+    under sequence parallelism) and the partials are summed by the
+    region's exit in the activation dtype, as the reference's ``psum``
+    (a reduce-scatter along the sequence under sequence parallelism);
+    the router, replicated, takes the region's gradient share
+    (``whole_in_region``).  Whole experts under sequence parallelism
+    route the gathered sequence on every rank, which keeps its rows."""
+    d = x.shape[-1]
     m = cfg.moe
     mult = 2 if cfg.mlp_glu else 1
     router, _ = pl.param(p["w_router"], "w_router", (d, m.n_experts))
@@ -277,17 +289,23 @@ def _moe_expert_parallel(cfg: ArchConfig, pl, p, x):
                       (m.n_experts, d, mult * m.d_ff_expert))
     wo, od = pl.param(p["experts_wo"], "experts_wo",
                       (m.n_experts, m.d_ff_expert, d))
-    capacity = moe_capacity(cfg, b * s)
     if ed is None and od is None:
-        return moe_apply_local(cfg, x.reshape(-1, d), router, wi, wo, 0,
-                               capacity).reshape(b, s, d)
+        if pl.seq:
+            router, wi, wo = (pl.whole_in_region(t) for t in (router, wi, wo))
+            x = pl.gather_model(x, 1)
+        b, s, _ = x.shape
+        out = moe_apply_local(cfg, x.reshape(-1, d), router, wi, wo, 0,
+                              moe_capacity(cfg, b * s)).reshape(b, s, d)
+        return pl.seq_rows(out)
     if (ed, od) != (0, 0):
         raise NotPorted(f"{cfg.name}: expert leaves split over model along "
                         f"dims {ed}, {od} (ROADMAP item 7c)")
     e_local = m.n_experts // pl.model
-    out = moe_apply_local(cfg, pl.enter(x).reshape(-1, d),
+    xs = pl.enter(x)
+    b, s, _ = xs.shape
+    out = moe_apply_local(cfg, xs.reshape(-1, d),
                           pl.whole_in_region(router), wi, wo,
-                          pl.rank * e_local, capacity)
+                          pl.rank * e_local, moe_capacity(cfg, b * s))
     return pl.exit(out.reshape(b, s, d))
 
 
@@ -414,10 +432,13 @@ def _moe_gspmd(cfg: ArchConfig, pl, p, x):
     """GSPMD expert parallelism on a rank of a placed model: ``x`` is the
     rank's rows, the expert leaves its shards under the active rules (not
     gathered: each rank runs its experts and d_ff slice), the router
-    replicated.  ``x`` is all-gathered over the batch axes, routed
-    whole at the whole batch's capacity, and the fp32 partials are
-    summed over the splitting axes in ``_gspmd_axes``'s order, the rank
-    keeping its rows; rounded once to x's dtype."""
+    replicated.  ``x`` is all-gathered over the batch axes (and, under
+    sequence parallelism, first over ``model`` along the sequence),
+    routed whole at the whole batch's capacity, and the fp32 partials
+    are summed over the splitting axes in ``_gspmd_axes``'s order, the
+    rank keeping its rows (and its share of the sequence: a
+    reduce-scatter along it over ``model`` where the sum runs over
+    ``model``); rounded once to x's dtype."""
     from repro_torch.distributed import collectives, sharding
     b, s, d = x.shape
     m = cfg.moe
@@ -429,11 +450,10 @@ def _moe_gspmd(cfg: ArchConfig, pl, p, x):
     wo, _ = pl.param(p["experts_wo"], "experts_wo",
                      (m.n_experts, m.d_ff_expert, d), keep=(0, 1))
     _refuse_autograd(x, router, wi, wo)
-    if pl.seq:
-        raise NotPorted("GSPMD expert parallelism under sequence "
-                        "parallelism (ROADMAP item 7c)")
     e_axes, _, order = _gspmd_axes(cfg, mesh)
-    xs = x
+    seq = pl.seq
+    xs = pl.gather_model(x, 1) if seq else x
+    s = xs.shape[1]
     for a in reversed(pl.batch_axes):          # data within pod, then pod
         if mesh.shape[a] > 1:
             xs = collectives.all_gather(xs, pl.group(a))
@@ -450,7 +470,12 @@ def _moe_gspmd(cfg: ArchConfig, pl, p, x):
             part = part.narrow(0, mesh.index(a) * rows, rows)
     for a in order:
         if a not in pl.batch_axes:
-            collectives.all_reduce(part, pl.group(a))
+            if a == "model" and seq:
+                part = collectives.reduce_scatter(part, pl.group(a), 1)
+            else:
+                collectives.all_reduce(part, pl.group(a))
+    if seq and "model" not in order:
+        part = pl.seq_rows(part)
     return part.to(x.dtype)
 
 

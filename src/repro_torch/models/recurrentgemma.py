@@ -34,6 +34,14 @@ sequence form where ``model`` divides the window: a rank writes the
 slots it holds and a decode step attends over them, the ranks' max, sum
 and P·V merged (``common.split_decode``).  One process runs the same
 path over a ring it holds whole (``CacheShard.whole``).
+
+Under sequence parallelism (the rules map ``seq`` to ``model``) the
+residual stream between blocks holds the rank's share of the sequence:
+the recurrent block's entry gathers it, so that the conv, which reads
+three tokens back across the shares, and K5 run on the rank's channels
+over the whole sequence, and ``w_rnn_out``'s exit reduce-scatters it.
+A prefill's second, stateful pass over the window's tail decides its own
+sharding by its length.
 """
 
 from __future__ import annotations
@@ -133,10 +141,12 @@ def _rglru_stateful(cfg: ArchConfig, log_a, gated, h0):
 
 def rec_block_apply(cfg: ArchConfig, p, x, state=None):
     """x: (B, T, d).  state: {conv: (B, W-1, C), h: (B, C)} or None: on a
-    rank of a mesh, its rows and its channels of them."""
+    rank of a mesh, its rows and its channels of them.  Where the rules
+    keep the block's leaves whole, under sequence parallelism every rank
+    runs it over the gathered stream and keeps its rows."""
     w_gate, w_rnn, w_out = p["w_gate_in"], p["w_rnn_in"], p["w_rnn_out"]
     conv_w, conv_b = p["conv_w"], p["conv_b"]
-    pl, span = tp.current(), None
+    pl, span, rows = tp.current(), None, False
     if pl is not None:
         d, c = cfg.d_model, cfg.rnn.d_rnn
         w_gate, gd = pl.param(w_gate, "w_gate_in", (d, c))
@@ -151,6 +161,12 @@ def rec_block_apply(cfg: ArchConfig, p, x, state=None):
         elif (gd, rd, od) != (None, None, None):
             raise NotPorted(f"{cfg.name}: a recurrent block split as {gd}, "
                             f"{rd}, {od} over model (ROADMAP item 7c)")
+        elif pl.seq:            # each leaf's gradient a share of the rows'
+            p = {k: pl.whole_in_region(v) for k, v in p.items()}
+            w_gate, w_rnn, w_out = (pl.whole_in_region(t)
+                                    for t in (w_gate, w_rnn, w_out))
+            conv_w, conv_b = p["conv_w"], p["conv_b"]
+            x, rows = pl.gather_model(x, 1), True
     gate = linear(x, w_gate, activation="gelu_tanh")
     rnn_in = linear(x, w_rnn)
     conv_state = state["conv"] if state is not None else None
@@ -165,7 +181,8 @@ def rec_block_apply(cfg: ArchConfig, p, x, state=None):
     h = h.to(x.dtype) * gate
     if span is not None:
         return cm.row_parallel(cfg, pl, h, w_out), new_state
-    return linear(h, w_out), new_state
+    out = linear(h, w_out)
+    return (pl.seq_rows(out) if rows else out), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -201,11 +218,15 @@ def _ring_write(k_cache, v_cache, k_new, v_new, pos: int, start: int = 0,
     return cm.cache_update(k_cache, v_cache, k_new, v_new, at, start, window)
 
 
+def _norm(cfg: ArchConfig, x, w):
+    return cm.rmsnorm(x, cm.stream_leaf(w), cfg.rms_eps, unit_offset=True)
+
+
 def block_apply(cfg: ArchConfig, p, x, *, kind, positions, state=None,
                 cache_pos=None, shard=None):
     """``shard``: where an attention block's ring (``state``) lies in
     the whole window (``_ring_attention``)."""
-    h = cm.rmsnorm(x, p["ln_t"], cfg.rms_eps, unit_offset=True)
+    h = _norm(cfg, x, p["ln_t"])
     if kind == "rec":
         t_out, new_state = rec_block_apply(cfg, p["temporal"], h, state)
     else:
@@ -218,7 +239,7 @@ def block_apply(cfg: ArchConfig, p, x, *, kind, positions, state=None,
         new_state = state
         t_out = cm.attn_out(cfg, p["temporal"], ctx)
     x = x + t_out
-    h = cm.rmsnorm(x, p["ln_mlp"], cfg.rms_eps, unit_offset=True)
+    h = _norm(cfg, x, p["ln_mlp"])
     x = x + cm.mlp_apply(cfg, p["mlp"], h)
     return x, new_state
 
@@ -370,11 +391,12 @@ def _write_states(cfg: ArchConfig, pl, states, work) -> None:
 def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):
     """Full-sequence forward (training / evaluation); ``return_hidden``
     stops at the final norm, for the chunked loss."""
-    cm.whole_stream_pass(cfg, batch["tokens"].shape[1])
+    s = batch["tokens"].shape[1]
+    tp.begin_pass(s)
     x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = torch.arange(s, device=x.device)
     x, _ = _apply_stack(cfg, params, x, positions)
-    x = cm.rmsnorm(x, params["ln_final"], cfg.rms_eps, unit_offset=True)
+    x = _norm(cfg, x, params["ln_final"])
     if return_hidden:
         return x
     return cm.logits_out(cfg, params, x)
@@ -411,14 +433,16 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
 def prefill(cfg: ArchConfig, params, batch, cache):
     """A sequence pass for the last position's logits, then a stateful pass
     over the prompt's last ``window`` tokens that fills the cache, as the
-    reference does."""
+    reference does.  Each pass decides its own sharding of the
+    sequence (``tensor_parallel.begin_pass``)."""
     tokens = batch["tokens"]
-    cm.whole_stream_pass(cfg, tokens.shape[1])
+    pl = tp.begin_pass(tokens.shape[1])
     x = cm.embed_tokens(cfg, params["embedding"], tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = torch.arange(tokens.shape[1], device=x.device)
     x_out, _ = _apply_stack(cfg, params, x, positions)
-    x_last = cm.rmsnorm(x_out[:, -1], params["ln_final"], cfg.rms_eps,
-                        unit_offset=True)
+    if pl is not None:                      # the last token's rank's share
+        x_out = pl.whole_sequence(x_out)
+    x_last = _norm(cfg, x_out[:, -1], params["ln_final"])
     logits = cm.logits_out(cfg, params, x_last)
     return logits, _prefill_states(cfg, params, batch, cache)
 
@@ -429,6 +453,7 @@ def _prefill_states(cfg: ArchConfig, params, batch, cache):
     tokens = batch["tokens"]
     s = tokens.shape[1]
     tail = min(cfg.window, s)
+    tp.begin_pass(tail)
     x = cm.embed_tokens(cfg, params["embedding"], tokens[:, -tail:])
     positions = torch.arange(s - tail, s, device=x.device)
     _, new_states = _apply_stack(cfg, params, x, positions, states=cache,
@@ -438,13 +463,13 @@ def _prefill_states(cfg: ArchConfig, params, batch, cache):
 
 def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
     """tokens: (B, 1); pos: current length (int).  One decode step."""
-    cm.whole_stream_pass(cfg, tokens.shape[1])
+    tp.begin_pass(tokens.shape[1])
     x = cm.embed_tokens(cfg, params["embedding"], tokens)
     positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
     x, cache = _apply_stack(cfg, params, x, positions, states=cache,
                             cache_pos=pos)
-    x = cm.rmsnorm(x, params["ln_final"], cfg.rms_eps, unit_offset=True)
+    x = _norm(cfg, x, params["ln_final"])
     return cm.logits_out(cfg, params, x[:, -1]), cache
 
 

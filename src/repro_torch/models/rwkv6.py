@@ -31,6 +31,17 @@ have partial gradients (``whole_in_region``).  The channel mix runs
 ``w_cm_k`` column- and ``w_cm_v`` row-parallel, and the rank's columns of
 the receptance are gathered before they gate the whole output.  A model
 axis that does not divide the heads raises ``NotPorted``.
+
+Under sequence parallelism (the rules map ``seq`` to ``model``) the
+residual stream between blocks holds the rank's share of the sequence.
+Each mix's token shift reads the previous token across the shares, so
+the block's normed input is gathered once (``Placement.gather_stream``):
+the shift and the DDLerp run on the whole stream on every rank, the
+projections enter from it (``whole_in_region``), K6 runs on the rank's
+heads over the whole sequence, and ``w_o`` and ``w_cm_v`` exit by
+reduce-scatter; the receptance's columns are gathered and the rank keeps
+its rows.  Where the rules keep the projections whole, every rank runs
+the mix over the gathered stream and keeps its rows.
 """
 
 from __future__ import annotations
@@ -159,23 +170,39 @@ def _placed(cfg: ArchConfig, pl, p, spec):
     return {k: w for k, (w, _) in got.items()}, dims[0] is not None
 
 
+def _whole(pl, p, w, x):
+    """A mix whose projections the rules keep whole, under sequence
+    parallelism: (the leaves and ``w``, their gradients shares of the
+    rows', the stream gathered); the caller keeps its rows."""
+    return ({k: pl.whole_in_region(v) for k, v in p.items()},
+            {k: pl.whole_in_region(v) for k, v in w.items()},
+            pl.gather_model(x, 1))
+
+
 def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
-    """x: (B, T, d) -> (out, x[:, -1], new WKV state).
+    """x: (B, T, d) -> (out, the whole sequence's x[:, -1], new WKV state).
 
     Without ``wkv_state`` the WKV runs as a sequence from a zero state
     (``forward``) and the new state is None; with it, statefully
     (serving).  On a rank of a mesh, the rank's heads, and
-    ``wkv_state`` its heads' share.
+    ``wkv_state`` its heads' share; under sequence parallelism ``x`` and
+    the output are the rank's share of the sequence.
     """
-    b, t, d = x.shape
+    d = x.shape[-1]
     rw = cfg.rwkv
     h = d // rw.head_size
     names = ("w_r", "w_k", "w_v", "w_g", "w_o")
     w = {k: p[k] for k in names}
-    side = {k: p[k] for k in ("decay_w2", "w0", "u", "ln_x", "ln_x_b")}
-    pl, split = tp.current(), False
+    pl, split, rows = tp.current(), False, False
     if pl is not None:
         w, split = _placed(cfg, pl, p, dict.fromkeys(names, (d, d)))
+        if split:
+            x = pl.gather_stream(x)
+        elif pl.seq:
+            p, w, x = _whole(pl, p, w, x)
+            rows = True
+    b, t, _ = x.shape
+    side = {k: p[k] for k in ("decay_w2", "w0", "u", "ln_x", "ln_x_b")}
     if split:
         if h % pl.model:
             raise NotPorted(f"{cfg.name}: {h} heads on a model axis of "
@@ -197,8 +224,8 @@ def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
     x_r, x_k, x_v, x_g, x_w = mixed.unbind(2)
     lora = torch.tanh(linear(x_w, p["decay_w1"]))
     if split:
-        x_r, x_k, x_v, x_g, lora = (pl.enter(z) for z in (x_r, x_k, x_v,
-                                                         x_g, lora))
+        x_r, x_k, x_v, x_g, lora = (pl.whole_in_region(z) for z in (
+            x_r, x_k, x_v, x_g, lora))
 
     r = linear(x_r, w["w_r"])
     k = linear(x_k, w["w_k"])
@@ -220,37 +247,52 @@ def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
     o = cm.groupnorm_heads(o, side["ln_x"], side["ln_x_b"], h)
     if split:
         return cm.row_parallel(cfg, pl, o * g, w["w_o"]), x[:, -1], wkv_new
-    return linear(o * g, w["w_o"]), x[:, -1], wkv_new
+    out = linear(o * g, w["w_o"])
+    return (pl.seq_rows(out) if rows else out), x[:, -1], wkv_new
 
 
 def channel_mix(cfg: ArchConfig, p, x, shift_state=None):
     """On a rank of a mesh: ``w_cm_k`` column- and ``w_cm_v`` row-parallel;
     the receptance's columns (``w_cm_r``'s) gathered to gate the whole
-    output, as one rank gates it."""
-    xx = _shift(x, shift_state) - x
-    x_k = x + xx * p["mu_cm_k"]
-    x_r = x + xx * p["mu_cm_r"]
+    output, as one rank gates it (under sequence parallelism, the rank's
+    rows of it)."""
     d, ff = cfg.d_model, cfg.d_ff
     w = {k: p[k] for k in ("w_cm_k", "w_cm_v", "w_cm_r")}
-    pl, split = tp.current(), False
+    pl, split, rows = tp.current(), False, False
     if pl is not None:
         w, split = _placed(cfg, pl, p, {"w_cm_k": (d, ff), "w_cm_v": (ff, d),
                                         "w_cm_r": (d, d)})
+        if split:
+            x = pl.gather_stream(x)
+        elif pl.seq:
+            p, w, x = _whole(pl, p, w, x)
+            rows = True
+    xx = _shift(x, shift_state) - x
+    x_k = x + xx * p["mu_cm_k"]
+    x_r = x + xx * p["mu_cm_r"]
     if not split:
         k = linear(x_k, w["w_cm_k"], activation="relu2")
         kv = linear(k, w["w_cm_v"])
-        return torch.sigmoid(linear(x_r, w["w_cm_r"]).float()
-                             ).to(x.dtype) * kv, x[:, -1]
-    k = linear(pl.enter(x_k), w["w_cm_k"], activation="relu2")
+        out = torch.sigmoid(linear(x_r, w["w_cm_r"]).float()
+                            ).to(x.dtype) * kv
+        return (pl.seq_rows(out) if rows else out), x[:, -1]
+    k = linear(pl.whole_in_region(x_k), w["w_cm_k"], activation="relu2")
     kv = cm.row_parallel(cfg, pl, k, w["w_cm_v"])
-    r = torch.sigmoid(linear(pl.enter(x_r), w["w_cm_r"]).float()).to(x.dtype)
+    r = torch.sigmoid(linear(pl.whole_in_region(x_r), w["w_cm_r"]).float()
+                      ).to(x.dtype)
+    if pl.seq:              # every rank's columns, the rank's rows
+        return pl.seq_rows(pl.gather_model(r, -1)) * kv, x[:, -1]
     return pl.gather_whole(r, -1) * kv, x[:, -1]
 
 
+def _ln(x, w, b):
+    return cm.layernorm(x, cm.stream_leaf(w), cm.stream_leaf(b))
+
+
 def block_apply(cfg: ArchConfig, p, x):
-    h = cm.layernorm(x, p["ln1"], p["ln1_b"])
+    h = _ln(x, p["ln1"], p["ln1_b"])
     x = x + time_mix(cfg, p, h)[0]
-    h = cm.layernorm(x, p["ln2"], p["ln2_b"])
+    h = _ln(x, p["ln2"], p["ln2_b"])
     return x + channel_mix(cfg, p, h)[0]
 
 
@@ -258,13 +300,13 @@ def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):
     """Full-sequence forward (training / evaluation), each layer under
     ``cm.remat`` as the reference remats its scan body; ``return_hidden``
     stops at the final norm, for the chunked loss."""
-    cm.whole_stream_pass(cfg, batch["tokens"].shape[1])
+    tp.begin_pass(batch["tokens"].shape[1])
     x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
-    x = cm.layernorm(x, params["ln_in"], params["ln_in_b"])
+    x = _ln(x, params["ln_in"], params["ln_in_b"])
     for j in range(cfg.n_layers):
         x = cm.remat(cfg, functools.partial(block_apply, cfg),
                      cm.layer(params["layers"], j), x)
-    x = cm.layernorm(x, params["ln_final"], params["ln_final_b"])
+    x = _ln(x, params["ln_final"], params["ln_final_b"])
     if return_hidden:
         return x
     return cm.logits_out(cfg, params, x)
@@ -294,34 +336,35 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
 
 def _stateful_block(cfg: ArchConfig, lp, x, tm_s, cm_s, wkv_s):
     """One block with explicit state -> (x, tm_shift, cm_shift, wkv)."""
-    hh = cm.layernorm(x, lp["ln1"], lp["ln1_b"])
+    hh = _ln(x, lp["ln1"], lp["ln1_b"])
     tm, tm_new, wkv_new = time_mix(cfg, lp, hh, tm_s, wkv_s)
     x = x + tm
-    hh = cm.layernorm(x, lp["ln2"], lp["ln2_b"])
+    hh = _ln(x, lp["ln2"], lp["ln2_b"])
     cmix, cm_new = channel_mix(cfg, lp, hh, cm_s)
     return x + cmix, tm_new, cm_new, wkv_new
 
 
 def _run_stateful(cfg: ArchConfig, params, tokens, cache):
+    pl = tp.begin_pass(tokens.shape[1])
     x = cm.embed_tokens(cfg, params["embedding"], tokens)
-    x = cm.layernorm(x, params["ln_in"], params["ln_in_b"])
+    x = _ln(x, params["ln_in"], params["ln_in_b"])
     for j in range(cfg.n_layers):
         x, *new = _stateful_block(cfg, cm.layer(params["layers"], j), x,
                                   cache["tm_shift"][j], cache["cm_shift"][j],
                                   cache["wkv"][j])
         for key, value in zip(("tm_shift", "cm_shift", "wkv"), new):
             cache[key][j].copy_(value)
-    x = cm.layernorm(x, params["ln_final"], params["ln_final_b"])
-    return cm.logits_out(cfg, params, x[:, -1]), cache
+    if pl is not None:                      # the last token's rank's share
+        x = pl.whole_sequence(x)
+    x = _ln(x[:, -1], params["ln_final"], params["ln_final_b"])
+    return cm.logits_out(cfg, params, x), cache
 
 
 def prefill(cfg: ArchConfig, params, batch, cache):
-    cm.whole_stream_pass(cfg, batch["tokens"].shape[1])
     return _run_stateful(cfg, params, batch["tokens"], cache)
 
 
 def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
-    cm.whole_stream_pass(cfg, tokens.shape[1])
     del pos                                        # state carries position
     return _run_stateful(cfg, params, tokens, cache)
 

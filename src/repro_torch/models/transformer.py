@@ -26,7 +26,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch import NotPorted
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import common as cm
 from repro_torch.models import moe as moe_lib
@@ -56,9 +55,8 @@ def block_init(cfg: ArchConfig, gen: torch.Generator, device=None):
 
 
 def _norm(cfg, x, w):
-    if tp.seq_sharded():   # the scale's gradient: a share of the sequence's
-        w = tp.current().whole_in_region(w)
-    return cm.rmsnorm(x, w, cfg.rms_eps, cfg.rmsnorm_unit_offset)
+    return cm.rmsnorm(x, cm.stream_leaf(w), cfg.rms_eps,
+                      cfg.rmsnorm_unit_offset)
 
 
 def block_apply(cfg: ArchConfig, p, x, *, positions, window: int,
@@ -80,9 +78,6 @@ def block_apply(cfg: ArchConfig, p, x, *, positions, window: int,
 
     h = _norm(cfg, x, p["ln_mlp"])
     if cfg.moe is not None:
-        if tp.seq_sharded():
-            raise NotPorted("MoE under sequence parallelism (ROADMAP item "
-                            "7c)")
         mlp_out = moe_lib.moe_apply(cfg, p["moe"], h)
     else:
         mlp_out = cm.mlp_apply(cfg, p["mlp"], h)
@@ -159,13 +154,15 @@ def _embed_inputs(cfg: ArchConfig, params, batch):
     tokens = batch["tokens"]
     x = cm.embed_tokens(cfg, params["embedding"], tokens)
     if cfg.vision_prefix:
-        if tp.seq_sharded():
-            raise NotPorted("a vision prefix under sequence parallelism "
-                            "(ROADMAP item 7c)")
         # Stub ViT frontend: precomputed patch embeddings replace the
-        # first ``vision_prefix`` positions.
+        # first ``vision_prefix`` positions; under sequence parallelism
+        # those of them that fall in the rank's share of the sequence.
         vis = batch["vision_embeds"].to(x.dtype)
-        x = torch.cat([vis, x[:, cfg.vision_prefix:]], dim=1)
+        pl, lo = tp.current(), 0
+        if pl is not None and pl.seq:
+            lo = pl.rank * x.shape[1]
+        n = min(max(cfg.vision_prefix - lo, 0), x.shape[1])
+        x = torch.cat([vis[:, lo:lo + n], x[:, n:]], dim=1)
     return x
 
 

@@ -34,6 +34,15 @@ rank does and writes the rank's share into the cache; a decode step
 attends over a cross cache split along its positions with the ranks'
 max, sum and P·V merged (``common.split_decode``).  One process runs the
 same cross-attention over a cache it holds whole (``CacheShard.whole``).
+
+Under sequence parallelism (the rules map ``seq`` to ``model``) the
+encoder's frames and the decoder's tokens are two streams of one pass,
+each held between blocks as the rank's share of its sequence where
+``model`` divides its length, and whole otherwise
+(``Placement.shards``): the encoder runs under its own decision
+(``tensor_parallel.holding``, remat's recompute too), each rank adds the
+learned positions of its rows, and its output is gathered once, whole on
+every rank, for every layer's cross-attention K and V.
 """
 
 from __future__ import annotations
@@ -89,22 +98,42 @@ def init(cfg: ArchConfig, gen: torch.Generator, device=None):
     }
 
 
+def _ln(x, w, b):
+    return cm.layernorm(x, cm.stream_leaf(w), cm.stream_leaf(b))
+
+
+def _positions(pl, table, start: int, n: int):
+    """Rows ``[start, start + n)`` of a learned position table, the
+    rank's share of them where its stream holds shares."""
+    pos = cm.stream_leaf(table[start:start + n])
+    return pos if pl is None else pl.seq_rows(pos, 0)
+
+
 def encode(cfg: ArchConfig, params, audio_embeds):
-    """audio_embeds: (B, Ta, d) — the stub conv output."""
-    x = audio_embeds.to(cfg.dtype)
-    x = x + params["pos_enc"][None, : x.shape[1]]
+    """audio_embeds: (B, Ta, d) — the stub conv output.  Under a mesh,
+    whole on every rank; the frames a stream of their own under
+    sequence parallelism."""
+    pl = tp.current()
+    seq = pl is not None and pl.shards(audio_embeds.shape[1])
 
     def body(x, lp):
-        h = cm.layernorm(x, lp["ln"], lp["ln_b"])
-        q, k, v = cm.qkv_project(cfg, lp["attn"], h, None)
-        ctx = cm.attention(cfg, q, k, v, causal=False)
-        x = x + cm.attn_out(cfg, lp["attn"], ctx)
-        h = cm.layernorm(x, lp["ln_mlp"], lp["ln_mlp_b"])
-        return x + cm.mlp_apply(cfg, lp["mlp"], h)
+        with tp.holding(seq):
+            h = _ln(x, lp["ln"], lp["ln_b"])
+            q, k, v = cm.qkv_project(cfg, lp["attn"], h, None)
+            ctx = cm.attention(cfg, q, k, v, causal=False)
+            x = x + cm.attn_out(cfg, lp["attn"], ctx)
+            h = _ln(x, lp["ln_mlp"], lp["ln_mlp_b"])
+            return x + cm.mlp_apply(cfg, lp["mlp"], h)
 
-    for j in range(cfg.encdec.n_encoder_layers):
-        x = cm.remat(cfg, body, x, cm.layer(params["enc_layers"], j))
-    return cm.layernorm(x, params["ln_enc_final"], params["ln_enc_final_b"])
+    with tp.holding(seq):
+        x = audio_embeds.to(cfg.dtype)
+        if pl is not None:
+            x = pl.seq_rows(x)
+        x = x + _positions(pl, params["pos_enc"], 0, audio_embeds.shape[1])
+        for j in range(cfg.encdec.n_encoder_layers):
+            x = cm.remat(cfg, body, x, cm.layer(params["enc_layers"], j))
+        x = _ln(x, params["ln_enc_final"], params["ln_enc_final_b"])
+        return x if pl is None else pl.gather_stream(x)
 
 
 def _dec_block(cfg: ArchConfig, lp, x, enc_out=None, cross_kv=None,
@@ -114,18 +143,18 @@ def _dec_block(cfg: ArchConfig, lp, x, enc_out=None, cross_kv=None,
     prefill, passing ``enc_out`` too, writes (``_cross_attention``).
     ``shards`` says where the self and cross caches lie in the whole
     (the self cache's ``None`` off a mesh)."""
-    h = cm.layernorm(x, lp["ln"], lp["ln_b"])
+    h = _ln(x, lp["ln"], lp["ln_b"])
     ctx = cm.self_attention(cfg, lp["attn"], h, None, window=0,
                             kv_cache=self_kv, cache_pos=cache_pos,
                             shard=shards[0])
     x = x + cm.attn_out(cfg, lp["attn"], ctx)
 
-    h = cm.layernorm(x, lp["ln_cross"], lp["ln_cross_b"])
+    h = _ln(x, lp["ln_cross"], lp["ln_cross_b"])
     ctx = _cross_attention(cfg, lp["cross"], h, enc_out, cross_kv,
                            shards[1])
     x = x + cm.attn_out(cfg, lp["cross"], ctx)
 
-    h = cm.layernorm(x, lp["ln_mlp"], lp["ln_mlp_b"])
+    h = _ln(x, lp["ln_mlp"], lp["ln_mlp_b"])
     return x + cm.mlp_apply(cfg, lp["mlp"], h)
 
 
@@ -133,8 +162,11 @@ def _decode_stack(cfg: ArchConfig, params, x, enc_out=None, caches=None,
                   cache_pos=None):
     """Walk the decoder layers; with ``caches`` each layer writes its
     self-attention K/V in place and reads its cached cross K/V, which a
-    prefill (passing ``enc_out`` too) writes first."""
+    prefill (passing ``enc_out`` too) writes first.  Each layer holds
+    the decoder stream's sharding (``tensor_parallel.holding``), so that
+    remat's recompute, after the encoder's, holds it too."""
     pl = tp.current()
+    seq = tp.seq_sharded()
     if caches is None:
         shards = (None, None)
     elif pl is None:
@@ -144,9 +176,10 @@ def _decode_stack(cfg: ArchConfig, params, x, enc_out=None, caches=None,
                        for k in ("self", "cross"))
 
     def body(x, lp, enc_out, cross_kv, self_kv):
-        return _dec_block(cfg, lp, x, enc_out=enc_out, cross_kv=cross_kv,
-                          self_kv=self_kv, cache_pos=cache_pos,
-                          shards=shards)
+        with tp.holding(seq):
+            return _dec_block(cfg, lp, x, enc_out=enc_out,
+                              cross_kv=cross_kv, self_kv=self_kv,
+                              cache_pos=cache_pos, shards=shards)
 
     for j in range(cfg.n_layers):
         lp = cm.layer(params["dec_layers"], j)
@@ -188,15 +221,21 @@ def _cross_attention(cfg: ArchConfig, p, h, enc_out, cross_kv, shard):
 
 
 def _final(cfg: ArchConfig, params, x):
-    return cm.layernorm(x, params["ln_final"], params["ln_final_b"])
+    return _ln(x, params["ln_final"], params["ln_final_b"])
+
+
+def _decoder_input(cfg: ArchConfig, params, tokens, pl, start: int = 0):
+    """The embedded tokens plus their learned positions from ``start``
+    (the rank's share of the rows under sequence parallelism)."""
+    x = cm.embed_tokens(cfg, params["embedding"], tokens)
+    return x + _positions(pl, params["pos_dec"], start, tokens.shape[1])
 
 
 def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):
     """batch: tokens (B, S) + audio_embeds (B, Ta, d)."""
-    cm.whole_stream_pass(cfg, batch["tokens"].shape[1])
+    pl = tp.begin_pass(batch["tokens"].shape[1])
     enc_out = encode(cfg, params, batch["audio_embeds"])
-    x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
-    x = x + params["pos_dec"][None, : x.shape[1]]
+    x = _decoder_input(cfg, params, batch["tokens"], pl)
     x, _ = _decode_stack(cfg, params, x, enc_out=enc_out)
     x = _final(cfg, params, x)
     if return_hidden:
@@ -223,21 +262,21 @@ def prefill(cfg: ArchConfig, params, batch, cache):
     writing its cross K/V (on a rank of a mesh, its share) and its self
     K/V into the cache; returns last-position logits and the cache
     (written in place)."""
-    cm.whole_stream_pass(cfg, batch["tokens"].shape[1])
+    pl = tp.begin_pass(batch["tokens"].shape[1])
     enc_out = encode(cfg, params, batch["audio_embeds"])
-    x = cm.embed_tokens(cfg, params["embedding"], batch["tokens"])
-    x = x + params["pos_dec"][None, : x.shape[1]]
+    x = _decoder_input(cfg, params, batch["tokens"], pl)
     x, cache = _decode_stack(cfg, params, x, enc_out=enc_out, caches=cache,
                              cache_pos=0)
-    x = _final(cfg, params, x)
-    return cm.logits_out(cfg, params, x[:, -1]), cache
+    if pl is not None:                      # the last token's rank's share
+        x = pl.whole_sequence(x)
+    x = _final(cfg, params, x[:, -1])
+    return cm.logits_out(cfg, params, x), cache
 
 
 def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
     """tokens: (B, 1); pos: current length (int).  One decode step."""
-    cm.whole_stream_pass(cfg, tokens.shape[1])
-    x = cm.embed_tokens(cfg, params["embedding"], tokens)
-    x = x + params["pos_dec"][pos:pos + 1][None]
+    pl = tp.begin_pass(tokens.shape[1])
+    x = _decoder_input(cfg, params, tokens, pl, pos)
     x, cache = _decode_stack(cfg, params, x, caches=cache, cache_pos=pos)
     x = _final(cfg, params, x)
     return cm.logits_out(cfg, params, x[:, -1]), cache

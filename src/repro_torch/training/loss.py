@@ -30,7 +30,6 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import NotPorted
 from repro_torch.backend import matmul_backend_string
 from repro_torch.core.fusion import linear
 from repro_torch.distributed import tensor_parallel as tp
@@ -94,15 +93,17 @@ def chunked_softmax_xent(cfg: ArchConfig, params, hidden, labels, *,
                          onehot_pick: bool = False):
     """hidden: (B, S, d); labels: (B, S) with -1 = masked.  Under a mesh,
     ``hidden`` holds the rank's share of the sequence where the forward's
-    pass shards it (sequence parallelism): it is gathered first."""
+    pass shards it (sequence parallelism): it is gathered first, into the
+    vocabulary-parallel region, or, where the output weight is whole,
+    for every rank to compute the whole loss (its gradient the rank's
+    share, ``Placement.gather_stream``)."""
     from repro_torch.models.common import output_weight
     pl = tp.current()
     w, split = output_weight(cfg, params, pl)
     if split:
         hidden = pl.enter(hidden)
-    elif pl is not None and pl.seq:
-        raise NotPorted("a whole output weight under sequence parallelism "
-                        "(ROADMAP item 7c)")
+    elif pl is not None:
+        hidden = pl.gather_stream(hidden)
     b, s, d = hidden.shape
     chunk = min(chunk, s)
     pad = (-s) % chunk
