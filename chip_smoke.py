@@ -195,8 +195,16 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 process running the ranks' partials in turn; launches by
                 tile, capacities, a decode step's collective bytes
                 against the reckoning and the meta count, peak against
-                its meta reckoning (after phases dist-mesh, dist-seq and
-                dist-rec, which the lines above and the README describe);
+                its meta reckoning; the 4 fp32 layers again with the
+                experts over data and model (16 a rank) against the same
+                one process; one fp32 AdamW step of 2 layers under
+                ar_gspmd_ep's rules against one process running the
+                ranks' partials in turn and one off the mesh, its
+                collective bytes against the reckoning and the meta
+                count, peak against its meta reckoning (after phases
+                dist-mesh, dist-seq and dist-rec, which the lines above
+                and the README describe; dist-rec ends with reduced
+                RWKV-6 on 8 ranks that split its heads);
 23. dryrun     — the one-card dry run (``launch/dryrun.py``,
                 ``core/hlo_cost.py``) held to the card: full-size yi-6b
                 and OLMoE-1B-7B, one prefill and one decode step of the
@@ -798,6 +806,21 @@ DIST_REC_TRAIN_LAYERS = {"recurrentgemma-2b": 6, "rwkv6-7b": 2,
 # with rank 1's receptance heads reversed: each limit lies between the
 # sound path and the partials rounded twice
 TOL_TP_BF16_REC = {"recurrentgemma-2b": 0.87, "rwkv6-7b": 0.95}
+# dist-rec's last part: RWKV-6 on a model axis that splits its heads.
+# Reduced RWKV-6 (d 128, 4 heads of 32) on DIST_REC_SPLIT_RANKS ranks of
+# (data 1, model 8), fp32: a rank's time-mix columns are half a head and
+# its WKV state leaf the reference's key-channel share, (L, B, 4, 4, 32).
+# The width is forced: at full width (64 heads) the form needs a model
+# axis of 128, which no mesh one card can spawn reaches.  4 prompts of
+# DIST_REC_SPLIT_PROMPT seeded tokens (which the 8 ranks divide, so that
+# the seq rule shards the prefill's stream), a prefill and
+# DIST_REC_SPLIT_DECODE decode steps, without and with SP_RULES, each
+# held to one process (TOL_FP32 of max |logit|, greedy identical, the
+# gathered cache within TOL_FP32 of each leaf's max); K6 once a layer at
+# prefill on every head (the SIMT tile: head size 32), checked at that
+# shape against its plain version (TOL_WKV_FP32)
+DIST_REC_SPLIT_RANKS, DIST_REC_SPLIT_TIMEOUT = 8, 300.0
+DIST_REC_SPLIT_PROMPT, DIST_REC_SPLIT_DECODE = 256, 2
 # dist-gspmd: OLMoE-1B-7B served under the reference's GSPMD expert
 # parallelism (moe_shard_map=False) on DIST_GSPMD_RANKS ranks of (data 2,
 # model 2): each rank holds 32 of the 64 experts (its data block), each
@@ -820,6 +843,19 @@ GSPMD_RULES = {"experts": "data", "mlp_expert": "model", "embed": None}
 GSPMD_WHOLE_RULES = {"embed": None, "heads": None, "kv_heads": None,
                      "mlp": None, "vocab": None, "experts": "data",
                      "mlp_expert": "model"}
+# dist-gspmd also serves the fp32 run's configuration under
+# GSPMD_EVERY_RULES, the experts over data and model together (16 of 64
+# a rank, its block of (data, model), data major; the dense leaves under
+# the default rules), held to the same one process off the mesh; and it
+# trains: one fp32 AdamW step of DIST_GSPMD_TRAIN_LAYERS (remat "full",
+# the plain torch route, a batch of DIST_TRAIN_FP32_BATCH) under
+# GSPMD_RULES, held to one process under an abstract (2, 2) mesh, the
+# ranks' partials in turn, and off the mesh (TOL_TRAIN_LOSS,
+# TOL_TRAIN_GRAD); its collective bytes by kind == the reckoning
+# (``_gspmd_train_collectives``) == the meta count; a rank's peak within
+# TOL_DIST_MEMORY of meta arguments + temp
+GSPMD_EVERY_RULES = {"experts": ("data", "model")}
+DIST_GSPMD_TRAIN_LAYERS = 2
 # sequence parallelism for every family (phase dist-sp): DIST_SP_RANKS
 # ranks, gloo sharing the one card, under the reference's {"seq":
 # "model"} rules (SP_RULES).  Serving on (data 1, model DIST_SP_RANKS):
@@ -4134,10 +4170,11 @@ def _mesh_train_fp32():
         loss_chunk=DIST_TRAIN_FP32_BATCH[1])
 
 
-def _mesh_serve(cfg, params, cache, follow=None, rows=None, batch=None):
+def _mesh_serve(cfg, params, cache, follow=None, rows=None, batch=None,
+                steps=DIST_TP_DECODE):
     """The serve traffic's first batch (4 prompts padded to 221 tokens,
     with seeded stub-frontend inputs where the model has a frontend)
-    through ``serving.engine.make_prefill`` and DIST_TP_DECODE steps of
+    through ``serving.engine.make_prefill`` and ``steps`` steps of
     ``make_decode``, CUDA events around each: {logits (fp32, on the CPU,
     one a step), greedy (the argmax of each, (4, steps + 1)), prefill_ms,
     decode_ms, cache (as the steps left it), batch (the prefill's)}.
@@ -4169,7 +4206,7 @@ def _mesh_serve(cfg, params, cache, follow=None, rows=None, batch=None):
         return out, start.elapsed_time(end)
     (logits, cache), prefill_ms = timed(prefill, params, batch, cache)
     out, decode_ms = [logits.float().cpu()], []
-    for i in range(DIST_TP_DECODE):
+    for i in range(steps):
         nxt = (follow[:, i] if follow is not None
                else out[-1].argmax(-1)).to("cuda", torch.int32)
         (logits, cache), ms = timed(decode, params, nxt[:, None], cache,
@@ -5033,12 +5070,17 @@ def _gspmd_serve_launches(cfg, steps: int) -> dict:
 
 
 def _gspmd_decode_collectives(cfg, sizes: dict, rows: int,
-                              tp: bool) -> dict:
+                              tp: bool, every: bool = False) -> dict:
     """Collective bytes by kind of one decode step of OLMoE on one rank of
     a (data, model) mesh of ``sizes``, ``rows`` rows on the rank, under
     GSPMD_RULES (``tp``: the attention's heads and the vocabulary split
-    over model as well) or GSPMD_WHOLE_RULES (the dense leaves whole).
-    ``tests/test_torch_gspmd_ep.py`` holds it to the meta count.
+    over model as well) or GSPMD_WHOLE_RULES (the dense leaves whole), or
+    with ``every`` under GSPMD_EVERY_RULES (the experts over data and
+    model, the dense leaves under the default rules: ``tp``, and FSDP
+    over data, which gathers each layer's attention weights, whole in d
+    with their model shards, and its router, and the embedding and
+    output weights).  ``tests/test_torch_gspmd_ep.py`` and
+    ``tests/test_torch_gspmd_train.py`` hold it to the meta count.
 
     * all-gather: each MoE layer's input over data (rows x data x d, the
       model's dtype); with ``tp``, the logits over model (rows x padded
@@ -5058,6 +5100,70 @@ def _gspmd_decode_collectives(cfg, sizes: dict, rows: int,
     if tp and model > 1:
         gather += rows * cfg.padded_vocab * 4
         reduce += n * rows * d * 4 + rows * d * e
+    if every and data > 1:
+        q, kv = cfg.q_dim // model, cfg.kv_dim // model
+        gather += n * ((2 * d * q + 2 * d * kv) * e + d * cfg.moe.n_experts
+                       * 4) + 2 * cfg.padded_vocab // model * d * e
+    out = {k: float(v) for k, v in (("all-gather", gather),
+                                    ("reduce-scatter", scatter),
+                                    ("all-reduce", reduce)) if v}
+    out["total"] = sum(out.values())
+    return out
+
+
+def _gspmd_train_collectives(cfg, sizes: dict, rows: int, seq: int) -> dict:
+    """Collective bytes by kind of one train step of OLMoE (one
+    microbatch, remat "full", one loss chunk of ``seq``, fp32 gradients
+    of the model's dtype) on one rank of a (data, model) mesh of
+    ``sizes`` under GSPMD_RULES, ``rows`` rows of ``seq`` tokens on the
+    rank.  ``tests/test_torch_gspmd_train.py`` holds it to the meta count.
+    With a the rows' activations (rows x seq x d) in the model's dtype
+    and a4 in fp32, a layer:
+
+    * all-gather: x over data in the forward and in remat's recompute
+      (data x a each), and in the backward the fp32 partial's gradient
+      over data (data x a4, the reduce-scatter's adjoint);
+    * reduce-scatter: the fp32 partial over data in the forward (a4; the
+      recompute stops at the last tensor the backward needs, before it),
+      and in the backward x's gradient over data (a, the gather's
+      adjoint);
+    * all-reduce: the partial over model (a4) and the attention's exit
+      (a4, and again in the recompute) in the forward; in the backward
+      the attention's entry and the MoE's x entry (a each), the router's
+      gradient (d x experts, fp32) and the QK-norm scales' (2 x
+      head_dim).
+
+    A step: the embedding's sum (a) and the loss's entry (a) once; the
+    loss chunk's row max, sum of exponentials and label logit (rows x
+    seq, fp32) in the forward and its recompute; the token count, the
+    loss, its nll and z over data; every leaf but the experts' gradient
+    over data (the data-parallel sum: the rules replicate them there);
+    the clipping norm over every axis."""
+    from repro_torch.core import tree
+    from repro_torch.distributed import logical, sharding
+    from repro_torch.launch.mesh import rank_view
+    from repro_torch.models.base import family_module
+    d, n = cfg.d_model, cfg.n_layers
+    e = torch.finfo(cfg.dtype).bits // 8
+    data, model = sizes.get("data", 1), sizes.get("model", 1)
+    a, a4 = rows * seq * d * e, rows * seq * d * 4
+    gather = scatter = reduce = 0
+    if data > 1:
+        gather += n * (2 * data * a + data * a4)
+        scatter += n * (a4 + a)
+        view = rank_view(tuple(sizes.values()), tuple(sizes))
+        with logical.use_rules(view, GSPMD_RULES):
+            local = sharding.shard_params(family_module(cfg).init(
+                cfg, None, "meta"), view, GSPMD_RULES, glu=cfg.mlp_glu)
+        reduce += e * sum(x.numel() for p_, x in tree.flatten_with_path(
+            local) if tree.path_str(p_).split("/")[-1] not in (
+                "experts_wi", "experts_wo"))
+        reduce += 4 * 4
+    if model > 1:
+        reduce += n * (3 * a4 + 2 * a + d * cfg.moe.n_experts * 4
+                       + 2 * cfg.head_dim * e) + 2 * a
+        reduce += 2 * 3 * rows * seq * 4
+    reduce += 4 * sum(1 for x in sizes.values() if x > 1)
     out = {k: float(v) for k, v in (("all-gather", gather),
                                     ("reduce-scatter", scatter),
                                     ("all-reduce", reduce)) if v}
@@ -5290,6 +5396,122 @@ def _dist_rec_rank(world, out_dir: str) -> None:
         {"world": head, "launches": launches}))
 
 
+def _rec_split_config():
+    """Reduced RWKV-6 in fp32 (d 128, 4 heads of 32), DIST_REC_SPLIT's."""
+    from repro_torch.configs.registry import get_config
+    return get_config(RWKV_ARCH, reduced=True).with_(
+        dtype=torch.float32, kv_cache_dtype=torch.float32)
+
+
+def _rec_split_batch(cfg):
+    """4 prompts of DIST_REC_SPLIT_PROMPT tokens, numpy seed DIST_SEED."""
+    rng = np.random.default_rng(DIST_SEED)
+    return {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (MAX_BATCH, DIST_REC_SPLIT_PROMPT))).to(
+            device="cuda", dtype=torch.int32)}
+
+
+def _dist_rec_split_rank(world, out_dir: str) -> None:
+    """One rank of dist-rec's last part, spawned by ``run_world``: reduced
+    RWKV-6 served on (data 1, model DIST_REC_SPLIT_RANKS), a model axis
+    that splits its heads, without and with SP_RULES, held to the
+    parent's one process (``rec_split_one.pt``); K6 checked at the shape
+    each rank runs it.  Prints a dist-rec-split line a run and a
+    dist-rec-split-kernel line, raises on a failed check and writes its
+    launch counts to ``out_dir/rec_split_rank{r}.json``."""
+    from repro_torch.core import tree
+    from repro_torch.core.precision import disable_tf32
+    from repro_torch.distributed import logical, sharding
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.kernels.rwkv6.ops import rwkv6_scan
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.base import family_module
+    global _EMIT_LOCK
+    disable_tf32()
+    out_dir, r = Path(out_dir), world.rank
+    _EMIT_LOCK = out_dir / "emit.lock"
+    one = torch.load(out_dir / "rec_split_one.pt")
+    head = {"rank": r, "world": world.size, "backend": world.backend,
+            "backend_reason": world.reason, "device": str(world.device)}
+    cfg = _rec_split_config()
+    mod = family_module(cfg)
+    mesh = make_mesh((1, DIST_REC_SPLIT_RANKS), ("data", "model"))
+    cache_len = DIST_REC_SPLIT_PROMPT + DIST_REC_SPLIT_DECODE
+    kernels = {"rwkv6_scan_by_tile": {"tc": 0, "simt": cfg.n_layers}}
+    launches = {}
+    for tag, rules in (("heads", None), ("seq", SP_RULES)):
+        params = sharding.shard_params(mod.init(cfg, torch.Generator(
+            device="cuda").manual_seed(DIST_SEED), "cuda"), mesh, rules,
+            glu=cfg.mlp_glu)
+        cache = sharding.shard_cache(mod.init_cache(
+            cfg, MAX_BATCH, cache_len, device="cuda"), mesh, cfg, rules)
+        held = list(cache["wkv"].shape)
+        read = _counted({"fused_matmul": fused_matmul,
+                         "rwkv6_scan": rwkv6_scan})
+        with logical.use_rules(mesh, rules):
+            got = _mesh_serve(cfg, params, cache,
+                              follow=one["greedy"][:, :-1],
+                              batch=_rec_split_batch(cfg),
+                              steps=DIST_REC_SPLIT_DECODE)
+        counts = read()
+        errs = [rel_err(a, b)[0] for a, b in zip(got["logits"],
+                                                 one["logits"])]
+        agree = float((got["greedy"] == one["greedy"]).float().mean())
+        whole = sharding.gather_cache(got["cache"], mesh, cfg, rules)
+        cache_errs = {tree.path_str(p_): rel_err(a.cpu(), b)[0]
+                      for (p_, a), b in zip(tree.flatten_with_path(whole),
+                                            tree.leaves(one["cache"]))}
+        phase = "dist-rec-split"
+        emit({"phase": phase, **head, "run": tag, **counts,
+              "config": f"{cfg.name} reduced (d {cfg.d_model}, "
+                        f"{cfg.n_heads} heads of {cfg.rwkv.head_size}, "
+                        f"{cfg.n_layers} layers), fp32, (data 1, model "
+                        f"{DIST_REC_SPLIT_RANKS}), rules {rules}; reduced "
+                        "because the form needs a model axis of 128 at "
+                        "full width (64 heads), which no mesh one card "
+                        "can spawn reaches",
+              "wkv_state_held": held, "logits_rel_err": errs,
+              "tol": TOL_FP32, "greedy_tokens_agree": agree,
+              "cache_rel_err": cache_errs, "launches_reckoned": kernels,
+              "prefill_ms": got["prefill_ms"], "decode_ms": got["decode_ms"],
+              "one_process_prefill_ms": one["prefill_ms"],
+              "one_process_decode_ms": one["decode_ms"]})
+        require(held == [cfg.n_layers, MAX_BATCH, cfg.n_heads,
+                         cfg.rwkv.head_size // DIST_REC_SPLIT_RANKS,
+                         cfg.rwkv.head_size],
+                f"{phase} {tag}: the rank's WKV state {held}")
+        require(all(bool(torch.isfinite(x).all()) for x in got["logits"]),
+                f"{phase} {tag}: logits not finite")
+        require(all(e_ <= TOL_FP32 for e_ in errs),
+                f"{phase} {tag}: logits {errs} against {TOL_FP32}")
+        require(agree == 1.0, f"{phase} {tag}: greedy tokens differ from "
+                "one process's")
+        require(max(cache_errs.values()) <= TOL_FP32,
+                f"{phase} {tag}: gathered cache {cache_errs}")
+        require({k: counts[k] for k in kernels} == kernels
+                and counts["fused_matmul"] > 0,
+                f"{phase} {tag}: launches {counts}, reckoned {kernels}")
+        launches[f"{phase}-{tag}"] = counts
+        del params, cache, got, whole
+    gen = torch.Generator(device="cuda").manual_seed(DIST_SEED + r)
+    shape = (MAX_BATCH, cfg.n_heads, DIST_REC_SPLIT_PROMPT,
+             cfg.rwkv.head_size)
+    args = wkv_case(gen, *shape, torch.float32, s0=True)
+    before = dict(rwkv6_scan.launches_by_tile)
+    o, st = run_wkv(*args, chunk=64)
+    tile = [t for t, k in rwkv6_scan.launches_by_tile.items()
+            if k != before[t]]
+    ref, ref_st = plain_wkv(*args, chunk=64)
+    check = {"kernel": "rwkv6_wkv", "shape": list(shape), "tile": tile,
+             "out": rel_err(o, ref)[0], "state": rel_err(st, ref_st)[0]}
+    check["ok"] = (tile == ["simt"] and check["out"] <= TOL_WKV_FP32
+                   and check["state"] <= TOL_WKV_FP32)
+    emit({"phase": "dist-rec-split-kernel", **head, "check": check})
+    require(check["ok"], f"dist-rec-split-kernel: {check}")
+    (out_dir / f"rec_split_rank{r}.json").write_text(json.dumps(
+        {"world": head, "launches": launches}))
+
+
 def phase_dist_rec():
     """RecurrentGemma-2B, RWKV-6-7B and whisper-tiny served and trained on
     DIST_REC_RANKS ranks through ``launch.mesh.run_world`` (gloo: the
@@ -5298,8 +5520,10 @@ def phase_dist_rec():
     ``_rec_serve_configs`` (``_mesh_serve``; the fp32 runs keep their
     cache, the bf16 runs beside an fp32 run at full depth on their
     tokens, the yardstick) and each family's fp32 train step (its first
-    moment saved for the ranks to read).  A rank that fails, or a world
-    that outlives DIST_REC_TIMEOUT, fails the phase."""
+    moment saved for the ranks to read).  Then reduced RWKV-6 on a model
+    axis that splits its heads: one process's serving run, then
+    DIST_REC_SPLIT_RANKS ranks (``_dist_rec_split_rank``).  A rank that
+    fails, or a world that outlives its timeout, fails the phase."""
     import shutil
 
     from repro_torch.core import tree
@@ -5362,10 +5586,39 @@ def phase_dist_rec():
              for i in range(DIST_REC_RANKS)]
     launches = {f"{path}/rank{i}": counts for i, got in enumerate(ranks)
                 for path, counts in got["launches"].items()}
+
+    # RWKV-6 on a model axis that splits its heads: one process first
+    t0 = time.perf_counter()
+    cfg = _rec_split_config()
+    mod = family_module(cfg)
+    params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(
+        DIST_SEED), "cuda")
+    got = _mesh_serve(cfg, params, mod.init_cache(
+        cfg, MAX_BATCH, DIST_REC_SPLIT_PROMPT + DIST_REC_SPLIT_DECODE,
+        device="cuda"), batch=_rec_split_batch(cfg),
+        steps=DIST_REC_SPLIT_DECODE)
+    got["cache"] = tree.tree_map(lambda x: x.cpu(), got["cache"])
+    got.pop("batch")
+    torch.save(got, DIST_DIR / "rec_split_one.pt")
+    del params, got
+    try:
+        run_world(_dist_rec_split_rank, DIST_REC_SPLIT_RANKS,
+                  (str(DIST_DIR),), rendezvous=str(DIST_DIR / "rendezvous"),
+                  timeout=DIST_REC_SPLIT_TIMEOUT)
+    except Exception as e:                   # a rank failed or hung
+        raise PhaseFailed(f"dist-rec split: {type(e).__name__}: {e}") \
+            from None
+    split_s = time.perf_counter() - t0
+    for i in range(DIST_REC_SPLIT_RANKS):
+        got = json.loads((DIST_DIR / f"rec_split_rank{i}.json").read_text())
+        launches.update({f"{path}/rank{i}": counts
+                         for path, counts in got["launches"].items()})
     emit({"phase": "dist-rec", "ranks": DIST_REC_RANKS,
           "backend": ranks[0]["world"]["backend"],
           "backend_reason": ranks[0]["world"]["backend_reason"],
           "one_rank_s": one_s, "world_wall_s": world_s,
+          "split_heads_ranks": DIST_REC_SPLIT_RANKS,
+          "split_heads_wall_s": split_s,
           "wall_s": time.perf_counter() - t_phase, "launches": launches})
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     return launches
@@ -5377,16 +5630,31 @@ def phase_dist_rec():
 # ---------------------------------------------------------------------------
 
 def _gspmd_configs():
-    """(tag, config, rules) of ``dist-gspmd``'s two runs: OLMoE-1B-7B at
-    full width with ``moe_shard_map=False``, DIST_GSPMD_FP32_LAYERS in
+    """(tag, config, rules) of ``dist-gspmd``'s serving runs: OLMoE-1B-7B
+    at full width with ``moe_shard_map=False``, DIST_GSPMD_FP32_LAYERS in
     fp32 under GSPMD_RULES, then full depth in bf16 under
-    GSPMD_WHOLE_RULES."""
+    GSPMD_WHOLE_RULES, then the fp32 configuration under
+    GSPMD_EVERY_RULES ("every-fp32", held to the fp32 run's one
+    process)."""
     from repro_torch.configs.registry import get_config
     cfg = get_config(MOE_ARCH).with_(moe_shard_map=False)
-    return (("fp32", cfg.with_(n_layers=DIST_GSPMD_FP32_LAYERS,
-                               dtype=torch.float32,
-                               kv_cache_dtype=torch.float32), GSPMD_RULES),
-            ("bf16", cfg, GSPMD_WHOLE_RULES))
+    fp32 = cfg.with_(n_layers=DIST_GSPMD_FP32_LAYERS, dtype=torch.float32,
+                     kv_cache_dtype=torch.float32)
+    return (("fp32", fp32, GSPMD_RULES), ("bf16", cfg, GSPMD_WHOLE_RULES),
+            ("every-fp32", fp32, GSPMD_EVERY_RULES))
+
+
+def _gspmd_train_config():
+    """(config, TrainConfig) of ``dist-gspmd``'s train step: OLMoE-1B-7B
+    at full width, DIST_GSPMD_TRAIN_LAYERS, fp32, remat "full", the plain
+    torch route with K1 for the projections, one AdamW step."""
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import TrainConfig
+    cfg = _cut(MOE_ARCH, DIST_GSPMD_TRAIN_LAYERS, dtype=torch.float32,
+               backend="torch", moe_shard_map=False)
+    return cfg, TrainConfig(
+        optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10),
+        loss_chunk=DIST_TRAIN_FP32_BATCH[1])
 
 
 def _dist_gspmd_rank(world, out_dir: str) -> None:
@@ -5396,17 +5664,24 @@ def _dist_gspmd_rank(world, out_dir: str) -> None:
     batch, held to the parent's one-process runs (``gspmd_one.pt``).
     Each rank builds the whole model on the card in its turn and keeps its
     shards; a run's peak is the process's less cuBLAS's workspace (taken
-    first and measured).  Prints a dist-gspmd-fp32 and a dist-gspmd-bf16
-    line, raises on a failed check (which fails the world) and writes its
-    launch counts to ``out_dir/gspmd_rank{r}.json``."""
+    first and measured).  Then takes the train step of
+    ``_gspmd_train_config`` under GSPMD_RULES, held to the parent's one
+    process under the abstract mesh (``gspmd_train_mu.pt``) and off it.
+    Prints a dist-gspmd-fp32, a dist-gspmd-bf16, a dist-gspmd-every-fp32
+    and a dist-gspmd-train line, raises on a failed check (which fails
+    the world) and writes its launch counts to
+    ``out_dir/gspmd_rank{r}.json``."""
     import torch.distributed as dist
+    from repro_torch.core import tree
     from repro_torch.core.precision import disable_tf32
-    from repro_torch.distributed import logical, sharding
+    from repro_torch.distributed import collectives, logical, sharding
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh, rank_view
     from repro_torch.models import moe as moe_lib
     from repro_torch.models.base import family_module
+    from repro_torch.optim import adamw
     from repro_torch.serving.engine import make_decode, make_prefill
+    from repro_torch.training.train_step import make_train_step
     global _EMIT_LOCK
     disable_tf32()
     out_dir, r = Path(out_dir), world.rank
@@ -5426,7 +5701,9 @@ def _dist_gspmd_rank(world, out_dir: str) -> None:
     torch.cuda.synchronize()
     workspace = torch.cuda.memory_allocated() - base
     inner_capacity = moe_lib.moe_capacity
-    for tag, cfg, rules in _gspmd_configs():
+
+    def built(cfg, rules):
+        """The rank's shards of the seeded model, each rank in its turn."""
         mod = family_module(cfg)
         for turn in range(world.size):
             if turn == r:
@@ -5437,10 +5714,16 @@ def _dist_gspmd_rank(world, out_dir: str) -> None:
                 del whole
                 torch.cuda.empty_cache()
             dist.barrier()
+        return params
+
+    for tag, cfg, rules in _gspmd_configs():
+        mod = family_module(cfg)
+        every = rules is GSPMD_EVERY_RULES
+        params = built(cfg, rules)
         wi = params["layers"][0]["moe"]["experts_wi"]
         cache = sharding.shard_cache(mod.init_cache(
             cfg, MAX_BATCH, CACHE_LEN, device="cuda"), mesh, cfg, rules)
-        ref = one[tag]
+        ref = one["fp32" if every else tag]
         capacities = []
 
         def capacity(c, tokens):
@@ -5493,8 +5776,9 @@ def _dist_gspmd_rank(world, out_dir: str) -> None:
         counted = {**{k: float(x) for k, x in card.per_collective.items()},
                    "total": card.collective_bytes}
         reckoned = _gspmd_decode_collectives(
-            cfg, dict(mesh.shape), n, rules is GSPMD_RULES)
+            cfg, dict(mesh.shape), n, rules is not GSPMD_WHOLE_RULES, every)
         kernels = _gspmd_serve_launches(cfg, DIST_TP_DECODE)
+        e_axes = ("data", "model") if every else ("data",)
         want_caps = [moe_lib.moe_capacity(cfg, MAX_BATCH * s)] * cfg.n_layers \
             + [moe_lib.moe_capacity(cfg, MAX_BATCH)] * (
                 cfg.n_layers * DIST_TP_DECODE)
@@ -5504,16 +5788,16 @@ def _dist_gspmd_rank(world, out_dir: str) -> None:
                         f"{str(cfg.dtype)[6:]}, moe_shard_map=False, (data "
                         f"{DIST_GSPMD_MESH[0]}, model {DIST_GSPMD_MESH[1]}),"
                         f" rules {rules}: experts "
-                        f"[{sharding.block_index(mesh, ('data',)) * wi.shape[1]}"
+                        f"[{sharding.block_index(mesh, e_axes) * wi.shape[1]}"
                         f", +{wi.shape[1]}) of {cfg.moe.n_experts}, each "
                         f"with {wi.shape[-1] // 2} of its "
                         f"{cfg.moe.d_ff_expert} d_ff columns; rows {rows.start}"
                         f"-{rows.stop - 1} of {MAX_BATCH}",
-              "held_against": ("one process off the mesh" if tag == "fp32"
-                               else "one process, the ranks' partials in "
-                                    "turn under an abstract mesh"),
+              "held_against": ("one process, the ranks' partials in turn "
+                               "under an abstract mesh" if tag == "bf16"
+                               else "one process off the mesh"),
               "logits_rel_err": errs,
-              "tol": TOL_FP32 if tag == "fp32" else 0.0, **line,
+              "tol": 0.0 if tag == "bf16" else TOL_FP32, **line,
               "greedy_tokens_agree": agree,
               "moe_capacities": sorted(set(capacities)),
               "launches_reckoned": kernels,
@@ -5529,11 +5813,13 @@ def _dist_gspmd_rank(world, out_dir: str) -> None:
               "tol_memory": TOL_DIST_MEMORY})
         require(all(bool(torch.isfinite(x).all()) for x in got["logits"]),
                 f"{phase}: logits not finite")
-        require(tuple(wi.shape[1:]) == (
-            cfg.moe.n_experts // DIST_GSPMD_MESH[0], cfg.d_model,
-            2 * cfg.moe.d_ff_expert // DIST_GSPMD_MESH[1]),
+        want_wi = ((cfg.moe.n_experts // mesh.size, cfg.d_model,
+                    2 * cfg.moe.d_ff_expert) if every else
+                   (cfg.moe.n_experts // DIST_GSPMD_MESH[0], cfg.d_model,
+                    2 * cfg.moe.d_ff_expert // DIST_GSPMD_MESH[1]))
+        require(tuple(wi.shape[1:]) == want_wi,
                 f"{phase}: a rank's experts_wi {tuple(wi.shape)}")
-        if tag == "fp32":
+        if tag != "bf16":
             require(all(e_ <= TOL_FP32 for e_ in errs),
                     f"{phase}: logits {errs} against {TOL_FP32}")
         else:
@@ -5556,6 +5842,85 @@ def _dist_gspmd_rank(world, out_dir: str) -> None:
         launches[phase] = counts
         del params, cache, got, card, meta, pre, meta_params, meta_cache, wi
         torch.cuda.empty_cache()
+
+    # one fp32 AdamW step under GSPMD_RULES
+    cfg, tcfg = _gspmd_train_config()
+    sizes = dict(mesh.shape)
+    params = built(cfg, GSPMD_RULES)
+    opt = adamw.init(tcfg.optimizer, params)
+    batch = sharding.local_batch(train_batch(
+        cfg, *DIST_TRAIN_FP32_BATCH, "cuda"), mesh)
+    read = _counted(_moe_wrappers())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with logical.use_rules(mesh, GSPMD_RULES):
+        card, (_, opt, metrics, _), step_s = dryrun.count_step(
+            make_train_step(cfg, tcfg), (params, opt, batch), True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - workspace
+    counts = read()
+    with logical.use_rules(view, GSPMD_RULES):
+        mp = sharding.shard_params(family_module(cfg).init(
+            cfg, None, "meta"), view, GSPMD_RULES, glu=cfg.mlp_glu)
+        meta_args = (mp, adamw.init(tcfg.optimizer, mp),
+                     {k: torch.empty(x.shape, dtype=x.dtype, device="meta")
+                      for k, x in batch.items()})
+        meta, _, _ = dryrun.count_step(make_train_step(cfg, tcfg),
+                                       meta_args, True)
+    mem = {"arguments": dryrun.tree_bytes(meta_args),
+           "temp_meta": meta.temp_bytes}
+    mem["total"] = mem["arguments"] + mem["temp_meta"]
+    ref = one["train"]
+    ref_mu = sharding.shard_params(
+        torch.load(out_dir / "gspmd_train_mu.pt", mmap=True), mesh,
+        GSPMD_RULES, glu=cfg.mlp_glu)
+    worst = torch.stack([(a - b.cuda()).abs().max().float() for a, b in
+                         zip(tree.leaves(opt["mu"]), tree.leaves(ref_mu))])
+    collectives.all_reduce(worst, op="max")
+    grad_rel = (worst.cpu() / torch.tensor(ref["mu_max"])).tolist()
+    loss = float(metrics["loss"])
+    loss_rel = {run: abs(loss - ref[f"loss_{run}"]) / abs(ref[f"loss_{run}"])
+                for run in ("in_turn", "off")}
+    counted = {**{k: float(x) for k, x in card.per_collective.items()},
+               "total": card.collective_bytes}
+    reckoned = _gspmd_train_collectives(cfg, sizes, batch["tokens"].shape[0],
+                                        DIST_TRAIN_FP32_BATCH[1])
+    phase = "dist-gspmd-train"
+    emit({"phase": phase, **head, **counts,
+          "config": f"{MOE_ARCH} full width, {cfg.n_layers} layers, fp32, "
+                    f"remat {cfg.remat}, moe_shard_map=False, (data "
+                    f"{DIST_GSPMD_MESH[0]}, model {DIST_GSPMD_MESH[1]}), "
+                    f"rules {GSPMD_RULES}, batch {DIST_TRAIN_FP32_BATCH}",
+          "loss": loss, "in_turn_loss": ref["loss_in_turn"],
+          "off_mesh_loss": ref["loss_off"], "loss_rel": loss_rel,
+          "tol_loss": TOL_TRAIN_LOSS, "mu_rel_max": max(grad_rel),
+          "mu_rel_by_leaf": grad_rel,
+          "in_turn_vs_off_mesh_mu_rel_max": ref["in_turn_vs_off_mu_rel"],
+          "tol_grad": TOL_TRAIN_GRAD,
+          "collective_bytes_step": counted,
+          "collective_bytes_meta": meta.per_collective,
+          "collective_bytes_reckoned": reckoned,
+          "step_s_host_counted": step_s,
+          "max_memory_allocated": peak, "cublas_workspace": workspace,
+          "memory_reckoned": mem, "memory_rel": peak / mem["total"] - 1.0,
+          "tol_memory": TOL_DIST_MEMORY})
+    require(max(loss_rel.values()) <= TOL_TRAIN_LOSS, f"{phase}: loss "
+            f"{loss} against {ref['loss_in_turn']} in turn and "
+            f"{ref['loss_off']} off the mesh")
+    require(max(grad_rel) <= TOL_TRAIN_GRAD and ref["in_turn_vs_off_mu_rel"]
+            <= TOL_TRAIN_GRAD, f"{phase}: first moment {max(grad_rel)} of "
+            f"a leaf's max from the ranks in turn, which lie "
+            f"{ref['in_turn_vs_off_mu_rel']} from off the mesh")
+    require(counts["fused_matmul"] > 0 and counts["grouped_matmul"] == 0
+            and counts["flash_attention"] == 0, f"{phase}: launches {counts}")
+    require(counted == reckoned and card.per_collective
+            == meta.per_collective, f"{phase}: a step's collective bytes "
+            f"{counted}, meta {meta.per_collective}, reckoned {reckoned}")
+    require(abs(peak / mem["total"] - 1.0) <= TOL_DIST_MEMORY,
+            f"{phase}: peak {peak} B against {mem['total']} B reckoned")
+    launches[phase] = counts
+    del params, opt, ref_mu, metrics, card, meta, mp, meta_args
+    torch.cuda.empty_cache()
     (out_dir / f"gspmd_rank{r}.json").write_text(json.dumps(
         {"world": head, "launches": launches}))
 
@@ -5569,19 +5934,25 @@ def phase_dist_gspmd():
     routing of the whole batch, all experts at once), and the bf16 run
     under an abstract mesh with GSPMD_WHOLE_RULES (every rank's partial
     in turn, summed as the ranks sum them) and off the mesh on its tokens
-    (the distance reported).  A rank that fails, or a world that outlives
+    (the distance reported); the train step under the abstract mesh and
+    off it.  A rank that fails, or a world that outlives
     DIST_GSPMD_TIMEOUT, fails the phase."""
     import shutil
 
+    from repro_torch.core import tree
     from repro_torch.distributed import logical
     from repro_torch.launch.mesh import abstract_mesh, run_world
     from repro_torch.models.base import family_module
+    from repro_torch.optim import adamw
+    from repro_torch.training.train_step import make_train_step
     t_phase = time.perf_counter()
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     DIST_DIR.mkdir(parents=True)
     one = {}
     in_turn = abstract_mesh(DIST_GSPMD_MESH, ("data", "model"))
     for tag, cfg, rules in _gspmd_configs():
+        if rules is GSPMD_EVERY_RULES:          # held to the fp32 run's
+            continue
         mod = family_module(cfg)
         params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(
             DIST_SEED), "cuda")
@@ -5599,6 +5970,28 @@ def phase_dist_gspmd():
             del cache
         del params
         torch.cuda.empty_cache()
+    # the train step in one process: under the abstract mesh (the ranks'
+    # partials in turn; its first moment saved for the ranks) and off it
+    cfg, tcfg = _gspmd_train_config()
+    train, mus = {}, {}
+    for run, mesh in (("in_turn", in_turn), ("off", None)):
+        params = family_module(cfg).init(cfg, torch.Generator(
+            device="cuda").manual_seed(DIST_SEED), "cuda")
+        with logical.use_rules(mesh, GSPMD_RULES):
+            _, opt, metrics, _ = make_train_step(cfg, tcfg)(
+                params, adamw.init(tcfg.optimizer, params),
+                train_batch(cfg, *DIST_TRAIN_FP32_BATCH, "cuda"))
+        train[f"loss_{run}"] = float(metrics["loss"])
+        mus[run] = tree.tree_map(lambda x: x.cpu(), opt["mu"])
+        del params, opt, metrics
+        torch.cuda.empty_cache()
+    pairs = list(zip(tree.leaves(mus["in_turn"]), tree.leaves(mus["off"])))
+    train["mu_max"] = [float(a.abs().max()) for a, _ in pairs]
+    train["in_turn_vs_off_mu_rel"] = max(
+        float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
+    one["train"] = train
+    torch.save(mus["in_turn"], DIST_DIR / "gspmd_train_mu.pt")
+    del mus, pairs
     torch.save(one, DIST_DIR / "gspmd_one.pt")
     one_s = time.perf_counter() - t_phase
 

@@ -104,8 +104,10 @@ class Placement:
         ``model`` shard lies along or None).  ``shape`` is the whole
         leaf's, and ``w`` must be the rank's shard of it under the rules
         (the whole leaf where they replicate it).  The dims in ``keep``
-        stay the rank's shard, whatever axes split them (the experts and
-        their d_ff under GSPMD expert parallelism, ``models/moe.py``)."""
+        stay the rank's shard, whatever axes split them, ``model`` and
+        another together included (the experts and their d_ff under
+        GSPMD expert parallelism, ``models/moe.py``), and are never the
+        returned dim."""
         shape = tuple(shape)
         spec = sharding.spec_of(name, shape)
         want = sharding.local_shape(self.mesh, shape, spec)
@@ -116,14 +118,14 @@ class Placement:
         model_dim = None
         for d, entry in enumerate(spec):
             names = sharding.axis_names(entry)
+            if d in keep:
+                continue
             if "model" in names:
                 if len(names) > 1:
                     raise NotPorted(f"{name}: dim {d} over {names}: a dim "
                                     "split over model and another axis "
                                     "(ROADMAP item 7c)")
                 model_dim = d if self.model > 1 else None
-                continue
-            if d in keep:
                 continue
             for a in reversed(names):                  # minor axis first
                 if self.mesh.shape[a] > 1:

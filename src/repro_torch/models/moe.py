@@ -46,8 +46,16 @@ other one, one axis at a time; the sum is rounded once to the
 activation dtype (``_moe_gspmd``).  An abstract mesh runs every rank's
 partial in turn and adds them in the same order (``_moe_gspmd_in_turn``):
 where each of those axes has at most two ranks, every sum is of two
-terms, and the ranks' result equals it bit for bit.  It serves
-inference: under autograd it raises ``NotPorted`` (ROADMAP item 7c).
+terms, and the ranks' result equals it bit for bit.  It trains too:
+each collective of the forward is its autograd pair (the gather's
+backward reduce-scatters, the reduce-scatter's gathers, the all-reduce's
+passes the gradient on), so each axis sums a gradient once; a leaf or
+input that the ranks of a non-batch axis use for different partials
+(the router and ``x`` where ``model`` splits the experts or d_ff, and
+under sequence parallelism the expert leaves where it does not) enters
+with ``copy_to_group`` over it.  The experts may lie over ``model`` and
+another axis together (``{"experts": ("data", "model")}``): the rank
+holds its block of them, data major.
 
 Under sequence parallelism (the rules map ``seq`` to ``model``) a rank's
 ``x`` is its share of the sequence.  Both forms gather the sequence
@@ -390,9 +398,9 @@ def _gspmd_axes(cfg: ArchConfig, mesh):
     d_ff, the order in which the partials are summed over them), each of
     more than one rank, under ``_rules_of(mesh)``.  The order: the batch
     axes major first (each rank's rows, by reduce-scatters), then the
-    others in the mesh's order.  A dim split over ``model`` and another
-    axis, and expert leaves split unlike each other, raise
-    ``NotPorted``."""
+    others in the mesh's order.  A dim may be split over several axes
+    (the rank's block, major first); expert leaves split unlike each
+    other raise ``NotPorted``."""
     from repro_torch.distributed import logical, sharding
     m = cfg.moe
     mult = 2 if cfg.mlp_glu else 1
@@ -405,12 +413,8 @@ def _gspmd_axes(cfg: ArchConfig, mesh):
             logical._ACTIVE[-1][1].get("batch")) if a in mesh.shape]
 
     def axes(entry):
-        names = sharding.axis_names(entry)
-        if "model" in names and len(names) > 1:
-            raise NotPorted(f"{cfg.name}: an expert dim split over {names}: "
-                            "a dim split over model and another axis "
-                            "(ROADMAP item 7c)")
-        return tuple(a for a in names if mesh.shape[a] > 1)
+        return tuple(a for a in sharding.axis_names(entry)
+                     if mesh.shape[a] > 1)
     e_axes, f_axes = axes(wi[0]), axes(wi[2])
     if (axes(wo[0]), axes(wo[1])) != (e_axes, f_axes):
         raise NotPorted(f"{cfg.name}: experts_wi split as {wi}, experts_wo "
@@ -419,13 +423,6 @@ def _gspmd_axes(cfg: ArchConfig, mesh):
     order = ([a for a in batch if a in split]
              + [a for a in mesh.axis_names if a in split and a not in batch])
     return e_axes, f_axes, order
-
-
-def _refuse_autograd(*tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotPorted("GSPMD expert parallelism (moe_shard_map=False under "
-                        "a mesh) serves only: training through it is not "
-                        "ported (ROADMAP item 7c)")
 
 
 def _moe_gspmd(cfg: ArchConfig, pl, p, x):
@@ -438,7 +435,20 @@ def _moe_gspmd(cfg: ArchConfig, pl, p, x):
     are summed over the splitting axes in ``_gspmd_axes``'s order, the
     rank keeping its rows (and its share of the sequence: a
     reduce-scatter along it over ``model`` where the sum runs over
-    ``model``); rounded once to x's dtype."""
+    ``model``); rounded once to x's dtype.
+
+    Under autograd each collective is its pair: the gathers' backward
+    reduce-scatters the partial gradients of ``x`` (each rank's partial
+    covers its experts, d_ff slice and rows), the reduce-scatters' gathers
+    the gradient of every row, the all-reduces' passes it on.  ``x`` and
+    the router enter each non-batch splitting axis with
+    ``copy_to_group`` (their gradients there are the ranks' partials),
+    and under sequence parallelism the router and, where ``model``
+    splits no expert dim, the expert leaves enter ``model`` so (each
+    rank's gradient covers its share of the sequence).  A batch axis
+    that splits nothing leaves each rank the gradient of its own rows:
+    the data-parallel sum (``reduce_gradients``, or the FSDP gather's
+    reduce-scatter) adds it once."""
     from repro_torch.distributed import collectives, sharding
     b, s, d = x.shape
     m = cfg.moe
@@ -449,14 +459,20 @@ def _moe_gspmd(cfg: ArchConfig, pl, p, x):
                      (m.n_experts, d, mult * m.d_ff_expert), keep=(0, 2))
     wo, _ = pl.param(p["experts_wo"], "experts_wo",
                      (m.n_experts, m.d_ff_expert, d), keep=(0, 1))
-    _refuse_autograd(x, router, wi, wo)
     e_axes, _, order = _gspmd_axes(cfg, mesh)
     seq = pl.seq
+    across = [a for a in order if a not in pl.batch_axes]
+    for a in across:
+        router = collectives.copy_to_group(router, pl.group(a))
+        if not (seq and a == "model"):
+            x = collectives.copy_to_group(x, pl.group(a))
+    if seq and "model" not in across:
+        router, wi, wo = (pl.whole_in_region(t) for t in (router, wi, wo))
     xs = pl.gather_model(x, 1) if seq else x
     s = xs.shape[1]
     for a in reversed(pl.batch_axes):          # data within pod, then pod
         if mesh.shape[a] > 1:
-            xs = collectives.all_gather(xs, pl.group(a))
+            xs = collectives.gather_from_group(xs, pl.group(a), 0)
     part = moe_apply_local(
         cfg, xs.reshape(-1, d), router, wi, wo,
         sharding.block_index(mesh, e_axes) * wi.shape[0],
@@ -464,16 +480,15 @@ def _moe_gspmd(cfg: ArchConfig, pl, p, x):
     for a in pl.batch_axes:                    # major first: the rank's rows
         n = mesh.shape[a]
         if a in order:
-            part = collectives.reduce_scatter(part, pl.group(a))
+            part = collectives.scatter_to_group(part, pl.group(a), 0)
         elif n > 1:
             rows = part.shape[0] // n
             part = part.narrow(0, mesh.index(a) * rows, rows)
-    for a in order:
-        if a not in pl.batch_axes:
-            if a == "model" and seq:
-                part = collectives.reduce_scatter(part, pl.group(a), 1)
-            else:
-                collectives.all_reduce(part, pl.group(a))
+    for a in across:
+        if a == "model" and seq:
+            part = collectives.scatter_to_group(part, pl.group(a), 1)
+        else:
+            part = collectives.reduce_from_group(part, pl.group(a))
     if seq and "model" not in order:
         part = pl.seq_rows(part)
     return part.to(x.dtype)
@@ -493,7 +508,6 @@ def _moe_gspmd_in_turn(cfg: ArchConfig, p, x, mesh):
     f_l = m.d_ff_expert // math.prod(mesh.shape[a] for a in f_axes)
     wi = _experts(p["experts_wi"], m.n_experts)
     wo = _experts(p["experts_wo"], m.n_experts)
-    _refuse_autograd(x, p["w_router"], wi, wo)
     capacity = moe_capacity(cfg, b * s)
 
     def block(at, axes):

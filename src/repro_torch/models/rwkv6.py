@@ -29,8 +29,21 @@ stream on every rank; the leaves the rules replicate and the rank reads a
 slice of (``w0``, ``u``, ``ln_x``, ``ln_x_b``, ``decay_w2``'s columns)
 have partial gradients (``whole_in_region``).  The channel mix runs
 ``w_cm_k`` column- and ``w_cm_v`` row-parallel, and the rank's columns of
-the receptance are gathered before they gate the whole output.  A model
-axis that does not divide the heads raises ``NotPorted``.
+the receptance are gathered before they gate the whole output.
+
+Where the model axis does not divide the heads (reduced RWKV-6's 4 heads
+on 8 ranks), a rank's columns of ``w_r``, ``w_k``, ``w_v`` and ``w_g``
+are a part of a head, and the reference's cache splits the WKV state
+along its key channels over ``model`` (whole, where those do not divide
+either).  Each rank gathers r, k and v into whole heads, computes the
+decay of every head from the replicated LoRA leaves, gathers the state
+along its key channels, and runs the whole WKV (K6) from it: every rank
+computes every head.  It group-norms whole heads, keeps its key
+channels' rows of the new state and its columns of the output, gates
+them with its columns of g and exits through ``w_o``'s rows.  The
+gathers' backward reduce-scatters: each rank's gradient of the whole
+heads is a partial, from its own output columns.  Full RWKV-6-7B's 64
+heads take this form only on a model axis of 128.
 
 Under sequence parallelism (the rules map ``seq`` to ``model``) the
 residual stream between blocks holds the rank's share of the sequence.
@@ -53,6 +66,7 @@ import torch
 
 from repro_torch import NotPorted
 from repro_torch.core.fusion import linear
+from repro_torch.distributed import collectives
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.rwkv6.ref import rwkv6_ref
 from repro_torch.kernels.rwkv6.rwkv6 import rwkv6_chunked
@@ -185,15 +199,18 @@ def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
     Without ``wkv_state`` the WKV runs as a sequence from a zero state
     (``forward``) and the new state is None; with it, statefully
     (serving).  On a rank of a mesh, the rank's heads, and
-    ``wkv_state`` its heads' share; under sequence parallelism ``x`` and
-    the output are the rank's share of the sequence.
+    ``wkv_state`` its heads' share; where ``model`` does not divide the
+    heads, every head, from the state's share of the key channels (or
+    the whole state), and the new state is that share; under sequence
+    parallelism ``x`` and the output are the rank's share of the
+    sequence.
     """
     d = x.shape[-1]
     rw = cfg.rwkv
     h = d // rw.head_size
     names = ("w_r", "w_k", "w_v", "w_g", "w_o")
     w = {k: p[k] for k in names}
-    pl, split, rows = tp.current(), False, False
+    pl, split, rows, every = tp.current(), False, False, False
     if pl is not None:
         w, split = _placed(cfg, pl, p, dict.fromkeys(names, (d, d)))
         if split:
@@ -204,16 +221,14 @@ def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
     b, t, _ = x.shape
     side = {k: p[k] for k in ("decay_w2", "w0", "u", "ln_x", "ln_x_b")}
     if split:
-        if h % pl.model:
-            raise NotPorted(f"{cfg.name}: {h} heads on a model axis of "
-                            f"{pl.model}, which would split the WKV state's "
-                            "key channels (ROADMAP item 7c)")
-        h //= pl.model
-        cols = slice(pl.rank * h * rw.head_size,
-                     (pl.rank + 1) * h * rw.head_size)
+        every = h % pl.model != 0
+        n = d // pl.model
+        cols = slice(pl.rank * n, (pl.rank + 1) * n)
         side = {k: pl.whole_in_region(v) for k, v in side.items()}
-        side = {k: v[pl.rank * h:(pl.rank + 1) * h] if k == "u"
-                else v[..., cols] for k, v in side.items()}
+        if not every:
+            h //= pl.model
+            side = {k: v[pl.rank * h:(pl.rank + 1) * h] if k == "u"
+                    else v[..., cols] for k, v in side.items()}
     xx = _shift(x, shift_state) - x
     xxx = x + xx * p["mu_x"]
     mix = torch.tanh(linear(xxx, p["mix_w1"]))            # (B, T, 5*r)
@@ -234,6 +249,12 @@ def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
     w_dyn = lora @ side["decay_w2"]
     lw = -torch.exp(torch.clamp(side["w0"][None, None].float()
                                 + w_dyn.float(), -8.0, 6.0))
+    if every:                    # whole heads from every rank's columns
+        r, k, v = (pl.gather_model(z, -1) for z in (r, k, v))
+        keys = None if wkv_state is None else wkv_state.shape[2]
+        if keys is not None and keys != rw.head_size:
+            wkv_state = collectives.all_gather(wkv_state, pl.group("model"),
+                                               2)
 
     def heads(z):
         return z.reshape(b, t, h, rw.head_size).transpose(1, 2)
@@ -245,6 +266,10 @@ def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
         o, wkv_new = _wkv_stateful(cfg, *args, wkv_state)
     o = o.transpose(1, 2).reshape(b, t, h * rw.head_size)
     o = cm.groupnorm_heads(o, side["ln_x"], side["ln_x_b"], h)
+    if every:                    # the rank's key channels and columns
+        if wkv_new is not None and keys != rw.head_size:
+            wkv_new = wkv_new.narrow(2, pl.rank * keys, keys)
+        o = o[..., cols]
     if split:
         return cm.row_parallel(cfg, pl, o * g, w["w_o"]), x[:, -1], wkv_new
     out = linear(o * g, w["w_o"])

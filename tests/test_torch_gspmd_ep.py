@@ -14,7 +14,10 @@ In process: reduced OLMoE and Arctic under those rules on an abstract
 mesh (within 1e-5 of max |y| in fp32), with a capacity factor at which
 tokens overflow, where the per-slice capacity of the ``shard_map`` form
 gives another answer; the default rules' form on a model axis of 2; a
-model axis of 1; the refusals; the paired GLU shards of ``experts_wi``;
+model axis of 1; training through the ranks in turn; the ``shard_map``
+form's refusal of the experts over every rank (the GSPMD form takes
+them: ``tests/test_torch_gspmd_train.py``); the paired GLU shards of
+``experts_wi``;
 ``chip_smoke.py``'s reckonings of a decode step's collective bytes and of
 the launches, against the meta count on rank views.
 
@@ -156,18 +159,53 @@ class TestInProcess:
         got = moe.moe_apply(tcfg, tp, torch.from_numpy(x), mesh=one)
         assert _rel(got, ref) <= 1e-5
 
-    def test_refusals(self):
-        """Training through the GSPMD form, and a dim split over ``model``
-        and another axis, raise ``NotPorted`` naming item 7c."""
+    def test_training_through_the_gspmd_form_runs(self):
+        """Under autograd (the plain torch route, as every MoE train step)
+        the ranks' partials in turn on an abstract (data 2, model 2) mesh
+        under ar_gspmd_ep's rules give the gradients of the block off the
+        mesh (x, the router and both expert leaves within 1e-5 of their
+        max)."""
         _, tcfg, _, tp, x = _moe_case("olmoe-1b-7b", CAP)
-        mesh = abstract_mesh((2, 2), ("data", "model"))
-        xt = torch.from_numpy(x).requires_grad_()
-        with logical.use_rules(mesh, RULES), pytest.raises(
-                NotPorted, match="item 7c"):
-            moe.moe_apply(tcfg, tp, xt)
-        with logical.use_rules(mesh, {"experts": ("data", "model")}), \
-                pytest.raises(NotPorted, match="item 7c"):
-            moe.moe_apply(tcfg, tp, torch.from_numpy(x))
+        tcfg = tcfg.with_(backend="torch")       # K4 has no backward
+        probe = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            x.shape).astype(np.float32))
+        grads = {}
+        for run, mesh in (("off", None),
+                          ("in_turn", abstract_mesh((2, 2), ("data",
+                                                             "model")))):
+            p = {k: v.clone().requires_grad_() for k, v in tp.items()}
+            xt = torch.from_numpy(x).requires_grad_()
+            with logical.use_rules(mesh, RULES):
+                y = moe.moe_apply(tcfg, p, xt)
+            (y * probe).sum().backward()
+            grads[run] = {"x": xt.grad, **{k: v.grad for k, v in p.items()}}
+        for k, g in grads["off"].items():
+            assert _rel(grads["in_turn"][k], g) <= 1e-5, k
+
+    def test_refusals(self):
+        """The ``shard_map`` form with a dim split over ``model`` and
+        another axis (the experts over every rank, which the reference
+        reshards to ``P("model")`` there) raises ``NotPorted`` naming item
+        7c on a rank; the GSPMD form takes it."""
+        _, tcfg, _, _, _ = _moe_case("olmoe-1b-7b", CAP)
+        rules = {"experts": ("data", "model")}
+        view = rank_view((2, 2), ("data", "model"), (1, 1))
+        mod = family_module(tcfg)
+        tokens = torch.zeros((2, 8), dtype=torch.int32, device="meta")
+        for shard_map in (True, False):
+            cfg = tcfg.with_(moe_shard_map=shard_map)
+            with logical.use_rules(view, rules):
+                params = sharding.shard_params(mod.init(cfg, None, "meta"),
+                                               view, rules, glu=True)
+                cache = sharding.shard_cache(mod.init_cache(
+                    cfg, 4, 16, device="meta"), view, cfg, rules)
+                if shard_map:
+                    with pytest.raises(NotPorted, match="item 7c"):
+                        mod.prefill(cfg, params, {"tokens": tokens}, cache)
+                else:
+                    logits, _ = mod.prefill(cfg, params, {"tokens": tokens},
+                                            cache)
+                    assert logits.shape == (2, cfg.padded_vocab)
 
     def test_expert_shards_pair_gate_and_up(self):
         """Rank (d, m)'s ``experts_wi`` holds its data block of experts and,

@@ -7,8 +7,9 @@ The reference places every leaf by its name rules (``param_shardings``,
 its shards: Griffin's recurrent block on its share of the d_rnn channels
 (K5 on them), its local attention's ring in the reference's sequence
 form (or whole where ``model`` does not divide the window); RWKV-6's
-time mix on its heads (K6 on them, with its heads' share of the state)
-and its channel mix column- then row-parallel; Whisper's attentions on
+time mix on its heads (K6 on them, with its heads' share of the state;
+every head where the heads do not divide ``model``) and its channel mix
+column- then row-parallel; Whisper's attentions on
 its heads (every head where they do not divide ``model``), its GELU MLP
 column- then row-parallel, and its self and cross caches in the KV-head,
 sequence or whole form.  The recurrent state stays in the reference's
@@ -51,7 +52,6 @@ torch = pytest.importorskip("torch")
 
 from repro.configs.registry import get_config as j_get_config  # noqa: E402
 from repro.models.base import family_module as j_family   # noqa: E402
-from repro_torch import NotPorted                         # noqa: E402
 from repro_torch.configs import registry as reg           # noqa: E402
 from repro_torch.distributed import logical, sharding     # noqa: E402
 from repro_torch.launch.mesh import rank_view             # noqa: E402
@@ -619,24 +619,41 @@ def test_wi_pairs_its_halves_only_for_a_glu(glu):
 
 
 def test_rwkv6_heads_that_do_not_divide_the_model_axis_name_7c():
-    """RWKV-6's 4 reduced heads on a model axis of 8: its projections'
-    columns would split a head and its state's key channels (the form
-    the reference's ``cache_shardings`` then takes): the forward and the
-    prefill raise ``NotPorted`` naming ROADMAP item 7c."""
+    """RWKV-6's 4 reduced heads on a model axis of 8 (ROADMAP item 7c.1):
+    a rank's projections hold half a head's columns and its state the
+    reference's key-channel share, (L, B, 4, 32 / 8, 32).  On a rank view,
+    the forward and the prefill run: the logits whole, the new state the
+    same share, and the prefill's all-gathers those of whole heads
+    (r, k and v of each layer, fp32, its state along the key channels,
+    the channel mix's receptance, the last position's logits).  The
+    results against the reference: ``tests/test_torch_rwkv_split_heads.
+    py``."""
+    from repro_torch.core import hlo_cost
     cfg = reg.get_config("rwkv6-7b", reduced=True).with_(dtype=torch.float32)
     mod = family_module(cfg)
-    view = rank_view((1, 8), ("data", "model"))
-    tokens = torch.zeros((2, 8), dtype=torch.int32, device="meta")
+    view = rank_view((1, 8), ("data", "model"), (0, 5))
+    b, s = 2, 8
+    tokens = torch.zeros((b, s), dtype=torch.int32, device="meta")
     with logical.use_rules(view):
         params = sharding.shard_params(mod.init(cfg, None, "meta"), view,
                                        glu=cfg.mlp_glu)
         cache = sharding.shard_cache(
-            mod.init_cache(cfg, 2, 8, device="meta"), view, cfg)
-        assert cache["wkv"].shape[2:] == (cfg.n_heads, 32 // 8, 32)
-        with pytest.raises(NotPorted, match="item 7c"):
-            mod.forward(cfg, params, {"tokens": tokens})
-        with pytest.raises(NotPorted, match="item 7c"):
-            mod.prefill(cfg, params, {"tokens": tokens}, cache)
+            mod.init_cache(cfg, b, s, device="meta"), view, cfg)
+        assert params["layers"]["w_r"].shape[1:] == (cfg.d_model,
+                                                     cfg.d_model // 8)
+        held = cache["wkv"].shape
+        assert held == (cfg.n_layers, b, cfg.n_heads, 32 // 8, 32)
+        logits = mod.forward(cfg, params, {"tokens": tokens})
+        assert logits.shape == (b, s, cfg.padded_vocab)
+        with hlo_cost.counting() as counter:
+            logits, cache = mod.prefill(cfg, params, {"tokens": tokens},
+                                        cache)
+    assert logits.shape == (b, cfg.padded_vocab)
+    assert cache["wkv"].shape == held
+    d, n, c = cfg.d_model, cfg.n_layers, cfg.rwkv.head_size
+    want = n * (3 * b * s * d * 4 + b * cfg.n_heads * c * c * 4
+                + b * s * d * 4) + b * cfg.padded_vocab * 4
+    assert counter.cost.per_collective["all-gather"] == want
 
 
 def test_a_state_leaf_without_its_whole_shape_is_refused():

@@ -497,8 +497,8 @@ class TestServedUnderSequenceParallelism:
 # ---------------------------------------------------------------------------
 
 #: overrides of the reduced configs on the 256-rank mesh: RWKV-6 at 16
-#: heads, which its model axis of 16 divides (ROADMAP item 7c.1 refuses
-#: fewer)
+#: heads, which its model axis of 16 divides (fewer heads take the form
+#: where every rank computes every head, ROADMAP item 7c.1)
 DRYRUN_OVERRIDES = {"rwkv6-7b": {"d_model": 512, "n_heads": 16,
                                  "n_kv_heads": 16}}
 
