@@ -245,6 +245,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -712,11 +713,13 @@ TOL_TRAIN_MEMORY = 0.15
 # at the largest depth whose reckoned peak stays well inside the card's
 # 80 GB (about 20 B a parameter: bf16 weights, fp32 master, mu, nu and
 # accumulator, one microbatch's bf16 gradients): OLMoE 4 of 16 layers
-# (1.89 B parameters), RecurrentGemma all 26 (2.89 B, of which the tied
-# 256,000 x 2,560 embedding 0.66 B), RWKV-6 8 of 32 (2.29 B)
+# (1.89 B parameters), RWKV-6 8 of 32 (2.29 B); RecurrentGemma 9 of 26,
+# three (rec, rec, attn) triples (all 26 held 2.89 B, but its RG-LRU's
+# per-step loop on the host took 75-94 s of the phase, cut for the
+# script's 1,200 s)
 TRAIN_PARITY_FAMILIES = ((MOE_ARCH, 2), (GRIFFIN_ARCH, 3), (RWKV_ARCH, 2),
                          (WHISPER_ARCH, None))
-TRAIN_FAMILY_LAYERS = {MOE_ARCH: 4, GRIFFIN_ARCH: None, RWKV_ARCH: 8,
+TRAIN_FAMILY_LAYERS = {MOE_ARCH: 4, GRIFFIN_ARCH: 9, RWKV_ARCH: 8,
                        WHISPER_ARCH: None}
 TRAIN_FAMILY_STEPS = 4
 # learning rates other than TRAIN_ARGV's 1e-3: on an H100, RWKV-6 at 8
@@ -830,15 +833,20 @@ DIST_REC_SPLIT_PROMPT, DIST_REC_SPLIT_DECODE = 256, 2
 # under perf_iter's ar_gspmd_ep rules as they are (GSPMD_RULES: the
 # attention's heads, the vocabulary and the experts' d_ff over model)
 # against one process off the mesh (TOL_FP32, greedy identical); bf16 at
-# full depth under GSPMD_WHOLE_RULES (the same expert placement, the
-# dense leaves whole on every rank) bit for bit against one process
-# running every rank's partial in turn under an abstract mesh: the tensor
+# DIST_GSPMD_BF16_LAYERS under GSPMD_WHOLE_RULES (the same expert
+# placement, the dense leaves whole on every rank) bit for bit against
+# one process running every rank's partial in turn under an abstract
+# mesh: the tensor
 # parallel attention's sums of partials would differ from one process's
 # in rounding, so only the whole dense leaves let one process hold the
 # ranks' arithmetic to the bit
 DIST_GSPMD_RANKS, DIST_GSPMD_TIMEOUT = 4, 600.0
 DIST_GSPMD_MESH = (2, 2)
-DIST_GSPMD_FP32_LAYERS = 4
+# the bf16 run's depth (once all 16, cut for the script's 1,200 s: it
+# is held bit for bit, at any depth; at 2 layers the fp32 runs' peaks
+# lay past TOL_DIST_MEMORY of their meta reckoning, fixed costs weighing
+# more)
+DIST_GSPMD_FP32_LAYERS, DIST_GSPMD_BF16_LAYERS = 4, 4
 GSPMD_RULES = {"experts": "data", "mlp_expert": "model", "embed": None}
 GSPMD_WHOLE_RULES = {"embed": None, "heads": None, "kv_heads": None,
                      "mlp": None, "vocab": None, "experts": "data",
@@ -865,8 +873,8 @@ DIST_GSPMD_TRAIN_LAYERS = 2
 # one process off the mesh within TOL_FP32 of max |logit| with identical
 # greedy tokens and the gathered cache within TOL_FP32, and OLMoE's GSPMD
 # form on (data 2, model 2) under GSPMD_RULES and SP_RULES held to the
-# same; each family at full depth in bf16 against the same mesh without
-# the seq rule, bit for bit where the ranks' sums run in the same order
+# same; each family in bf16 (DIST_SP_BF16_LAYERS) against the same mesh
+# without the seq rule, bit for bit where the ranks' sums run in the same order
 # (gloo: a reduce-scatter is the all-reduce of which each rank keeps its
 # chunk, on the same tensor).  Training on (data 2, model 2): one fp32
 # AdamW step of each at DIST_SP_TRAIN_LAYERS (Griffin one (rec, rec,
@@ -881,6 +889,12 @@ DIST_SP_CACHE = {"internvl2-1b": 640}           # 512 slots elsewhere
 DIST_SP_FP32_LAYERS = {"recurrentgemma-2b": 6, "rwkv6-7b": 4,
                        "whisper-tiny": None, "olmoe-1b-7b": 4,
                        "internvl2-1b": 4}
+# the bf16 runs' depths, cut for the script's 1,200 s (at full depth
+# they took 56 s of the phase's 166 on an H100 machine's host): they are
+# held bit for bit against the same mesh without the rule, at any depth
+DIST_SP_BF16_LAYERS = {"recurrentgemma-2b": 3, "rwkv6-7b": 4,
+                       "whisper-tiny": None, "olmoe-1b-7b": 2,
+                       "internvl2-1b": 4}
 DIST_SP_TRAIN_LAYERS = {"recurrentgemma-2b": 3, "rwkv6-7b": 2,
                         "whisper-tiny": None, "olmoe-1b-7b": 2,
                         "internvl2-1b": 2}
@@ -891,6 +905,39 @@ DIST_TRAIN_ARGV = ["--global-batch", "8", "--seq-len", "512",
                    "--microbatches", "2", "--steps", "4", "--lr", "1e-3",
                    "--log-every", "1", "--mesh", "host", "--model-parallel",
                    "2"]
+# the placements no experiment's rules give (phase dist-forms):
+# DIST_FORMS_RANKS ranks, gloo sharing the one card, on (data 2, model
+# 2), each run one rule dictionary of DIST_FORMS (a change of one key of
+# the default rules) on a model at full width, fp32, cut to its depth
+# there (yi-6b and OLMoE one layer: a run's fp32 weights, gathered over
+# data through the host at every step, 2 to 5 GB a rank at 2 layers,
+# took 23-56 s a run, and the script must end within 1,200 s):
+# the serve traffic's first batch (4 prompts of 221 tokens, 2 rows a
+# data rank, a 512-slot cache), a prefill and DIST_FORMS_DECODE decode
+# steps (the last counted on the card and on meta), held to one process
+# within TOL_FP32 of max |logit| with greedy tokens identical; one AdamW
+# step on a batch of DIST_TRAIN_FP32_BATCH (no remat, the plain torch
+# route, K1 for the projections) held to one process (TOL_TRAIN_LOSS,
+# TOL_TRAIN_GRAD).  OLMoE's shard_map form routes each data slice at the
+# slice's capacity, so its one process runs under an abstract (2, 2)
+# mesh, as dist-sp's does.  A decode step's collective bytes by kind ==
+# ``_forms_decode_collectives`` == the meta count, a train step's card
+# == meta
+DIST_FORMS_RANKS, DIST_FORMS_TIMEOUT = 4, 600.0
+DIST_FORMS_MESH, DIST_FORMS_DECODE = (2, 2), 2
+#: run -> (arch, layers, rules, config overrides)
+DIST_FORMS = {
+    "yi-heads-none": (ARCH, 1, {"heads": None}, {}),
+    "yi-mlp-none": (ARCH, 1, {"mlp": None}, {}),
+    "yi-embed-model": (ARCH, 1, {"embed": "model"}, {}),
+    "yi-heads-data-model": (ARCH, 1, {"heads": ("data", "model")}, {}),
+    "yi-vocab-data-model": (ARCH, 1, {"vocab": ("data", "model")}, {}),
+    "olmoe-experts-every": (MOE_ARCH, 1, {"experts": ("data", "model")},
+                            {"moe_shard_map": True}),
+    "rwkv-heads-none": (RWKV_ARCH, 2, {"heads": None}, {}),
+    "rwkv-embed-model": (RWKV_ARCH, 2, {"embed": "model"}, {}),
+    "griffin-mlp-none": (GRIFFIN_ARCH, 3, {"mlp": None}, {}),
+}
 PROFILE_STEPS, UNTRACED_STEPS = 4, 16
 MAX_ROWS_DECODE = 8                 # K1's decode tile serves M <= 8
 # the tiled kernels' tiles, each by substrings of its kernel names in a
@@ -2598,13 +2645,74 @@ def price_cases(cfg, eng, cases, ref):
     return sweep, time.perf_counter() - t_sweep
 
 
-def phase_plan(cfg, launcher_reckoned):
+def _price_case(args):
+    """``price_cases`` of one case on an engine of its own, in a process
+    of the pool ``start_pricing`` spawns: (its line, or the failed
+    check's text)."""
+    cfg, prompts, case, ref = args
+    torch.set_num_threads(1)
+    try:
+        sweep, _ = price_cases(cfg, plan_engine(cfg, prompts), (case,), ref)
+    except PhaseFailed as e:
+        return None, str(e)
+    return sweep, None
+
+
+def start_pricing(cfg, sweeps):
+    """Start pricing each of ``sweeps`` ({tag: (prompts, cases, ref)}) as
+    ``price_cases`` prices it, every case in a process of its own (a
+    spawned pool over the host's cores: the DES is single-threaded host
+    Python and a case holds no state of another); ``finish_pricing``
+    collects it.  The card is not used, so the script starts it before
+    the kernels' build and the phases that hold no host time."""
+    import multiprocessing
+    import os
+    jobs = [(tag, (cfg, prompts, case, ref))
+            for tag, (prompts, cases, ref) in reversed(sweeps.items())
+            for case in cases]          # the last sweep's (longest) first
+    pool = multiprocessing.get_context("spawn").Pool(
+        min(len(jobs), os.cpu_count() or 1))
+    t0, done_at = time.perf_counter(), []
+    return (pool, pool.map_async(
+        _price_case, [job for _, job in jobs], chunksize=1,
+        callback=lambda _: done_at.append(time.perf_counter())),
+        jobs, tuple(sweeps), t0, done_at)
+
+
+def finish_pricing(started):
+    """``start_pricing``'s results: {tag: (a line per case, the pool's
+    wall seconds, from its start to its last case)}."""
+    pool, pending, jobs, tags, t0, done_at = started
+    try:
+        done = pending.get()
+    finally:
+        pool.close()
+        pool.join()
+    wall = done_at[0] - t0
+    out = {tag: ({}, wall) for tag in tags}
+    for (tag, _), (line, err) in zip(jobs, done):
+        require(err is None, err or "")
+        out[tag][0].update(line)
+    return out
+
+
+def plan_sweeps():
+    """Phase plan's two sweeps for ``start_pricing``."""
+    return {"launcher": (PLAN_PROMPTS, PLAN_CASES, REFERENCE["plan"]),
+            "serve": (serve_prompts(), PLAN_SERVE_CASES,
+                      REFERENCE["plan_serve"])}
+
+
+def phase_plan(cfg, launcher_reckoned, pricing):
     """Planning-only ``ServingEngine(cfg, None)``s (yi-6b at full width
     and depth) price the launcher's traffic (``PLAN_PROMPTS``) in each of
     ``PLAN_CASES`` and the serve traffic (``serve_prompts``) in each of
     ``PLAN_SERVE_CASES``, requests arriving every ``PLAN_ARRIVAL_GAP``
-    cycles (``price_cases``: equal to the reference's ``REFERENCE``,
-    recorded by ``scripts/record_smoke_constants.py``).  The launcher
+    cycles (``price_cases``, each case in a process of its own,
+    ``start_pricing``, started with the script: equal to the
+    reference's ``REFERENCE``,
+    recorded by ``scripts/record_smoke_constants.py``; ``sweep_host_s``
+    is the pool's wall).  The launcher
     traffic's full-prefill schedule then runs with ``example_operands`` on
     the card through ``desim`` (one unit) and ``desim-cluster`` (4 units,
     output-tile), TILE granularity: one K1 launch per matrix tile, by
@@ -2622,11 +2730,10 @@ def phase_plan(cfg, launcher_reckoned):
     from repro_torch.kernels.matmul.ops import fused_matmul
     from repro_torch.serving.scheduler import backend_kwargs_for
     ref = REFERENCE["plan"]
+    priced = finish_pricing(pricing)
+    (sweep, sweep_s), (serve_sweep, serve_sweep_s) = (
+        priced["launcher"], priced["serve"])
     eng = plan_engine(cfg, PLAN_PROMPTS)
-    sweep, sweep_s = price_cases(cfg, eng, PLAN_CASES, ref)
-    serve_sweep, serve_sweep_s = price_cases(
-        cfg, plan_engine(cfg, serve_prompts()), PLAN_SERVE_CASES,
-        REFERENCE["plan_serve"])
 
     # the full-prefill schedule, executed through K1 on two backends
     scheds = {"desim": eng.plan(MAX_NEW, units=1),
@@ -5632,7 +5739,7 @@ def phase_dist_rec():
 def _gspmd_configs():
     """(tag, config, rules) of ``dist-gspmd``'s serving runs: OLMoE-1B-7B
     at full width with ``moe_shard_map=False``, DIST_GSPMD_FP32_LAYERS in
-    fp32 under GSPMD_RULES, then full depth in bf16 under
+    fp32 under GSPMD_RULES, then DIST_GSPMD_BF16_LAYERS in bf16 under
     GSPMD_WHOLE_RULES, then the fp32 configuration under
     GSPMD_EVERY_RULES ("every-fp32", held to the fp32 run's one
     process)."""
@@ -5640,7 +5747,9 @@ def _gspmd_configs():
     cfg = get_config(MOE_ARCH).with_(moe_shard_map=False)
     fp32 = cfg.with_(n_layers=DIST_GSPMD_FP32_LAYERS, dtype=torch.float32,
                      kv_cache_dtype=torch.float32)
-    return (("fp32", fp32, GSPMD_RULES), ("bf16", cfg, GSPMD_WHOLE_RULES),
+    return (("fp32", fp32, GSPMD_RULES),
+            ("bf16", cfg.with_(n_layers=DIST_GSPMD_BF16_LAYERS),
+             GSPMD_WHOLE_RULES),
             ("every-fp32", fp32, GSPMD_EVERY_RULES))
 
 
@@ -6150,8 +6259,9 @@ def _sp_prefill_scatter(cfg, sizes: dict, rows: int, s: int) -> float:
 def _dist_sp_rank(world, out_dir: str) -> None:
     """One rank of phase ``dist-sp``, spawned by ``run_world``: serves
     each of ``_sp_serve_configs`` under its rules, held to the parent's
-    one-process runs (``sp_one.pt``), then each family at full depth in
-    bf16 with and without SP_RULES on the same mesh, and takes each
+    one-process runs (``sp_one.pt``), then each family in bf16
+    (DIST_SP_BF16_LAYERS) with and without SP_RULES on the same mesh,
+    and takes each
     family's train step on (data 2, model 2) under SP_RULES, held to the
     parent's one-rank steps; checks K5 and K6 at its shapes.  Each rank
     builds a whole model on the card in its turn and keeps its shards.
@@ -6320,11 +6430,11 @@ def _dist_sp_rank(world, out_dir: str) -> None:
         del params, cache, got, card, pre, dec, meta_params, meta_cache
         torch.cuda.empty_cache()
 
-    # each family at full depth in bf16, on the same mesh with and
-    # without the seq rule, the first run's greedy tokens fed to both
+    # each family in bf16 at DIST_SP_BF16_LAYERS, on the same mesh with
+    # and without the seq rule, the first run's greedy tokens fed to both
     mesh = mesh_of((1, DIST_SP_RANKS))
-    for arch in DIST_SP_FP32_LAYERS:
-        cfg = _cut(arch, None)
+    for arch, layers in DIST_SP_BF16_LAYERS.items():
+        cfg = _cut(arch, layers)
         mod = family_module(cfg)
         params = built(cfg, mesh, None)
         batch = _sp_batch(cfg)
@@ -6524,6 +6634,523 @@ def phase_dist_sp(smi_line):
           "backend_reason": ranks[0]["world"]["backend_reason"],
           "nvidia_smi": smi_line, "times_rank0": ranks[0]["times"],
           "one_process_s": one_s, "world_wall_s": world_s,
+          "wall_s": time.perf_counter() - t_phase, "launches": launches})
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Placements no experiment's rules give: a block whose leaves the rules
+# place otherwise than its column/row form brought to it, a dim over
+# model and data gathered whole, recurrent states that follow the heads
+# and channels a rank computes.
+# ---------------------------------------------------------------------------
+
+def _forms_config(arch, layers, over, **kw):
+    """A dist-forms run's configuration: ``arch`` at full width, cut to
+    ``layers``, fp32, with ``over``."""
+    return _cut(arch, layers, dtype=torch.float32,
+                kv_cache_dtype=torch.float32, **over, **kw)
+
+
+def _forms_key(arch, layers, over) -> str:
+    """The one-process reference a dist-forms run shares with the runs of
+    the same model."""
+    return "-".join([arch, str(layers)] + [f"{k}={v}" for k, v in
+                                           sorted(over.items())])
+
+
+def _forms_decode_collectives(cfg, rules, sizes: dict, rows: int) -> dict:
+    """Collective bytes by kind of one decode step of a dist-forms run:
+    yi-6b, OLMoE-1B-7B (``shard_map`` form), RWKV-6-7B or
+    RecurrentGemma-2B on one rank of a (data, model) mesh of ``sizes``
+    under ``rules``, ``rows`` rows on the rank.
+    ``tests/test_torch_placements.py`` holds it to the meta count.
+
+    * A block runs in its column/row form where the rules split any of
+      its projections over ``model`` (alone or with another axis) and
+      ``model`` divides the dims that form splits; else whole, on every
+      rank.  Its column/row form's exits all-reduce rows x d in fp32.
+    * all-gather: each leaf over every axis that splits it but ``model``
+      alone, one axis at a time, minor first, each result counted; then
+      over ``model`` where the rules split it along another dim than its
+      block's form takes (or the block runs whole).  The embedding (twice
+      where tied: its lookup and the logits) and the output weight so;
+      the logits over ``model`` (rows x vocab, fp32) where the output
+      weight is split.
+    * all-reduce: the vocab-parallel embedding's sum (rows x d).
+
+    yi-6b and OLMoE: KV weights gathered over ``model`` where the rank's
+    KV heads are not those its q heads read; the cache holds the rank's
+    KV heads (no collective); OLMoE's experts block exits in the
+    activation dtype.  RWKV-6: a whole time mix reads every head of a
+    WKV state the rules share out over ``model`` (rows x H x 64 x 64,
+    fp32); a split channel mix gathers its receptance (rows x d).
+    Griffin: a split recurrent block gathers its conv output (rows x
+    d_rnn) and writes its state back gathered over ``model``; a local
+    attention whose ring is shared out over ``model`` gathers q and
+    all-reduces the row max, then the sums and P·V (one KV head on every
+    rank, from the gathered KV weights)."""
+    from repro_torch.distributed import logical, sharding
+    from repro_torch.launch.mesh import rank_view
+    from repro_torch.models.base import family_module
+    if set(sizes) != {"data", "model"}:
+        raise ValueError("reckoned for (data, model) meshes")
+    m = sizes["model"]
+    e = torch.finfo(cfg.dtype).bits // 8
+    d, v, n = cfg.d_model, cfg.padded_vocab, cfg.n_layers
+    q, kv, ff = cfg.q_dim, cfg.kv_dim, cfg.d_ff
+    view = rank_view(tuple(sizes.values()), tuple(sizes))
+    gather = reduce = 0
+
+    def model_dim(spec):
+        return next((i for i, x in enumerate(spec)
+                     if sharding.axis_names(x) == ("model",)), None)
+
+    def leaf(name, shape, want, eb=e):
+        """A leaf's gathers: over its axes but model alone, then model
+        where its block wants it along ``want`` (None: whole)."""
+        spec = sharding.spec_of(name, shape)
+        cur = list(sharding.local_shape(view, shape, spec))
+        out = 0
+        for i, entry in enumerate(spec):
+            names = sharding.axis_names(entry)
+            if names == ("model",):
+                continue
+            for a in reversed(names):
+                if sizes[a] > 1:
+                    cur[i] *= sizes[a]
+                    out += math.prod(cur) * eb
+        dim = model_dim(spec)
+        if dim is not None and dim != want and m > 1:
+            cur[dim] *= m
+            out += math.prod(cur) * eb
+        return out
+
+    def block(leaves, divides=True):
+        """(whether the block runs split, its leaves' gather bytes);
+        ``leaves``: {name: (shape, the dim of its column/row form)}."""
+        split = m > 1 and divides and any(
+            "model" in sharding.axis_names(x) for name, (shape, _) in
+            leaves.items() for x in sharding.spec_of(name, shape))
+        return split, sum(leaf(k, shape, dim if split else None)
+                          for k, (shape, dim) in leaves.items())
+
+    def attention():
+        """(the attention block's split, gather bytes), the cache the
+        rank's KV heads, or one KV head a ring shares out."""
+        shapes = {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d)}
+        split = m > 1 and q % m == 0 and any(
+            "model" in sharding.axis_names(x) for k, shape in shapes.items()
+            for x in sharding.spec_of(k, shape))
+        dims = [model_dim(sharding.spec_of(k, (d, kv))) for k in ("wk",
+                                                                 "wv")]
+        want = dims[0] if dims[0] == dims[1] and dims[0] in (1, None) \
+            else None
+        out = (leaf("wq", shapes["wq"], 1 if split else None)
+               + leaf("wo", shapes["wo"], 0 if split else None)
+               + 2 * leaf("wk", shapes["wk"], want if split else None))
+        group = cfg.n_heads // cfg.n_kv_heads
+        own = cfg.n_kv_heads % m == 0 and (cfg.n_heads // m) % group == 0
+        if split and want == 1 and not own:
+            out += 2 * d * kv * e
+        if split and cfg.n_heads % m:
+            raise ValueError("reckoned for q heads that divide model")
+        return split, out
+
+    def mlp():
+        split, out = block({"wi": ((d, 2 * ff), 1), "wo": ((ff, d), 0)},
+                           ff % m == 0)
+        return (rows * d * 4 if split else 0), out
+
+    with logical.use_rules(view, rules):
+        emb_split, b = block({"embedding": ((v, d), 0)}, v % m == 0)
+        gather += b
+        reduce += rows * d * e if emb_split else 0
+        out_split, b = block({"embedding": ((v, d), 0)} if cfg.tie_embeddings
+                             else {"lm_head": ((d, v), 1)}, v % m == 0)
+        gather += b + (rows * v * 4 if out_split else 0)
+        if cfg.family == "transformer":
+            if cfg.n_kv_heads % m:
+                raise ValueError("reckoned for a cache of the rank's KV "
+                                 "heads")
+            for _ in range(n):
+                split, b = attention()
+                gather += b
+                reduce += rows * d * 4 if split else 0
+                if cfg.moe is None:
+                    r_, b = mlp()
+                    gather, reduce = gather + b, reduce + r_
+                    continue
+                mo, mult = cfg.moe, 2 if cfg.mlp_glu else 1
+                gather += leaf("w_router", (d, mo.n_experts), None, 4)
+                split, b = block({
+                    "experts_wi": ((mo.n_experts, d, mult * mo.d_ff_expert),
+                                   0),
+                    "experts_wo": ((mo.n_experts, mo.d_ff_expert, d), 0)},
+                    mo.n_experts % m == 0)
+                gather += b
+                reduce += rows * d * e if split else 0
+        elif cfg.family == "rwkv6":
+            hs = cfg.rwkv.head_size
+            h = d // hs
+            cache = family_module(cfg).init_cache(cfg, rows * sizes["data"],
+                                                  1, device="meta")
+            wkv = sharding.cache_shardings(cache, view, cfg,
+                                           rules)["wkv"].spec
+            heads = tuple(a for a in sharding.axis_names(wkv[2])
+                          if sizes[a] > 1)
+            if sharding.axis_names(wkv[3]) or heads not in ((), ("model",)):
+                raise ValueError("reckoned for a WKV state over model's "
+                                 "heads or whole")
+            for _ in range(n):
+                split, b = block({**{k: ((d, d), 1) for k in (
+                    "w_r", "w_k", "w_v", "w_g")}, "w_o": ((d, d), 0)},
+                    d % m == 0)
+                if split and h % m:
+                    raise ValueError("reckoned for heads that divide model")
+                gather += b
+                reduce += rows * d * 4 if split else 0
+                if not split and heads:          # every head read
+                    gather += rows * h * hs * hs * 4
+                if split and not heads:          # every head written
+                    gather += rows * h * hs * hs * 4
+                split, b = block({"w_cm_k": ((d, ff), 1),
+                                  "w_cm_v": ((ff, d), 0),
+                                  "w_cm_r": ((d, d), 1)},
+                                 ff % m == 0 and d % m == 0)
+                gather += b + (rows * d * e if split else 0)
+                reduce += rows * d * 4 if split else 0
+        elif cfg.family == "griffin":
+            c, w = cfg.rnn.d_rnn, cfg.rnn.conv_width - 1
+            pat = cfg.rnn.block_pattern
+            if n % len(pat):
+                raise ValueError("reckoned for whole (rec, rec, attn) "
+                                 "triples")
+            triples = n // len(pat)
+            ring = m > 1 and cfg.window % m == 0
+            for kind in pat * triples:
+                if kind == "rec":
+                    split, b = block({"w_gate_in": ((d, c), 1),
+                                      "w_rnn_in": ((d, c), 1),
+                                      "w_rnn_out": ((c, d), 0)},
+                                     c % m == 0)
+                    gather += b
+                    if split:       # conv out; the state written back
+                        gather += rows * c * e + rows * c * (w * e + 4)
+                        reduce += rows * d * 4
+                else:
+                    split, b = attention()
+                    gather += b + (rows * q * e if split and ring else 0)
+                    reduce += rows * d * 4 if split else 0
+                    h, hd = cfg.n_heads, cfg.head_dim
+                    reduce += rows * h * 4 + rows * h * (1 + hd) * 4 \
+                        if ring else 0
+                r_, b = mlp()
+                gather, reduce = gather + b, reduce + r_
+        else:
+            raise ValueError(f"no reckoning for the {cfg.family} family")
+    out = {"all-gather": float(gather), "all-reduce": float(reduce)}
+    out = {k: x for k, x in out.items() if x}
+    out["total"] = sum(out.values())
+    return out
+
+
+def _dist_forms_rank(world, out_dir: str) -> None:
+    """One rank of phase ``dist-forms``, spawned by ``run_world``: each run
+    of DIST_FORMS on (data 2, model 2), the rank's 2 rows of the serve
+    traffic's first batch held to the parent's one-process runs
+    (``forms_one.pt``), a decode step's collective bytes counted on the
+    card and on meta against ``_forms_decode_collectives``; then one
+    AdamW step held to one process, which rank 0 takes on the whole model
+    (under an abstract (2, 2) mesh for OLMoE's shard_map form), against
+    each leaf of the first moment gathered from the ranks.  Each rank
+    builds the whole model on the card in its turn and keeps its shards.
+    Prints a dist-forms line a run, raises on a failed check (which fails
+    the world) and writes its launch counts to ``out_dir/forms_rank{r}
+    .json``."""
+    import torch.distributed as dist
+    from repro_torch.core import tree
+    from repro_torch.core.precision import disable_tf32
+    from repro_torch.distributed import collectives, logical, sharding
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rwkv6.ops import rwkv6_scan
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh, make_mesh, rank_view
+    from repro_torch.models.base import family_module
+    from repro_torch.optim import adamw
+    from repro_torch.serving.engine import make_decode, make_prefill
+    from repro_torch.training.train_step import TrainConfig, make_train_step
+    global _EMIT_LOCK
+    disable_tf32()
+    out_dir, r = Path(out_dir), world.rank
+    _EMIT_LOCK = out_dir / "emit.lock"
+    one = torch.load(out_dir / "forms_one.pt")
+    head = {"rank": r, "world": world.size, "backend": world.backend,
+            "backend_reason": world.reason, "device": str(world.device)}
+    mesh = make_mesh(DIST_FORMS_MESH, ("data", "model"))
+    view = rank_view(DIST_FORMS_MESH, mesh.axis_names, mesh.coordinate)
+    n = MAX_BATCH // DIST_FORMS_MESH[0]
+    rows = slice(mesh.index("data") * n, (mesh.index("data") + 1) * n)
+    s = int(max(prompt_lengths()[0][:MAX_BATCH]))
+    wrappers = {**_moe_wrappers(), "rwkv6_scan": rwkv6_scan,
+                "rglru_scan": rglru_scan}
+    tcfg = TrainConfig(optimizer=adamw.AdamWConfig(
+        lr=1e-3, warmup_steps=1, total_steps=10),
+        loss_chunk=DIST_TRAIN_FP32_BATCH[1])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.ones((8, 8), device="cuda") @ torch.ones((8, 8), device="cuda")
+    torch.cuda.synchronize()
+    workspace = torch.cuda.memory_allocated() - base
+    launches, ref_train = {}, {}
+
+    def seeded(cfg):
+        return family_module(cfg).init(cfg, torch.Generator(
+            device="cuda").manual_seed(DIST_SEED), "cuda")
+
+    models = {}
+
+    def built(cfg, key, rules):
+        """The rank's shards of the seeded model under ``rules``, copies
+        (the train step writes into them), from the whole model each
+        rank builds once, in its turn, and keeps while its runs last."""
+        if key not in models:
+            models.clear()
+            torch.cuda.empty_cache()
+            for turn in range(world.size):
+                if turn == r:
+                    models[key] = seeded(cfg)
+                dist.barrier()
+        return tree.tree_map(lambda x: x.clone(), sharding.shard_params(
+            models[key], mesh, rules, glu=cfg.mlp_glu))
+
+    def events_ms(fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    for run, (arch, layers, rules, over) in DIST_FORMS.items():
+        cfg = _forms_config(arch, layers, over)
+        key = _forms_key(arch, layers, over)
+        mod = family_module(cfg)
+        ref = one[key]
+        params = built(cfg, key, rules)
+        cache = sharding.shard_cache(mod.init_cache(
+            cfg, MAX_BATCH, CACHE_LEN, device="cuda"), mesh, cfg, rules)
+        read = _counted(wrappers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with logical.use_rules(mesh, rules):
+            got = _mesh_serve(cfg, params, cache,
+                              follow=ref["greedy"][:, :-1], rows=rows,
+                              steps=DIST_FORMS_DECODE - 1)
+            # the last decode step, counted on the card (and on meta)
+            tok = ref["greedy"][rows, -2:-1].to("cuda", torch.int32)
+            pos = s + DIST_FORMS_DECODE - 1
+            card, (logits, _), _ = dryrun.count_step(make_decode(cfg), (
+                params, tok, got["cache"], pos), False)
+        torch.cuda.synchronize()
+        serve_peak = torch.cuda.max_memory_allocated() - workspace
+        counts = read()
+        got["logits"].append(logits.float().cpu())
+        mine = [x[rows] for x in ref["logits"]]
+        errs = [rel_err(a, b)[0] for a, b in zip(got["logits"], mine)]
+        greedy = torch.stack([x.argmax(-1) for x in got["logits"]], 1)
+        agree = float((greedy == ref["greedy"][rows]).float().mean())
+        with logical.use_rules(view, rules):
+            mp = sharding.shard_params(mod.init(cfg, None, "meta"), view,
+                                       rules, glu=cfg.mlp_glu)
+            mc = sharding.shard_cache(mod.init_cache(
+                cfg, MAX_BATCH, CACHE_LEN, device="meta"), view, cfg, rules)
+            meta, _, _ = dryrun.count_step(make_decode(cfg), (
+                mp, torch.empty((n, 1), dtype=torch.int32, device="meta"),
+                mc, pos), False)
+        reckoned = _forms_decode_collectives(cfg, rules, dict(mesh.shape), n)
+        counted = {**{k: float(x) for k, x in card.per_collective.items()},
+                   "total": card.collective_bytes}
+        times = {"prefill_ms": got["prefill_ms"],
+                 "decode_ms": got["decode_ms"]}
+        del got, cache, mc
+        torch.cuda.empty_cache()
+
+        # one AdamW step (no remat: the FSDP gathers once a layer); rank 0
+        # takes it on one process too
+        train_cfg = cfg.with_(backend="torch", remat="none")
+        if r == 0 and key not in ref_train:
+            ref_train.clear()
+            whole = tree.tree_map(lambda x: x.clone(), models[key])
+            under = (logical.use_rules(abstract_mesh(DIST_FORMS_MESH, (
+                "data", "model")), rules) if cfg.moe is not None
+                and cfg.moe_shard_map else contextlib.nullcontext())
+            with under:
+                _, o, mt, _ = make_train_step(train_cfg, tcfg)(
+                    whole, adamw.init(tcfg.optimizer, whole),
+                    train_batch(train_cfg, *DIST_TRAIN_FP32_BATCH, "cuda"))
+            # on the host: the card holds every rank's runs meanwhile
+            ref_train[key] = (float(mt["loss"]),
+                              [x.cpu() for x in tree.leaves(o["mu"])])
+            del whole, o, mt
+            torch.cuda.empty_cache()
+        dist.barrier()
+        opt = adamw.init(tcfg.optimizer, params)
+        batch = sharding.local_batch(train_batch(
+            train_cfg, *DIST_TRAIN_FP32_BATCH, "cuda"), mesh, 1, rules)
+        read = _counted(wrappers)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with logical.use_rules(mesh, rules):
+            (tcard, (_, opt, metrics, _), _), train_ms = events_ms(
+                lambda: dryrun.count_step(make_train_step(train_cfg, tcfg),
+                                          (params, opt, batch), True))
+        torch.cuda.synchronize()
+        train_peak = torch.cuda.max_memory_allocated() - workspace
+        tcounts = read()
+        with logical.use_rules(view, rules):
+            tmp = sharding.shard_params(family_module(train_cfg).init(
+                train_cfg, None, "meta"), view, rules, glu=cfg.mlp_glu)
+            tmeta, _, _ = dryrun.count_step(
+                make_train_step(train_cfg, tcfg),
+                (tmp, adamw.init(tcfg.optimizer, tmp),
+                 {k: torch.empty(x.shape, dtype=x.dtype, device="meta")
+                  for k, x in batch.items()}), True)
+        del params, batch
+        torch.cuda.empty_cache()
+        worst = []
+
+        def held(i, whole_mu):
+            # in fp32: a float64 copy of an embedding's first moment (up
+            # to 2.6 GB) does not fit beside the ranks' runs
+            if r == 0:
+                want = ref_train[key][1][i].cuda()
+                worst.append(float((whole_mu - want).abs().max()
+                                   / want.abs().max()))
+            return None
+        sharding.gather_params(opt["mu"], family_module(train_cfg).init(
+            train_cfg, None, "meta"), mesh, rules, leaf_fn=held,
+            glu=cfg.mlp_glu)
+        grad = torch.tensor([max(worst) if worst else 0.0], device="cuda")
+        collectives.broadcast(grad, 0)
+        ref_loss = torch.tensor([ref_train[key][0] if r == 0 else 0.0],
+                                device="cuda", dtype=torch.float64)
+        collectives.broadcast(ref_loss, 0)
+        loss, ref_loss = float(metrics["loss"]), float(ref_loss)
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        phase = f"dist-forms-{run}"
+        emit({"phase": phase, **head, "serve": counts, "train": tcounts,
+              "config": f"{arch} full width, {cfg.n_layers} layers, fp32, "
+                        f"(data {DIST_FORMS_MESH[0]}, model "
+                        f"{DIST_FORMS_MESH[1]}), rules {rules}, {over}; "
+                        f"rows {rows.start}-{rows.stop - 1} of {MAX_BATCH}",
+              "logits_rel_err": errs, "tol": TOL_FP32,
+              "greedy_tokens_agree": agree,
+              "collective_bytes_decode_step": counted,
+              "collective_bytes_meta": meta.per_collective,
+              "collective_bytes_reckoned": reckoned,
+              **times, "one_process_prefill_ms": ref["prefill_ms"],
+              "one_process_decode_ms": ref["decode_ms"],
+              "loss": loss, "one_process_loss": ref_loss,
+              "loss_rel": loss_rel, "tol_loss": TOL_TRAIN_LOSS,
+              "mu_rel_max": float(grad), "tol_grad": TOL_TRAIN_GRAD,
+              "train_step_ms": train_ms,
+              "collective_bytes_train_step": tcard.per_collective,
+              "collective_bytes_train_meta": tmeta.per_collective,
+              "serve_max_memory_allocated": serve_peak,
+              "train_max_memory_allocated": train_peak,
+              "cublas_workspace": workspace})
+        require(all(bool(torch.isfinite(x).all()) for x in mine),
+                f"{phase}: one process's logits not finite")
+        require(all(e_ <= TOL_FP32 for e_ in errs),
+                f"{phase}: logits {errs} against {TOL_FP32}")
+        require(agree == 1.0, f"{phase}: greedy tokens differ from one "
+                "process's")
+        require(counted == reckoned and card.per_collective
+                == meta.per_collective, f"{phase}: a decode step's "
+                f"collective bytes {counted}, meta {meta.per_collective}, "
+                f"reckoned {reckoned}")
+        require(loss_rel <= TOL_TRAIN_LOSS, f"{phase}: loss {loss} against "
+                f"one process's {ref_loss}")
+        require(float(grad) <= TOL_TRAIN_GRAD, f"{phase}: first moment "
+                f"{float(grad)} of a leaf's max from one process's")
+        require(tcard.per_collective == tmeta.per_collective,
+                f"{phase}: a train step's collective bytes "
+                f"{tcard.per_collective}, meta {tmeta.per_collective}")
+        require(counts["fused_matmul"] > 0 and tcounts["fused_matmul"] > 0,
+                f"{phase}: K1 launches {counts['fused_matmul']} serving, "
+                f"{tcounts['fused_matmul']} training")
+        if cfg.moe is not None:
+            require(counts["grouped_matmul"] > 0, f"{phase}: no K4 launch")
+        if cfg.family == "rwkv6":
+            require(counts["rwkv6_scan"] == cfg.n_layers,
+                    f"{phase}: K6 {counts['rwkv6_scan']} launches")
+        launches[f"{phase}/serve"] = counts
+        launches[f"{phase}/train"] = tcounts
+        del opt, metrics, card, meta, tcard, tmeta, mp, tmp
+        torch.cuda.empty_cache()
+    (out_dir / f"forms_rank{r}.json").write_text(json.dumps(
+        {"world": head, "launches": launches}))
+
+
+def phase_dist_forms(smi_line):
+    """Each run of DIST_FORMS on DIST_FORMS_RANKS ranks through
+    ``launch.mesh.run_world`` (gloo: the ranks share the card;
+    ``_dist_forms_rank``).  First, in this process, what the ranks'
+    serving is held to: each model's fp32 serving run, off the mesh, or
+    for OLMoE's shard_map form under an abstract (2, 2) mesh (each data
+    slice routed at its capacity, the expert shards in turn), as the
+    ranks route.  A rank that fails, or a world that outlives
+    DIST_FORMS_TIMEOUT, fails the phase."""
+    import shutil
+
+    from repro_torch.distributed import logical
+    from repro_torch.launch.mesh import abstract_mesh, run_world
+    from repro_torch.models.base import family_module
+    t_phase = time.perf_counter()
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    DIST_DIR.mkdir(parents=True)
+    one = {}
+    for arch, layers, rules, over in DIST_FORMS.values():
+        key = _forms_key(arch, layers, over)
+        if key in one:
+            continue
+        cfg = _forms_config(arch, layers, over)
+        mod = family_module(cfg)
+        params = mod.init(cfg, torch.Generator(device="cuda").manual_seed(
+            DIST_SEED), "cuda")
+        cache = mod.init_cache(cfg, MAX_BATCH, CACHE_LEN, device="cuda")
+        under = (logical.use_rules(abstract_mesh(DIST_FORMS_MESH, (
+            "data", "model")), rules) if cfg.moe is not None
+            and cfg.moe_shard_map else contextlib.nullcontext())
+        with under:
+            got = _mesh_serve(cfg, params, cache, steps=DIST_FORMS_DECODE)
+        got.pop("cache")
+        got.pop("batch")
+        one[key] = got
+        del params, cache
+        torch.cuda.empty_cache()
+    torch.save(one, DIST_DIR / "forms_one.pt")
+    one_s = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    try:
+        run_world(_dist_forms_rank, DIST_FORMS_RANKS, (str(DIST_DIR),),
+                  rendezvous=str(DIST_DIR / "rendezvous"),
+                  timeout=DIST_FORMS_TIMEOUT)
+    except Exception as e:                   # a rank failed or hung
+        raise PhaseFailed(f"dist-forms: {type(e).__name__}: {e}") from None
+    world_s = time.perf_counter() - t0
+    ranks = [json.loads((DIST_DIR / f"forms_rank{i}.json").read_text())
+             for i in range(DIST_FORMS_RANKS)]
+    launches = {f"{path}/rank{i}": counts for i, got in enumerate(ranks)
+                for path, counts in got["launches"].items()}
+    emit({"phase": "dist-forms", "ranks": DIST_FORMS_RANKS,
+          "backend": ranks[0]["world"]["backend"],
+          "backend_reason": ranks[0]["world"]["backend_reason"],
+          "nvidia_smi": smi_line, "one_process_s": one_s,
+          "world_wall_s": world_s,
           "wall_s": time.perf_counter() - t_phase, "launches": launches})
     shutil.rmtree(DIST_DIR, ignore_errors=True)
     return launches
@@ -7477,6 +8104,9 @@ def main() -> int:
     # the tensor-core tile: 32 x 2 = 64 (a decode step runs the oracle's
     # single step, no K6)
     k6_tiles = {"tc": 2 * r_cfg.n_layers, "simt": 0}
+    # phase plan's pricing, host only, runs beside the build and the
+    # kernels' checks
+    pricing = start_pricing(cfg, plan_sweeps())
     try:
         phase_build()
         served = {ARCH: served_k1_calls(ARCH, 1),
@@ -7546,7 +8176,7 @@ def main() -> int:
         # decode steps, as the serve traffic does: the same reckoning
         launches["plan"] = phase_plan(
             cfg, {"fused_matmul": k1_tiles["serve"],
-                  "flash_attention": k2_tiles["serve"]})
+                  "flash_attention": k2_tiles["serve"]}, pricing)
         launches["tune"] = phase_tune(cfg)
         phase_online(cfg)
         launches["w8a8"] = phase_w8a8(cfg, s_max)
@@ -7576,11 +8206,17 @@ def main() -> int:
         # DIST_SP_RANKS ranks: K1, K2, K4, K5 and K6 on each rank's
         # gathered sequence
         launches.update(phase_dist_sp(card))
+        # the placements no experiment's rules give, on DIST_FORMS_RANKS
+        # ranks of (data 2, model 2): each run one change of a key of the
+        # default rules; K1 on every rank, K4 and K6 on their models'
+        launches.update(phase_dist_forms(card))
         launches["dryrun"] = phase_dryrun(card)
         kernels = phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, launches)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        pricing[0].terminate()
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

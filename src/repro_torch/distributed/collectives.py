@@ -10,8 +10,13 @@ CUDA tensor aborts the process: this module stages those through host
 copies, and counts each staged op in ``STAGED``, so that a caller can
 say which of its collectives crossed the host.  Under gloo
 ``reduce_scatter`` is an all-reduce of which each rank keeps its chunk:
-gloo takes that on CUDA tensors too.  Nothing falls back silently: a
-collective that fails raises.  ``group=None`` is the whole world.
+gloo takes that on CUDA tensors too.  Where every rank shares this
+host's one card (``World.one_card``), ``all_gather``, ``all_reduce`` and
+``reduce_scatter`` move their bytes on the card instead
+(``distributed.same_card``: gloo only passes handles and meets), and a
+sum adds the ranks' values in group rank order.  Nothing falls back
+silently: a collective that fails raises.  ``group=None`` is the whole
+world.
 
 Each records its result's bytes by kind in an active cost counter
 (``core.hlo_cost``), as the reference's ``hlo_cost`` sums each
@@ -59,6 +64,8 @@ import torch.distributed as dist
 
 from repro_torch.core import hlo_cost
 from repro_torch.core.hlo_cost import tensor_bytes
+from repro_torch.distributed import same_card
+from repro_torch.launch import mesh
 from repro_torch.launch.mesh import AxisGroup
 
 #: op name -> collectives staged through the host since the last reset
@@ -79,6 +86,21 @@ def _global(group, rank: int) -> int:
     return rank if group is None else dist.get_global_rank(group, rank)
 
 
+def _on_one_card(t: torch.Tensor) -> bool:
+    """Whether ``t``'s collective runs among ranks that share this host's
+    one card, its bytes moved on the card (``same_card``)."""
+    world = mesh._WORLD
+    return t.is_cuda and world is not None and world.one_card
+
+
+def _reduce(t: torch.Tensor, group, op: str = "sum") -> None:
+    if _on_one_card(t):
+        with hlo_cost.quiet():
+            same_card.all_reduce(t, group, op)
+    else:
+        dist.all_reduce(t, op=_OPS[op], group=group)
+
+
 def _recorded_only(t: torch.Tensor, group) -> bool:
     """A collective that runs nothing: on ``meta``, or over a rank view's
     axis."""
@@ -95,7 +117,7 @@ def all_reduce(t: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
     """Reduce ``t`` over ``group`` in place (``op``: "sum" or "max");
     returns ``t``."""
     if not _recorded_only(t, group):
-        dist.all_reduce(t, op=_OPS[op], group=group)
+        _reduce(t, group, op)
     hlo_cost.collective("all-reduce", tensor_bytes(t))
     return t
 
@@ -107,7 +129,11 @@ def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     with hlo_cost.quiet():
         t = t.contiguous()
         parts = [torch.empty_like(t) for _ in range(n)]
-        if not _recorded_only(t, group):
+        if _recorded_only(t, group):
+            pass
+        elif _on_one_card(t):
+            same_card.all_gather(t, parts, group)
+        else:
             dist.all_gather(parts, t, group=group)
         out = torch.cat(parts, dim=dim)
     hlo_cost.collective("all-gather", tensor_bytes(out), out)
@@ -129,7 +155,7 @@ def reduce_scatter(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
                 memory_format=torch.contiguous_format)
         elif dist.get_backend(group) == "gloo":
             whole = t.clone(memory_format=torch.contiguous_format)
-            dist.all_reduce(whole, group=group)
+            _reduce(whole, group)
             out = whole.narrow(dim, dist.get_rank(group) * size, size).clone(
                 memory_format=torch.contiguous_format)
             del whole

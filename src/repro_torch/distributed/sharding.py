@@ -22,7 +22,9 @@ input projection ``wi`` (d, 2·d_ff) holds the gate in its first half and
 the up projection in its second, and K1 reads it as (d, 2, d_ff/...).  A
 contiguous column shard would give rank 0 only gates, so a rank's shard
 of ``wi`` is ``wi.view(d, 2, d_ff)[:, :, r·d_ff/m:(r+1)·d_ff/m]``: the
-same size as the reference's shard, its gate and up columns paired.
+same size as the reference's shard, its gate and up columns paired
+(where each half splits over the ranks: else the reference's contiguous
+shard, ``glu_paired``, which the blocks gather whole).
 The experts' input projection ``experts_wi`` (E, d, 2·ff) is paired the
 same way where a rule splits its ``mlp_expert`` dim (GSPMD expert
 parallelism, ``models/moe.py``).  Only a GLU's ``wi`` and ``experts_wi``
@@ -42,7 +44,6 @@ import torch
 
 import math
 
-from repro_torch import NotPorted
 from repro_torch.core import tree
 from repro_torch.distributed import logical
 from repro_torch.distributed.logical import NamedSharding
@@ -206,21 +207,26 @@ def block_index(mesh: Mesh, names) -> int:
     return idx
 
 
+def glu_paired(whole: int, n: int) -> bool:
+    """Whether a GLU's (gate | up) dim of ``whole`` columns split over
+    ``n`` ranks takes the paired shard: where each half splits.  Where
+    only the whole does, the rank holds the reference's contiguous
+    shard, and a block gathers it whole before it runs."""
+    return n == 1 or (whole // 2) % n == 0
+
+
 def shard_leaf(x: torch.Tensor, spec, mesh: Mesh, glu: bool = False):
     """This rank's shard of the whole leaf ``x`` under ``spec`` (a view);
-    ``glu``: the last dim is (gate | up), split pairwise."""
+    ``glu``: the last dim is (gate | up), split pairwise where its halves
+    split (``glu_paired``)."""
     for d, entry in enumerate(spec):
         names = axis_names(entry)
         if not names:
             continue
         n = math.prod(mesh.shape[a] for a in names)
         i = block_index(mesh, names)
-        if glu and d == x.ndim - 1:
+        if glu and d == x.ndim - 1 and glu_paired(x.shape[d], n):
             pairs = x.unflatten(d, (2, x.shape[d] // 2))
-            if pairs.shape[d + 1] % n:
-                raise NotPorted(
-                    f"a GLU projection of {x.shape[d] // 2} columns a half "
-                    f"does not split over {n} ranks a half (ROADMAP item 7c)")
             size = pairs.shape[d + 1] // n
             x = pairs.narrow(d + 1, i * size, size).flatten(d, d + 1)
         else:
@@ -237,7 +243,8 @@ def gather_leaf(x: torch.Tensor, spec, mesh: Mesh, glu: bool = False):
         names = tuple(a for a in axis_names(entry) if mesh.shape[a] > 1)
         if not names:
             continue
-        if glu and d == x.ndim - 1:
+        n = math.prod(mesh.shape[a] for a in names)
+        if glu and d == x.ndim - 1 and glu_paired(x.shape[d] * n, n):
             x = x.unflatten(d, (2, x.shape[d] // 2))
             for a in reversed(names):              # minor axis first
                 x = collectives.all_gather(x, mesh.group(a), d + 1)

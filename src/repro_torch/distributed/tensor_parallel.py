@@ -12,9 +12,14 @@ moving themselves:
   layer that uses it (``collectives.gather_from_group``, whose backward
   reduce-scatters the gradient), so one layer at a time is whole, as
   ZeRO-3 works; under ``remat`` the recompute gathers again.  It returns
-  the leaf with its ``model`` dim still sharded, and that dim; dims in
-  its ``keep`` stay the rank's shard (GSPMD expert parallelism moves the
-  tokens to the experts, not the experts).
+  the leaf with its ``model`` dim still sharded, and that dim; a dim
+  split over ``model`` and another axis together comes back whole; dims
+  in its ``keep`` stay the rank's shard (GSPMD expert parallelism moves
+  the tokens to the experts, not the experts).
+* ``reshard`` brings a leaf the rules place otherwise than its block's
+  form to that form: gathered whole over ``model``, and the rank's shard
+  of the form cut from it (a block runs in its column/row form where
+  the rules split any of its leaves over ``model``, else whole).
 * A column-parallel projection runs on the rank's columns behind
   ``enter`` (identity forward, gradient all-reduced over ``model``); a
   row-parallel one on its rows, then ``exit`` (all-reduce forward).
@@ -59,7 +64,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch import NotPorted
 from repro_torch.distributed import collectives, logical, sharding
 
 
@@ -69,11 +73,17 @@ class CacheShard:
     ``every_head``, whether it holds every KV head (else the rank's own);
     positions ``[start, start + S)`` of a cache of ``length``; ``split``,
     whether the positions are shared out over ``model`` (each rank
-    attends over its own and the ranks combine)."""
+    attends over its own and the ranks combine); ``gather``, the axes
+    other than ``model`` that share them out (a block of them, major
+    first), over which a rank gathers every position before it attends
+    (``common.cache_view``); ``heads``, the axes that share out the KV
+    heads (``common.held_heads``)."""
     every_head: bool
     start: int
     length: int
     split: bool
+    gather: tuple = ()
+    heads: tuple = ()
 
     @classmethod
     def whole(cls, length: int) -> "CacheShard":
@@ -99,15 +109,25 @@ class Placement:
         return self.mesh.group(axis)
 
     # -- leaves ------------------------------------------------------------
-    def param(self, w: torch.Tensor, name: str, shape, keep=()):
+    def param(self, w: torch.Tensor, name: str, shape, keep=(),
+              glu: bool = False):
         """(``w`` gathered over every axis but ``model``, the dim its
         ``model`` shard lies along or None).  ``shape`` is the whole
         leaf's, and ``w`` must be the rank's shard of it under the rules
-        (the whole leaf where they replicate it).  The dims in ``keep``
-        stay the rank's shard, whatever axes split them, ``model`` and
-        another together included (the experts and their d_ff under
-        GSPMD expert parallelism, ``models/moe.py``), and are never the
-        returned dim."""
+        (the whole leaf where they replicate it).  A dim split over
+        ``model`` and another axis together is gathered whole over both
+        (the reference's GSPMD gathers it so), and is not the returned
+        dim.  The dims in ``keep`` stay the rank's shard, whatever axes
+        split them (the experts and their d_ff under GSPMD expert
+        parallelism, ``models/moe.py``), and are never the returned dim.
+        ``glu``: the last dim is a GLU's (gate | up), its shard the
+        paired one (``sharding.shard_leaf``).
+
+        A gather over a batch axis is FSDP's: its ranks hold other rows,
+        so each one's gradient is a partial, reduce-scattered.  Over any
+        other axis (``model``, or a data axis the batch does not take)
+        the ranks compute the same from the whole leaf, and each keeps
+        its chunk of its own gradient."""
         shape = tuple(shape)
         spec = sharding.spec_of(name, shape)
         want = sharding.local_shape(self.mesh, shape, spec)
@@ -118,19 +138,64 @@ class Placement:
         model_dim = None
         for d, entry in enumerate(spec):
             names = sharding.axis_names(entry)
-            if d in keep:
+            if d in keep or not names:
                 continue
-            if "model" in names:
-                if len(names) > 1:
-                    raise NotPorted(f"{name}: dim {d} over {names}: a dim "
-                                    "split over model and another axis "
-                                    "(ROADMAP item 7c)")
+            if names == ("model",):
                 model_dim = d if self.model > 1 else None
                 continue
-            for a in reversed(names):                  # minor axis first
-                if self.mesh.shape[a] > 1:
-                    w = collectives.gather_from_group(w, self.group(a), d)
+            w = self._gather(w, d, names, glu and d == len(shape) - 1,
+                             shape[d])
         return w, model_dim
+
+    def _gather(self, w, d: int, names, glu: bool, whole: int):
+        """``w`` gathered whole along dim ``d`` over ``names`` (minor
+        first, the rank's block data major), ``param``'s autograd pairs;
+        ``glu``: in (gate | up) pairs where the shard is paired."""
+        n = math.prod(self.mesh.shape[a] for a in names)
+        pairs = glu and sharding.glu_paired(whole, n)
+        if pairs:
+            w = w.unflatten(d, (2, w.shape[d] // 2))
+        for a in reversed(names):                  # minor axis first
+            if self.mesh.shape[a] == 1:
+                continue
+            gather = (collectives.gather_from_group if a in self.batch_axes
+                      else collectives.gather_to_whole)
+            w = gather(w, self.group(a), d + pairs)
+        return w.flatten(d, d + 1) if pairs else w
+
+    def splits_model(self, name: str, shape) -> bool:
+        """Whether the rules split the leaf over ``model`` at all (alone
+        or with another axis)."""
+        return self.model > 1 and any(
+            "model" in sharding.axis_names(e)
+            for e in sharding.spec_of(name, tuple(shape)))
+
+    def reshard(self, w: torch.Tensor, dim: Optional[int],
+                want: Optional[int], glu: bool = False) -> torch.Tensor:
+        """``w`` (from ``param``: its ``model`` shard along ``dim``, or
+        whole) as the rank's ``model`` shard along ``want``, or whole
+        where ``want`` is None: the form a block runs in where the rules
+        place its leaf otherwise.  The shard is gathered whole
+        (``param``'s gather over ``model``); a shard cut from a whole leaf takes the
+        region's gradient share (``whole_in_region``), so that each
+        rank's gradient of the whole leaf is the sum of the ranks'.
+        ``glu``: the last dim is (gate | up), cut and gathered in pairs
+        (``sharding.glu_paired``)."""
+        if dim == want or self.model == 1:
+            return w
+        last = w.ndim - 1
+        if dim is not None:
+            w = self._gather(w, dim, ("model",), glu and dim == last,
+                             w.shape[dim] * self.model)
+        if want is None:
+            return w
+        w = self.whole_in_region(w)
+        pairs = glu and want == last
+        if pairs:
+            w = w.unflatten(want, (2, w.shape[want] // 2))
+        n = w.shape[want + pairs] // self.model
+        w = w.narrow(want + pairs, self.rank * n, n)
+        return w.flatten(want, want + 1) if pairs else w
 
     # -- regions over ``model`` ---------------------------------------------
     def begin(self, seq_len: int) -> None:
@@ -229,16 +294,24 @@ class Placement:
 
     def cache_shard(self, cfg, leaf: torch.Tensor) -> CacheShard:
         """Where this rank's cache leaf ``leaf`` lies in the whole cache
-        (``sharding.cache_placement``)."""
+        (``sharding.cache_placement``).  Positions shared out over
+        ``model`` alone are attended in place and merged; over other
+        axes too, gathered first (``CacheShard.gather``)."""
         whole, spec = sharding.cache_placement(leaf, cfg, self.mesh)
-        names = tuple(a for a in sharding.axis_names(spec[3])
-                      if self.mesh.shape[a] > 1)
-        if names not in ((), ("model",)):
-            raise NotPorted(f"a cache sequence split over {names} (ROADMAP "
-                            "item 7c)")
-        start = self.rank * leaf.shape[3] if names else 0
+        names, heads = (tuple(a for a in sharding.axis_names(spec[d])
+                              if self.mesh.shape[a] > 1) for d in (3, 2))
+        split = names == ("model",)
+        start = sharding.block_index(self.mesh, names) * leaf.shape[3]
         return CacheShard(every_head=leaf.shape[2] == cfg.n_kv_heads,
-                          start=start, length=whole[3], split=bool(names))
+                          start=start, length=whole[3], split=split,
+                          gather=() if split else names, heads=heads)
+
+    def gather_over(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """Every rank's ``t`` along ``dim`` over ``axes`` (minor first:
+        their block, major first), no gradient (a serving cache)."""
+        for a in reversed(axes):
+            t = collectives.all_gather(t, self.group(a), dim)
+        return t
 
     # -- recurrent state ---------------------------------------------------
     def _rows(self, n: int) -> "tuple[str, ...]":
@@ -256,11 +329,12 @@ class Placement:
         return spec, held, self._rows(whole[batch_dim])
 
     def read_state(self, cfg, leaf: torch.Tensor, batch_dim: int,
-                   chan_dim: int) -> torch.Tensor:
+                   chan_dim: int, split: bool = True) -> torch.Tensor:
         """A copy of a state leaf of the cache (in the reference's form,
         its channels whole over ``model``; placed by
         ``sharding.shard_cache``) at the rank's rows, as its batch holds
-        them, and its ``model`` share of the channels (dim ``chan_dim``).
+        them, and its ``model`` share of the channels (dim ``chan_dim``)
+        where the block runs on it (``split``), else every channel.
         A dim the form splits otherwise (an unstacked leaf's channels,
         which the reference splits over the batch axes) is gathered."""
         spec, held, rows = self._state_spec(cfg, leaf, batch_dim)
@@ -276,20 +350,22 @@ class Placement:
                                                 for a in rows)
             x = x.narrow(batch_dim, sharding.block_index(self.mesh, rows) * n,
                          n)
-        if self.model > 1:
+        if self.model > 1 and split:
             c = x.shape[chan_dim] // self.model
             x = x.narrow(chan_dim, self.rank * c, c)
         return x.clone(memory_format=torch.contiguous_format)
 
     def write_state(self, cfg, leaf: torch.Tensor, new: torch.Tensor,
-                    batch_dim: int, chan_dim: int) -> None:
+                    batch_dim: int, chan_dim: int,
+                    split: bool = True) -> None:
         """Write ``new`` (``read_state``'s form: the rank's rows and
-        channels) into the cache's leaf: gathered over ``model`` along the
-        channels, over the batch axes along the rows where the leaf holds
-        them all, then the leaf's shard of it."""
+        channels, every channel where not ``split``) into the cache's
+        leaf: gathered over ``model`` along the channels, over the batch
+        axes along the rows where the leaf holds them all, then the
+        leaf's shard of it."""
         spec, held, rows = self._state_spec(cfg, leaf, batch_dim)
         x = new
-        if self.model > 1:
+        if self.model > 1 and split:
             x = collectives.all_gather(x, self.group("model"), chan_dim)
         if rows != held:
             for a in reversed(rows):

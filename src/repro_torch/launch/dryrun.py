@@ -30,9 +30,9 @@ bound.  Where the reference lowers and compiles (``lower_s``,
 host seconds of building the cell (``build_s``) and of running it under
 the counter (``trace_s``), the counter's own totals (``cost_analysis``)
 and its table by kernel (``kernels``).  A cell the port cannot run, which
-raises ``repro_torch.NotPorted`` (a placement the port does not take:
-ROADMAP item 7c), is written with ``"status": "not_ported"`` and the
-refusal's text; any other error fails the cell.  Every cell of the pod
+raises ``repro_torch.NotPorted`` (a kernel's autograd refusal; every
+placement of the rules runs), is written with ``"status": "not_ported"``
+and the refusal's text; any other error fails the cell.  Every cell of the pod
 grid runs: all 64 are ``ok``.
 
 Usage:

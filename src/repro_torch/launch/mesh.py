@@ -145,6 +145,9 @@ class World:
     backend: str
     device: torch.device
     reason: str                  # why this backend
+    #: every rank on this host's one card: ``distributed.same_card``
+    #: moves the bytes of the gloo collectives on CUDA tensors
+    one_card: bool = False
 
 
 _WORLD: Optional[World] = None
@@ -198,7 +201,12 @@ def init_world(device=None, *, rank: Optional[int] = None,
         backend, init_method=init_method or "env://", rank=rank,
         world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout), **kw)
-    _WORLD = World(rank, world_size, backend, dev, reason)
+    one_card = (backend == "gloo" and dev.type == "cuda"
+                and torch.cuda.device_count() == 1
+                and local_size == world_size)
+    if one_card:
+        reason += "; collectives on the card"
+    _WORLD = World(rank, world_size, backend, dev, reason, one_card)
     print(f"init_world: rank {rank} of {world_size}, backend {backend} "
           f"({reason}), device {dev}", file=sys.stderr, flush=True)
     return _WORLD

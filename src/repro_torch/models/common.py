@@ -34,9 +34,9 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch import NotPorted
 from repro_torch.core import tree
 from repro_torch.core.fusion import linear
+from repro_torch.distributed import sharding
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.kernels.attention.ops import (decode_attention,
                                                decode_attention_merge,
@@ -301,12 +301,15 @@ def _qkv(cfg: ArchConfig, x, w, bias, norms, positions, kv_x=None):
     return q, k, v
 
 
-def rank_heads(cfg: ArchConfig, pl) -> "tuple[int, int, int, int]":
-    """(first q head, q heads, first KV head, KV heads) the rank attends
-    with under ``pl``, where ``wq``'s columns are split over ``model``:
-    its own q heads where they divide ``model``, else (gemma2-2b's 8 on
-    16) every head; the KV heads they read."""
-    m, r = pl.model, pl.rank
+def rank_heads(cfg: ArchConfig, pl, r=None) -> "tuple[int, int, int, int]":
+    """(first q head, q heads, first KV head, KV heads) the rank (``r`` of
+    ``model``, this one's where None) attends with under ``pl``, where
+    ``wq``'s columns are split over ``model``: its own q heads where they
+    divide ``model``, else (gemma2-2b's 8 on 16) every head; the KV heads
+    they read (where the q heads straddle KV groups, deepseek-67b's 6 q
+    heads of 2 KV groups on 3 ranks, the KV heads of every group they
+    touch: ``kv_of_q``)."""
+    m, r = pl.model, pl.rank if r is None else r
     gather_q = cfg.n_heads % m != 0
     hq = cfg.n_heads if gather_q else cfg.n_heads // m
     q0 = 0 if gather_q else r * hq
@@ -315,8 +318,33 @@ def rank_heads(cfg: ArchConfig, pl) -> "tuple[int, int, int, int]":
         return q0, hq, q0 // group, hq // group
     if group % hq == 0:
         return q0, hq, q0 // group, 1
-    raise NotPorted(f"{cfg.name}: {hq} q heads a rank do not map onto "
-                    f"whole KV groups of {group} (ROADMAP item 7c)")
+    k0 = q0 // group
+    return q0, hq, k0, (q0 + hq - 1) // group + 1 - k0
+
+
+def kv_of_q(cfg: ArchConfig, q0: int, hq: int):
+    """The KV head each of the q heads ``[q0, q0 + hq)`` reads, where
+    they straddle KV groups; None where they hold whole groups or share
+    one KV head (``attention`` groups them itself)."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    if hq % group == 0 or group % hq == 0:
+        return None
+    return [(q0 + i) // group for i in range(hq)]
+
+
+def attn_split(cfg: ArchConfig, pl) -> bool:
+    """Whether the rank runs the attention block on its heads (``wq``,
+    ``wk`` and ``wv`` by columns, ``wo`` by rows: ``_qkv_placed``,
+    ``attn_out``): where the rules split any of the four leaves over
+    ``model`` and ``model`` divides ``wq``'s columns.  Leaves placed
+    otherwise take that form (``Placement.reshard``).  Else every rank
+    runs every head on the whole leaves."""
+    if pl.model == 1 or cfg.q_dim % pl.model:
+        return False
+    d = cfg.d_model
+    return any(pl.splits_model(k, shape) for k, shape in (
+        ("wq", (d, cfg.q_dim)), ("wk", (d, cfg.kv_dim)),
+        ("wv", (d, cfg.kv_dim)), ("wo", (cfg.q_dim, d))))
 
 
 def _qkv_placed(cfg: ArchConfig, pl, p, x, positions, every_kv=False,
@@ -334,6 +362,8 @@ def _qkv_placed(cfg: ArchConfig, pl, p, x, positions, every_kv=False,
     on each rank: ``_attend_placed``), every KV head in one product, as
     the reference's one matmul does.  ``kv_x`` (a cross-attention's
     encoder output, whole on every rank) enters the region beside ``x``.
+    Leaves the rules place otherwise (``wq`` whole or by rows, ``wk`` and
+    ``wv`` by rows) are brought to that form first (``attn_split``).
     Where the rules keep the attention's leaves whole, under sequence
     parallelism the stream is gathered and every rank computes every
     head (``attn_out`` keeps its rows)."""
@@ -343,7 +373,9 @@ def _qkv_placed(cfg: ArchConfig, pl, p, x, positions, every_kv=False,
     wv, vd = pl.param(p["wv"], "wv", (d, cfg.kv_dim))
     bias = (p.get("bq"), p.get("bk"), p.get("bv"))
     norms = (p.get("q_norm"), p.get("k_norm"))
-    if qd is None and kd is None and vd is None:       # whole on every rank
+    if not attn_split(cfg, pl):                       # whole on every rank
+        wq, wk, wv = (pl.reshard(w_, dim, None)
+                      for w_, dim in ((wq, qd), (wk, kd), (wv, vd)))
         if pl.seq:      # every head over the gathered stream; every leaf's
             x = pl.gather_model(x, 1)  # gradient a share (attn_out's rows)
             kv_x, wq, wk, wv = (pl.whole_in_region(t)
@@ -351,9 +383,10 @@ def _qkv_placed(cfg: ArchConfig, pl, p, x, positions, every_kv=False,
             bias, norms = (tuple(pl.whole_in_region(t) for t in ts)
                            for ts in (bias, norms))
         return _qkv(cfg, x, (wq, wk, wv), bias, norms, positions, kv_x)
-    if qd != 1 or kd != vd:
-        raise NotPorted(f"{cfg.name}: q columns {qd} and KV columns {kd} "
-                        "over model in other forms (ROADMAP item 7c)")
+    wq = pl.reshard(wq, qd, 1)
+    kv = kd if kd == vd and kd in (1, None) else None
+    wk, wv = pl.reshard(wk, kd, kv), pl.reshard(wv, vd, kv)
+    kd = kv
     m, r = pl.model, pl.rank
     h = pl.enter(x)
     src = h if kv_x is None else pl.whole_in_region(kv_x)
@@ -385,6 +418,10 @@ def _qkv_placed(cfg: ArchConfig, pl, p, x, positions, every_kv=False,
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    each = None if every_kv else kv_of_q(cfg, q0, hq)
+    if each is not None:        # one KV head a q head, of the rank's
+        idx = [j - k0 for j in each]
+        k, v = k[:, idx], v[:, idx]
     return q, k, v
 
 
@@ -405,12 +442,16 @@ def cross_q_project(cfg: ArchConfig, p, x):
     whose K and V are cached.  Under a mesh, the rank's heads as
     ``qkv_project`` gives them."""
     pl = tp.current()
-    wq, qd = (p["wq"], None) if pl is None else pl.param(
-        p["wq"], "wq", (cfg.d_model, cfg.q_dim))
     route = _route(cfg, cross=True)
-    if qd is None:
+    if pl is None or not attn_split(cfg, pl):
+        wq = p["wq"]
+        if pl is not None:
+            wq = pl.reshard(*pl.param(wq, "wq", (cfg.d_model, cfg.q_dim)),
+                            None)
         q = linear(x, wq, p.get("bq"), backend=route)
     else:
+        wq = pl.reshard(*pl.param(p["wq"], "wq", (cfg.d_model, cfg.q_dim)),
+                        1)
         hq = rank_heads(cfg, pl)[1]
         q = _q_columns(cfg, pl, pl.enter(x), wq, p.get("bq"), hq, route)
     b, s, _ = x.shape
@@ -424,23 +465,76 @@ def self_attention(cfg: ArchConfig, p, h, positions, *, window: int,
     (k, v) is written in place at ``cache_pos``: a decode step (one new
     token) attends over it, a prefill over the prompt.  ``shard`` (under
     a mesh) says where the rank's cache lies in the whole: a cache of
-    every KV head goes through ``_attend_placed``."""
+    every KV head goes through ``_attend_placed``; a cache of other KV
+    heads than the rank computes, through ``held_heads``."""
     if shard is not None and shard.every_head:
         return _attend_placed(cfg, p, h, positions, window, kv_cache,
                               cache_pos, shard)
     q, k, v = qkv_project(cfg, p, h, positions)
     if kv_cache is None:
         return attention(cfg, q, k, v, causal=True, window=window)
-    if k.shape[1] != kv_cache[0].shape[1]:
-        raise NotPorted(
-            f"{cfg.name}: a cache of {kv_cache[0].shape[1]} KV heads "
-            f"where the rank computes {k.shape[1]} (ROADMAP item 7c)")
-    k_cache, v_cache = cache_update(*kv_cache, k, v, cache_pos)
+    pl = tp.current()
+    held = None if shard is None else held_heads(cfg, pl, shard, q,
+                                                 kv_cache)
+    if held is None:
+        k_cache, v_cache = cache_update(*kv_cache, k, v, cache_pos)
+    else:
+        write_heads(pl, kv_cache, k, v, held, cache_pos)
     if q.shape[2] == 1:                          # decode: one new token
+        if held is not None:
+            k_cache, v_cache = read_heads(pl, shard, kv_cache, held)
         return decode_attention(q, k_cache, v_cache, cache_pos + 1,
                                 sm_scale=cfg.sm_scale, window=window,
                                 softcap=cfg.attn_softcap)
     return attention(cfg, q, k, v, causal=True, window=window)
+
+
+def held_heads(cfg: ArchConfig, pl, shard, q, kv_cache):
+    """Where the ranks' caches hold other KV heads than they compute for
+    their q heads (the rules share the cache's KV heads out over other
+    axes than ``model`` alone, ``shard.heads``, or the ranks compute
+    every head): (the KV head each of this rank's K and V heads is, those
+    of every rank of ``model`` in its order where each computes its share
+    (None where each computes every head), the first head its cache
+    holds); else None.  Decided alike on every rank, as the gathers of
+    ``write_heads`` and ``read_heads`` need."""
+    def ids(r):
+        q0, hq, k0, hk = rank_heads(cfg, pl, r)
+        return kv_of_q(cfg, q0, hq) or list(range(k0, k0 + hk))
+    if q.shape[1] == cfg.n_heads:                # every q head on the rank
+        mine, every = list(range(cfg.n_kv_heads)), None
+    else:
+        every = [i for r in range(pl.model) for i in ids(r)]
+        mine = ids(pl.rank)
+    n = kv_cache[0].shape[1]
+    h0 = sharding.block_index(pl.mesh, shard.heads) * n
+    if shard.heads == ("model",) and mine == list(range(h0, h0 + n)):
+        return None
+    return mine, every, h0
+
+
+def write_heads(pl, kv_cache, k, v, held, pos: int, start: int = 0,
+                length: "int | None" = None):
+    """Write each of the cache's KV heads ``[h0, h0 + n)`` at ``pos``
+    (``cache_update``) from ``k`` and ``v`` (the rank's heads, ``held``
+    as ``held_heads`` gives it), every rank's gathered over ``model``
+    where each computes its share (a serving cache: no gradient)."""
+    ids, every, h0 = held
+    if every is not None:
+        k, v = (pl.gather_over(t, ("model",), 1) for t in (k, v))
+        ids = every
+    for j in range(h0, h0 + kv_cache[0].shape[1]):
+        i, c = ids.index(j), slice(j - h0, j - h0 + 1)
+        cache_update(kv_cache[0][:, c], kv_cache[1][:, c], k[:, i:i + 1],
+                     v[:, i:i + 1], pos, start, length)
+
+
+def read_heads(pl, shard, kv_cache, held):
+    """The cache's K and V at the KV heads the rank reads (``held`` as
+    ``held_heads`` gives it): every head gathered over the axes that
+    share them out (a serving cache: no gradient)."""
+    return tuple(pl.gather_over(c, shard.heads, 1)[:, held[0]]
+                 for c in kv_cache)
 
 
 def _attend_placed(cfg: ArchConfig, p, h, positions, window, kv_cache,
@@ -456,11 +550,12 @@ def _attend_placed(cfg: ArchConfig, p, h, positions, window, kv_cache,
     heads over the whole prompt (K2), as without a cache.  A decode step
     whose cache holds every position attends so over it; where the
     positions are shared out over ``model`` (``shard.split``), each rank
-    attends with every q head over its own positions (``split_decode``).
-    Every rank returns every head's context; ``attn_out`` takes its
-    rows.  Under sequence parallelism a prefill's K and V come from the
-    gathered prompt, so that the rank writes the rows of its cache
-    positions as without it."""
+    attends with every q head over its own positions (``split_decode``);
+    where other axes share them out, over every position, gathered
+    (``cache_view``).  Every rank returns every head's context;
+    ``attn_out`` takes its rows.  Under sequence parallelism a prefill's
+    K and V come from the gathered prompt, so that the rank writes the
+    rows of its cache positions as without it."""
     pl = tp.current()
     q, k, v = qkv_project(cfg, p, h, positions, every_kv=True)
     read = kv_read(cfg, pl, q)
@@ -471,18 +566,30 @@ def _attend_placed(cfg: ArchConfig, p, h, positions, window, kv_cache,
                          window=window)
     kw = dict(sm_scale=cfg.sm_scale, window=window, softcap=cfg.attn_softcap)
     if not shard.split:
+        k_cache, v_cache = cache_view(pl, shard, k_cache, v_cache)
         return decode_attention(q, k_cache[:, read], v_cache[:, read],
                                 cache_pos + 1, **kw)
     return split_decode(cfg, pl, q, k_cache, v_cache, cache_pos + 1,
                         shard.start, **kw)
 
 
-def kv_read(cfg: ArchConfig, pl, q) -> slice:
-    """The KV heads (of every one) that the rank's q heads read."""
+def cache_view(pl, shard, *caches):
+    """The cache tensors (B, Hkv, S, D) a decode step attends over: as
+    they are, or every position where axes other than ``model`` share
+    them out (``CacheShard.gather``)."""
+    if pl is None or not shard.gather:
+        return caches
+    return tuple(pl.gather_over(c, shard.gather, 2) for c in caches)
+
+
+def kv_read(cfg: ArchConfig, pl, q):
+    """The KV heads (of every one) that the rank's q heads read: a
+    slice, or one index a q head where they straddle KV groups."""
     if q.shape[1] == cfg.n_heads:                # every q head on the rank
         return slice(0, cfg.n_kv_heads)
-    _, _, k0, hk = rank_heads(cfg, pl)
-    return slice(k0, k0 + hk)
+    q0, hq, k0, hk = rank_heads(cfg, pl)
+    each = kv_of_q(cfg, q0, hq)
+    return slice(k0, k0 + hk) if each is None else each
 
 
 def split_decode(cfg: ArchConfig, pl, q, k_cache, v_cache, cache_len,
@@ -503,21 +610,24 @@ def split_decode(cfg: ArchConfig, pl, q, k_cache, v_cache, cache_len,
 
 def attn_out(cfg: ArchConfig, p, ctx):
     """ctx: (B, H, S, hd) -> (B, S, d).  Under a mesh, the rank's rows of
-    ``wo`` (row parallel), then the region's exit; ``wo`` whole under
-    sequence parallelism, the rank's share of the sequence of a context
-    every rank computed whole (``_qkv_placed``)."""
+    ``wo`` (row parallel), then the region's exit; ``wo`` whole where
+    every rank runs every head (``attn_split``), under sequence
+    parallelism on the rank's share of the sequence of a context every
+    rank computed whole (``_qkv_placed``)."""
     b, h, s, hd = ctx.shape
     ctx = ctx.transpose(1, 2).reshape(b, s, h * hd)
     pl = tp.current()
     if pl is None:
         return linear(ctx, p["wo"], backend=_mm_backend(cfg))
     wo, od = pl.param(p["wo"], "wo", (cfg.q_dim, cfg.d_model))
-    if od is None:
+    if not attn_split(cfg, pl):
+        wo = pl.reshard(wo, od, None)
         if pl.seq:
             ctx, wo = pl.seq_rows(ctx), pl.whole_in_region(wo)
         return linear(ctx, wo, backend=_mm_backend(cfg))
+    wo = pl.reshard(wo, od, 0)
     rows = cfg.q_dim // pl.model
-    if h * hd == cfg.q_dim and pl.model > 1:      # every head: the rank's
+    if h * hd == cfg.q_dim:                      # every head: the rank's
         ctx = ctx[..., pl.rank * rows:(pl.rank + 1) * rows]
     return row_parallel(cfg, pl, ctx, wo)
 
@@ -555,20 +665,25 @@ def mlp_init(cfg: ArchConfig, gen: torch.Generator, device=None):
 def mlp_apply(cfg: ArchConfig, p, x):
     """Under a mesh, ``wi``'s rank columns (a GLU's gate and up halves
     paired, ``sharding.shard_leaf``; a plain MLP's contiguous) and
-    ``wo``'s rows inside one region; where the rules keep both whole,
+    ``wo``'s rows inside one region, where the rules split either over
+    ``model`` and ``model`` divides d_ff: a leaf placed otherwise is
+    brought to that form (``Placement.reshard``).  Else both run whole:
     under sequence parallelism, the rank's rows of the stream through
     them (their gradients shares, ``whole_in_region``)."""
     wi, wo, region = p["wi"], p["wo"], None
     pl = tp.current()
     if pl is not None:
-        mult = 2 if cfg.mlp_glu else 1
-        wi, idim = pl.param(wi, "wi", (cfg.d_model, mult * cfg.d_ff))
-        wo, odim = pl.param(wo, "wo", (cfg.d_ff, cfg.d_model))
-        if (idim, odim) == (1, 0):
+        glu = cfg.mlp_glu
+        shapes = {"wi": (cfg.d_model, (2 if glu else 1) * cfg.d_ff),
+                  "wo": (cfg.d_ff, cfg.d_model)}
+        wi, idim = pl.param(wi, "wi", shapes["wi"], glu=glu)
+        wo, odim = pl.param(wo, "wo", shapes["wo"])
+        split = cfg.d_ff % pl.model == 0 and any(
+            pl.splits_model(k, v) for k, v in shapes.items())
+        wi = pl.reshard(wi, idim, 1 if split else None, glu)
+        wo = pl.reshard(wo, odim, 0 if split else None)
+        if split:
             region = pl
-        elif (idim, odim) != (None, None):
-            raise NotPorted(f"{cfg.name}: an MLP split as {idim}, {odim} "
-                            "over model (ROADMAP item 7c)")
         elif pl.seq:
             wi, wo = pl.whole_in_region(wi), pl.whole_in_region(wo)
     if region is not None:
@@ -594,6 +709,16 @@ def stream_leaf(t):
 # Embedding / logits.
 # ---------------------------------------------------------------------------
 
+def _vocab_placed(pl, w, name: str, shape, vocab: int):
+    """(the embedding or output leaf ``w`` gathered over the data axes,
+    whether it holds the rank's vocabulary range along dim ``vocab``):
+    where the rules split it over ``model`` and ``model`` divides the
+    vocabulary, that form (``Placement.reshard``); else whole."""
+    w, dim = pl.param(w, name, shape)
+    split = shape[vocab] % pl.model == 0 and pl.splits_model(name, shape)
+    return pl.reshard(w, dim, vocab if split else None), split
+
+
 def embed_tokens(cfg: ArchConfig, embedding, tokens):
     """Under a mesh, vocab-parallel: each rank looks up the tokens of its
     vocabulary range (zeros elsewhere) and the ranks' rows are summed
@@ -604,9 +729,9 @@ def embed_tokens(cfg: ArchConfig, embedding, tokens):
     if pl is None:
         x = embedding[tokens]
     else:
-        w, vd = pl.param(embedding, "embedding",
-                         (cfg.padded_vocab, cfg.d_model))
-        if vd is None:
+        w, split = _vocab_placed(pl, embedding, "embedding",
+                                 (cfg.padded_vocab, cfg.d_model), 0)
+        if not split:
             if pl.seq:
                 w, tokens = pl.whole_in_region(w), pl.seq_rows(tokens)
             x = w[tokens]
@@ -626,16 +751,17 @@ def embed_tokens(cfg: ArchConfig, embedding, tokens):
 def output_weight(cfg: ArchConfig, params, pl=None):
     """(the (d, V) output weight, whether it holds the rank's vocabulary
     columns): the tied embedding's transpose or ``lm_head``, gathered over
-    the data axes under a mesh."""
+    the data axes under a mesh (``_vocab_placed``)."""
+    v, d = cfg.padded_vocab, cfg.d_model
     if cfg.tie_embeddings:
-        w, vd = params["embedding"], None
+        w, split = params["embedding"], False
         if pl is not None:
-            w, vd = pl.param(w, "embedding", (cfg.padded_vocab, cfg.d_model))
-        return w.T, vd is not None
-    w, vd = params["lm_head"], None
+            w, split = _vocab_placed(pl, w, "embedding", (v, d), 0)
+        return w.T, split
+    w, split = params["lm_head"], False
     if pl is not None:
-        w, vd = pl.param(w, "lm_head", (cfg.d_model, cfg.padded_vocab))
-    return w, vd is not None
+        w, split = _vocab_placed(pl, w, "lm_head", (d, v), 1)
+    return w, split
 
 
 def logits_out(cfg: ArchConfig, params, x):

@@ -72,7 +72,6 @@ import math
 
 import torch
 
-from repro_torch import NotPorted
 from repro_torch.core.fusion import ACTIVATIONS, Epilogue, linear
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import common as cm
@@ -280,9 +279,12 @@ def moe_apply(cfg: ArchConfig, p, x, mesh=None):
 def _moe_expert_parallel(cfg: ArchConfig, pl, p, x):
     """The block on a rank of a placed model (the reference's
     ``shard_map`` branch on its data slice): ``x`` is the rank's rows,
-    capacity from their tokens over the whole sequence.  Where the
-    experts lie over ``model`` the rank runs its ``e_local`` from ``rank
-    * e_local`` behind the region's entry (which gathers the sequence
+    capacity from their tokens over the whole sequence.  Where the rules
+    split the expert leaves over ``model`` (in any dim, alone or with
+    another axis: the rank then takes its contiguous ``model`` block of
+    the experts, as the reference's ``shard_map`` reshards them to
+    ``P("model")``, ``Placement.reshard``) the rank runs its ``e_local``
+    from ``rank * e_local`` behind the region's entry (which gathers the sequence
     under sequence parallelism) and the partials are summed by the
     region's exit in the activation dtype, as the reference's ``psum``
     (a reduce-scatter along the sequence under sequence parallelism);
@@ -292,12 +294,18 @@ def _moe_expert_parallel(cfg: ArchConfig, pl, p, x):
     d = x.shape[-1]
     m = cfg.moe
     mult = 2 if cfg.mlp_glu else 1
-    router, _ = pl.param(p["w_router"], "w_router", (d, m.n_experts))
-    wi, ed = pl.param(p["experts_wi"], "experts_wi",
-                      (m.n_experts, d, mult * m.d_ff_expert))
-    wo, od = pl.param(p["experts_wo"], "experts_wo",
-                      (m.n_experts, m.d_ff_expert, d))
-    if ed is None and od is None:
+    router = pl.reshard(*pl.param(p["w_router"], "w_router",
+                                  (d, m.n_experts)), None)
+    shapes = {"experts_wi": (m.n_experts, d, mult * m.d_ff_expert),
+              "experts_wo": (m.n_experts, m.d_ff_expert, d)}
+    wi, ed = pl.param(p["experts_wi"], "experts_wi", shapes["experts_wi"],
+                      glu=cfg.mlp_glu)
+    wo, od = pl.param(p["experts_wo"], "experts_wo", shapes["experts_wo"])
+    split = m.n_experts % pl.model == 0 and any(
+        pl.splits_model(k, v) for k, v in shapes.items())
+    wi = pl.reshard(wi, ed, 0 if split else None, cfg.mlp_glu)
+    wo = pl.reshard(wo, od, 0 if split else None)
+    if not split:
         if pl.seq:
             router, wi, wo = (pl.whole_in_region(t) for t in (router, wi, wo))
             x = pl.gather_model(x, 1)
@@ -305,9 +313,6 @@ def _moe_expert_parallel(cfg: ArchConfig, pl, p, x):
         out = moe_apply_local(cfg, x.reshape(-1, d), router, wi, wo, 0,
                               moe_capacity(cfg, b * s)).reshape(b, s, d)
         return pl.seq_rows(out)
-    if (ed, od) != (0, 0):
-        raise NotPorted(f"{cfg.name}: expert leaves split over model along "
-                        f"dims {ed}, {od} (ROADMAP item 7c)")
     e_local = m.n_experts // pl.model
     xs = pl.enter(x)
     b, s, _ = xs.shape
@@ -399,8 +404,9 @@ def _gspmd_axes(cfg: ArchConfig, mesh):
     more than one rank, under ``_rules_of(mesh)``.  The order: the batch
     axes major first (each rank's rows, by reduce-scatters), then the
     others in the mesh's order.  A dim may be split over several axes
-    (the rank's block, major first); expert leaves split unlike each
-    other raise ``NotPorted``."""
+    (the rank's block, major first).  Each expert's d_ff axes are
+    ``experts_wi``'s, which ``experts_wo`` holds, perhaps with more
+    (``_moe_gspmd``)."""
     from repro_torch.distributed import logical, sharding
     m = cfg.moe
     mult = 2 if cfg.mlp_glu else 1
@@ -415,10 +421,14 @@ def _gspmd_axes(cfg: ArchConfig, mesh):
     def axes(entry):
         return tuple(a for a in sharding.axis_names(entry)
                      if mesh.shape[a] > 1)
+    # the experts take their axes first in both leaves; each expert's
+    # d_ff comes after d_model in experts_wi and before it in experts_wo,
+    # so that wi's d_ff axes are wo's less those d_model took in wi: the
+    # partials split over wi's (``_moe_gspmd`` gathers wo's others)
     e_axes, f_axes = axes(wi[0]), axes(wi[2])
-    if (axes(wo[0]), axes(wo[1])) != (e_axes, f_axes):
-        raise NotPorted(f"{cfg.name}: experts_wi split as {wi}, experts_wo "
-                        f"as {wo} (ROADMAP item 7c)")
+    if cfg.mlp_glu and not sharding.glu_paired(
+            mult * m.d_ff_expert, math.prod(mesh.shape[a] for a in f_axes)):
+        f_axes = ()         # halves that do not split: each d_ff whole
     split = e_axes + f_axes
     order = ([a for a in batch if a in split]
              + [a for a in mesh.axis_names if a in split and a not in batch])
@@ -454,12 +464,32 @@ def _moe_gspmd(cfg: ArchConfig, pl, p, x):
     m = cfg.moe
     mesh = pl.mesh
     mult = 2 if cfg.mlp_glu else 1
-    router, _ = pl.param(p["w_router"], "w_router", (d, m.n_experts))
-    wi, _ = pl.param(p["experts_wi"], "experts_wi",
-                     (m.n_experts, d, mult * m.d_ff_expert), keep=(0, 2))
-    wo, _ = pl.param(p["experts_wo"], "experts_wo",
-                     (m.n_experts, m.d_ff_expert, d), keep=(0, 1))
-    e_axes, _, order = _gspmd_axes(cfg, mesh)
+    router = pl.reshard(*pl.param(p["w_router"], "w_router",
+                                  (d, m.n_experts)), None)
+    e_axes, f_axes, order = _gspmd_axes(cfg, mesh)
+    wi_shape = (m.n_experts, d, mult * m.d_ff_expert)
+    wo_shape = (m.n_experts, m.d_ff_expert, d)
+    wi_f, wo_f = (tuple(a for a in sharding.axis_names(
+        sharding.spec_of(k, shape)[dim]) if mesh.shape[a] > 1)
+        for k, shape, dim in (("experts_wi", wi_shape, 2),
+                              ("experts_wo", wo_shape, 1)))
+    if wi_f == f_axes:
+        wi, _ = pl.param(p["experts_wi"], "experts_wi", wi_shape,
+                         keep=(0, 2))
+    else:           # GLU halves that do not split: each d_ff whole
+        wi = pl.reshard(*pl.param(p["experts_wi"], "experts_wi", wi_shape,
+                                  keep=(0,), glu=cfg.mlp_glu), None,
+                        cfg.mlp_glu)
+    if wo_f == f_axes:
+        wo, _ = pl.param(p["experts_wo"], "experts_wo", wo_shape,
+                         keep=(0, 1))
+    else:       # d_ff over axes d_model took in experts_wi: whole, then
+        wo = pl.reshard(*pl.param(p["experts_wo"], "experts_wo", wo_shape,
+                                  keep=(0,)), None)      # wi's block of it
+        if "model" in f_axes:
+            wo = pl.whole_in_region(wo)
+        n = wo.shape[1] // math.prod(mesh.shape[a] for a in f_axes)
+        wo = wo.narrow(1, sharding.block_index(mesh, f_axes) * n, n)
     seq = pl.seq
     across = [a for a in order if a not in pl.batch_axes]
     for a in across:

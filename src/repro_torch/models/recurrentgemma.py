@@ -50,7 +50,6 @@ import sys
 
 import torch
 
-from repro_torch import NotPorted
 from repro_torch.core import tree
 from repro_torch.core.fusion import linear
 from repro_torch.distributed import tensor_parallel as tp
@@ -139,28 +138,46 @@ def _rglru_stateful(cfg: ArchConfig, log_a, gated, h0):
     return rglru_ref(log_a, gated, initial_state=h0)
 
 
+def _rec_leaves(cfg: ArchConfig) -> dict:
+    """The recurrent block's projections: {leaf: (whole shape, the dim its
+    ``model`` shard lies along in the column/row form)}."""
+    d, c = cfg.d_model, cfg.rnn.d_rnn
+    return {"w_gate_in": ((d, c), 1), "w_rnn_in": ((d, c), 1),
+            "w_rnn_out": ((c, d), 0)}
+
+
+def rec_split(cfg: ArchConfig, pl) -> bool:
+    """Whether the rank runs the recurrent block on its share of the
+    channels: where the rules split any of its projections over
+    ``model`` and ``model`` divides d_rnn (a projection placed otherwise
+    is brought to the column/row form, ``Placement.reshard``); else
+    every rank runs every channel on the whole leaves, and its state
+    holds every channel (``_rank_states``)."""
+    return (pl.model > 1 and cfg.rnn.d_rnn % pl.model == 0
+            and any(pl.splits_model(k, shape)
+                    for k, (shape, _) in _rec_leaves(cfg).items()))
+
+
 def rec_block_apply(cfg: ArchConfig, p, x, state=None):
     """x: (B, T, d).  state: {conv: (B, W-1, C), h: (B, C)} or None: on a
-    rank of a mesh, its rows and its channels of them.  Where the rules
-    keep the block's leaves whole, under sequence parallelism every rank
-    runs it over the gathered stream and keeps its rows."""
+    rank of a mesh, its rows and its channels of them (``rec_split``).
+    Where the rules keep the block's leaves whole, under sequence
+    parallelism every rank runs it over the gathered stream and keeps
+    its rows."""
     w_gate, w_rnn, w_out = p["w_gate_in"], p["w_rnn_in"], p["w_rnn_out"]
     conv_w, conv_b = p["conv_w"], p["conv_b"]
     pl, span, rows = tp.current(), None, False
     if pl is not None:
-        d, c = cfg.d_model, cfg.rnn.d_rnn
-        w_gate, gd = pl.param(w_gate, "w_gate_in", (d, c))
-        w_rnn, rd = pl.param(w_rnn, "w_rnn_in", (d, c))
-        w_out, od = pl.param(w_out, "w_rnn_out", (c, d))
-        if (gd, rd, od) == (1, 1, 0):
-            cols = c // pl.model
+        split = rec_split(cfg, pl)
+        w_gate, w_rnn, w_out = (
+            pl.reshard(*pl.param(p[k], k, shape), dim if split else None)
+            for k, (shape, dim) in _rec_leaves(cfg).items())
+        if split:
+            cols = cfg.rnn.d_rnn // pl.model
             span = slice(pl.rank * cols, (pl.rank + 1) * cols)
             x = pl.enter(x)
             conv_w, conv_b = (pl.whole_in_region(t)[..., span]
                               for t in (conv_w, conv_b))
-        elif (gd, rd, od) != (None, None, None):
-            raise NotPorted(f"{cfg.name}: a recurrent block split as {gd}, "
-                            f"{rd}, {od} over model (ROADMAP item 7c)")
         elif pl.seq:            # each leaf's gradient a share of the rows'
             p = {k: pl.whole_in_region(v) for k, v in p.items()}
             w_gate, w_rnn, w_out = (pl.whole_in_region(t)
@@ -285,6 +302,7 @@ def _ring_attention(cfg: ArchConfig, p, h, positions, state, pos: int,
         return cm.attention(cfg, q, k[:, read], v[:, read], causal=True,
                             window=cfg.window)
     if not shard.split:
+        k_c, v_c = cm.cache_view(pl, shard, k_c, v_c)
         return _ring_decode(cfg, q, k_c[:, read], v_c[:, read], pos)
     return cm.split_decode(cfg, pl, q, k_c, v_c, min(pos + 1, cfg.window),
                            shard.start, sm_scale=cfg.sm_scale)
@@ -371,8 +389,10 @@ _ROWS = {"triples": 1, "tail": 0}
 
 def _rank_states(cfg: ArchConfig, pl, states):
     """``states`` with each recurrent leaf as the rank's copy of its rows
-    and channels (``Placement.read_state``); the rings as they are."""
-    return {group: tuple({k: pl.read_state(cfg, x, rows, -1)
+    and the channels its block runs on (``Placement.read_state``,
+    ``rec_split``); the rings as they are."""
+    split = rec_split(cfg, pl)
+    return {group: tuple({k: pl.read_state(cfg, x, rows, -1, split)
                           for k, x in st.items()} if "h" in st else st
                          for st in states[group])
             for group, rows in _ROWS.items()}
@@ -381,11 +401,12 @@ def _rank_states(cfg: ArchConfig, pl, states):
 def _write_states(cfg: ArchConfig, pl, states, work) -> None:
     """Each recurrent leaf of ``work`` back into ``states``' cache leaf
     (``Placement.write_state``)."""
+    split = rec_split(cfg, pl)
     for group, rows in _ROWS.items():
         for st, new in zip(states[group], work[group]):
             if "h" in st:
                 for k in st:
-                    pl.write_state(cfg, st[k], new[k], rows, -1)
+                    pl.write_state(cfg, st[k], new[k], rows, -1, split)
 
 
 def forward(cfg: ArchConfig, params, batch, return_hidden: bool = False):

@@ -60,11 +60,11 @@ the mix over the gathered stream and keeps its rows.
 from __future__ import annotations
 
 import functools
+import math
 import sys
 
 import torch
 
-from repro_torch import NotPorted
 from repro_torch.core.fusion import linear
 from repro_torch.distributed import collectives
 from repro_torch.distributed import tensor_parallel as tp
@@ -173,15 +173,18 @@ def _shift(x, last=None):
 
 
 def _placed(cfg: ArchConfig, pl, p, spec):
-    """The rank's shards of the projections ``spec`` names ({leaf: whole
-    shape}) and whether they are split over ``model``: all of them in
-    the reference's column/row form, or none."""
-    got = {k: pl.param(p[k], k, shape) for k, shape in spec.items()}
-    dims = [dim for _, dim in got.values()]
-    if any(dim is not None for dim in dims) and None in dims:
-        raise NotPorted(f"{cfg.name}: {dict(zip(spec, dims))} over model "
-                        "(ROADMAP item 7c)")
-    return {k: w for k, (w, _) in got.items()}, dims[0] is not None
+    """The rank's shards of the projections ``spec`` names ({leaf: (whole
+    shape, the dim its ``model`` shard lies along in the reference's
+    column/row form)}) and whether they are split over ``model``: where
+    the rules split any of them over ``model`` and ``model`` divides
+    each such dim, every one in that form, those the rules place
+    otherwise brought to it (``Placement.reshard``); else all whole."""
+    got = {k: pl.param(p[k], k, shape) for k, (shape, _) in spec.items()}
+    split = (any(pl.splits_model(k, shape) for k, (shape, _) in spec.items())
+             and all(shape[dim] % pl.model == 0
+                     for shape, dim in spec.values()))
+    return {k: pl.reshard(w, dim, spec[k][1] if split else None)
+            for k, (w, dim) in got.items()}, split
 
 
 def _whole(pl, p, w, x):
@@ -193,17 +196,19 @@ def _whole(pl, p, w, x):
             pl.gather_model(x, 1))
 
 
-def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
+def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None,
+             state_axes=((), ())):
     """x: (B, T, d) -> (out, the whole sequence's x[:, -1], new WKV state).
 
     Without ``wkv_state`` the WKV runs as a sequence from a zero state
     (``forward``) and the new state is None; with it, statefully
-    (serving).  On a rank of a mesh, the rank's heads, and
-    ``wkv_state`` its heads' share; where ``model`` does not divide the
-    heads, every head, from the state's share of the key channels (or
-    the whole state), and the new state is that share; under sequence
-    parallelism ``x`` and the output are the rank's share of the
-    sequence.
+    (serving).  On a rank of a mesh, the rank's heads; where ``model``
+    does not divide the heads, or the rules keep the projections whole,
+    every head.  ``wkv_state`` is the rank's shard of the cache's leaf,
+    whose heads and key channels ``state_axes`` share out
+    (``_state_axes``), and the new state is that shard
+    (``_state_read`` / ``_state_write``); under sequence parallelism
+    ``x`` and the output are the rank's share of the sequence.
     """
     d = x.shape[-1]
     rw = cfg.rwkv
@@ -212,7 +217,8 @@ def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
     w = {k: p[k] for k in names}
     pl, split, rows, every = tp.current(), False, False, False
     if pl is not None:
-        w, split = _placed(cfg, pl, p, dict.fromkeys(names, (d, d)))
+        w, split = _placed(cfg, pl, p, {k: ((d, d), 0 if k == "w_o" else 1)
+                                        for k in names})
         if split:
             x = pl.gather_stream(x)
         elif pl.seq:
@@ -220,6 +226,7 @@ def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
             rows = True
     b, t, _ = x.shape
     side = {k: p[k] for k in ("decay_w2", "w0", "u", "ln_x", "ln_x_b")}
+    heads = (0, h)                       # the heads the rank computes
     if split:
         every = h % pl.model != 0
         n = d // pl.model
@@ -227,6 +234,7 @@ def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
         side = {k: pl.whole_in_region(v) for k, v in side.items()}
         if not every:
             h //= pl.model
+            heads = (pl.rank * h, h)
             side = {k: v[pl.rank * h:(pl.rank + 1) * h] if k == "u"
                     else v[..., cols] for k, v in side.items()}
     xx = _shift(x, shift_state) - x
@@ -251,29 +259,84 @@ def time_mix(cfg: ArchConfig, p, x, shift_state=None, wkv_state=None):
                                 + w_dyn.float(), -8.0, 6.0))
     if every:                    # whole heads from every rank's columns
         r, k, v = (pl.gather_model(z, -1) for z in (r, k, v))
-        keys = None if wkv_state is None else wkv_state.shape[2]
-        if keys is not None and keys != rw.head_size:
-            wkv_state = collectives.all_gather(wkv_state, pl.group("model"),
-                                               2)
+    held = wkv_state
+    mine = ("model",) if split and not every else ()  # computed heads' axes
+    if pl is not None and wkv_state is not None:
+        wkv_state = _state_read(pl, wkv_state, state_axes, mine, heads)
 
-    def heads(z):
+    def heads_of(z):
         return z.reshape(b, t, h, rw.head_size).transpose(1, 2)
 
-    args = (heads(r), heads(k), heads(v), heads(lw), side["u"])
+    args = (heads_of(r), heads_of(k), heads_of(v), heads_of(lw), side["u"])
     if wkv_state is None:
         o, wkv_new = _wkv(cfg, *args), None
     else:
         o, wkv_new = _wkv_stateful(cfg, *args, wkv_state)
     o = o.transpose(1, 2).reshape(b, t, h * rw.head_size)
     o = cm.groupnorm_heads(o, side["ln_x"], side["ln_x_b"], h)
-    if every:                    # the rank's key channels and columns
-        if wkv_new is not None and keys != rw.head_size:
-            wkv_new = wkv_new.narrow(2, pl.rank * keys, keys)
+    if pl is not None and wkv_new is not None:
+        wkv_new = _state_write(pl, wkv_new, held, state_axes, mine)
+    if every:                    # the rank's columns
         o = o[..., cols]
     if split:
         return cm.row_parallel(cfg, pl, o * g, w["w_o"]), x[:, -1], wkv_new
     out = linear(o * g, w["w_o"])
     return (pl.seq_rows(out) if rows else out), x[:, -1], wkv_new
+
+
+def _state_axes(cfg: ArchConfig, pl, leaf) -> "tuple[tuple, tuple]":
+    """(the axes that share out the heads, those that share out the key
+    channels) of the cache's WKV state leaf (L, B, H, K, V), each of more
+    than one rank (``sharding.cache_placement``: the reference's form,
+    the heads over ``kv_heads``' axes, else the key channels over
+    ``heads``')."""
+    from repro_torch.distributed import sharding
+    _, spec = sharding.cache_placement(leaf, cfg, pl.mesh)
+    return tuple(tuple(a for a in sharding.axis_names(spec[d])
+                       if pl.mesh.shape[a] > 1) for d in (2, 3))
+
+
+def _held(pl, axes, n: int) -> "tuple[int, int]":
+    """(first, count) of the ``n`` rows a state dim shared out over
+    ``axes`` gives this rank."""
+    from repro_torch.distributed import sharding
+    count = n // math.prod(pl.mesh.shape[a] for a in axes)
+    return sharding.block_index(pl.mesh, axes) * count, count
+
+
+def _state_read(pl, state, axes, mine, heads):
+    """The state of the heads the rank computes (``heads``: first, count;
+    ``mine``: the axes its computed heads are shared out over), every key
+    channel, from its shard ``state`` (B, H', K', V) of a leaf whose heads
+    and key channels ``axes`` share out: where they share the heads out
+    otherwise, gathered over them and cut to those heads (serving: no
+    gradient).  Decided alike on every rank."""
+    head_axes, key_axes = axes
+    if head_axes != mine:
+        for a in reversed(head_axes):
+            state = collectives.all_gather(state, pl.group(a), 1)
+        state = state.narrow(1, *heads)
+    for a in reversed(key_axes):
+        state = collectives.all_gather(state, pl.group(a), 2)
+    return state
+
+
+def _state_write(pl, new, held, axes, mine):
+    """``new`` (the computed heads' state, every key channel) as the
+    rank's shard of the leaf, ``held``'s shape: where the leaf shares its
+    heads out otherwise than the computed heads (``mine``), every rank's
+    computed heads gathered over ``model`` (each computes its block) and
+    its own kept; its block of the key channels."""
+    head_axes, key_axes = axes
+    if head_axes != mine:
+        if mine:
+            new = collectives.all_gather(new, pl.group("model"), 1)
+        whole = held.shape[1] * math.prod(pl.mesh.shape[a]
+                                          for a in head_axes)
+        new = new.narrow(1, *_held(pl, head_axes, whole))
+    if key_axes:
+        new = new.narrow(2, *_held(pl, key_axes, new.shape[2]))
+    return new
 
 
 def channel_mix(cfg: ArchConfig, p, x, shift_state=None):
@@ -285,8 +348,9 @@ def channel_mix(cfg: ArchConfig, p, x, shift_state=None):
     w = {k: p[k] for k in ("w_cm_k", "w_cm_v", "w_cm_r")}
     pl, split, rows = tp.current(), False, False
     if pl is not None:
-        w, split = _placed(cfg, pl, p, {"w_cm_k": (d, ff), "w_cm_v": (ff, d),
-                                        "w_cm_r": (d, d)})
+        w, split = _placed(cfg, pl, p, {"w_cm_k": ((d, ff), 1),
+                                        "w_cm_v": ((ff, d), 0),
+                                        "w_cm_r": ((d, d), 1)})
         if split:
             x = pl.gather_stream(x)
         elif pl.seq:
@@ -359,10 +423,11 @@ def init_cache(cfg: ArchConfig, batch_size: int, max_len: int, dtype=None,
     }
 
 
-def _stateful_block(cfg: ArchConfig, lp, x, tm_s, cm_s, wkv_s):
+def _stateful_block(cfg: ArchConfig, lp, x, tm_s, cm_s, wkv_s,
+                    state_axes=((), ())):
     """One block with explicit state -> (x, tm_shift, cm_shift, wkv)."""
     hh = _ln(x, lp["ln1"], lp["ln1_b"])
-    tm, tm_new, wkv_new = time_mix(cfg, lp, hh, tm_s, wkv_s)
+    tm, tm_new, wkv_new = time_mix(cfg, lp, hh, tm_s, wkv_s, state_axes)
     x = x + tm
     hh = _ln(x, lp["ln2"], lp["ln2_b"])
     cmix, cm_new = channel_mix(cfg, lp, hh, cm_s)
@@ -373,10 +438,11 @@ def _run_stateful(cfg: ArchConfig, params, tokens, cache):
     pl = tp.begin_pass(tokens.shape[1])
     x = cm.embed_tokens(cfg, params["embedding"], tokens)
     x = _ln(x, params["ln_in"], params["ln_in_b"])
+    axes = ((), ()) if pl is None else _state_axes(cfg, pl, cache["wkv"])
     for j in range(cfg.n_layers):
         x, *new = _stateful_block(cfg, cm.layer(params["layers"], j), x,
                                   cache["tm_shift"][j], cache["cm_shift"][j],
-                                  cache["wkv"][j])
+                                  cache["wkv"][j], axes)
         for key, value in zip(("tm_shift", "cm_shift", "wkv"), new):
             cache[key][j].copy_(value)
     if pl is not None:                      # the last token's rank's share

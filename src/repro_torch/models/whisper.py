@@ -202,13 +202,20 @@ def _cross_attention(cfg: ArchConfig, p, h, enc_out, cross_kv, shard):
     projects q alone and attends over the cache: every q head over the
     rank's positions, merged over ``model``, where ``shard.split``."""
     pl = tp.current()
+    every = shard is not None and shard.every_head
     if enc_out is not None:
-        every = shard is not None and shard.every_head
         q, k, v = cm.qkv_project(cfg, p, h, None, every_kv=every,
                                  kv_x=enc_out)
         if cross_kv is not None:
             k, v = (t.to(cross_kv[0].dtype) for t in (k, v))
-            cm.cache_update(*cross_kv, k, v, 0, shard.start, shard.length)
+            held = None if pl is None or every else cm.held_heads(
+                cfg, pl, shard, q, cross_kv)
+            if held is None:
+                cm.cache_update(*cross_kv, k, v, 0, shard.start,
+                                shard.length)
+            else:
+                cm.write_heads(pl, cross_kv, k, v, held, 0, shard.start,
+                               shard.length)
         read = cm.kv_read(cfg, pl, q) if every else slice(None)
         return cm.attention(cfg, q, k[:, read], v[:, read], causal=False)
     q = cm.cross_q_project(cfg, p, h)
@@ -216,7 +223,12 @@ def _cross_attention(cfg: ArchConfig, p, h, enc_out, cross_kv, shard):
     if shard.split:
         return cm.split_decode(cfg, pl, q, kc, vc, shard.length,
                                shard.start, sm_scale=cfg.sm_scale)
-    read = cm.kv_read(cfg, pl, q) if shard.every_head else slice(None)
+    read = cm.kv_read(cfg, pl, q) if every else slice(None)
+    held = None if pl is None or every else cm.held_heads(cfg, pl, shard, q,
+                                                          cross_kv)
+    if held is not None:          # the KV heads it reads, from every rank
+        kc, vc = cm.read_heads(pl, shard, cross_kv, held)
+    kc, vc = cm.cache_view(pl, shard, kc, vc)
     return cm.attention(cfg, q, kc[:, read], vc[:, read], causal=False)
 
 

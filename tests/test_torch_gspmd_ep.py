@@ -52,9 +52,8 @@ torch = pytest.importorskip("torch")
 import repro.models.moe as j_moe                              # noqa: E402
 from repro.configs.registry import get_config as j_get_config  # noqa: E402
 from repro.models.base import family_module as j_family       # noqa: E402
-from repro_torch import NotPorted                             # noqa: E402
 from repro_torch.configs.registry import get_config           # noqa: E402
-from repro_torch.core import tree                             # noqa: E402
+from repro_torch.core import hlo_cost, tree                   # noqa: E402
 from repro_torch.distributed import logical, sharding         # noqa: E402
 from repro_torch.launch import dryrun                         # noqa: E402
 from repro_torch.launch.mesh import abstract_mesh, rank_view  # noqa: E402
@@ -185,27 +184,36 @@ class TestInProcess:
     def test_refusals(self):
         """The ``shard_map`` form with a dim split over ``model`` and
         another axis (the experts over every rank, which the reference
-        reshards to ``P("model")`` there) raises ``NotPorted`` naming item
-        7c on a rank; the GSPMD form takes it."""
+        reshards to ``P("model")`` there), refused until the port took
+        it, runs on every rank of (2, 2): a prefill and a decode step,
+        the logits the GSPMD form's shape, and the same K4 launches a
+        rank as the shard_map form of the default rules, its ``model``
+        block of the experts.  Its numbers against the reference's and
+        the GSPMD form's: ``tests/test_torch_placement_forms.py``."""
         _, tcfg, _, _, _ = _moe_case("olmoe-1b-7b", CAP)
-        rules = {"experts": ("data", "model")}
-        view = rank_view((2, 2), ("data", "model"), (1, 1))
         mod = family_module(tcfg)
         tokens = torch.zeros((2, 8), dtype=torch.int32, device="meta")
-        for shard_map in (True, False):
-            cfg = tcfg.with_(moe_shard_map=shard_map)
-            with logical.use_rules(view, rules):
-                params = sharding.shard_params(mod.init(cfg, None, "meta"),
-                                               view, rules, glu=True)
-                cache = sharding.shard_cache(mod.init_cache(
-                    cfg, 4, 16, device="meta"), view, cfg, rules)
-                if shard_map:
-                    with pytest.raises(NotPorted, match="item 7c"):
-                        mod.prefill(cfg, params, {"tokens": tokens}, cache)
-                else:
-                    logits, _ = mod.prefill(cfg, params, {"tokens": tokens},
-                                            cache)
-                    assert logits.shape == (2, cfg.padded_vocab)
+        for coord in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            view = rank_view((2, 2), ("data", "model"), coord)
+            got = {}
+            for name, rules, shard_map in (
+                    ("every", {"experts": ("data", "model")}, True),
+                    ("gspmd", {"experts": ("data", "model")}, False),
+                    ("default", None, True)):
+                cfg = tcfg.with_(moe_shard_map=shard_map)
+                with logical.use_rules(view, rules):
+                    params = sharding.shard_params(
+                        mod.init(cfg, None, "meta"), view, rules, glu=True)
+                    cache = sharding.shard_cache(mod.init_cache(
+                        cfg, 4, 16, device="meta"), view, cfg, rules)
+                    with hlo_cost.counting() as counter:
+                        logits, cache = mod.prefill(
+                            cfg, params, {"tokens": tokens}, cache)
+                        logits, _ = mod.decode_step(cfg, params,
+                                                    tokens[:, :1], cache, 8)
+                got[name] = (logits.shape, counter.cost.kernels)
+            assert got["every"][0] == got["gspmd"][0] == (2, cfg.padded_vocab)
+            assert got["every"][1] == got["default"][1]
 
     def test_expert_shards_pair_gate_and_up(self):
         """Rank (d, m)'s ``experts_wi`` holds its data block of experts and,
