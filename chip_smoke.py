@@ -216,6 +216,25 @@ Run from the root of a checkout.  Phases, each printing one JSON line:
                 the Hopper Eq. 2 tile beside K1's compiled tile.  Phase
                 ``kernels`` counts one call each of K3, K5 and K6 on the
                 card and on meta the same way;
+23b. examples  — the six port-side examples (``examples/<name>_torch.py``)
+                through their ``main`` on the card at the reference
+                scripts' sizes: sim_timeline (the int8 PANEL graph, one K1
+                launch a matrix tile, bit for bit against ``cute_matmul``
+                on the torch route), cluster_scaling (``--units 4``,
+                ``kernel`` and ``sharded`` for the three strategies bit
+                for bit against the exact int32 product),
+                serving_policies (host pricing), quickstart (the engine
+                and the kernel route within 3e-2 of the torch route, the
+                pipelined fp32 tiles within 1e-5 of the plain product);
+                serve_batched (yi-6b, rwkv6-7b, recurrentgemma-2b
+                reduced, fp32: the kernel route's greedy tokens equal the
+                torch route's); the roofline report
+                (``launch/roofline.py``) over yi-6b's one-card dry-run
+                cells, written meanwhile in subprocesses; then train_lm
+                alone at its default width (~100M parameters) to 110
+                steps, then to 120 resuming from its step-100
+                checkpoint, its first 3 losses against the torch route's;
+                K1, K2, K5 and K6 launches by tile;
 24. the ``kernels`` line: per kernel, its launches in the paths above, its
    time at the paths' largest shapes beside its plain version, a library
    call and its roofline bound; K1 at prefill (tensor-core tile), decode
@@ -938,6 +957,23 @@ DIST_FORMS = {
     "rwkv-embed-model": (RWKV_ARCH, 2, {"embed": "model"}, {}),
     "griffin-mlp-none": (GRIFFIN_ARCH, 3, {"mlp": None}, {}),
 }
+# the port-side examples (phase examples): each ``examples/<name>_torch.py``
+# run through its ``main`` on the card at the reference script's sizes
+# (cluster_scaling at --units 4); the roofline report over yi-6b's
+# one-card dry-run cells, written by ``launch/dryrun.py`` in subprocesses
+# on the host beside the examples; then train_lm at its default width to
+# EXAMPLES_TRAIN_STEPS[0] steps, then again to [1], resuming from the
+# checkpoint written at step 100, and its first EXAMPLES_TRAIN_ROUTE_STEPS
+# steps again on the torch route (losses within TOL_TRAIN_LOSS)
+EXAMPLES_UNITS = 4
+EXAMPLES_TRAIN_STEPS = (110, 120)
+EXAMPLES_TRAIN_ROUTE_STEPS = 3
+EXAMPLES_DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+#: quickstart's engine against its kernel route (tests/test_matmul_kernel.py)
+TOL_EXAMPLES_BF16 = 3e-2
+#: sim_timeline's graph (int32 tiles, then the SiLU-GLU in tensor ops)
+#: against the fused kernel's epilogue (expf in registers)
+TOL_EXAMPLES_FP32 = 1e-6
 PROFILE_STEPS, UNTRACED_STEPS = 4, 16
 MAX_ROWS_DECODE = 8                 # K1's decode tile serves M <= 8
 # the tiled kernels' tiles, each by substrings of its kernel names in a
@@ -7370,6 +7406,313 @@ def phase_dryrun(smi_line):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase examples: the port-side examples on the card.
+# ---------------------------------------------------------------------------
+
+def example_module(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod         # dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _dryrun_cells(out_dir: Path):
+    """yi-6b's one-card dry-run cells (``EXAMPLES_DRYRUN_SHAPES``), one
+    subprocess a cell on the host (meta tensors; the card hidden)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return {shape: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+         "--shape", shape, "--mesh", "h100", "--out", str(out_dir)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for shape in EXAMPLES_DRYRUN_SHAPES}
+
+
+def phase_examples(smi_line):
+    """The six port-side examples (``examples/<name>_torch.py``) through
+    their ``main`` on the card at the reference scripts' sizes, and the
+    roofline report (``launch/roofline.py``) over yi-6b's one-card
+    dry-run cells, written by ``launch/dryrun.py`` in subprocesses on the
+    host beside the first five examples and read before train_lm, which
+    runs alone.  Each kernel's output is held against its plain version
+    on the same operands: sim_timeline's graph (one K1 launch a matrix
+    tile, int8) equals ``cute_matmul`` on the torch route bit for bit
+    and the fused kernel within TOL_EXAMPLES_FP32; cluster_scaling's
+    ``kernel`` and ``sharded`` outputs equal the exact int32 product bit
+    for bit for all three strategies; quickstart's engine and kernel
+    route lie within TOL_EXAMPLES_BF16 of ``cute_matmul`` on the torch
+    route and of each other, its pipelined fp32 product within TOL_FP32
+    of the plain fp32 product and GELU; serve_batched's greedy tokens on
+    the kernel route equal the torch route's for each model (fp32);
+    train_lm at its default width resumes from its step-100 checkpoint
+    and ends below its first loss, its first EXAMPLES_TRAIN_ROUTE_STEPS
+    losses within TOL_TRAIN_LOSS of the same seeded run's on the torch
+    route.  The simulated figures are host Python, held ``==`` to the
+    reference's by the CPU tests (``tests/test_torch_examples.py``).  K1,
+    K2, K5 and K6 launches by tile, each example's counted alone (the
+    plain versions' runs uncounted)."""
+    import io
+    import os
+    import shutil
+    import tempfile
+    from repro_torch import backend
+    from repro_torch.core import ACTIVATIONS, EpilogueOperands
+    from repro_torch.core.fusion import cute_matmul
+    from repro_torch.kernels.attention.ops import flash_attention
+    from repro_torch.kernels.matmul.matmul import tile_for
+    from repro_torch.kernels.matmul.ops import fused_matmul
+    from repro_torch.kernels.rglru.ops import rglru_scan
+    from repro_torch.kernels.rwkv6.ops import rwkv6_scan
+    from repro_torch.launch import roofline
+
+    wrappers = {"fused_matmul": fused_matmul,
+                "flash_attention": flash_attention,
+                "rglru_scan": rglru_scan, "rwkv6_scan": rwkv6_scan}
+    launches = dict.fromkeys(wrappers, 0)
+    for name, w in wrappers.items():
+        if hasattr(w, "launches_by_tile"):
+            launches[f"{name}_by_tile"] = dict.fromkeys(w.launches_by_tile, 0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    out_dir = Path(tempfile.mkdtemp(prefix="examples_", dir=ROOT / "build"))
+    t_phase = time.perf_counter()
+    cells = _dryrun_cells(out_dir / "dryrun")
+    seconds = {}
+
+    def run(name, argv, tag=None, cwd=None):
+        """``main(argv)`` of the example ``name``, counted: (module, what
+        it returned, its printed lines, its launches)."""
+        mod = example_module(f"{name}_torch")
+        read = _counted(wrappers)
+        buf, here = io.StringIO(), os.getcwd()
+        t0 = time.perf_counter()
+        try:
+            if cwd is not None:
+                os.chdir(cwd)
+            with contextlib.redirect_stdout(buf):
+                got = mod.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(here)
+        seconds[tag or name] = time.perf_counter() - t0
+        ran = read()
+        for k in wrappers:
+            launches[k] += ran[k]
+            for t_, n in ran.get(f"{k}_by_tile", {}).items():
+                launches[f"{k}_by_tile"][t_] += n
+        return mod, got, buf.getvalue().splitlines(), ran
+
+    def launched(ran):
+        """The kernels of ``ran`` (a ``_counted`` reading) that launched."""
+        return {k: v for k, v in ran.items()
+                if (any(v.values()) if isinstance(v, dict) else v)}
+
+    def line(name, lines, ran, **kw):
+        emit({"phase": "examples", "example": name, "card": smi_line,
+              "seconds": seconds[name], "launches": launched(ran),
+              "stdout": lines, **kw})
+
+    def exact_int(a, b):
+        """``a @ b`` of int8 operands into int32, exactly (an fp64
+        product: every sum of int8 products here lies far inside 2^53)."""
+        return (a.double() @ b.double()).to(torch.int32)
+
+    try:
+        # sim_timeline: one K1 launch a matrix tile of the PANEL graph,
+        # and the one fused cute_matmul it is held against
+        mod, got, lines, ran = run("sim_timeline", [
+            "--out", str(out_dir / "desim_trace.json")])
+        plain = cute_matmul(got["a"], got["b"], epilogue=mod.EPILOGUE,
+                            backend="torch")
+        exact = bool(torch.equal(got["out"], plain))
+        fused_rel, _ = rel_err(got["out"], got["ref"])
+        expect = _reckon_tiles(got["graph"])
+        expect[tile_for(got["a"], got["b"], mod.EPILOGUE)] += 1
+        line("sim_timeline", lines, ran, graph_equals_torch_route=exact,
+             fused_rel_err=fused_rel, k1_reckoned=expect)
+        require(exact, "examples sim_timeline: the kernel backend's graph "
+                "differs from cute_matmul on the torch route")
+        require(fused_rel <= TOL_EXAMPLES_FP32,
+                f"examples sim_timeline: {fused_rel} from the fused kernel")
+        require(ran["fused_matmul_by_tile"] == expect,
+                f"examples sim_timeline: K1 {ran}, reckoned {expect}")
+
+        mod, got, lines, ran = run("cluster_scaling", [
+            "--units", str(EXAMPLES_UNITS), "--out",
+            str(out_dir / "cluster_trace.json")])
+        want = exact_int(got["a"], got["b"])
+        plain_equal = {"kernel": bool(torch.equal(got["kernel"], want))}
+        plain_equal.update({s: bool(torch.equal(out, want))
+                            for s, (_, out) in got["strategies"].items()})
+        line("cluster_scaling", lines, ran, sharded_equals_kernel=got["exact"],
+             equals_exact_product=plain_equal)
+        require(list(got["exact"]) == list(mod.STRATEGIES)
+                and all(got["exact"].values()),
+                f"examples cluster_scaling: sharded != kernel {got['exact']}")
+        require(all(plain_equal.values()), f"examples cluster_scaling: "
+                f"outputs differ from the exact product {plain_equal}")
+
+        mod, got, lines, ran = run("serving_policies", [], cwd=out_dir)
+        line("serving_policies", lines, ran)
+        require(not launched(ran),
+                f"examples serving_policies launched {launched(ran)}")
+
+        mod, got, lines, ran = run("quickstart", [])
+        plain = cute_matmul(got["a"], got["w"], epilogue=mod.EPILOGUE,
+                            operands=EpilogueOperands(bias=got["bias"]),
+                            backend="torch").float()
+        q_rel = {"engine": rel_err(got["out"].float(), plain)[0],
+                 "kernel_route": rel_err(got["kernel"].float(), plain)[0],
+                 "engine_to_kernel_route": rel_err(
+                     got["kernel"].float(), got["out"].float())[0]}
+        pipe_plain = ACTIVATIONS["gelu"](cute_matmul(
+            got["a"].float(), got["w"].float(), backend="torch"))
+        pipe_rel, _ = rel_err(got["pipelined"], pipe_plain)
+        line("quickstart", lines, ran, rel_err_bf16=q_rel,
+             pipelined_rel_err=pipe_rel, dispatch_done=got["done"])
+        require(max(q_rel.values()) <= TOL_EXAMPLES_BF16,
+                f"examples quickstart: {q_rel} from the torch route")
+        require(pipe_rel <= TOL_FP32, f"examples quickstart: the pipelined "
+                f"product {pipe_rel} from the plain fp32 product")
+        # the engine's call, the pipelined product's 4 row tiles, the
+        # kernel route's call
+        require(ran["fused_matmul"] == 6,
+                f"examples quickstart: K1 launched {launched(ran)}")
+
+        mod, got, lines, ran = run("serve_batched", [])
+        same = {}
+        for arch in mod.ARCHS:
+            cfg = mod.config(arch)
+            torch_route = mod.serve(arch, mod.init_params(cfg, "cuda"),
+                                    mod.prompts(cfg, "cuda"), route="torch",
+                                    verbose=False)
+            same[arch] = all(torch.equal(a, b) for a, b in
+                             zip(got[arch], torch_route))
+        line("serve_batched", lines, ran, greedy_equal_torch_route=same)
+        require(all(same.values()), f"examples serve_batched: greedy tokens "
+                f"of the kernel route differ from the torch route's {same}")
+        for k in wrappers:
+            require(ran[k], f"examples serve_batched: {k} never "
+                    f"launched ({launched(ran)})")
+
+        # the roofline report over the dry run's records of yi-6b, once
+        # the cells' subprocesses are done, so that train_lm runs alone
+        t0 = time.perf_counter()
+        dry = {}
+        for shape, p in cells.items():
+            out, _ = p.communicate(timeout=600)
+            dry[shape] = {"rc": p.returncode,
+                          "last_line": out.strip().splitlines()[-1:]}
+            path = out_dir / "dryrun" / "h100" / f"{ARCH}__{shape}.json"
+            if path.exists():
+                rec = json.loads(path.read_text())
+                dry[shape].update(build_s=rec.get("build_s"),
+                                  trace_s=rec.get("trace_s"))
+        seconds["dryrun_wait"] = time.perf_counter() - t0
+        seconds["dryrun_done_at"] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rows, picks = roofline.main(["--results", str(out_dir / "dryrun")])
+        seconds["roofline"] = time.perf_counter() - t0
+        report = buf.getvalue().splitlines()
+        emit({"phase": "examples", "example": "roofline", "card": smi_line,
+              "seconds": seconds["roofline"], "dryrun": dry,
+              "dryrun_wait_s": seconds["dryrun_wait"], "stdout": report,
+              "picks": {k: f"{v['arch']} x {v['shape']}"
+                        for k, v in (picks or {}).items()},
+              "hbm_ok": {r["shape"]: r["hbm_ok"] for r in rows}})
+        require(all(d["rc"] == 0 for d in dry.values()),
+                f"examples roofline: a dry-run cell failed {dry}")
+        require(sorted(r["shape"] for r in rows)
+                == sorted(EXAMPLES_DRYRUN_SHAPES)
+                and all(r["mesh"] == "h100" for r in rows) and picks,
+                f"examples roofline: rows {rows}, picks {picks}")
+
+        ckpt = out_dir / "train_lm"
+        first_steps, last_steps = EXAMPLES_TRAIN_STEPS
+        mod, first, lines1, ran1 = run("train_lm", [
+            "--steps", str(first_steps), "--ckpt-dir", str(ckpt)],
+            tag="train_lm_first")
+        mod, again, lines2, ran2 = run("train_lm", [
+            "--steps", str(last_steps), "--ckpt-dir", str(ckpt)],
+            tag="train_lm_resume")
+        seconds["train_lm"] = (seconds["train_lm_first"]
+                               + seconds["train_lm_resume"])
+        # the first run's opening steps again, from the same seeded
+        # params and stream, with every projection on the torch route
+        args = mod.arguments([])
+        read = _counted(wrappers)
+        prev = backend.set_default_matmul_backend("torch")
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                plain = mod.train(
+                    mod.build_config(args.small), steps=first_steps,
+                    until=EXAMPLES_TRAIN_ROUTE_STEPS,
+                    global_batch=args.global_batch, seq_len=args.seq_len,
+                    ckpt_dir=str(out_dir / "train_lm_torch"), device="cuda")
+        finally:
+            backend.set_default_matmul_backend(prev)
+        plain_launches = launched(read())
+        route_rel = [abs(k - t) / abs(t) for k, t in
+                     zip(first.losses, plain.losses)]
+        losses = first.losses + again.losses
+        ms = statistics.median(first.step_ms[1:] + again.step_ms[1:])
+        resumed = "resumed from step 100" in lines2
+        # step 100's loss is taken before its update: the resumed run's
+        # equals the first run's only if the checkpoint restored every
+        # leaf and the stream's position
+        same_step = again.losses[:1] == first.losses[100:101]
+        both = {k: ({t: v[t] + ran2[k][t] for t in v}
+                    if isinstance(v, dict) else v + ran2[k])
+                for k, v in ran1.items()}
+        line("train_lm", lines1 + lines2, both,
+             launches_first=launched(ran1), launches_resume=launched(ran2),
+             start=[first.start, again.start], checkpoints=again.steps,
+             first_loss=losses[0], final_loss=losses[-1],
+             step_100_loss=[first.losses[100], again.losses[0]],
+             torch_route_losses=plain.losses, torch_route_rel=route_rel,
+             tol_loss=TOL_TRAIN_LOSS, torch_route_launches=plain_launches,
+             median_step_ms=ms, step_ms_first=first.step_ms[0])
+        require(first.start == 0 and len(first.losses) == first_steps
+                and first.steps == [100], f"examples train_lm: the first "
+                f"run took {len(first.losses)} steps, checkpoints "
+                f"{first.steps}")
+        require(resumed and again.start == 100
+                and len(again.losses) == last_steps - 100,
+                f"examples train_lm: no resume from step 100 ({lines2})")
+        require(same_step, f"examples train_lm: step 100's loss "
+                f"{again.losses[:1]} after the resume, "
+                f"{first.losses[100:101]} before")
+        require(all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0],
+                f"examples train_lm: final loss {losses[-1]}, first "
+                f"{losses[0]}")
+        require(len(route_rel) == EXAMPLES_TRAIN_ROUTE_STEPS
+                and max(route_rel) <= TOL_TRAIN_LOSS and not plain_launches,
+                f"examples train_lm: the kernel route's losses "
+                f"{first.losses[:EXAMPLES_TRAIN_ROUTE_STEPS]}, the torch "
+                f"route's {plain.losses} (launched {plain_launches})")
+        del first, again, plain
+    finally:
+        for p in cells.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "examples", "card": smi_line, "wall_s": wall,
+          "seconds": seconds, "launches": launches})
+    for k in wrappers:
+        require(launches[k], f"examples: {k} never launched ({launches})")
+    return launches
+
+
 def time_ms(fns: dict, reps: int = 10, warmup: int = 2,
             flush=None) -> dict:
     """Median CUDA-event time of each callable, called in turns
@@ -8211,6 +8554,9 @@ def main() -> int:
         # default rules; K1 on every rank, K4 and K6 on their models'
         launches.update(phase_dist_forms(card))
         launches["dryrun"] = phase_dryrun(card)
+        # the six port-side examples at the reference scripts' sizes and
+        # the roofline report: K1, K2, K5 and K6
+        launches["examples"] = phase_examples(card)
         kernels = phase_timing(cfg, moe_cfg, g_cfg, r_cfg, s_max, launches)
     except PhaseFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

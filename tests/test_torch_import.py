@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports with JAX blocked, and no file
-of it (nor chip_smoke.py) imports jax or the reference package."""
+of it (nor chip_smoke.py, nor the port-side examples
+``examples/*_torch.py``) imports jax or the reference package."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples").glob("*_torch.py"))
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -55,7 +57,8 @@ def test_every_module_imports_with_jax_blocked():
 
 FRONT_DOORS = ("repro_torch.core.constraint", "repro_torch.core.area",
                "repro_torch.core.roofline", "repro_torch.core.hlo_cost",
-               "repro_torch.launch.dryrun", "repro_torch.launch.perf_iter")
+               "repro_torch.launch.dryrun", "repro_torch.launch.perf_iter",
+               "repro_torch.launch.roofline")
 
 
 @pytest.mark.parametrize("module", FRONT_DOORS)
@@ -71,5 +74,32 @@ def test_front_door_imports_alone_with_jax_blocked(module):
         "               sys.modules[k] is not None for k in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", prog], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_the_six_port_side_examples_are_there():
+    assert [p.name for p in EXAMPLES] == [
+        f"{n}_torch.py" for n in sorted((
+            "cluster_scaling", "quickstart", "serve_batched",
+            "serving_policies", "sim_timeline", "train_lm"))]
+
+
+def test_examples_import_with_jax_blocked():
+    """Each port-side example imports (its ``main`` not run) with jax and
+    the reference blocked, and pulls neither in."""
+    prog = (
+        "import importlib.util, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"for i, path in enumerate({[str(p) for p in EXAMPLES]!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'ex{i}', path)\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    sys.modules[spec.name] = mod\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    assert callable(mod.main)\n"
+        "assert not any(k.split('.')[0] in ('jax', 'jaxlib', 'repro') and\n"
+        "               sys.modules[k] is not None for k in sys.modules)\n")
+    res = subprocess.run([sys.executable, "-c", prog],
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
